@@ -1,0 +1,272 @@
+"""Eigendecomposition and Lambda (EK-FAC eigenvalue correction) stage drivers.
+
+Port of `kronfluence_tpu/factor/eigen.py`:
+
+  * `perform_eigendecomposition` eigendecomposes each normalized, symmetrized
+    covariance factor. float32 on a CUDA device runs `torch.linalg.eigh` on
+    the device, batched over same-dimension matrices of both factor families;
+    every other case runs the host fp64 (LAPACK) path that keeps the
+    reference's numerics for parity tests.
+  * `fit_lambda_matrices_with_loader` accumulates `Λ += Σ_b (Q_g^T g_b Q_a)^2`,
+    by default rotating the activation / gradient token streams into the
+    eigenbases before forming per-sample gradients (same result by
+    associativity, fewer FLOPs when tokens per sample < activation dim).
+"""
+
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from kronfluence_tpu_torch.arguments import FactorArguments
+from kronfluence_tpu_torch.capture.engine import capture
+from kronfluence_tpu_torch.factor.config import get_factor_config
+from kronfluence_tpu_torch.factor.covariance import (
+    cast_params,
+    discover_stage_specs,
+    loss_scale_for,
+    train_loss_forward,
+    with_tracked,
+)
+from kronfluence_tpu_torch.ops.covariance import per_sample_gradient as psg_op
+from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
+from kronfluence_tpu_torch.prepare import PreparedModel
+from kronfluence_tpu_torch.task import Task
+from kronfluence_tpu_torch.utils.constants import (
+    ACTIVATION_COVARIANCE_MATRIX_NAME,
+    ACTIVATION_EIGENVALUES_NAME,
+    ACTIVATION_EIGENVECTORS_NAME,
+    GRADIENT_COVARIANCE_MATRIX_NAME,
+    GRADIENT_EIGENVALUES_NAME,
+    GRADIENT_EIGENVECTORS_NAME,
+    LAMBDA_MATRIX_NAME,
+    NUM_ACTIVATION_COVARIANCE_PROCESSED,
+    NUM_GRADIENT_COVARIANCE_PROCESSED,
+    NUM_LAMBDA_PROCESSED,
+)
+from kronfluence_tpu_torch.utils.dataset import probe_first
+from kronfluence_tpu_torch.utils.dtypes import (
+    accumulation_dtype,
+    canonical_dtype_name,
+    resolve_dtype,
+)
+from kronfluence_tpu_torch.utils.exceptions import FactorsNotFoundError
+
+_FACTOR_PAIRS = (
+    (
+        ACTIVATION_COVARIANCE_MATRIX_NAME,
+        NUM_ACTIVATION_COVARIANCE_PROCESSED,
+        ACTIVATION_EIGENVECTORS_NAME,
+        ACTIVATION_EIGENVALUES_NAME,
+    ),
+    (
+        GRADIENT_COVARIANCE_MATRIX_NAME,
+        NUM_GRADIENT_COVARIANCE_PROCESSED,
+        GRADIENT_EIGENVECTORS_NAME,
+        GRADIENT_EIGENVALUES_NAME,
+    ),
+)
+
+
+def _normalize_stacked(stacked: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    mats = stacked.to(torch.float32) / counts[:, None, None].to(torch.float32)
+    return 0.5 * (mats + mats.transpose(1, 2))
+
+
+def _device_eigendecomposition(covariance_factors, eigen_factors) -> None:
+    """fp32 device path: one batched `torch.linalg.eigh` per matrix dimension,
+    across both factor families; results in each covariance's dtype."""
+    groups: Dict[int, list] = {}
+    for pair_idx, (cov_name, _count, _evec, _eval) in enumerate(_FACTOR_PAIRS):
+        for module_name, mat in covariance_factors[cov_name].items():
+            groups.setdefault(mat.shape[0], []).append((pair_idx, module_name))
+    for entries in groups.values():
+        mats, counts = [], []
+        for pair_idx, module_name in entries:
+            cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
+            mats.append(covariance_factors[cov_name][module_name])
+            counts.append(covariance_factors[count_name][module_name].reshape(()))
+        evals, evecs = torch.linalg.eigh(_normalize_stacked(torch.stack(mats), torch.stack(counts)))
+        for k, (pair_idx, module_name) in enumerate(entries):
+            _cov, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+            dtype = mats[k].dtype
+            eigen_factors[eval_name][module_name] = evals[k].to(dtype)
+            eigen_factors[evec_name][module_name] = evecs[k].to(dtype)
+
+
+def _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name) -> None:
+    """Host LAPACK path in `dtype_name` (fp64 keeps the reference's numerics);
+    results go back to each covariance's device and dtype."""
+    dtype = resolve_dtype(dtype_name)
+    for cov_name, count_name, evec_name, eval_name in _FACTOR_PAIRS:
+        for module_name, original in covariance_factors[cov_name].items():
+            count = float(covariance_factors[count_name][module_name].reshape(()).item())
+            matrix = original.detach().to(device="cpu", dtype=dtype).numpy() / count
+            matrix = 0.5 * (matrix + matrix.T)
+            evals, evecs = np.linalg.eigh(matrix)
+            like = dict(device=original.device, dtype=original.dtype)
+            eigen_factors[eval_name][module_name] = torch.from_numpy(
+                np.ascontiguousarray(evals)
+            ).to(**like)
+            eigen_factors[evec_name][module_name] = torch.from_numpy(
+                np.ascontiguousarray(evecs)
+            ).to(**like)
+
+
+def perform_eigendecomposition(
+    covariance_factors: Dict[str, Dict[str, torch.Tensor]],
+    factor_args: Optional[FactorArguments] = None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Eigendecomposes both covariance factors of every module."""
+    factor_args = factor_args or FactorArguments()
+    dtype_name = canonical_dtype_name(factor_args.eigendecomposition_dtype)
+    eigen_factors: Dict[str, Dict[str, Any]] = {
+        name: {}
+        for name in (
+            ACTIVATION_EIGENVECTORS_NAME,
+            ACTIVATION_EIGENVALUES_NAME,
+            GRADIENT_EIGENVECTORS_NAME,
+            GRADIENT_EIGENVALUES_NAME,
+        )
+    }
+    first = next(iter(covariance_factors[ACTIVATION_COVARIANCE_MATRIX_NAME].values()))
+    if dtype_name == "float32" and first.device.type == "cuda":
+        _device_eigendecomposition(covariance_factors, eigen_factors)
+    else:
+        _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name)
+    return eigen_factors
+
+
+def _make_lambda_update(
+    model, task, psg_dtype, lambda_dtype, sample, use_eigenbasis, iterative, loss_scale=None,
+):
+    """Per-batch Lambda update, with the JAX package's three branches."""
+    lambda_accum = accumulation_dtype(lambda_dtype)
+    post_process = task.enable_post_process_per_sample_gradient
+
+    def _squared_psg_sum(a_tok, g_tok):
+        """Σ_b (per-sample grad)^2. `iterative` forms one sample's gradient at
+        a time, so only one (out_dim, in_dim) gradient is ever held."""
+        if not iterative:
+            psg = psg_op(a_tok, g_tok, lambda_dtype)
+            return psg.square().sum(dim=0).to(lambda_accum)
+        acc = torch.zeros(
+            (g_tok.shape[-1], a_tok.shape[-1]), dtype=lambda_accum, device=a_tok.device
+        )
+        for b in range(a_tok.shape[0]):
+            psg = psg_op(a_tok[b : b + 1], g_tok[b : b + 1], lambda_dtype)[0]
+            acc += psg.square().to(lambda_accum)
+        return acc
+
+    def _lambda_contribution(spec, name, activations, output_gradients, valid, q_a, q_g):
+        """Σ_b (projected per-sample grad)^2 for one module, one batch."""
+        if post_process or len(activations) > 1:
+            # Shared layers sum per-sample gradients over uses BEFORE squaring,
+            # and post-processing needs the raw gradient: materialize it.
+            psg = None
+            for a, dy in zip(activations, output_gradients):
+                a_tok = activation_tokens_with_bias(spec, a, psg_dtype)
+                g_tok = gradient_tokens(spec, dy, valid, psg_dtype)
+                contrib = psg_op(a_tok, g_tok, psg_dtype)
+                psg = contrib if psg is None else psg + contrib
+            if post_process:
+                psg = task.post_process_per_sample_gradient(name, psg)
+            psg = psg.to(lambda_dtype)
+            if use_eigenbasis:
+                psg = torch.matmul(torch.matmul(q_g.T.to(lambda_dtype), psg), q_a.to(lambda_dtype))
+            return psg.square().sum(dim=0).to(lambda_accum)
+        # Fast path: rotate the token streams into the eigenbases first.
+        total = None
+        for a, dy in zip(activations, output_gradients):
+            a_tok = activation_tokens_with_bias(spec, a, psg_dtype)
+            g_tok = gradient_tokens(spec, dy, valid, psg_dtype)
+            if use_eigenbasis:
+                a_tok = torch.matmul(a_tok, q_a)
+                g_tok = torch.matmul(g_tok, q_g)
+            contrib = _squared_psg_sum(a_tok, g_tok)
+            total = contrib if total is None else total + contrib
+        return total
+
+    def update(state, batch, valid, generator, q_a_all, q_g_all):
+        forward = train_loss_forward(model, task, batch, sample, generator)
+        _, captures = capture(model, forward, loss_scale=loss_scale)
+        num_valid = valid.to(torch.int64).sum()
+        for name, cap in captures.items():
+            lam = state[name][LAMBDA_MATRIX_NAME]
+            lam += _lambda_contribution(
+                cap.spec, name, cap.activations, cap.output_gradients, valid,
+                q_a_all.get(name), q_g_all.get(name),
+            ).to(lam.dtype)
+            state[name][NUM_LAMBDA_PROCESSED] += num_valid
+        return state
+
+    return update
+
+
+def fit_lambda_matrices_with_loader(
+    model: PreparedModel,
+    task: Task,
+    loader,
+    factor_args: Optional[FactorArguments] = None,
+    eigen_factors: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
+    tracked_names: Optional[Sequence[str]] = None,
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Fits Lambda matrices (squared per-sample gradients in the eigenbasis)."""
+    factor_args = factor_args or FactorArguments()
+    if factor_args.offload_activations_to_cpu:
+        raise NotImplementedError(
+            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1 item 4, "
+            "remaining stage options)."
+        )
+    model = with_tracked(model, tracked_names)
+    device = model.device
+    config = get_factor_config(factor_args.strategy)
+    use_eigenbasis = config.requires_eigendecomposition_for_lambda
+    psg_dtype = resolve_dtype(factor_args.per_sample_gradient_dtype)
+    lambda_dtype = resolve_dtype(factor_args.lambda_dtype)
+    lambda_accum = accumulation_dtype(lambda_dtype)
+    sample = not factor_args.use_empirical_fisher
+
+    if use_eigenbasis and eigen_factors is None:
+        raise FactorsNotFoundError(
+            f"Strategy {factor_args.strategy!r} requires eigendecomposition results "
+            "for Lambda computations, but they were not provided."
+        )
+    try:
+        first_batch, _ = probe_first(loader)
+    except StopIteration:
+        raise ValueError("Empty loader for lambda fitting.") from None
+    specs = discover_stage_specs(model, task, first_batch)
+
+    q_a_all, q_g_all = {}, {}
+    if use_eigenbasis:
+        for out, key in ((q_a_all, ACTIVATION_EIGENVECTORS_NAME), (q_g_all, GRADIENT_EIGENVECTORS_NAME)):
+            for name, arr in eigen_factors[key].items():
+                if name in specs:
+                    out[name] = arr.to(device=device, dtype=psg_dtype)
+
+    state = {
+        name: {
+            LAMBDA_MATRIX_NAME: torch.zeros(
+                (spec.gradient_dim, spec.activation_dim), dtype=lambda_accum, device=device
+            ),
+            NUM_LAMBDA_PROCESSED: torch.zeros((), dtype=torch.int64, device=device),
+        }
+        for name, spec in specs.items()
+    }
+
+    model = cast_params(model, factor_args.amp_dtype)
+    update = _make_lambda_update(
+        model, task, psg_dtype, lambda_dtype, sample, use_eigenbasis,
+        factor_args.use_iterative_lambda_aggregation,
+        loss_scale_for(factor_args.amp_dtype, factor_args.amp_scale),
+    )
+    generator = torch.Generator(device).manual_seed(factor_args.seed + 1) if sample else None
+    for batch, valid in loader:
+        update(state, batch, valid, generator, q_a_all, q_g_all)
+
+    result: Dict[str, Dict[str, torch.Tensor]] = {LAMBDA_MATRIX_NAME: {}, NUM_LAMBDA_PROCESSED: {}}
+    for name, mod_state in state.items():
+        result[LAMBDA_MATRIX_NAME][name] = mod_state[LAMBDA_MATRIX_NAME].to(lambda_dtype)
+        result[NUM_LAMBDA_PROCESSED][name] = mod_state[NUM_LAMBDA_PROCESSED].reshape((1,))
+    return result

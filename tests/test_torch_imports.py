@@ -1,0 +1,89 @@
+"""The port stands alone: it never imports JAX or the JAX package, and
+chip_smoke.py refuses to run without a CUDA card instead of falling back."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PACKAGE = REPO / "kronfluence_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "safetensors", "tqdm", "kronfluence_tpu")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_source_imports_no_jax(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _port_modules():
+    return sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PACKAGE.rglob("*.py")
+        if p.name != "__init__.py"
+    )
+
+
+def _clean_env():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    return env
+
+
+def test_importing_every_module_loads_no_jax():
+    """Against a baseline of torch and numpy alone (torch.hub loads tqdm
+    where it is installed), importing the port loads none of FORBIDDEN."""
+    code = (
+        "import importlib, sys\n"
+        "import numpy, torch\n"
+        "baseline = set(sys.modules)\n"
+        f"for name in {_port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "new = set(sys.modules) - baseline\n"
+        f"bad = sorted(m for m in new if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('LOADED', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])
+def test_chip_smoke_fails_without_a_card(tmp_path, alone):
+    """No CUDA card (or no package beside the script): non-zero exit, and the
+    result line is never printed."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: chip_smoke.py would run for real")
+    cwd = REPO
+    if alone:
+        shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        cwd = tmp_path
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=cwd, env=_clean_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
