@@ -57,9 +57,10 @@ class FactorArguments(Arguments):
     gradient_covariance_dtype: Any = "float32"
 
     # Eigendecomposition configuration. float64 runs on the host (LAPACK);
-    # float32 runs `torch.linalg.eigh` on the factors' device. The solver name
-    # is accepted for JSON parity with the JAX package; every value maps to
-    # torch.linalg.eigh.
+    # float32 on a CUDA device runs the solver named here: "auto" and "qdwh"
+    # run `torch.linalg.eigh` (cuSOLVER); "jacobi" runs the blocked-Jacobi
+    # solver (ops/eigh.py, pivot solves in the K2 CUDA kernel) and raises at
+    # dimensions >= 6144; "dc" is TPU-only and raises. Ignored by the host path.
     eigendecomposition_dtype: Any = "float64"
     eigendecomposition_solver: str = "auto"
 

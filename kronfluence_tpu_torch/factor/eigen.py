@@ -3,10 +3,14 @@
 Port of `kronfluence_tpu/factor/eigen.py`:
 
   * `perform_eigendecomposition` eigendecomposes each normalized, symmetrized
-    covariance factor. float32 on a CUDA device runs `torch.linalg.eigh` on
-    the device, batched over same-dimension matrices of both factor families;
-    every other case runs the host fp64 (LAPACK) path that keeps the
-    reference's numerics for parity tests.
+    covariance factor. float32 on a CUDA device runs on the device with the
+    solver `factor_args.eigendecomposition_solver` names: "auto" and "qdwh"
+    run `torch.linalg.eigh` (cuSOLVER, the card's counterpart of XLA's eigh),
+    batched over same-dimension matrices of both factor families; "jacobi"
+    runs the blocked-Jacobi solver (`ops/eigh.py`, pivot solves in K2) on the
+    JAX package's merged dimension groups; "dc" is TPU-only and raises. Every
+    other case runs the host fp64 (LAPACK) path that keeps the reference's
+    numerics for parity tests.
   * `fit_lambda_matrices_with_loader` accumulates `Λ += Σ_b (Q_g^T g_b Q_a)^2`,
     by default rotating the activation / gradient token streams into the
     eigenbases before forming per-sample gradients (same result by
@@ -29,6 +33,7 @@ from kronfluence_tpu_torch.factor.covariance import (
     with_tracked,
 )
 from kronfluence_tpu_torch.ops.covariance import per_sample_gradient as psg_op
+from kronfluence_tpu_torch.ops.eigh import LARGE_EIGH_DIM, gershgorin_pad, eigh_batched
 from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.task import Task
@@ -73,14 +78,102 @@ def _normalize_stacked(stacked: torch.Tensor, counts: torch.Tensor) -> torch.Ten
     return 0.5 * (mats + mats.transpose(1, 2))
 
 
-def _device_eigendecomposition(covariance_factors, eigen_factors) -> None:
-    """fp32 device path: one batched `torch.linalg.eigh` per matrix dimension,
-    across both factor families; results in each covariance's dtype."""
+def _merge_dim_groups(groups: Dict[int, list]) -> Dict[int, list]:
+    """Clusters factor groups whose dims differ by a small pad.
+
+    Returns {target_dim: [(key, orig_dim), ...]}. A dim within
+    max(8, dim // 256) below an already-placed larger dim is padded up to it;
+    distant dims stay apart.
+    """
+    merged: Dict[int, list] = {}
+    for dim in sorted(groups, reverse=True):
+        target = dim
+        for t in merged:
+            if t >= dim and (t - dim) <= max(8, dim // 256):
+                target = t
+                break
+        merged.setdefault(target, []).extend((key, dim) for key in groups[dim])
+    return merged
+
+
+def _dim_groups(covariance_factors) -> Dict[int, list]:
+    """{dim: [(pair_idx, module_name), ...]} across both factor families."""
     groups: Dict[int, list] = {}
     for pair_idx, (cov_name, _count, _evec, _eval) in enumerate(_FACTOR_PAIRS):
         for module_name, mat in covariance_factors[cov_name].items():
             groups.setdefault(mat.shape[0], []).append((pair_idx, module_name))
-    for entries in groups.values():
+    return groups
+
+
+def _assemble_group(covariance_factors, entries, target: int):
+    """Stacks, normalizes, symmetrizes and pads one merged group: each (n, n)
+    matrix goes into a (target, target) one whose padded diagonal sorts above
+    the true spectrum, so the appended eigenpairs land last and are sliced
+    off (768 and 769, the bias column, share one solve). Sub-stacks run by
+    (original dim descending, family), as in the JAX package, since the
+    order decides which matrices share a chunk. Returns the batch and the
+    [(pair_idx, module_name, dim), ...] order of its matrices."""
+    by_key: Dict[tuple, list] = {}
+    for (pair_idx, module_name), dim in entries:
+        by_key.setdefault((dim, pair_idx), []).append(module_name)
+    keys = sorted(by_key, key=lambda k: (-k[0], k[1]))
+    order, parts = [], []
+    for dim, pair_idx in keys:
+        cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
+        names = by_key[(dim, pair_idx)]
+        stacked = torch.stack([covariance_factors[cov_name][n] for n in names])
+        counts = torch.stack([covariance_factors[count_name][n].reshape(()) for n in names])
+        parts.append(gershgorin_pad(_normalize_stacked(stacked, counts), target))
+        order.extend((pair_idx, n, dim) for n in names)
+    return torch.cat(parts), order
+
+
+def _split_group_result(ev, vec, dim: int):
+    """One padded eigenpair set -> the true one: the true eigenpairs sort
+    first, their vectors' padded-row components are ~eps; slice, renormalize."""
+    if dim == ev.shape[0]:
+        return ev, vec
+    vec = vec[:dim, :dim]
+    return ev[:dim], vec / torch.linalg.norm(vec, dim=0, keepdim=True)
+
+
+def _jacobi_eigendecomposition(covariance_factors, eigen_factors) -> None:
+    """The JAX package's "jacobi" route: merged dim groups, one batched
+    blocked-Jacobi solve per group; results in each covariance's dtype."""
+    merged = _merge_dim_groups(_dim_groups(covariance_factors))
+    large = sorted(t for t in merged if t >= LARGE_EIGH_DIM)
+    if large:
+        raise NotImplementedError(
+            f"eigendecomposition_solver='jacobi' at dimension {large} (>= {LARGE_EIGH_DIM}) "
+            "needs the JAX package's per-matrix path (eigh_large), which is not ported "
+            "(ROADMAP Queue 1 item 13); use eigendecomposition_solver='auto'."
+        )
+    for target, entries in merged.items():
+        normalized, order = _assemble_group(covariance_factors, entries, target)
+        evals, evecs = eigh_batched(normalized)
+        for k, (pair_idx, module_name, dim) in enumerate(order):
+            cov_name, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+            ev, vec = _split_group_result(evals[k], evecs[k], dim)
+            dtype = covariance_factors[cov_name][module_name].dtype
+            eigen_factors[eval_name][module_name] = ev.to(dtype)
+            eigen_factors[evec_name][module_name] = vec.to(dtype)
+
+
+def _device_eigendecomposition(covariance_factors, eigen_factors, solver: str = "auto") -> None:
+    """fp32 device path. "auto" / "qdwh": one batched `torch.linalg.eigh` per
+    matrix dimension, across both factor families. "jacobi": the blocked
+    Jacobi solver. Results in each covariance's dtype."""
+    if solver == "dc":
+        raise NotImplementedError(
+            "eigendecomposition_solver='dc' (kronfluence_tpu/ops/eigh_dc.py) is TPU-only and "
+            "on ROADMAP's 'Not to port' list; use 'auto' or 'jacobi'."
+        )
+    if solver == "jacobi":
+        _jacobi_eigendecomposition(covariance_factors, eigen_factors)
+        return
+    if solver not in ("auto", "qdwh"):
+        raise ValueError(f"Unknown eigendecomposition_solver {solver!r}.")
+    for entries in _dim_groups(covariance_factors).values():
         mats, counts = [], []
         for pair_idx, module_name in entries:
             cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
@@ -113,6 +206,11 @@ def _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name) -> N
             ).to(**like)
 
 
+def _runs_on_device(dtype_name: str, factor: torch.Tensor) -> bool:
+    """fp32 factors on a CUDA device take the device path; all else the host."""
+    return dtype_name == "float32" and factor.device.type == "cuda"
+
+
 def perform_eigendecomposition(
     covariance_factors: Dict[str, Dict[str, torch.Tensor]],
     factor_args: Optional[FactorArguments] = None,
@@ -130,8 +228,10 @@ def perform_eigendecomposition(
         )
     }
     first = next(iter(covariance_factors[ACTIVATION_COVARIANCE_MATRIX_NAME].values()))
-    if dtype_name == "float32" and first.device.type == "cuda":
-        _device_eigendecomposition(covariance_factors, eigen_factors)
+    if _runs_on_device(dtype_name, first):
+        _device_eigendecomposition(
+            covariance_factors, eigen_factors, factor_args.eigendecomposition_solver
+        )
     else:
         _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name)
     return eigen_factors

@@ -18,7 +18,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("probe.cu", "syrk.cu")
+SOURCES = ("jacobi.cu", "probe.cu", "syrk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -84,6 +84,8 @@ def load_library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = [ptr, ptr, i32, i32, i32, ptr]
         fn.restype = i32
+    lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+    lib.kf_jacobi_pivot_rotations.restype = i32
 
     import torch
 
