@@ -8,7 +8,8 @@ each of which raises on failure:
   1. device: requires a CUDA card, prints its name and power limit, turns
      TF32 off for fp32 matmuls and convolutions;
   2. build: compiles the hand-written kernels in kronfluence_tpu_torch/csrc/
-     with nvcc (sm_90a) and loads them;
+     with nvcc (sm_90a; one process per source, all started together) and
+     loads them;
   3. K3 probe: the build-and-launch check against its plain version;
   4. K1 syrk: the triangle kernel against its plain version at the main
      path's gram shapes and at ragged ones, exact symmetry required, with
@@ -16,9 +17,9 @@ each of which raises on failure:
   5. main path: GPT-2 small at full width (vocab 50,257, 12 layers, 12
      heads, d 768, seq 512) in bf16 with random weights from a seeded
      generator, through covariance -> eigendecomposition -> lambda ->
-     pairwise with the bf16 "smart low precision" EK-FAC recipe. Every
-     kernel count is zeroed before and read after; K1 must launch 36 times
-     per covariance batch;
+     pairwise with the bf16 "smart low precision" EK-FAC recipe and the naive
+     attention form. Every kernel count is zeroed before and read after; K1
+     must launch 36 times per covariance batch, F1-F3 never;
   6. reference: a small fp32 GPT-2 runs the same slice on the card and on
      the CPU (plain versions, host LAPACK); covariances, eigenvalues, lambda
      and scores must agree;
@@ -30,7 +31,22 @@ each of which raises on failure:
      `perform_eigendecomposition` with `eigendecomposition_solver="jacobi"`
      (K2 must launch once per blocked-Jacobi round: sweeps x rounds summed
      over chunks), then lambda and pairwise on that eigenbasis; the solver's
-     fp32 eigenpairs are held against cuSOLVER's on all 96 matrices.
+     fp32 eigenpairs are held against cuSOLVER's on all 96 matrices;
+  9. flash kernels: F1 (forward), F2 (dK, dV) and F3 (dQ) against their
+     plain versions at every position of O, dQ, dK, dV: at the flash path's
+     shape (B 16, H 12, T 512, D 64, bf16, padded mask), at D 128 and 256 in
+     bf16, in fp32 at D 64, and at T 128 without padding; median times beside
+     the plain versions, F.scaled_dot_product_attention (the library
+     yardstick), the naive form and the bound;
+ 10. flash path: phase 5's model, weights and data with attention="flash"
+     through all four stages, scoring with fp8 (e4m3fn) query blocks and the
+     auto-sized query block (`query_gradient_accumulation_steps=None`). F1
+     must launch 12 times per model forward (passes and discovery forwards),
+     F2 and F3 12 times per forward+backward pass, the naive form never; the
+     covariance factors are held against phase 5's and the scores' Pearson r
+     against phase 5's bf16 scores;
+ 11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
+     T 128, padded data): F1-F3 on the card, their plain versions on the CPU.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -102,6 +118,42 @@ JACOBI_ORTH_ATOL = 1e-4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# F1-F3 against their plain versions, which share the kernels' semantics, at
+# every position of O, dQ, dK and dV. In bf16 the kernels round P (and dS) to
+# bf16 against the running row max while the plain version rounds against the
+# final one, sum in another order, and both round the outputs to bf16: each
+# element is off by a few bf16 unit roundoffs (u = 2^-8) of its own row's
+# scale, a row being one query's D values of O and dQ and one key's of dK and
+# dV. So a bf16 error is counted in units of u (|plain| + max |plain| of its
+# row) + u^2 max |plain| (the floor covers rows that are zero in exact
+# arithmetic: query 0 sees only key 0, so its dQ is fp32 noise), limit 8
+# units. The same check on the plain version with one 64 x 64 block of P left
+# out, what a kernel that skipped one tile would return, must read above the
+# limit for each of O, dQ, dK and dV at the flash path's shape. In fp32 the
+# sums run in another order: 1e-5 of the largest plain value. The row
+# statistics l and m are fp32 on both sides: 1e-5.
+FLASH_BF16_UNITS = 8.0
+FLASH_FP32_TOL = 1e-5
+FLASH_STATS_TOL = 1e-5
+# The planted fault's block (query rows, key columns), below the diagonal at
+# T 512: 64 of the 385-448 keys those rows see.
+FLASH_FAULT_BLOCK = (slice(384, 448), slice(192, 256))
+# (B, H, T, D, dtype, padded): the flash path's shape first.
+FLASH_CASES = (
+    (16, 12, 512, 64, torch.bfloat16, True),
+    (8, 12, 512, 128, torch.bfloat16, True),
+    (4, 8, 512, 256, torch.bfloat16, True),
+    (8, 12, 512, 64, torch.float32, True),
+    (16, 12, 128, 64, torch.bfloat16, False),
+)
+# The flash path against phase 5's naive path, same bf16 weights and data. The
+# two forms round differently in bf16 (fp32 softmax and P rounded before P V,
+# against bf16 scores and probabilities), a few bf16 steps per attention
+# output, carried through 12 layers into the covariance sums: limit 5e-2 of
+# each factor's max|C|. Scores: fp8 query blocks against phase 5's bf16 dense
+# blocks, Pearson r at least 0.97, the JAX package's weakest fp8 certificate.
+FLASH_FACTOR_RTOL = 5e-2
+FLASH_PEARSON_MIN = 0.97
 
 
 def log(msg: str) -> None:
@@ -286,13 +338,17 @@ def wikitext_style_task(num_layers: int):
     return WikitextStyleTask()
 
 
-def make_tokens(n: int, seq: int, vocab: int, seed: int, device) -> dict:
-    """Synthetic tokens from a numpy seed, uploaded once (the bench's make_data)."""
+def make_tokens(n: int, seq: int, vocab: int, seed: int, device, padded: bool = False) -> dict:
+    """Synthetic tokens from a numpy seed, uploaded once (the bench's make_data);
+    `padded` masks the tail of every other example."""
     rng = np.random.default_rng(seed)
     host = {
         "input_ids": rng.integers(1, vocab, size=(n, seq)).astype(np.int32),
         "attention_mask": np.ones((n, seq), dtype=np.int32),
     }
+    if padded:
+        for i in range(1, n, 2):
+            host["attention_mask"][i, seq - seq // 4 - i % (seq // 4):] = 0
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
@@ -420,7 +476,18 @@ def setup_main_path() -> dict:
                 score_args=score_args, device=device)
 
 
+def flash_kernels():
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv,
+        flash_backward_dq,
+        flash_forward,
+    )
+
+    return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq}
+
+
 def phase_main_path(card: str) -> dict:
+    from kronfluence_tpu_torch.ops.attention import naive_attention
     from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
     from kronfluence_tpu_torch.ops.kernels.probe import probe
     from kronfluence_tpu_torch.ops.kernels.syrk import syrk
@@ -430,16 +497,25 @@ def phase_main_path(card: str) -> dict:
     factor_args, score_args, device = ctx["factor_args"], ctx["score_args"], ctx["device"]
     torch.cuda.reset_peak_memory_stats()
     syrk.launches = probe.launches = jacobi_pivot_rotations.launches = 0
+    for fn in flash_kernels().values():
+        fn.launches = 0
+    naive_attention.calls = 0
     cov, eigen, lam, scores, seconds = run_slice(
         model, task, data, factor_args, score_args, device,
         (COV_BATCH, LAMBDA_BATCH, QUERY_BATCH, TRAIN_BATCH),
     )
     launches = {"syrk": syrk.launches, "probe": probe.launches}
+    naive_calls = naive_attention.calls
     if jacobi_pivot_rotations.launches:
         raise RuntimeError("K2 launched on the cuSOLVER path (eigendecomposition_solver='auto')")
+    if any(fn.launches for fn in flash_kernels().values()) or naive_calls == 0:
+        raise RuntimeError("the main path (attention='naive') launched a flash kernel or "
+                           "never ran the naive form")
     cov_batches = -(-COV_N // COV_BATCH)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"main path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
-        + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        + f"; peak device memory {peak:.2f} GiB; naive attention calls {naive_calls}, "
+        f"flash launches 0 [{card}]")
     log(f"main path kernel launches: syrk {launches['syrk']} (want 36 x {cov_batches} "
         f"covariance batches = {36 * cov_batches}), probe {launches['probe']}")
     if launches["syrk"] != 36 * cov_batches:
@@ -453,7 +529,7 @@ def phase_main_path(card: str) -> dict:
     log(f"main path: {len(cov['activation_covariance'])} modules; scores {tuple(s.shape)} "
         f"{scores[ALL_MODULE_NAME].dtype}, finite, |s| max {float(s.abs().max()):.4e}, "
         f"mean {float(s.mean()):.4e}")
-    return dict(ctx, launches=launches, cov=cov, scores=scores)
+    return dict(ctx, launches=launches, cov=cov, scores=scores, seconds=seconds, peak=peak)
 
 
 def sym_blocks(y: int, m: int, seed: int) -> torch.Tensor:
@@ -513,6 +589,216 @@ def phase_jacobi_kernel(card: str) -> dict:
             "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
             "exact_pivot_eigh_ms": main["eigh_ms"],
             "by_launch_shape": {f"Y{y} m64 sweeps2": t for y, t in timing.items()}}
+
+
+def padded_segments(b: int, t: int, padded: bool, device) -> torch.Tensor:
+    """int32 (B, T) segment ids: example i keeps T - (37 i mod T/2) tokens."""
+    seg = torch.ones(b, t, dtype=torch.int32, device=device)
+    if padded:
+        for i in range(b):
+            seg[i, t - (37 * i) % (t // 2):] = 0
+    return seg
+
+
+def flash_work(seg: torch.Tensor, heads: int, d: int, itemsize: int):
+    """(query-key pairs the mask keeps, F1 / F2 / F3 bytes and FLOPs) of one
+    call: every operand read once and every output written once; QK^T and
+    P V take 4 D FLOPs a kept pair (F1), F2 8 D (S^T, dP^T, dV, dK), F3 6 D
+    (S, dP, dQ)."""
+    b, t = seg.shape
+    causal = torch.ones(t, t, dtype=torch.bool, device=seg.device).tril()
+    pairs = heads * int((causal & (seg[:, :, None] == seg[:, None, :])).sum())
+    block = b * heads * t * d * itemsize  # one (B, H, T, D) operand
+    stat = b * heads * t * 4  # one fp32 (B, H, T) statistic
+    segb = b * t * 4
+    return pairs, {
+        "F1": (3 * block + block + 2 * stat + segb, 4.0 * d * pairs),
+        "F2": (4 * block + 3 * stat + segb + 2 * block, 8.0 * d * pairs),
+        "F3": (4 * block + 3 * stat + segb + block, 6.0 * d * pairs),
+    }
+
+
+def bf16_units(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / (u (|want| + max |want| of its row) + u^2 max |want|), u = 2^-8."""
+    got, want = got.float(), want.float()
+    size = want.abs()
+    unit = 2.0 ** -8 * (size + size.amax(-1, keepdim=True)) + 2.0 ** -16 * size.max()
+    return float(((got - want).abs() / unit).max())
+
+
+def relative_to_max(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def dropped_block(q, k, v, seg, l, m, do, di, scale, block) -> dict:
+    """The plain O, dQ, dK and dV with one block of P (query rows, key
+    columns) left out: what a kernel that skipped one tile would return. The
+    forward renormalises without the block; the backward keeps the sound
+    run's l and m, as F2 and F3 take them."""
+    from kronfluence_tpu_torch.ops.kernels.flash import MASK_VALUE
+
+    f, t = torch.float32, q.shape[2]
+    keep = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    keep = (keep & (seg[:, :, None] == seg[:, None, :]))[:, None].clone()
+    keep[:, :, block[0], block[1]] = False
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
+    s = torch.where(keep, s, s + MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)
+    p = torch.exp(s - m[..., None]) / l[..., None]
+    dv = torch.matmul(p.to(do.dtype).to(f).transpose(-1, -2), do.to(f))
+    ds = p * (torch.matmul(do.to(f), v.to(f).transpose(-1, -2)) - di[..., None]) * scale
+    ds = ds.to(q.dtype).to(f)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(f))
+    dq = torch.matmul(ds, k.to(f))
+    return {name: x.to(q.dtype) for name, x in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv))}
+
+
+def phase_flash_kernels(card: str) -> dict:
+    from kronfluence_tpu_torch.ops.attention import FlashAttention, naive_attention, output_dot
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv,
+        flash_backward_dkv_reference,
+        flash_backward_dq,
+        flash_backward_dq_reference,
+        flash_forward,
+        flash_forward_reference,
+    )
+
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0}
+    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3"}
+    for b, h, t, d, dtype, padded in FLASH_CASES:
+        gen = torch.Generator("cuda").manual_seed(b * t + d)
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        seg = padded_segments(b, t, padded, "cuda")
+        scale = d ** -0.5
+        o, l, m = flash_forward(q, k, v, seg, scale)
+        di = output_dot(o, do)
+        dk, dv = flash_backward_dkv(q, k, v, seg, l, m, do, di, scale)
+        dq = flash_backward_dq(q, k, v, seg, l, m, do, di, scale)
+        ro, rl, rm = flash_forward_reference(q, k, v, seg, scale)
+        rdk, rdv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
+        rdq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
+        torch.cuda.synchronize()
+        bf16 = dtype == torch.bfloat16
+        measure, tol = (bf16_units, FLASH_BF16_UNITS) if bf16 else (relative_to_max, FLASH_FP32_TOL)
+        want = {"O": ro, "dQ": rdq, "dK": rdk, "dV": rdv}
+        errs = {}
+        for name, got, ref, check, limit in (
+            *((n, g, want[n], measure, tol) for n, g in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv))),
+            ("l", l, rl, relative_to_max, FLASH_STATS_TOL), ("m", m, rm, relative_to_max, FLASH_STATS_TOL),
+        ):
+            if not bool(torch.isfinite(got.float()).all()):
+                raise RuntimeError(f"flash {name} is not finite at {(b, h, t, d, dtype)}")
+            errs[name] = check(got, ref)
+            if name in owner:
+                abs_errs[owner[name]] = max(abs_errs[owner[name]],
+                                            float((got.float() - ref.float()).abs().max()))
+            if not errs[name] <= limit:
+                raise RuntimeError(f"flash {name} off its plain version at {(b, h, t, d, dtype)}: "
+                                   f"{errs[name]:.3e} (limit {limit:g})")
+        label = f"B {b} H {h} T {t} D {d} {str(dtype).split('.')[-1]}{' padded' if padded else ''}"
+        how = "bf16 units of the row scale" if bf16 else "max |kernel - plain| / max |plain|"
+        log(f"flash {label}: O, dQ, dK, dV in {how}, l, m relative to max: " + ", ".join(
+            f"{k_} {v_:.3g}" for k_, v_ in errs.items()) + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g})")
+        if (b, h, t, d, dtype) != (16, 12, 512, 64, torch.bfloat16):
+            continue
+
+        # The check must catch a skipped tile: the plain version without one
+        # block of P, held to the same limit, must fail it for every output.
+        fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
+        fault_units = {name: bf16_units(fault[name], want[name]) for name in want}
+        sound_worst = max(errs[name] for name in want)
+        log(f"flash {label}: planted fault (one 64 x 64 block of P left out, rows 384-447, keys "
+            f"192-255) against the plain version, bf16 units: " + ", ".join(
+                f"{k_} {v_:.3g}" for k_, v_ in fault_units.items())
+            + f"; the kernels' worst here {sound_worst:.3g}; limit {tol:g}")
+        if not min(fault_units.values()) > tol:
+            raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile: {fault_units}")
+        del fault
+
+        # Times at the flash path's shape: plain, kernel, kernel, plain.
+        def f1():
+            return flash_forward(q, k, v, seg, scale)
+
+        def f2():
+            return flash_backward_dkv(q, k, v, seg, l, m, do, di, scale)
+
+        def f3():
+            return flash_backward_dq(q, k, v, seg, l, m, do, di, scale)
+
+        def bwd():
+            d_i = output_dot(o, do)
+            flash_backward_dkv(q, k, v, seg, l, m, do, d_i, scale)
+            flash_backward_dq(q, k, v, seg, l, m, do, d_i, scale)
+
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+
+        def fwd_bwd():
+            out = FlashAttention.apply(*leaves, seg, scale)
+            torch.autograd.grad(out, leaves, do)
+
+        keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
+            t, t, dtype=torch.bool, device="cuda").tril()
+        mask4 = keep[:, None]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4, scale=scale)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
+            torch.autograd.grad(out, leaves, do)
+
+        att = (seg > 0).to(torch.int32)
+
+        def naive_fwd_bwd():
+            out = naive_attention(*leaves, att)
+            torch.autograd.grad(out, leaves, do)
+
+        plain = {
+            "F1": lambda: flash_forward_reference(q, k, v, seg, scale),
+            "F2": lambda: flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale),
+            "F3": lambda: flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale),
+        }
+        kernel = {"F1": f1, "F2": f2, "F3": f3}
+        pairs, work = flash_work(seg, h, d, q.element_size())
+        timing = {}
+        for name in ("F1", "F2", "F3"):
+            p1 = median_ms(plain[name], iters=5, warmup=1)
+            k1 = median_ms(kernel[name])
+            k2 = median_ms(kernel[name])
+            p2 = median_ms(plain[name], iters=5, warmup=1)
+            bound, bound_by = roofline(*work[name], BF16_FLOPS)
+            timing[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                                bound_by=bound_by, runs=(k1, k2, p1, p2))
+        extra = {
+            "F2+F3 with torch di": median_ms(bwd),
+            "flash fwd+bwd (autograd Function)": median_ms(fwd_bwd),
+            "SDPA fwd": median_ms(sdpa),
+            "SDPA fwd+bwd": median_ms(sdpa_fwd_bwd),
+            "naive fwd+bwd": median_ms(naive_fwd_bwd, iters=10),
+        }
+        nbytes = work["F1"][0] + work["F2"][0] + work["F3"][0]
+        flops = work["F1"][1] + work["F2"][1] + work["F3"][1]
+        extra["bound fwd+bwd"] = roofline(nbytes, flops, BF16_FLOPS)[0]
+        for name, tm in timing.items():
+            log(f"flash {name} at {label}: kernel {tm['ms']:.4f} ms ({tm['runs'][0]:.4f}, "
+                f"{tm['runs'][1]:.4f}), plain {tm['plain_ms']:.3f} ms ({tm['runs'][2]:.3f}, "
+                f"{tm['runs'][3]:.3f}), bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
+                f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP over {pairs:,} "
+                f"kept pairs) [{card}]")
+        log(f"flash at {label}: " + ", ".join(f"{k_} {v_:.4f} ms" for k_, v_ in extra.items())
+            + f" (CUDA-event medians; SDPA with the same boolean mask) [{card}]")
+        timing["F1"]["library_ms"] = extra["SDPA fwd"]
+        timing["F2"]["library_ms"] = timing["F3"]["library_ms"] = None
+        for tm in timing.values():
+            tm.pop("runs")
+        timing["extra"] = extra
+    out = {name: dict(timing[name], max_abs_err=abs_errs[name]) for name in ("F1", "F2", "F3")}
+    out["extra"] = timing["extra"]
+    return out
 
 
 def _to_fp32(factors: dict) -> dict:
@@ -675,6 +961,119 @@ def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> No
         raise RuntimeError(f"the Jacobi solver is off fp64 LAPACK by more than 5e-5 on {bad}")
 
 
+def phase_flash_path(card: str, ctx: dict) -> dict:
+    """Phase 5's model, weights, data and factor recipe with attention="flash",
+    scored with fp8 query blocks and the auto-sized block."""
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.factor.eigen import fit_lambda_matrices_with_loader
+    from kronfluence_tpu_torch.models.transformer import gpt2_small, init_transformer
+    from kronfluence_tpu_torch.ops.attention import naive_attention
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.prepare import prepare_model
+    from kronfluence_tpu_torch.score.pairwise import compute_pairwise_scores_with_loaders
+    from kronfluence_tpu_torch.utils.constants import (
+        ACTIVATION_COVARIANCE_MATRIX_NAME,
+        ALL_MODULE_NAME,
+        GRADIENT_COVARIANCE_MATRIX_NAME,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    device, task, data = ctx["device"], ctx["task"], ctx["data"]
+    config = gpt2_small(max_seq_len=SEQ, dtype=torch.bfloat16, attention="flash")
+    model = prepare_model(init_transformer(config, seed=0, device=device), task)
+    same = all(torch.equal(a, b) for a, b in zip(model.module.state_dict().values(),
+                                                 ctx["model"].module.state_dict().values()))
+    if not same:
+        raise RuntimeError("the flash path's seed-0 weights differ from phase 5's")
+    score_args = copy.deepcopy(ctx["score_args"])
+    score_args.query_gradient_storage_dtype = "float8_e4m3fn"
+    score_args.query_gradient_accumulation_steps = None
+
+    kernels = flash_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in (*kernels.values(), syrk, probe, jacobi_pivot_rotations):
+        fn.launches = 0
+    naive_attention.calls = 0
+    cov, eigen, lam, scores, seconds = run_slice(
+        model, task, data, ctx["factor_args"], score_args, device,
+        (COV_BATCH, LAMBDA_BATCH, QUERY_BATCH, TRAIN_BATCH),
+    )
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches.update(syrk=syrk.launches, probe=probe.launches, jacobi=jacobi_pivot_rotations.launches)
+    naive_calls = naive_attention.calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    run = compute_pairwise_scores_with_loaders.last_run
+
+    # Model passes, from the loaders: a forward+backward per covariance and
+    # lambda batch, per query batch, and per train batch of every query
+    # block; a forward alone for each stage's module discovery (covariance,
+    # lambda, pairwise) and for the block sizer's probe.
+    cov_b, lam_b = -(-COV_N // COV_BATCH), -(-LAMBDA_N // LAMBDA_BATCH)
+    query_b, train_b = -(-QUERY_N // QUERY_BATCH), -(-TRAIN_N // TRAIN_BATCH)
+    passes = cov_b + lam_b + query_b + run["blocks"] * train_b
+    forwards_only = 3 + 1
+    layers = config.num_layers
+    want = {"F1": layers * (passes + forwards_only), "F2": layers * passes, "F3": layers * passes}
+    log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
+        f"{QUERY_ACC} accumulation steps): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in ctx["seconds"].items()) + f"; peak {ctx['peak']:.2f} GiB [{card}]")
+    log(f"flash path: query_gradient_accumulation_steps=None resolved to {run['accumulation']} "
+        f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
+    log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; want F1 {want['F1']} (12 x ({passes} forward+backward passes + {forwards_only} "
+        f"forwards)), F2 = F3 = {want['F2']}; naive attention calls {naive_calls}")
+    for name in kernels:
+        if launches[name] != want[name]:
+            raise RuntimeError(f"{name} launched {launches[name]} times, want {want[name]}")
+    if naive_calls:
+        raise RuntimeError(f"the flash path ran the naive form {naive_calls} times")
+    if launches["syrk"] != 36 * cov_b or launches["probe"] < 1 or launches["jacobi"]:
+        raise RuntimeError(f"K1/K2/K3 launches off on the flash path: {launches}")
+    if run["formats"] != ["QuantizedGradient[torch.float8_e4m3fn]"]:
+        raise RuntimeError(f"the query blocks are not fp8: {run['formats']}")
+    if run["accumulation"] != query_b:
+        raise RuntimeError(f"the sizer resolved {run['accumulation']} steps; 80 GB holds all "
+                           f"{query_b} query batches")
+    check_artifacts(cov, eigen, lam, scores, COV_N * SEQ, LAMBDA_N, (QUERY_N, TRAIN_N))
+
+    factor_gap = 0.0
+    for factor_name in (ACTIVATION_COVARIANCE_MATRIX_NAME, GRADIENT_COVARIANCE_MATRIX_NAME):
+        factor_gap = max(factor_gap, _max_rel(cov[factor_name], ctx["cov"][factor_name]))
+    s_f = scores[ALL_MODULE_NAME].float().flatten()
+    s_n = ctx["scores"][ALL_MODULE_NAME].float().flatten()
+    pearson = float(torch.corrcoef(torch.stack([s_f, s_n]))[0, 1])
+    log(f"flash path vs phase 5: covariance factors max |flash - naive| / max |naive| "
+        f"{factor_gap:.3e} (limit {FLASH_FACTOR_RTOL:g}); scores finite, Pearson r against "
+        f"phase 5's bf16 scores {pearson:.6f} (limit {FLASH_PEARSON_MIN})")
+    if not factor_gap <= FLASH_FACTOR_RTOL:
+        raise RuntimeError(f"flash path covariance factors off phase 5's: {factor_gap:.3e}")
+    if not pearson >= FLASH_PEARSON_MIN:
+        raise RuntimeError(f"flash path scores correlate with phase 5's at r {pearson:.4f}")
+
+    # The covariance and lambda stages of both models in turns (naive, flash,
+    # flash, naive) on the same data and eigenbasis: phase 5 ran first in the
+    # process, so its stage seconds above are not a like-for-like comparison.
+    turns = {"naive": {"covariance": [], "lambda": []}, "flash": {"covariance": [], "lambda": []}}
+    for form in ("naive", "flash", "flash", "naive"):
+        m_ = ctx["model"] if form == "naive" else model
+        _, sec = _stage(fit_covariance_matrices_with_loader, m_, task,
+                        BatchLoader(data["cov"], COV_BATCH, device=device), ctx["factor_args"])
+        turns[form]["covariance"].append(sec)
+        _, sec = _stage(fit_lambda_matrices_with_loader, m_, task,
+                        BatchLoader(data["lambda"], LAMBDA_BATCH, device=device),
+                        ctx["factor_args"], eigen)
+        turns[form]["lambda"].append(sec)
+    log("stage seconds in turns (naive, flash, flash, naive): " + "; ".join(
+        f"{stage} naive {turns['naive'][stage][0]:.4f}/{turns['naive'][stage][1]:.4f}, flash "
+        f"{turns['flash'][stage][0]:.4f}/{turns['flash'][stage][1]:.4f}"
+        for stage in ("covariance", "lambda")) + f" [{card}]")
+    return launches
+
+
 def profile_eigh(card: str) -> None:
     """Cold and warm eigendecomposition seconds of both solvers on phase 5's
     covariance factors, and a torch.profiler kernel table of a warm run."""
@@ -722,7 +1121,7 @@ def _max_rel(got: dict, want: dict) -> float:
     return worst
 
 
-def phase_reference() -> None:
+def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False) -> None:
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -744,10 +1143,11 @@ def phase_reference() -> None:
     from kronfluence_tpu_torch.utils.dataset import BatchLoader
 
     # d_model 512: the c_fc gradient (2048) and mlp/c_proj activation (2048)
-    # grams pass the K1 shape rule, so the card runs the fp32 kernel.
+    # grams pass the K1 shape rule, so the card runs the fp32 kernel. 8 heads
+    # of 64: a head_dim the flash kernels take.
     config = tiny_config(
-        vocab_size=512, max_seq_len=64, num_layers=2, num_heads=8, d_model=512,
-        dtype=torch.float32,
+        vocab_size=512, max_seq_len=seq, num_layers=2, num_heads=8, d_model=512,
+        dtype=torch.float32, attention=attention,
     )
     task = wikitext_style_task(config.num_layers)
     factor_args = FactorArguments(
@@ -756,15 +1156,17 @@ def phase_reference() -> None:
     score_args = ScoreArguments(damping_factor=None, query_gradient_accumulation_steps=2)
     module = init_transformer(config, seed=0, device="cpu")
     host = {
-        k: make_tokens(n, config.max_seq_len, config.vocab_size, seed, "cpu")
+        k: make_tokens(n, config.max_seq_len, config.vocab_size, seed, "cpu", padded)
         for k, n, seed in (("cov", 32, 11), ("lambda", 32, 13), ("query", 8, 15), ("train", 24, 16))
     }
+    flash = flash_kernels()
     out = {}
     eig_cpu = None
     for device in (torch.device("cpu"), torch.device("cuda", 0)):
         model = prepare_model(module.to(device), task)
         data = {k: {c: v.to(device) for c, v in cols.items()} for k, cols in host.items()}
         before = syrk.launches
+        flash_before = {name: fn.launches for name, fn in flash.items()}
         cov = fit_covariance_matrices_with_loader(
             model, task, BatchLoader(data["cov"], 8, device=device), factor_args
         )
@@ -784,9 +1186,10 @@ def phase_reference() -> None:
             BatchLoader(data["train"], 8, device=device), {**cov, **shared, **lam},
             factor_args, score_args,
         )
-        out[device.type] = (cov, eig, lam, scores, syrk.launches - before)
-    cov_c, eig_c, lam_c, sc_c, _ = out["cpu"]
-    cov_g, eig_g, lam_g, sc_g, k1_launches = out["cuda"]
+        flash_launches = {name: fn.launches - flash_before[name] for name, fn in flash.items()}
+        out[device.type] = (cov, eig, lam, scores, syrk.launches - before, flash_launches)
+    cov_c, eig_c, lam_c, sc_c, _, cpu_flash = out["cpu"]
+    cov_g, eig_g, lam_g, sc_g, k1_launches, card_flash = out["cuda"]
     diffs = {
         "covariance": max(
             _max_rel(cov_g[k], cov_c[k])
@@ -800,13 +1203,17 @@ def phase_reference() -> None:
         "scores": _max_rel(sc_g, sc_c),
     }
     log(
-        "reference: small fp32 GPT-2, card vs CPU, max |diff| / max |ref|: "
+        f"reference ({attention} attention, T {seq}{', padded' if padded else ''}): small fp32 "
+        "GPT-2, card vs CPU, max |diff| / max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
         + f" (limit {REFERENCE_RTOL:g}); K1 launches on the card side {k1_launches}; "
+        f"flash launches on the card side {card_flash}, on the CPU side {cpu_flash}; "
         f"scores {tuple(sc_g[ALL_MODULE_NAME].shape)}"
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
+    if any(cpu_flash.values()) or (attention == "flash") != all(card_flash.values()):
+        raise RuntimeError(f"flash launches off: card {card_flash}, CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
         raise RuntimeError(f"card disagrees with the CPU reference: {bad}")
@@ -827,10 +1234,21 @@ def main() -> None:
     probe_result = phase_probe()
     syrk_result = phase_syrk(card)
     jacobi_result = phase_jacobi_kernel(card)
+    flash_result = phase_flash_kernels(card)
     ctx = phase_main_path(card)
     launches = dict(ctx["launches"], jacobi=phase_jacobi_path(card, ctx))
+    launches.update({k: v for k, v in phase_flash_path(card, ctx).items() if k.startswith("F")})
     del ctx
     phase_reference()
+    phase_reference(attention="flash", seq=128, padded=True)
+    flash_result["F1"]["timings_ms"] = flash_result.pop("extra")
+    # The repo's function that reaches the TPU kernels, and each Pallas kernel
+    # in JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py).
+    replaced = {
+        "F1": ("flash_forward", "flash_attention.py:589"),
+        "F2": ("flash_backward_dkv", "flash_attention.py:941"),
+        "F3": ("flash_backward_dq", "flash_attention.py:1287"),
+    }
     kernels = [
         {
             "name": "syrk",
@@ -856,6 +1274,17 @@ def main() -> None:
             "launches": launches["jacobi"],
             **jacobi_result,
         },
+    ] + [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": "kronfluence_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "kronfluence_tpu/ops/attention.py:227",
+            "pallas_kernel": f"jax/experimental/pallas/ops/tpu/{where}",
+            "launches": launches[fid],
+            **flash_result[fid],
+        }
+        for fid, (name, where) in replaced.items()
     ]
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -13,8 +13,7 @@ from typing import Any, Dict, Optional
 from kronfluence_tpu_torch.utils.dtypes import canonical_dtype_name
 
 # Storage formats `query_gradient_storage_dtype` accepts (the table of
-# kronfluence_tpu/ops/quantize.py). The port validates the name; scoring with
-# a storage dtype set raises NotImplementedError until ops/quantize.py is ported.
+# ops/quantize.py).
 STORAGE_DTYPES = ("bfloat16", "float16", "float8_e4m3fn", "float8_e5m2")
 
 
@@ -112,7 +111,7 @@ class ScoreArguments(Arguments):
     compute_per_token_scores: bool = False
 
     # Query-gradient batching configuration. `None` sizes the block from the
-    # memory model in the JAX package; the port takes an explicit count.
+    # memory model (utils/memory.py:max_queries_per_block).
     query_gradient_accumulation_steps: Optional[int] = 1
     query_gradient_low_rank: Optional[int] = None
     use_full_svd: bool = False

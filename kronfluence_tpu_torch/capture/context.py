@@ -4,7 +4,8 @@ Port of `kronfluence_tpu/capture/context.py`. Where the JAX package taps layer
 calls while tracing, the port installs a forward hook on each tracked Linear
 for the duration of one forward pass:
 
-  * discover mode records each layer's LayerSpec, in order of first use;
+  * discover mode records each layer's LayerSpec, in order of first use, and
+    the shape of its output at every use;
   * capture mode also records the input activation (detached) and adds a
     zero probe tensor that requires grad to the layer output. Differentiating
     the loss with respect to the probes yields dL/d(output) for every use,
@@ -48,12 +49,14 @@ class CaptureContext:
         self.specs: Dict[str, LayerSpec] = {}
         self.activations: Dict[str, List[torch.Tensor]] = {}
         self.probes: Dict[str, List[torch.Tensor]] = {}
+        self.output_shapes: Dict[str, List[torch.Size]] = {}
 
     def _hook(self, name: str, spec: LayerSpec):
         def tap(module, args, output):
             del module
             self.specs.setdefault(name, spec)
             if self.mode == DISCOVER:
+                self.output_shapes.setdefault(name, []).append(output.shape)
                 return None
             self.activations.setdefault(name, []).append(args[0].detach())
             probe = torch.zeros_like(output, requires_grad=True)

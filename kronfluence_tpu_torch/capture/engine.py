@@ -29,15 +29,22 @@ class LayerCapture:
 CaptureResult = Dict[str, LayerCapture]
 
 
-def discover_specs(model, fn: Callable[[], torch.Tensor]) -> Dict[str, LayerSpec]:
+def discover(model, fn: Callable[[], torch.Tensor]) -> CaptureContext:
     """Runs `fn` once without autograd to find the tracked layers it uses.
 
-    `model` is a `PreparedModel` (prepare.py); specs come in order of first use.
+    `model` is a `PreparedModel` (prepare.py). Returns the discovery context:
+    `.specs` {name: LayerSpec} in order of first use, and `.output_shapes`
+    {name: [output shape of each use]} (the JAX package's discovery avals).
     """
     ctx = CaptureContext(DISCOVER, model.tracked_linears())
     with ctx.activate(), torch.no_grad():
         fn()
-    return ctx.specs
+    return ctx
+
+
+def discover_specs(model, fn: Callable[[], torch.Tensor]) -> Dict[str, LayerSpec]:
+    """{name: LayerSpec} of the tracked layers `fn` uses, in order of first use."""
+    return discover(model, fn).specs
 
 
 def capture(

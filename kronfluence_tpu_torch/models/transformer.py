@@ -10,7 +10,8 @@ Numerics that follow the flax model rather than torch's defaults:
   * LayerNorm eps is 1e-6 (flax), not 1e-5 (torch);
   * GELU is the tanh form (`jax.nn.gelu`'s default);
   * attention is causal AND key-masked, masked scores set to finfo.min
-    (`kronfluence_tpu/ops/attention.py:_naive_attention`).
+    (`kronfluence_tpu/ops/attention.py:_naive_attention`), unless
+    `TransformerConfig.attention` is "flash" (`ops/attention.py`).
 
 The port computes in its parameters' dtype: `TransformerConfig.dtype` is both
 the parameter and the compute dtype (bf16 on the GPU main path).
@@ -24,6 +25,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kronfluence_tpu_torch.ops.attention import (  # noqa: F401 (naive_attention re-exported)
+    ATTENTION_IMPLS,
+    naive_attention,
+    scaled_dot_attention,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
@@ -34,6 +41,11 @@ class TransformerConfig:
     d_model: int = 768
     d_mlp: Optional[int] = None  # defaults to 4*d_model
     dtype: torch.dtype = torch.float32  # parameter and compute dtype
+    attention: str = "naive"  # or "flash": ops/attention.py, F1-F3
+
+    def __post_init__(self) -> None:
+        if self.attention not in ATTENTION_IMPLS:
+            raise ValueError(f"attention must be one of {ATTENTION_IMPLS}; got {self.attention!r}.")
 
     @property
     def mlp_dim(self) -> int:
@@ -50,25 +62,13 @@ def tiny_config(**overrides) -> TransformerConfig:
     return TransformerConfig(**base)
 
 
-def naive_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, attention_mask: Optional[torch.Tensor]
-) -> torch.Tensor:
-    """Causal, key-masked attention over (batch, heads, seq, head_dim) operands."""
-    t = q.shape[2]
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
-    mask = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()[None, None]
-    if attention_mask is not None:
-        mask = mask & (attention_mask[:, None, None, :] > 0)
-    scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
-
-
 class Attention(nn.Module):
     def __init__(self, config: TransformerConfig, device=None) -> None:
         super().__init__()
         d = config.d_model
         kw = dict(device=device, dtype=config.dtype)
         self.num_heads = config.num_heads
+        self.impl = config.attention
         self.c_attn = nn.Linear(d, 3 * d, **kw)
         self.c_proj = nn.Linear(d, d, **kw)
 
@@ -80,7 +80,7 @@ class Attention(nn.Module):
         def heads(z):
             return z.reshape(b, t, self.num_heads, head_dim).transpose(1, 2)
 
-        out = naive_attention(heads(q), heads(k), heads(v), attention_mask)
+        out = scaled_dot_attention(heads(q), heads(k), heads(v), attention_mask, self.impl)
         return self.c_proj(out.transpose(1, 2).reshape(b, t, d))
 
 
@@ -139,11 +139,11 @@ def init_transformer(
     config: TransformerConfig, seed: int = 0, device=None
 ) -> TransformerLM:
     """Builds a TransformerLM with random weights drawn from a seeded
-    `torch.Generator` on `device`: flax's initializer scales (lecun-normal
+    `torch.Generator` on `device` (the card unless the caller names another): flax's initializer scales (lecun-normal
     scale for Linear weights, 1/sqrt(d) for embeddings, zero biases, unit
     LayerNorm scales). The weights are not flax's: tests that compare the two
     packages convert flax params with `models/convert.py`."""
-    device = torch.device("cpu" if device is None else device)
+    device = torch.device("cuda" if device is None else device)
     model = TransformerLM(config, device=device)
     gen = torch.Generator(device).manual_seed(seed)
     for module in model.modules():

@@ -18,13 +18,14 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("jacobi.cu", "probe.cu", "syrk.cu")
-NVCC_FLAGS = (
+SOURCES = ("flash_attention.cu", "jacobi.cu", "probe.cu", "syrk.cu")
+COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 
 def _nvcc() -> str:
@@ -42,7 +43,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
         digest.update(name.encode())
         digest.update((CSRC_DIR / name).read_bytes())
@@ -54,20 +55,43 @@ def build_log_path() -> Path:
 
 
 def build_library() -> Path:
-    """Compiles csrc/ into the shared library unless it is already built."""
+    """Compiles csrc/ into the shared library unless it is already built: one
+    `nvcc -c` per source, all started together, then one link."""
     path = library_path()
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    build_log_path().write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc exited with {proc.returncode}:\n{(proc.stdout + proc.stderr)[-6000:]}"
+    nvcc = _nvcc()
+    objects = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(SOURCES, objects)
+    ]
+    logs, failed = [], []
+    for src, proc in zip(SOURCES, procs):
+        out = proc.communicate()[0]
+        logs.append(f"== {src}\n{out}")
+        if proc.returncode != 0:
+            failed.append((src, proc.returncode))
+    if not failed:
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+            capture_output=True, text=True, check=False,
+        )
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(("link", link.returncode))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    text = "".join(logs)
+    build_log_path().write_text(text)
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({failed}):\n{text[-6000:]}")
     os.replace(tmp, path)
     return path
 
@@ -86,6 +110,12 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
     lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
     lib.kf_jacobi_pivot_rotations.restype = i32
+    f32 = ctypes.c_float
+    lib.kf_flash_fwd.argtypes = [i32, *[ptr] * 7, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_bwd_dkv.argtypes = [i32, *[ptr] * 10, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_bwd_dq.argtypes = [i32, *[ptr] * 9, i32, i32, i32, i32, f32, ptr]
+    for name in ("kf_flash_fwd", "kf_flash_bwd_dkv", "kf_flash_bwd_dq"):
+        getattr(lib, name).restype = i32
 
     import torch
 

@@ -1,13 +1,17 @@
 """Pairwise influence-score stage driver.
 
-Port of `kronfluence_tpu/score/pairwise.py` for dense query blocks. The loop
-nest is the JAX package's: the query loader is consumed in blocks of
-`query_gradient_accumulation_steps` batches of preconditioned query
-gradients, and the train loader is re-iterated once per block. A train batch
-is scored against each block without materializing its per-sample gradients
-when the block is one chunk; with several chunks the per-sample gradients are
-formed once and contracted with every chunk. Scores are assembled on the
-host, with the padding rows of short last batches trimmed.
+Port of `kronfluence_tpu/score/pairwise.py` for dense and quantized query
+blocks. The loop nest is the JAX package's: the query loader is consumed in
+blocks of `query_gradient_accumulation_steps` batches of preconditioned query
+gradients (sized by the memory model when it is None), and the train loader
+is re-iterated once per block. With `query_gradient_storage_dtype` each
+module's query gradient is stored quantized (ops/quantize.py), the chunks of
+a block are merged per module, and the train pass dequantizes one module's
+block at a time, right before its contraction. A train batch is scored
+against each block without materializing its per-sample gradients when the
+block is one chunk; with several chunks the per-sample gradients are formed
+once and contracted with every chunk. Scores are assembled on the host, with
+the padding rows of short last batches trimmed.
 """
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -24,6 +28,12 @@ from kronfluence_tpu_torch.factor.covariance import (
     with_tracked,
 )
 from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
+from kronfluence_tpu_torch.ops.quantize import (
+    QuantizedGradient,
+    concat_quantized,
+    dequantize_gradient,
+    quantize_gradient,
+)
 from kronfluence_tpu_torch.ops.scores import pairwise_score
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.score.common import (
@@ -35,19 +45,12 @@ from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
 from kronfluence_tpu_torch.utils.dataset import probe_first
 from kronfluence_tpu_torch.utils.dtypes import resolve_dtype
+from kronfluence_tpu_torch.utils.memory import max_queries_per_block, probe_modules
 
 
 def _check_ported(score_args: ScoreArguments) -> None:
     """Raises for score options this slice of the port does not carry yet."""
     unported = {
-        "query_gradient_storage_dtype": (
-            score_args.query_gradient_storage_dtype is not None,
-            "ROADMAP Queue 1 item 2, fp8 query blocks (ops/quantize.py)",
-        ),
-        "query_gradient_accumulation_steps=None": (
-            score_args.query_gradient_accumulation_steps is None,
-            "ROADMAP Queue 1 item 3, query-block sizer (utils/memory.py)",
-        ),
         "query_gradient_low_rank": (
             score_args.query_gradient_low_rank is not None,
             "ROADMAP Queue 1 item 9, remaining score features (ops/svd.py)",
@@ -71,11 +74,13 @@ def _check_ported(score_args: ScoreArguments) -> None:
 
 
 def _build_query_step(model, task, score_args, strategy):
-    """Query-gradient step: batch -> per-module preconditioned dense gradients."""
+    """Query-gradient step: batch -> per-module preconditioned gradients,
+    dense in the score dtype or quantized in the storage dtype."""
     strategy_config = get_factor_config(strategy)
     psg_dtype = resolve_dtype(score_args.per_sample_gradient_dtype)
     precond_dtype = resolve_dtype(score_args.precondition_dtype)
     score_dtype = resolve_dtype(score_args.score_dtype)
+    storage_dtype = resolve_dtype(score_args.query_gradient_storage_dtype)
 
     def query_step(batch, valid, precondition_states):
         _, captures = capture(model, measurement_forward(model, task, batch))
@@ -83,7 +88,10 @@ def _build_query_step(model, task, score_args, strategy):
         for name, cap in captures.items():
             psg = module_per_sample_gradients(cap, valid, psg_dtype, task, name)
             psg = strategy_config.precondition(psg.to(precond_dtype), precondition_states[name])
-            out[name] = psg.to(score_dtype)
+            if storage_dtype is not None:
+                out[name] = quantize_gradient(psg, storage_dtype)
+            else:
+                out[name] = psg.to(score_dtype)
         return out
 
     return query_step
@@ -98,13 +106,16 @@ def _make_train_apply(model, task, score_args, per_module):
 
     def _chunk_score_psg(train_psg, pg):
         """Score slab against materialized train per-sample gradients."""
+        pg = dequantize_gradient(pg, psg_dtype)
         return torch.einsum("qoi,boi->qb", pg.to(psg_dtype), train_psg).to(score_dtype)
 
     def _chunk_score(cap, name, valid, pg):
-        """Score slab (q_chunk, b[, t]) for one preconditioned query chunk."""
+        """Score slab (q_chunk, b[, t]) for one preconditioned query chunk. A
+        quantized chunk is dequantized here, for this module only."""
         if post_process:
             train_psg = module_per_sample_gradients(cap, valid, psg_dtype, task, name)
             return _chunk_score_psg(train_psg, pg)
+        pg = dequantize_gradient(pg, psg_dtype)
         score = None
         for a, dy in zip(cap.activations, cap.output_gradients):
             a_tok = activation_tokens_with_bias(cap.spec, a, psg_dtype)
@@ -140,11 +151,46 @@ def _make_train_apply(model, task, score_args, per_module):
     return train_apply
 
 
+def resolve_query_accumulation(
+    model, task, probe_batch, query_loader, train_loader, score_args
+) -> int:
+    """`query_gradient_accumulation_steps` from the memory model, for
+    `query_gradient_accumulation_steps=None`: the query block is sized so one
+    block plus one train pass fills the planning budget
+    (utils/memory.py:max_queries_per_block), in query-loader batches, capped
+    at the number of query batches. `model` carries its tracked modules
+    (`with_tracked`), so the probe sees only those."""
+    query_bs = getattr(query_loader, "batch_size", None)
+    if not query_bs:
+        return 1
+    probes = probe_modules(model, task, probe_batch, query_bs)
+    block_q = max_queries_per_block(
+        probes,
+        score_args,
+        params=model.module,
+        train_batch_size=getattr(train_loader, "batch_size", None) or 1,
+        num_train=getattr(train_loader, "num_examples", 0) or 0,
+        query_batch_size=query_bs,
+        device=model.device,
+    )
+    num_query_batches = -(-query_loader.num_examples // query_bs)
+    return max(1, min(block_q // query_bs, num_query_batches))
+
+
 def _collect_blocks(blocks: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
     """Groups per-module query gradients across accumulation steps. Dense
     chunks stay separate: the train step contracts each chunk and
-    concatenates the small score slabs instead of the large gradients."""
-    return {name: [b[name] for b in blocks] for name in blocks[0]}
+    concatenates the small score slabs instead of the large gradients.
+    Quantized chunks are merged along the query axis (one module's payload at
+    a time: each step's dict drops the module as it is merged), so the train
+    step makes one contraction per module."""
+    out: Dict[str, List[Any]] = {}
+    for name in list(blocks[0]):
+        chunks = [b.pop(name) for b in blocks]
+        if len(chunks) > 1 and isinstance(chunks[0], QuantizedGradient):
+            chunks = [concat_quantized(chunks)]
+        out[name] = chunks
+    return out
 
 
 def compute_pairwise_scores_with_loaders(
@@ -170,6 +216,10 @@ def compute_pairwise_scores_with_loaders(
     precondition_states = prepare_precondition_states(
         factors, factor_args.strategy, score_args, sorted(specs)
     )
+    if accumulation is None:
+        accumulation = resolve_query_accumulation(
+            model, task, probe_batch, query_loader, train_loader, score_args
+        )
 
     model = cast_params(model, score_args.amp_dtype)
     query_step = _build_query_step(model, task, score_args, factor_args.strategy)
@@ -182,6 +232,8 @@ def compute_pairwise_scores_with_loaders(
             pending.append(query_step(batch, valid, precondition_states))
             if len(pending) == accumulation:
                 yielded_full = True
+                # Collect and drop the per-step references before yielding,
+                # so the merged block is not held beside its parts.
                 block, pending = _collect_blocks(pending), []
                 yield block
                 del block  # do not hold the old block while building the next
@@ -206,9 +258,20 @@ def compute_pairwise_scores_with_loaders(
         }
 
     chunks_per_block = []
+    formats = set()
     for query_block in query_blocks_iter():
+        formats.update(
+            f"{type(c).__name__}[{c.data.dtype if isinstance(c, QuantizedGradient) else c.dtype}]"
+            for chunks in query_block.values() for c in chunks
+        )
         chunks_per_block.append(train_pass(query_block))
         del query_block
+    # What the last run resolved, kept only for checks (the tests and
+    # chip_smoke.py read it to see that the recipe took effect); nothing in
+    # the package reads it.
+    compute_pairwise_scores_with_loaders.last_run = dict(
+        accumulation=accumulation, blocks=len(chunks_per_block), formats=sorted(formats)
+    )
 
     return {
         key: torch.cat([block[key] for block in chunks_per_block], dim=0)[
@@ -216,3 +279,6 @@ def compute_pairwise_scores_with_loaders(
         ].cpu()
         for key in chunks_per_block[0]
     }
+
+
+compute_pairwise_scores_with_loaders.last_run = None

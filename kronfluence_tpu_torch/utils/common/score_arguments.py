@@ -100,9 +100,8 @@ def fp8_query_score_arguments(
     dtype: str = "bfloat16",
 ) -> ScoreArguments:
     """bf16 compute with float8_e4m3fn resident query blocks, damping by the
-    0.1 x mean-eigenvalue heuristic (``None``). Kept for config parity with
-    the JAX package: the port's pairwise stage raises NotImplementedError for
-    a storage dtype until `ops/quantize.py` is ported."""
+    0.1 x mean-eigenvalue heuristic (``None``); the pairwise stage quantizes
+    each module's preconditioned query gradient (ops/quantize.py)."""
     score_args = smart_low_precision_score_arguments(
         damping_factor=damping_factor,
         query_gradient_low_rank=query_gradient_low_rank,

@@ -5,7 +5,7 @@ has exactly `batch_size` rows: the last one is padded by repeating the first
 row of its range with `valid = 0`, and every statistic downstream masks the
 padded rows exactly (ops/flatten.py). Datasets are column stores: a dict of
 equal-length numpy arrays or torch tensors. Batches are dicts of tensors on
-the loader's `device`; a store whose columns already live on that device is
+the loader's `device` (the card unless the caller names another); a store whose columns already live on that device is
 sliced there.
 """
 
@@ -59,7 +59,7 @@ class BatchLoader:
         if indices is None:
             indices = np.arange(lengths.pop())
         self.indices = np.asarray(indices, dtype=np.int64)
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = torch.device("cuda" if device is None else device)
 
     def __len__(self) -> int:
         return math.ceil(len(self.indices) / self.batch_size)

@@ -69,7 +69,9 @@ def setup():
     train = make_lm_data(NUM_TRAIN, seq_len=config.max_seq_len, vocab=config.vocab_size, seed=0)
     jargs, targs = jax_factor_args("ekfac"), pytest_factor_arguments("ekfac")
     jcov = jax_fit_covariance(jmodel, params, jtask, JaxBatchLoader(train, BATCH), jargs)
-    tcov = fit_covariance_matrices_with_loader(tmodel, ttask, BatchLoader(train, BATCH), targs)
+    tcov = fit_covariance_matrices_with_loader(
+        tmodel, ttask, BatchLoader(train, BATCH, device="cpu"), targs
+    )
     jeig = jax_eigendecomposition(jcov, jargs)
     teig = perform_eigendecomposition(tcov, targs)
     return dict(
@@ -157,7 +159,7 @@ def test_lambda_matches(setup, variant):
         eigen_factors=setup["jeig"],
     )
     tlam = fit_lambda_matrices_with_loader(
-        tmodel, ttask, BatchLoader(train, BATCH), targs, eigen_factors=setup["teig"]
+        tmodel, ttask, BatchLoader(train, BATCH, device="cpu"), targs, eigen_factors=setup["teig"]
     )
     assert set(tlam[LAMBDA_MATRIX_NAME]) == set(jlam[LAMBDA_MATRIX_NAME])
     for name, want in jlam[LAMBDA_MATRIX_NAME].items():
@@ -189,8 +191,8 @@ def test_batch_loader_padding_matches_jax(num, batch):
 
     data = make_lm_data(num, seq_len=8, vocab=32, seed=2)
     jbatches = list(JaxBatchLoader(data, batch))
-    tbatches = list(BatchLoader(data, batch))
-    assert len(tbatches) == len(jbatches) == len(BatchLoader(data, batch))
+    tbatches = list(BatchLoader(data, batch, device="cpu"))
+    assert len(tbatches) == len(jbatches) == len(BatchLoader(data, batch, device="cpu"))
     for (jb, jv), (tb, tv) in zip(jbatches, tbatches):
         np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
         for key in jb:

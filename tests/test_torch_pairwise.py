@@ -57,10 +57,12 @@ def _factors(jmodel, params, jtask, tmodel, ttask, train, jargs, targs):
     jlam = jax_fit_lambda(
         jmodel, params, jtask, JaxBatchLoader(train, TRAIN_BATCH), jargs, eigen_factors=jeig
     )
-    tcov = fit_covariance_matrices_with_loader(tmodel, ttask, BatchLoader(train, TRAIN_BATCH), targs)
+    tcov = fit_covariance_matrices_with_loader(
+        tmodel, ttask, BatchLoader(train, TRAIN_BATCH, device="cpu"), targs
+    )
     teig = perform_eigendecomposition(tcov, targs)
     tlam = fit_lambda_matrices_with_loader(
-        tmodel, ttask, BatchLoader(train, TRAIN_BATCH), targs, eigen_factors=teig
+        tmodel, ttask, BatchLoader(train, TRAIN_BATCH, device="cpu"), targs, eigen_factors=teig
     )
     return {**jcov, **jeig, **jlam}, {**tcov, **teig, **tlam}
 
@@ -85,8 +87,8 @@ def _scores(s, query_batch, jscore, tscore):
         JaxBatchLoader(s["train"], TRAIN_BATCH), s["jf"], s["jargs"], jscore,
     )
     got = compute_pairwise_scores_with_loaders(
-        s["tmodel"], s["ttask"], BatchLoader(s["query"], query_batch),
-        BatchLoader(s["train"], TRAIN_BATCH), s["tf"], s["targs"], tscore,
+        s["tmodel"], s["ttask"], BatchLoader(s["query"], query_batch, device="cpu"),
+        BatchLoader(s["train"], TRAIN_BATCH, device="cpu"), s["tf"], s["targs"], tscore,
     )
     assert set(got) == set(want)
     return got, want
@@ -146,11 +148,9 @@ def test_fp32_recipe_matches(fp64):
 @pytest.mark.parametrize(
     "field,value",
     [
-        ("query_gradient_storage_dtype", "float8_e4m3fn"),
         ("query_gradient_low_rank", 4),
         ("aggregate_query_gradients", True),
         ("aggregate_train_gradients", True),
-        ("query_gradient_accumulation_steps", None),
     ],
 )
 def test_unported_score_options_raise(fp64, field, value):
@@ -158,6 +158,7 @@ def test_unported_score_options_raise(fp64, field, value):
     setattr(score_args, field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compute_pairwise_scores_with_loaders(
-            fp64["tmodel"], fp64["ttask"], BatchLoader(fp64["query"], 2),
-            BatchLoader(fp64["train"], TRAIN_BATCH), fp64["tf"], fp64["targs"], score_args,
+            fp64["tmodel"], fp64["ttask"], BatchLoader(fp64["query"], 2, device="cpu"),
+            BatchLoader(fp64["train"], TRAIN_BATCH, device="cpu"), fp64["tf"], fp64["targs"],
+            score_args,
         )

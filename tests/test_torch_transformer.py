@@ -86,9 +86,9 @@ def test_converter_rejects_mismatched_config(lm):
 
 def test_seeded_init_is_deterministic():
     config = tiny_config()
-    a = init_transformer(config, seed=0).state_dict()
-    b = init_transformer(config, seed=0).state_dict()
-    c = init_transformer(config, seed=1).state_dict()
+    a = init_transformer(config, seed=0, device="cpu").state_dict()
+    b = init_transformer(config, seed=0, device="cpu").state_dict()
+    c = init_transformer(config, seed=1, device="cpu").state_dict()
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["h_0.attn.c_attn.weight"], c["h_0.attn.c_attn.weight"])
 

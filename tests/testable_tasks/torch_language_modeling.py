@@ -51,7 +51,7 @@ class TorchMLPOnlyLanguageModelingTask(TorchLanguageModelingTask):
         return names
 
 
-def torch_config_like(jax_config, dtype=torch.float64):
+def torch_config_like(jax_config, dtype=torch.float64, attention="naive"):
     """The port's TransformerConfig with the flax config's sizes."""
     return tiny_config(
         vocab_size=jax_config.vocab_size,
@@ -61,12 +61,13 @@ def torch_config_like(jax_config, dtype=torch.float64):
         d_model=jax_config.d_model,
         d_mlp=jax_config.d_mlp,
         dtype=dtype,
+        attention=attention,
     )
 
 
-def make_torch_lm(jax_params, jax_config, dtype=torch.float64, mlp_only=False):
+def make_torch_lm(jax_params, jax_config, dtype=torch.float64, mlp_only=False, attention="naive"):
     """(PreparedModel, task, config) of the port holding the flax weights."""
-    config = torch_config_like(jax_config, dtype)
+    config = torch_config_like(jax_config, dtype, attention)
     module = TransformerLM(config)
     host_params = jax.tree_util.tree_map(np.asarray, jax_params)
     module.load_state_dict(state_dict_from_flax(host_params, config))
