@@ -8,18 +8,28 @@ each of which raises on failure:
   1. device: requires a CUDA card, prints its name and power limit, turns
      TF32 off for fp32 matmuls and convolutions;
   2. build: compiles the hand-written kernels in kronfluence_tpu_torch/csrc/
-     with nvcc (sm_90a; one process per source, all started together) and
-     loads them;
-  3. K3 probe: the build-and-launch check against its plain version;
-  4. K1 syrk: the triangle kernel against its plain version at the main
-     path's gram shapes and at ragged ones, exact symmetry required, with
-     median times beside `torch.matmul(flat.T, flat)`;
+     with nvcc (sm_90a; one object per source, each source whose object is
+     missing compiled in its own process, all started together; one link)
+     and loads them; the wgmma syrk kernel's SASS must hold HGMMA and
+     UTMALDG (cuobjdump);
+  3. K3 probe: the build-and-launch check against its plain version, timed
+     like for like: launch + synchronize + exactness check against
+     torch.add + synchronize + the same check on the host clock, and the bare
+     launch against torch.add with CUDA events;
+  4. K1 syrk: the triangle kernels against their plain version at the main
+     path's gram shapes and at ragged ones, in bf16 and fp32, and on a
+     positive-mean bf16 input (|normal|) at the main shapes; exact symmetry
+     required; the bf16 route (wgmma with TMA, or wmma) checked at each shape
+     by the rule and the launch counter; a planted fault (the plain version
+     with one 64-row slab left out) must read above the limit at each main
+     shape; median times beside the library call and the bound;
   5. main path: GPT-2 small at full width (vocab 50,257, 12 layers, 12
      heads, d 768, seq 512) in bf16 with random weights from a seeded
      generator, through covariance -> eigendecomposition -> lambda ->
      pairwise with the bf16 "smart low precision" EK-FAC recipe and the naive
      attention form. Every kernel count is zeroed before and read after; K1
-     must launch 36 times per covariance batch, F1-F3 never;
+     must launch 36 times per covariance batch, all on the wgmma kernel,
+     F1-F3 never;
   6. reference: a small fp32 GPT-2 runs the same slice on the card and on
      the CPU (plain versions, host LAPACK); covariances, eigenvalues, lambda
      and scores must agree;
@@ -42,9 +52,10 @@ each of which raises on failure:
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). F1
      must launch 12 times per model forward (passes and discovery forwards),
-     F2 and F3 12 times per forward+backward pass, the naive form never; the
-     covariance factors are held against phase 5's and the scores' Pearson r
-     against phase 5's bf16 scores;
+     F2 and F3 12 times per forward+backward pass, the naive form never, K1
+     36 times per covariance batch on the wgmma kernel; the covariance
+     factors are held against phase 5's and the scores' Pearson r against
+     phase 5's bf16 scores;
  11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
      T 128, padded data): F1-F3 on the card, their plain versions on the CPU.
 
@@ -57,10 +68,20 @@ times the eigendecomposition stage with each solver (cuSOLVER, Jacobi,
 Jacobi, cuSOLVER; the first of each is its first run in the process), then
 profiles one more run of each with torch.profiler and prints their kernel
 tables.
+
+`python3 chip_smoke.py --profile-k1` instead times phase 5's covariance
+stage (cold, then warm), profiles one more warm run with torch.profiler (K1's
+device time and share, the device's busy share), and times the wgmma syrk
+kernel as built (kStages 4, one CTA an SM) in turns against copies of
+csrc/syrk.cu built alone with kStages 3 (two CTAs an SM, and one) and, for
+timing only, one whose every tile loads a single stripe as a diagonal tile
+does (its results are wrong; it shows what the stripe loads cost).
 """
 
 import copy
+import ctypes
 import json
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +108,13 @@ SYRK_RAGGED_SHAPES = ((1000, 2000), (300, 1001))
 # partial sums: |kernel - plain| <= 1e-4 * max|C| + 1e-4 * |plain|.
 SYRK_RTOL = 1e-4
 SYRK_ATOL_SCALE = 1e-4
+# The bf16 kernel each shape must take: TMA describes n % 8 == 0 (torch's
+# allocations are 16-byte aligned); 1001 columns take the wmma kernel.
+SYRK_BF16_ROUTES = {(8192, 2304): "wgmma", (8192, 3072): "wgmma", (1000, 2000): "wgmma",
+                    (300, 1001): "wmma"}
+# The planted fault: the plain version without these rows, one 64-row slab
+# (one ring stage of the wgmma kernel) of the main shapes' 8,192.
+SYRK_FAULT_ROWS = (4096, 4160)
 # Small-input reference: the card (fp32 K1, device eigh) vs the CPU (plain
 # versions, host LAPACK), on the same weights, data and eigenvectors. Both are
 # fp32 with sums in different orders; the preconditioner (heuristic damping)
@@ -210,96 +238,185 @@ def phase_build() -> None:
     from kronfluence_tpu_torch.ops.kernels import build
 
     prebuilt = build.library_path().exists()
+    compiled = [src for src in build.SOURCES if not build.object_path(src).exists()]
     t0 = time.perf_counter()
     build.build_library()
     built_s = time.perf_counter() - t0
     build.load_library()
-    log(f"build: {'reused' if prebuilt else 'compiled'} {build.library_path().name} in {built_s:.2f} s")
+    log(f"build: {'reused' if prebuilt else 'linked'} {build.library_path().name} in "
+        f"{built_s:.2f} s; compiled {compiled or 'nothing'}, reused the objects of "
+        f"{[src for src in build.SOURCES if src not in compiled] or 'nothing'}")
     log_path = build.build_log_path()
     if log_path.exists():
         for line in log_path.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  ptxas: {line.split(':', 1)[-1].strip()}")
+            if line.startswith("== ") or "Compiling entry" in line:
+                log(f"  {line.split(':', 1)[-1].strip()}")
+            elif "Used" in line or "spill" in line:
+                log(f"    ptxas: {line.split(':', 1)[-1].strip()}")
+    counts = sass_counts(build.library_path(), "syrk_bf16_wgmma_kernel", ("HGMMA", "UTMALDG"))
+    log(f"SASS of syrk_bf16_wgmma_kernel: {counts}")
+    if not all(counts.values()):
+        raise RuntimeError(f"the wgmma syrk kernel lacks wgmma or TMA instructions: {counts}")
+
+
+def sass_counts(library: Path, kernel: str, opcodes) -> dict:
+    """How often each opcode appears in `kernel`'s SASS in the library."""
+    from kronfluence_tpu_torch.ops.kernels import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    body = "".join(part for part in re.split(r"\n\s*Function : ", sass)
+                   if kernel in part.split("\n", 1)[0])
+    return {op: body.count(op) for op in opcodes}
 
 
 def phase_probe() -> dict:
-    from kronfluence_tpu_torch.ops.kernels.probe import PROBE_SHAPE, probe, probe_reference
+    from kronfluence_tpu_torch.ops.kernels.build import load_library
+    from kronfluence_tpu_torch.ops.kernels.probe import (
+        PROBE_SHAPE,
+        launch_probe,
+        probe,
+        probe_reference,
+    )
 
     src = torch.zeros(PROBE_SHAPE, dtype=torch.float32, device="cuda")
+    dst = torch.empty_like(src)
     got = probe("cuda")
     err = float((got - probe_reference(src)).abs().max())
     if err != 0.0:
         raise RuntimeError(f"K3 probe disagrees with src + 1: max |err| {err}")
-    host = []
-    for _ in range(20):
-        t0 = time.perf_counter()
-        probe("cuda")  # includes its own synchronize and check
-        host.append((time.perf_counter() - t0) * 1e3)
+
+    def library_checked():
+        out = torch.add(src, 1.0)
+        torch.cuda.synchronize()
+        if not bool(torch.all(out == 1.0)):
+            raise RuntimeError("torch.add(src, 1) returned wrong values")
+
+    def host_median(fn) -> float:
+        times = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    # Like for like on the host clock: each call launches, synchronizes and
+    # checks every element. Then the bare launches with CUDA events.
+    lib = load_library()
+    host_ms = host_median(lambda: probe("cuda"))
+    library_host_ms = host_median(library_checked)
+    ms = median_ms(lambda: launch_probe(lib, src, dst))
     plain_ms = median_ms(lambda: probe_reference(src))
     library_ms = median_ms(lambda: torch.add(src, 1.0))
-    ms = float(np.median(host))
     # 4 KB in, 4 KB out, 1,024 adds: the bound is far below one launch.
     bound_ms, bound_by = roofline(2 * src.numel() * 4, src.numel(), FP32_FLOPS)
-    log(f"K3 probe: exact; {ms:.4f} ms a call (host clock, launch + sync + check), "
-        f"plain src+1 {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms (CUDA events), "
+    log(f"K3 probe: exact; host clock (launch + sync + check): probe {host_ms:.4f} ms, "
+        f"torch.add {library_host_ms:.4f} ms; CUDA events (bare launch): K3 {ms:.4f} ms, "
+        f"plain src+1 {plain_ms:.4f} ms, torch.add {library_ms:.4f} ms; "
         f"bound {bound_ms:.2e} ms ({bound_by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms}
+            "bound_by": bound_by, "library_ms": library_ms, "host_ms": host_ms,
+            "library_host_ms": library_host_ms}
+
+
+def syrk_units(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of its limit, SYRK_ATOL_SCALE max|want|
+    + SYRK_RTOL |want|: the check passes at <= 1."""
+    bound = SYRK_ATOL_SCALE * want.abs().max() + SYRK_RTOL * want.abs()
+    return float(((got - want).abs() / bound).max())
 
 
 def phase_syrk(card: str) -> dict:
-    from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference
+    from kronfluence_tpu_torch.ops.kernels.syrk import (
+        TILE,
+        bf16_route,
+        syrk,
+        syrk_reference,
+        triangle_tiles,
+        wgmma_smem_bytes,
+    )
 
     gen = torch.Generator("cuda").manual_seed(0)
+    smem = wgmma_smem_bytes()
     worst = 0.0
     timing = {}
+    cases = []
     for rows, n in SYRK_MAIN_SHAPES + SYRK_RAGGED_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            a = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
-            got = syrk(a)
-            want = syrk_reference(a)
-            torch.cuda.synchronize()
-            if not torch.equal(got, got.T):
-                raise RuntimeError(f"K1 result is not exactly symmetric at {rows}x{n} {dtype}")
-            diff = (got - want).abs()
-            bound = SYRK_ATOL_SCALE * want.abs().max() + SYRK_RTOL * want.abs()
-            if not bool((diff <= bound).all()):
-                raise RuntimeError(
-                    f"K1 disagrees with its plain version at {rows}x{n} {dtype}: "
-                    f"max |err| {float(diff.max()):.3e}, max |C| {float(want.abs().max()):.3e}"
-                )
-            err = float(diff.max())
-            worst = max(worst, err)
-            line = f"K1 {rows}x{n} {str(dtype).split('.')[-1]}: max |err| {err:.3e} " \
-                   f"of max |C| {float(want.abs().max()):.3e}, symmetric"
-            if (rows, n) in SYRK_MAIN_SHAPES:
-                # Alternate plain, kernel, kernel, plain against drift.
-                p1 = median_ms(lambda: syrk_reference(a))
-                k1 = median_ms(lambda: syrk(a))
-                k2 = median_ms(lambda: syrk(a))
-                p2 = median_ms(lambda: syrk_reference(a))
-                mm = median_ms(lambda: torch.matmul(a.T, a))
-                # One library call with the same semantics (fp32 sums, fp32 out).
-                lib = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32)) \
-                    if dtype == torch.bfloat16 else mm
-                kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-                # The lower triangle with its diagonal: rows x n(n+1)/2 dot
-                # products; A read once, C written once.
-                flops = float(rows) * n * (n + 1)
-                peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-                bound, bound_by = roofline(rows * n * a.element_size() + n * n * 4, flops, peak)
-                timing[(rows, n, dtype)] = (kernel_ms, plain_ms, bound, bound_by, lib)
-                line += (
-                    f"; kernel {kernel_ms:.3f} ms ({k1:.3f}, {k2:.3f}), plain fp32 "
-                    f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}), torch.matmul(flat.T, flat) in "
-                    f"{str(dtype).split('.')[-1]} {mm:.3f} ms, same-semantics library call "
-                    f"{lib:.3f} ms; bound {bound:.4f} ms ({bound_by}); kernel "
-                    f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the triangle [{card}]"
-                )
-            log(line)
-    kernel_ms, plain_ms, bound, bound_by, lib = timing[(8192, 3072, torch.bfloat16)]
-    return {"max_abs_err": worst, "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib}
+        cases += [(rows, n, torch.bfloat16, "normal"), (rows, n, torch.float32, "normal")]
+        if (rows, n) in SYRK_MAIN_SHAPES:
+            cases.append((rows, n, torch.bfloat16, "|normal|"))
+    for rows, n, dtype, kind in cases:
+        a = torch.randn(rows, n, generator=gen, device="cuda")
+        a = (a.abs() if kind == "|normal|" else a).to(dtype)
+        name = f"{rows}x{n} {str(dtype).split('.')[-1]} {kind}"
+        before = syrk.wgmma_launches
+        got = syrk(a)
+        want = syrk_reference(a)
+        torch.cuda.synchronize()
+        if dtype == torch.bfloat16:
+            route = "wgmma" if syrk.wgmma_launches == before + 1 else "wmma"
+            if not route == bf16_route(n, a.data_ptr()) == SYRK_BF16_ROUTES[(rows, n)]:
+                raise RuntimeError(f"K1 at {name} took {route}; the rule says "
+                                   f"{bf16_route(n, a.data_ptr())}, want {SYRK_BF16_ROUTES[(rows, n)]}")
+            tiles = triangle_tiles(n, TILE)
+            route += f" ({tiles} tiles" + (f", {smem} B dynamic smem)" if route == "wgmma" else ")")
+        else:
+            route = f"fma ({triangle_tiles(n, 64)} tiles of 64)"
+        if not torch.equal(got, got.T):
+            raise RuntimeError(f"K1 result is not exactly symmetric at {name}")
+        units = syrk_units(got, want)
+        err = float((got - want).abs().max())
+        if not units <= 1.0:
+            raise RuntimeError(
+                f"K1 disagrees with its plain version at {name}: {units:.3f} units of the "
+                f"limit, max |err| {err:.3e}, max |C| {float(want.abs().max()):.3e}"
+            )
+        worst = max(worst, err)
+        line = (f"K1 {name}: {route}; max |err| {err:.3e} of max |C| "
+                f"{float(want.abs().max()):.3e}, {units:.4f} units of the limit, symmetric")
+        if (rows, n) in SYRK_MAIN_SHAPES and dtype == torch.bfloat16:
+            r0, r1 = SYRK_FAULT_ROWS
+            fault = syrk_units(syrk_reference(torch.cat([a[:r0], a[r1:]])), want)
+            if not fault > 1.0:
+                raise RuntimeError(f"the planted fault (rows {r0}-{r1 - 1} left out) reads "
+                                   f"{fault:.3f} units at {name}: the limit cannot see it")
+            line += f"; planted fault (rows {r0}-{r1 - 1} left out) {fault:.2f} units"
+        if (rows, n) in SYRK_MAIN_SHAPES and kind == "normal":
+            # Alternate plain, kernel, kernel, plain against drift.
+            p1 = median_ms(lambda: syrk_reference(a))
+            k1 = median_ms(lambda: syrk(a))
+            k2 = median_ms(lambda: syrk(a))
+            p2 = median_ms(lambda: syrk_reference(a))
+            mm = median_ms(lambda: torch.matmul(a.T, a))
+            # One library call with the same semantics (fp32 sums, fp32 out).
+            lib = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32)) \
+                if dtype == torch.bfloat16 else mm
+            kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+            # The lower triangle with its diagonal: rows x n(n+1)/2 dot
+            # products; A read once, C written once.
+            flops = float(rows) * n * (n + 1)
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            bound, bound_by = roofline(rows * n * a.element_size() + n * n * 4, flops, peak)
+            timing[(rows, n, dtype)] = (kernel_ms, plain_ms, bound, bound_by, lib)
+            line += (
+                f"; kernel {kernel_ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain fp32 "
+                f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}), torch.matmul(flat.T, flat) in "
+                f"{str(dtype).split('.')[-1]} {mm:.4f} ms, same-semantics library call "
+                f"{lib:.4f} ms; bound {bound:.4f} ms ({bound_by}); kernel "
+                f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the triangle [{card}]"
+            )
+        log(line)
+
+    def fields(key):
+        kernel_ms, plain_ms, bound, bound_by, lib = timing[key]
+        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib}
+
+    return {"max_abs_err": worst, **fields((8192, 3072, torch.bfloat16)),
+            "timings_ms": {f"{rows}x{n}": fields((rows, n, torch.bfloat16))
+                           for rows, n in SYRK_MAIN_SHAPES},
+            "tiles": triangle_tiles(3072, TILE), "smem_bytes": smem}
 
 
 def wikitext_style_task(num_layers: int):
@@ -496,7 +613,7 @@ def phase_main_path(card: str) -> dict:
     model, task, data = ctx["model"], ctx["task"], ctx["data"]
     factor_args, score_args, device = ctx["factor_args"], ctx["score_args"], ctx["device"]
     torch.cuda.reset_peak_memory_stats()
-    syrk.launches = probe.launches = jacobi_pivot_rotations.launches = 0
+    syrk.launches = syrk.wgmma_launches = probe.launches = jacobi_pivot_rotations.launches = 0
     for fn in flash_kernels().values():
         fn.launches = 0
     naive_attention.calls = 0
@@ -505,6 +622,7 @@ def phase_main_path(card: str) -> dict:
         (COV_BATCH, LAMBDA_BATCH, QUERY_BATCH, TRAIN_BATCH),
     )
     launches = {"syrk": syrk.launches, "probe": probe.launches}
+    wgmma_launches = syrk.wgmma_launches
     naive_calls = naive_attention.calls
     if jacobi_pivot_rotations.launches:
         raise RuntimeError("K2 launched on the cuSOLVER path (eigendecomposition_solver='auto')")
@@ -516,10 +634,12 @@ def phase_main_path(card: str) -> dict:
     log(f"main path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; naive attention calls {naive_calls}, "
         f"flash launches 0 [{card}]")
-    log(f"main path kernel launches: syrk {launches['syrk']} (want 36 x {cov_batches} "
-        f"covariance batches = {36 * cov_batches}), probe {launches['probe']}")
-    if launches["syrk"] != 36 * cov_batches:
-        raise RuntimeError(f"K1 launched {launches['syrk']} times, want {36 * cov_batches}")
+    log(f"main path kernel launches: syrk {launches['syrk']}, {wgmma_launches} of them the "
+        f"wgmma kernel (want 36 x {cov_batches} covariance batches = {36 * cov_batches}, all "
+        f"wgmma), probe {launches['probe']}")
+    if not launches["syrk"] == wgmma_launches == 36 * cov_batches:
+        raise RuntimeError(f"K1 launched {launches['syrk']} times, {wgmma_launches} on the "
+                           f"wgmma kernel; want {36 * cov_batches}, all wgmma")
     if launches["probe"] < 1:
         raise RuntimeError("K3 was not launched on the main path")
     check_artifacts(cov, eigen, lam, scores, COV_N * SEQ, LAMBDA_N, (QUERY_N, TRAIN_N))
@@ -996,6 +1116,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     torch.cuda.reset_peak_memory_stats()
     for fn in (*kernels.values(), syrk, probe, jacobi_pivot_rotations):
         fn.launches = 0
+    syrk.wgmma_launches = 0
     naive_attention.calls = 0
     cov, eigen, lam, scores, seconds = run_slice(
         model, task, data, ctx["factor_args"], score_args, device,
@@ -1003,6 +1124,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     )
     launches = {name: fn.launches for name, fn in kernels.items()}
     launches.update(syrk=syrk.launches, probe=probe.launches, jacobi=jacobi_pivot_rotations.launches)
+    wgmma_launches = syrk.wgmma_launches
     naive_calls = naive_attention.calls
     peak = torch.cuda.max_memory_allocated() / 2**30
     run = compute_pairwise_scores_with_loaders.last_run
@@ -1025,14 +1147,18 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want F1 {want['F1']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), F2 = F3 = {want['F2']}; naive attention calls {naive_calls}")
+        f"forwards)), F2 = F3 = {want['F2']}; naive attention calls {naive_calls}; syrk on "
+        f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
             raise RuntimeError(f"{name} launched {launches[name]} times, want {want[name]}")
     if naive_calls:
         raise RuntimeError(f"the flash path ran the naive form {naive_calls} times")
-    if launches["syrk"] != 36 * cov_b or launches["probe"] < 1 or launches["jacobi"]:
-        raise RuntimeError(f"K1/K2/K3 launches off on the flash path: {launches}")
+    if not launches["syrk"] == wgmma_launches == 36 * cov_b:
+        raise RuntimeError(f"K1 launches off on the flash path: {launches['syrk']}, "
+                           f"{wgmma_launches} on the wgmma kernel; want {36 * cov_b}, all wgmma")
+    if launches["probe"] < 1 or launches["jacobi"]:
+        raise RuntimeError(f"K2/K3 launches off on the flash path: {launches}")
     if run["formats"] != ["QuantizedGradient[torch.float8_e4m3fn]"]:
         raise RuntimeError(f"the query blocks are not fp8: {run['formats']}")
     if run["accumulation"] != query_b:
@@ -1099,16 +1225,123 @@ def profile_eigh(card: str) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, sec = _stage(perform_eigendecomposition, cov, args[solver])
-        events = prof.key_averages()
-        # Kernels only: an operator's self device time repeats its kernels'.
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in kernels)
-        log(f"profiled eigendecomposition {solver}: {sec:.4f} s wall, kernel time "
-            f"{device_us / 1e6:.4f} s, busy share {device_us / 1e6 / sec:.3f} [{card}]")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            log(f"  {e.self_device_time_total / 1e3:10.1f} ms {100 * e.self_device_time_total / device_us:5.1f}% "
-                f"x{e.count:<6d} {e.key[:90]}")
-        log(events.table(sort_by="self_cuda_time_total", row_limit=15))
+        kernel_table(prof, sec, f"eigendecomposition {solver}", card)
+        log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+
+
+def kernel_table(prof, sec: float, what: str, card: str, top: int = 6) -> list:
+    """Logs a profiled run's kernel time, busy share and top kernels; returns
+    the kernel events."""
+    # Kernels only: an operator's self device time repeats its kernels'.
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    log(f"profiled {what}: {sec:.4f} s wall, kernel time {device_us / 1e6:.4f} s, busy share "
+        f"{device_us / 1e6 / sec:.3f} [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        log(f"  {e.self_device_time_total / 1e3:10.1f} ms {100 * e.self_device_time_total / device_us:5.1f}% "
+            f"x{e.count:<6d} {e.key[:90]}")
+    return kernels
+
+
+# Copies of csrc/syrk.cu for `--profile-k1`: name -> text replacements.
+_RING = "constexpr int kStages = 4;"
+_BOUNDS = "__launch_bounds__(kWgThreads, 1)"
+_DIAG = "const bool diag = ti == tj;\n  const int warp"
+K1_VARIANTS = {
+    "kStages 3, two CTAs an SM": ((_RING, "constexpr int kStages = 3;"),
+                                  (_BOUNDS, "__launch_bounds__(kWgThreads, 2)")),
+    "kStages 3, one CTA an SM": ((_RING, "constexpr int kStages = 3;"),),
+    "one stripe a tile (timing only)": ((_DIAG, "const bool diag = true;\n  const int warp"),),
+}
+
+
+def build_syrk_variant(index: int, replacements) -> ctypes.CDLL:
+    """csrc/syrk.cu with `replacements` applied, built alone into
+    _build/k1_variants/ and loaded."""
+    from kronfluence_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC_DIR / "syrk.cu").read_text()
+    for old, new in replacements:
+        if old not in src:
+            raise RuntimeError(f"csrc/syrk.cu no longer holds {old!r}")
+        src = src.replace(old, new)
+    out = build.BUILD_DIR / "k1_variants"
+    out.mkdir(parents=True, exist_ok=True)
+    cu = out / f"syrk_variant_{index}.cu"
+    cu.write_text(src)
+    lib_path = cu.with_suffix(".so")
+    done = subprocess.run([build._nvcc(), *build.COMPILE_FLAGS, "-shared", "-o", str(lib_path),
+                           str(cu)], capture_output=True, text=True, timeout=600)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {cu.name}:\n{done.stdout[-3000:]}{done.stderr[-3000:]}")
+    lib = ctypes.CDLL(str(lib_path))
+    lib.kf_syrk_bf16_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.kf_syrk_bf16_wgmma.restype = ctypes.c_int
+    return lib
+
+
+def profile_k1(card: str) -> None:
+    """Covariance-stage seconds (cold, warm) on phase 5's model and data, a
+    torch.profiler table of one warm run with K1's device time and share, and
+    the wgmma kernel as built against K1_VARIANTS, in turns."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    ctx = setup_main_path()
+
+    def covariance():
+        return fit_covariance_matrices_with_loader(
+            ctx["model"], ctx["task"], BatchLoader(ctx["data"]["cov"], COV_BATCH, device=ctx["device"]),
+            ctx["factor_args"],
+        )
+
+    for run in ("cold", "warm", "warm"):
+        _, sec = _stage(covariance)
+        log(f"covariance {run}: {sec:.4f} s [{card}]")
+    torch.cuda.synchronize()
+    syrk.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, sec = _stage(covariance)
+    kernels = kernel_table(prof, sec, "covariance (4 batches)", card, top=8)
+    device_us = sum(e.self_device_time_total for e in kernels)
+    k1 = [e for e in kernels if "syrk" in e.key]
+    k1_us = sum(e.self_device_time_total for e in k1)
+    log(f"K1 in the profiled covariance stage: {k1_us / 1e3:.2f} ms, "
+        f"{100 * k1_us / device_us:.1f}% of kernel time, {sum(e.count for e in k1)} kernel "
+        f"launches ({syrk.launches} by its counter): " + ", ".join(e.key[:60] for e in k1))
+
+    variants = {name: build_syrk_variant(i, repl) for i, (name, repl) in enumerate(K1_VARIANTS.items())}
+    gen = torch.Generator("cuda").manual_seed(0)
+    for rows, n in SYRK_MAIN_SHAPES:
+        a = torch.randn(rows, n, generator=gen, device="cuda").to(torch.bfloat16)
+        want = syrk_reference(a)
+
+        def launch(lib):
+            out = torch.empty((n, n), dtype=torch.float32, device="cuda")
+            check_launch(lib.kf_syrk_bf16_wgmma(a.data_ptr(), out.data_ptr(), rows, n,
+                                                torch.cuda.current_stream().cuda_stream),
+                         "syrk variant")
+            return out
+
+        times = {"as built (kStages 4, one CTA an SM)": [], **{name: [] for name in variants}}
+        for name, lib in variants.items():
+            if "timing only" not in name and not syrk_units(launch(lib), want) <= 1.0:
+                raise RuntimeError(f"the K1 variant '{name}' disagrees at {rows}x{n}")
+        for turn in (0, 1):
+            order = list(times) if turn == 0 else list(reversed(times))
+            for name in order:
+                fn = (lambda: syrk(a)) if name.startswith("as built") else \
+                    (lambda lib=variants[name]: launch(lib))
+                times[name].append(median_ms(fn))
+        lib_ms = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32))
+        log(f"K1 {rows}x{n} bf16 in turns (there and back): " + "; ".join(
+            f"{name} {t[0]:.4f} / {t[1]:.4f} ms" for name, t in times.items())
+            + f"; torch.mm(..., out_dtype=fp32) {lib_ms:.4f} ms [{card}]")
 
 
 def _max_rel(got: dict, want: dict) -> float:
@@ -1229,8 +1462,12 @@ def main() -> None:
     if sys.argv[1:] == ["--profile-eigh"]:
         profile_eigh(card)
         return
+    if sys.argv[1:] == ["--profile-k1"]:
+        profile_k1(card)
+        return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--profile-eigh]; got {sys.argv[1:]}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--profile-eigh | --profile-k1]; "
+                         f"got {sys.argv[1:]}")
     probe_result = phase_probe()
     syrk_result = phase_syrk(card)
     jacobi_result = phase_jacobi_kernel(card)

@@ -6,35 +6,65 @@
 //
 // What bounds it on the H100. The lower triangle costs about n^2 * rows FLOPs
 // (2 * rows * 128^2 per output tile, T(T+1)/2 tiles for T = ceil(n / 128)):
-// 80 GFLOP at rows 8192, n 3072. Each CTA streams its two column stripes of A
-// through shared memory once, so every stripe is re-read once per partner tile
-// (T times): about 1.2 GB of reads at n 3072 in bf16, against a 50 MB operand.
-// At 64 FLOP per byte read that is below the card's HBM ridge (~295 FLOP/B),
-// so the re-reads must come from the 50 MB L2, and the kernel is bound by
-// how fast shared memory is refilled and the tensor cores are fed.
+// 77 GFLOP at rows 8192, n 3072, 78 us at the bf16 tensor-core peak. Each CTA
+// streams its two 128-column stripes of A through shared memory once, so every
+// stripe is re-read once per partner tile (T times): about 1.2 GB at n 3072 in
+// bf16, against a 50 MB operand, or 64 FLOP per byte moved into shared memory.
+// Those re-reads come from the 50 MB L2, not from HBM, and feeding the tensor
+// cores at that ratio is what bounds a 128 x 128 tile.
 //
-// What the design does about it.
-//  * One CTA per lower-triangle (i, j) tile; the pair comes from blockIdx.x,
-//    so the n^2 / 2 upper tiles are never computed (the TPU grid's scalar-
-//    prefetched pair tables become this index arithmetic).
-//  * The TPU's sequential K grid axis is a loop over 32-row slabs inside the
-//    CTA. The next slab is fetched into registers while the tensor cores work
-//    on the current one, so global-load latency overlaps the MMAs.
-//  * bf16 operands run on the tensor cores through wmma (mma.sync, m16n16k16,
-//    fp32 accumulation). 128 x 128 output tiles halve the stripe re-reads of
-//    64 x 64 tiles. fp32 operands take a register-tiled FMA kernel: the
-//    tensor cores would round them to TF32.
-//  * Ragged rows and columns are masked in the loads and the stores; no padded
-//    copy of A is made.
-//  * The epilogue writes tile (i, j) and its mirror (j, i) from the same fp32
-//    values (diagonal tiles write only their lower half, then mirror it), so
-//    no tril / transpose pass follows and C is exactly symmetric.
-//  * Later work: wgmma with TMA-fed shared-memory rings and a persistent
-//    schedule that walks tiles sharing a stripe back to back.
+// Three kernels, chosen by the wrapper (ops/kernels/syrk.py:bf16_route) from
+// the operand's type, width and alignment, never by a failure:
+//
+//  * syrk_bf16_wgmma_kernel: bf16 with n % 8 == 0 and a 16-byte aligned base,
+//    the operands the Tensor Memory Accelerator (TMA) can describe. GPT-2's
+//    grams (n 2304, 3072) all take it.
+//      - One CTA per lower-triangle 128 x 128 tile (i, j); the pair comes from
+//        blockIdx.x (tile_pair), so the upper tiles are never computed.
+//      - TMA loads into a ring of kStages stages, each with a "full" and an
+//        "empty" mbarrier. One tensor map over A: dims (n, rows), a box of
+//        64 columns x 64 rows (128 bytes x 64), 128-byte swizzle. A stage is
+//        one 64-row slab of both stripes: four boxes, 32 KB; a diagonal tile
+//        loads its one stripe (16 KB) and feeds both operands from it. TMA
+//        zero-fills past `rows` and `n`, so no load is masked.
+//      - wgmma with both operands MN-major: the tile product is
+//        sum_k A[k, i0 + m] A[k, j0 + n], and a slab sits in shared memory as
+//        [k][column], so the A operand (M x K) is M-contiguous and the B
+//        operand (K x N) N-contiguous; both take wgmma's transpose bit. In the
+//        128-byte-swizzled MN-major layout the descriptor's leading byte
+//        offset is the step between 64-column boxes (8 KB) and its stride
+//        byte offset the step between 8-row groups of k (1 KB).
+//      - Warp specialisation, in the form of one producer warp: warps 0-7 are
+//        two consumer warpgroups, each owning 64 rows of the tile and issuing
+//        four wgmma.m64n128k16 per slab into 64 fp32 accumulators a thread;
+//        warp 8's lane 0 keeps the ring full. A consumer frees a stage once
+//        wgmma.wait_group 1 says that slab's products are done, so one slab's
+//        products overlap the next one's wait. A producer warp and not a
+//        producer warpgroup: the 64 accumulators a consumer thread fit in
+//        the registers of 288 threads without `setmaxnreg` (90 a thread).
+//      - kStages = 4 (128 KB), one CTA an SM. Two CTAs an SM (kStages 3,
+//        96 KB, so that one CTA's epilogue overlaps the other's main loop)
+//        was slower at 8192 x 3072 and faster at 8192 x 2304 on the H100;
+//        over the covariance stage's calls (two at 3072 for each at 2304)
+//        one CTA an SM came out ahead (chip_smoke.py --profile-k1; PERF.md).
+//      - Epilogue: after the last wgmma.wait_group 0 and a CTA barrier, the
+//        fp32 tile is staged in the ring's shared memory (odd row pitch: the
+//        row and the column reads are both free of bank conflicts), then
+//        written to C[i, j] along rows and to its mirror C[j, i] along rows,
+//        both from the same fp32 values. Diagonal tiles write their lower
+//        half and mirror it; columns >= n are masked.
+//  * syrk_bf16_kernel: bf16 operands TMA cannot describe (n % 8 != 0, or an
+//    unaligned base): wmma (mma.sync m16n16k16) from padded shared memory,
+//    32-row slabs staged through registers with one slab prefetched, masked
+//    scalar loads.
+//  * syrk_f32_kernel: fp32 operands, register-tiled FMAs (the tensor cores
+//    would round them to TF32).
 //
 // Every launch runs on the caller's stream, allocates nothing, and returns
-// cudaGetLastError().
+// cudaGetLastError() (the wgmma launcher returns a negative CUresult if the
+// tensor map cannot be encoded).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -45,6 +75,7 @@ namespace {
 using namespace nvcuda;
 
 // Lower-triangle pair p = i(i+1)/2 + j, j <= i, enumerated row by row.
+// Mirrored in Python by ops/kernels/syrk.py:tile_pair.
 __device__ __forceinline__ void tile_pair(int p, int& ti, int& tj) {
   int i = static_cast<int>((sqrtf(8.0f * static_cast<float>(p) + 1.0f) - 1.0f) * 0.5f);
   while (i > 0 && i * (i + 1) / 2 > p) --i;
@@ -54,9 +85,263 @@ __device__ __forceinline__ void tile_pair(int p, int& ti, int& tj) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 operands: tensor cores, fp32 accumulation.
+// bf16 operands that TMA can describe: wgmma fed by a TMA / mbarrier ring.
 // ---------------------------------------------------------------------------
 constexpr int kTile = 128;                             // output tile edge
+constexpr int kWgSlab = 64;                            // rows of A per ring stage
+constexpr int kBoxCols = 64;                           // 64 bf16 = 128 bytes: the swizzle span
+constexpr int kBoxBytes = kWgSlab * kBoxCols * 2;      // 8 KB
+constexpr int kStripeBytes = 2 * kBoxBytes;            // 128 columns x 64 rows
+constexpr int kStageBytes = 2 * kStripeBytes;          // both stripes of one slab
+constexpr int kStages = 4;
+constexpr int kConsumerWarps = 8;                      // two warpgroups
+constexpr int kWgThreads = (kConsumerWarps + 1) * 32;  // plus the producer warp
+constexpr int kKStep = 16;                             // wgmma depth (bf16)
+constexpr int kKStepBytes = kKStep * kBoxCols * 2;     // 16 swizzled rows of a box
+constexpr int kOutPitch = kTile + 1;                   // fp32 epilogue staging row
+constexpr int kWgSmemBytes = kStages * kStageBytes + 1024;  // + slack to align to 1 KB
+
+static_assert(kTile * kOutPitch * 4 <= kStages * kStageBytes, "epilogue staging fits the ring");
+static_assert(kWgSlab % kKStep == 0, "a slab holds whole wgmma k-steps");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Spins until the barrier's phase with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+// One 64-column x 64-row box of A at (column c0, row r0) into shared memory;
+// its bytes complete a transaction on `bar`.
+__device__ __forceinline__ void tma_load_box(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                             int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(r0)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// byte offset and stride byte offset, each in 16-byte units.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+// d (64 x 128, fp32) += A (64 x 16, M-major) * B (16 x 128, N-major).
+__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+#define KF_D8(b)                                                                      \
+  "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),         \
+      "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n"
+      "}\n"
+      : KF_D8(0), KF_D8(8), KF_D8(16), KF_D8(24), KF_D8(32), KF_D8(40), KF_D8(48), KF_D8(56)
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+#undef KF_D8
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous wgmma issue and wait.
+__device__ __forceinline__ void fence_accumulators(float (&d)[64]) {
+#pragma unroll
+  for (int x = 0; x < 64; ++x) asm volatile("" : "+f"(d[x])::"memory");
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    syrk_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ c,
+                           int rows, int n) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[kStages];
+  __shared__ uint64_t empty[kStages];
+  // The 128-byte swizzle repeats every 1 KB: stages start on 1 KB boundaries.
+  uint8_t* ring = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+
+  int ti, tj;
+  tile_pair(blockIdx.x, ti, tj);
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const bool diag = ti == tj;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int slabs = (rows + kWgSlab - 1) / kWgSlab;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) acc[x] = 0.0f;
+
+  if (warp == kConsumerWarps) {
+    // Producer: lane 0 keeps every stage of the ring loaded.
+    if (lane == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map))
+                   : "memory");
+      const uint32_t bytes = diag ? kStripeBytes : kStageBytes;
+      for (int kt = 0; kt < slabs; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        mbar_expect_tx(&full[s], bytes);
+        uint8_t* stage = ring + s * kStageBytes;
+        const int r0 = kt * kWgSlab;
+        tma_load_box(stage, &map, &full[s], i0, r0);
+        tma_load_box(stage + kBoxBytes, &map, &full[s], i0 + kBoxCols, r0);
+        if (!diag) {
+          tma_load_box(stage + kStripeBytes, &map, &full[s], j0, r0);
+          tma_load_box(stage + kStripeBytes + kBoxBytes, &map, &full[s], j0 + kBoxCols, r0);
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // Consumers: warpgroup wg owns tile rows 64 wg .. 64 wg + 63, which are
+    // columns i0 + 64 wg ... of A: box wg of stripe i.
+    const int wg = warp / 4;
+    const uint32_t ring_addr = smem_u32(ring);
+    for (int kt = 0; kt < slabs; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(&full[s], (kt / kStages) & 1);
+      const uint32_t stage = ring_addr + s * kStageBytes;
+      const uint32_t a_addr = stage + wg * kBoxBytes;
+      const uint32_t b_addr = stage + (diag ? 0 : kStripeBytes);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < kWgSlab / kKStep; ++kk) {
+        wgmma_m64n128k16_mn(acc, smem_desc(a_addr + kk * kKStepBytes, kBoxBytes, 1024),
+                            smem_desc(b_addr + kk * kKStepBytes, kBoxBytes, 1024));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // The previous slab's products are done: free its stage.
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+      __syncwarp();
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_accumulators(acc);
+  }
+
+  // Every wgmma has read the ring and no load is in flight: reuse the ring
+  // as fp32 staging for the epilogue.
+  __syncthreads();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  float* out = reinterpret_cast<float*>(ring);
+  if (warp < kConsumerWarps) {
+    // wgmma's accumulator layout: acc[4 q + 2 h + e] holds row
+    // 16 (warp % 4) + lane / 4 + 8 h of the warpgroup's 64, column
+    // 8 q + 2 (lane % 4) + e.
+    const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+    for (int q = 0; q < kTile / 8; ++q)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          out[(row + 8 * h) * kOutPitch + 8 * q + 2 * (lane % 4) + e] = acc[4 * q + 2 * h + e];
+  }
+  __syncthreads();
+  if (warp < kConsumerWarps) {
+    // C[i, j] along its rows, then the mirror C[j, i] along its rows.
+    for (int r = warp; r < kTile; r += kConsumerWarps) {
+      const int gi = i0 + r;
+#pragma unroll
+      for (int q = 0; q < kTile / 32; ++q) {
+        const int col = lane + 32 * q;
+        const int gj = j0 + col;
+        if (gi < n && gj < n && (!diag || gi >= gj))
+          c[static_cast<size_t>(gi) * n + gj] = out[r * kOutPitch + col];
+      }
+    }
+    for (int col = warp; col < kTile; col += kConsumerWarps) {
+      const int gj = j0 + col;
+#pragma unroll
+      for (int q = 0; q < kTile / 32; ++q) {
+        const int r = lane + 32 * q;
+        const int gi = i0 + r;
+        if (gi < n && gj < n && (!diag || gi >= gj))
+          c[static_cast<size_t>(gj) * n + gi] = out[r * kOutPitch + col];
+      }
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point so
+// that the library needs no -lcuda.
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+cudaError_t encode_tiled_fn(EncodeTiledFn* fn) {
+  static EncodeTiledFn cached = nullptr;
+  static cudaError_t status = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+    if (err == cudaSuccess && found != cudaDriverEntryPointSuccess) err = cudaErrorSymbolNotFound;
+    cached = reinterpret_cast<EncodeTiledFn>(ptr);
+    return err;
+  }();
+  *fn = cached;
+  return status;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 operands TMA cannot describe: wmma (mma.sync), fp32 accumulation.
+// ---------------------------------------------------------------------------
 constexpr int kSlab = 32;                              // rows of A per slab
 constexpr int kLds = kTile + 8;                        // padded smem row (elements)
 constexpr int kThreads = 256;                          // 8 warps: 2 x 4 over the tile
@@ -64,21 +349,20 @@ constexpr int kWarpM = 64;                             // tile rows per warp
 constexpr int kWarpN = 32;                             // tile cols per warp
 constexpr int kFragM = kWarpM / 16;
 constexpr int kFragN = kWarpN / 16;
-constexpr int kChunksPerRow = kTile / 8;               // 16-byte chunks per slab row
+constexpr int kChunksPerRow = kTile / 8;               // 8-element chunks per slab row
 constexpr int kChunksPerThread = kSlab * kChunksPerRow / kThreads;  // 2
 constexpr int kStageLd = 20;                           // padded fp32 staging row
 
 static_assert(kSlab * kChunksPerRow % kThreads == 0, "slab chunks must split evenly");
 static_assert(kSlab % 16 == 0, "slab must hold whole mma k-steps");
 
-// Eight consecutive bf16 of row gr starting at column gc, zero outside A.
-// `vec` promises n % 8 == 0 and a 16-byte aligned base pointer.
+// Eight consecutive bf16 of row gr starting at column gc, zero outside A,
+// read element by element (the row stride or the base is not 16-byte aligned).
 __device__ __forceinline__ uint4 load_chunk_bf16(const uint16_t* __restrict__ a, int rows, int n,
-                                                 int gr, int gc, bool vec) {
+                                                 int gr, int gc) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
   if (gr >= rows || gc >= n) return v;
   const uint16_t* src = a + static_cast<size_t>(gr) * n + gc;
-  if (vec) return *reinterpret_cast<const uint4*>(src);
   uint32_t w[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
@@ -94,8 +378,7 @@ __device__ __forceinline__ uint4 load_chunk_bf16(const uint16_t* __restrict__ a,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    syrk_bf16_kernel(const uint16_t* __restrict__ a, float* __restrict__ c, int rows, int n,
-                     int vec) {
+    syrk_bf16_kernel(const uint16_t* __restrict__ a, float* __restrict__ c, int rows, int n) {
   __shared__ __align__(128) uint16_t sa[kSlab][kLds];
   __shared__ __align__(128) uint16_t sb[kSlab][kLds];
   __shared__ __align__(128) float stage[kThreads / 32][16 * kStageLd];
@@ -127,8 +410,8 @@ __global__ void __launch_bounds__(kThreads)
   uint4 ra[kChunksPerThread], rb[kChunksPerThread];
 #pragma unroll
   for (int s = 0; s < kChunksPerThread; ++s) {
-    ra[s] = load_chunk_bf16(a, rows, n, lr[s], i0 + lc[s], vec);
-    rb[s] = diag ? make_uint4(0u, 0u, 0u, 0u) : load_chunk_bf16(a, rows, n, lr[s], j0 + lc[s], vec);
+    ra[s] = load_chunk_bf16(a, rows, n, lr[s], i0 + lc[s]);
+    rb[s] = diag ? make_uint4(0u, 0u, 0u, 0u) : load_chunk_bf16(a, rows, n, lr[s], j0 + lc[s]);
   }
 
   for (int r0 = 0; r0 < rows; r0 += kSlab) {
@@ -143,8 +426,8 @@ __global__ void __launch_bounds__(kThreads)
     if (next < rows) {
 #pragma unroll
       for (int s = 0; s < kChunksPerThread; ++s) {
-        ra[s] = load_chunk_bf16(a, rows, n, next + lr[s], i0 + lc[s], vec);
-        if (!diag) rb[s] = load_chunk_bf16(a, rows, n, next + lr[s], j0 + lc[s], vec);
+        ra[s] = load_chunk_bf16(a, rows, n, next + lr[s], i0 + lc[s]);
+        if (!diag) rb[s] = load_chunk_bf16(a, rows, n, next + lr[s], j0 + lc[s]);
       }
     }
 
@@ -296,11 +579,41 @@ inline long long triangle_pairs(int n, int tile) {
 
 }  // namespace
 
-extern "C" int kf_syrk_bf16(const void* a, void* c, int rows, int n, int vec, void* stream) {
+extern "C" int kf_syrk_bf16_wgmma_smem_bytes() { return kWgSmemBytes; }
+
+// bf16 operand with n % 8 == 0 and a 16-byte aligned base (the wrapper's
+// route rule); anything else is refused rather than computed wrongly.
+extern "C" int kf_syrk_bf16_wgmma(const void* a, void* c, int rows, int n, void* stream) {
+  if (rows <= 0 || n <= 0 || n % 8 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  EncodeTiledFn encode;
+  const cudaError_t found = encode_tiled_fn(&encode);
+  if (found != cudaSuccess) return static_cast<int>(found);
+  CUtensorMap map;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t box[2] = {kBoxCols, kWgSlab};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult encoded = encode(
+      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims, strides, box,
+      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (encoded != CUDA_SUCCESS) return -static_cast<int>(encoded);
+  cudaError_t err = cudaFuncSetAttribute(
+      syrk_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long pairs = triangle_pairs(n, kTile);
+  syrk_bf16_wgmma_kernel<<<static_cast<unsigned>(pairs), kWgThreads, kWgSmemBytes,
+                           static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(c),
+                                                                rows, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int kf_syrk_bf16(const void* a, void* c, int rows, int n, void* stream) {
   if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long pairs = triangle_pairs(n, kTile);
   syrk_bf16_kernel<<<static_cast<unsigned>(pairs), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint16_t*>(a), static_cast<float*>(c), rows, n, vec);
+      static_cast<const uint16_t*>(a), static_cast<float*>(c), rows, n);
   return static_cast<int>(cudaGetLastError());
 }
 

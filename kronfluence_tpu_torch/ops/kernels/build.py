@@ -1,16 +1,20 @@
 """Builds the hand-written CUDA kernels and loads them with ctypes.
 
-The sources in `kronfluence_tpu_torch/csrc/` are compiled by `nvcc` for
-`sm_90a` into one shared library with a plain C interface, at first use, into
-`kronfluence_tpu_torch/_build/` (git-ignored). The file name carries a digest
-of the sources and flags, so an edited source is rebuilt and a built one is
-reused. Nothing here runs at import time: the CPU tests import every module.
+Each source in `kronfluence_tpu_torch/csrc/` is compiled by `nvcc` for
+`sm_90a` into its own object in `kronfluence_tpu_torch/_build/` (git-ignored),
+named by a digest of the source, the `csrc/` headers it includes and the
+compile flags. The objects are linked into one shared library with a plain C
+interface, named by a digest of its objects and the link flags. So an edit of
+one source recompiles that source alone and relinks; the other objects are
+reused. Everything is built at first use: nothing here runs at import time,
+and the CPU tests import every module.
 """
 
 import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -26,6 +30,7 @@ COMPILE_FLAGS = (
     "-Xptxas", "-v",
 )
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -42,11 +47,33 @@ def _nvcc() -> str:
     )
 
 
+def _local_headers(source: Path) -> list:
+    """The `csrc/` files that `source` includes with quotes, transitively."""
+    found, todo = [], [source]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop().read_bytes()):
+            header = CSRC_DIR / name.decode()
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def object_path(source: str) -> Path:
+    """Where `csrc/<source>` compiles to: the name carries a digest of the
+    source, its local headers and the compile flags."""
+    path = CSRC_DIR / source
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for part in [path, *_local_headers(path)]:
+        digest.update(part.name.encode())
+        digest.update(part.read_bytes())
+    return BUILD_DIR / f"{path.stem}_{digest.hexdigest()[:16]}.o"
+
+
 def library_path() -> Path:
-    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
-        digest.update(name.encode())
-        digest.update((CSRC_DIR / name).read_bytes())
+    digest = hashlib.sha256(" ".join(LINK_FLAGS).encode())
+    for source in SOURCES:
+        digest.update(object_path(source).name.encode())
     return BUILD_DIR / f"libkf_kernels_{digest.hexdigest()[:16]}.so"
 
 
@@ -54,45 +81,58 @@ def build_log_path() -> Path:
     return library_path().with_suffix(".log")
 
 
+def _compile_missing() -> tuple:
+    """Compiles every source whose object is not built yet, one `nvcc -c`
+    each, all started together. Returns the failures and the sources'
+    logs (each object keeps its own log beside it)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for source in SOURCES:
+        obj = object_path(source)
+        if not obj.exists():
+            tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
+            jobs[source] = (obj, tmp, subprocess.Popen(
+                [_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(tmp), str(CSRC_DIR / source)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+    failed = []
+    for source, (obj, tmp, proc) in jobs.items():
+        obj.with_suffix(".log").write_text(f"== {source}\n{proc.communicate()[0]}")
+        if proc.returncode == 0:
+            os.replace(tmp, obj)
+        else:
+            tmp.unlink(missing_ok=True)
+            failed.append((source, proc.returncode))
+    logs = []
+    for source in SOURCES:
+        log = object_path(source).with_suffix(".log")
+        logs.append(log.read_text() if log.exists() else f"== {source}\n(no log)\n")
+    return failed, "".join(logs)
+
+
 def build_library() -> Path:
-    """Compiles csrc/ into the shared library unless it is already built: one
-    `nvcc -c` per source, all started together, then one link."""
+    """Compiles the sources whose objects are missing, then links the
+    library unless it is already built."""
     path = library_path()
     if path.exists():
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    nvcc = _nvcc()
-    objects = [tmp.with_name(f"{tmp.name}.{Path(s).stem}.o") for s in SOURCES]
-    procs = [
-        subprocess.Popen(
-            [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(CSRC_DIR / src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        for src, obj in zip(SOURCES, objects)
-    ]
-    logs, failed = [], []
-    for src, proc in zip(SOURCES, procs):
-        out = proc.communicate()[0]
-        logs.append(f"== {src}\n{out}")
-        if proc.returncode != 0:
-            failed.append((src, proc.returncode))
+    failed, text = _compile_missing()
     if not failed:
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        objects = [str(object_path(source)) for source in SOURCES]
         link = subprocess.run(
-            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)],
+            [_nvcc(), *LINK_FLAGS, "-o", str(tmp), *objects],
             capture_output=True, text=True, check=False,
         )
-        logs.append(f"== link\n{link.stdout}{link.stderr}")
-        if link.returncode != 0:
+        text += f"== link\n{link.stdout}{link.stderr}"
+        if link.returncode == 0:
+            os.replace(tmp, path)
+        else:
+            tmp.unlink(missing_ok=True)
             failed.append(("link", link.returncode))
-    for obj in objects:
-        obj.unlink(missing_ok=True)
-    text = "".join(logs)
     build_log_path().write_text(text)
     if failed:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed ({failed}):\n{text[-6000:]}")
-    os.replace(tmp, path)
     return path
 
 
@@ -104,10 +144,14 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.kf_probe_add_one.argtypes = [ptr, ptr, i32, ptr]
     lib.kf_probe_add_one.restype = i32
-    for name in ("kf_syrk_bf16", "kf_syrk_f32"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ptr, ptr, i32, i32, i32, ptr]
-        fn.restype = i32
+    lib.kf_syrk_bf16_wgmma.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.kf_syrk_bf16_wgmma.restype = i32
+    lib.kf_syrk_bf16_wgmma_smem_bytes.argtypes = []
+    lib.kf_syrk_bf16_wgmma_smem_bytes.restype = i32
+    lib.kf_syrk_bf16.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.kf_syrk_bf16.restype = i32
+    lib.kf_syrk_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.kf_syrk_f32.restype = i32
     lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
     lib.kf_jacobi_pivot_rotations.restype = i32
     f32 = ctypes.c_float
@@ -126,6 +170,7 @@ def load_library() -> ctypes.CDLL:
 
 
 def check_launch(err: int, kernel: str) -> None:
-    """Raises if a C launcher reported a CUDA error."""
+    """Raises if a C launcher reported an error: a CUDA error code, or for the
+    wgmma syrk a negative `cuTensorMapEncodeTiled` result."""
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}.")

@@ -19,16 +19,22 @@ def probe_reference(src: torch.Tensor) -> torch.Tensor:
     return src + 1.0
 
 
+def launch_probe(lib: ctypes.CDLL, src: torch.Tensor, dst: torch.Tensor) -> None:
+    """Launches the probe kernel from `lib` on the current stream of `src`'s
+    device: `dst = src + 1`, without a synchronize."""
+    stream = torch.cuda.current_stream(src.device).cuda_stream
+    err = lib.kf_probe_add_one(src.data_ptr(), dst.data_ptr(), src.numel(), stream)
+    check_launch(err, "probe")
+    probe.launches += 1
+
+
 def run_probe(lib: ctypes.CDLL, device: torch.device) -> torch.Tensor:
     """Launches the probe kernel from `lib` on `device`, checks and returns
     its output."""
     with torch.cuda.device(device):
         src = torch.zeros(PROBE_SHAPE, dtype=torch.float32, device=device)
         dst = torch.empty_like(src)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.kf_probe_add_one(src.data_ptr(), dst.data_ptr(), src.numel(), stream)
-        check_launch(err, "probe")
-        probe.launches += 1
+        launch_probe(lib, src, dst)
         torch.cuda.synchronize(device)
     if not bool(torch.all(dst == 1.0)):
         raise RuntimeError(

@@ -1,13 +1,17 @@
 """K1: `flat^T @ flat` over lower-triangle tiles, hand-written for Hopper.
 
-Port of `kronfluence_tpu/ops/pallas/syrk.py`. The CUDA kernel
-(`csrc/syrk.cu`) computes only the lower-triangle output tiles and writes each
+Port of `kronfluence_tpu/ops/pallas/syrk.py`. The CUDA kernels
+(`csrc/syrk.cu`) compute only the lower-triangle output tiles and write each
 tile and its mirror from one set of fp32 sums, so the result is exactly
-symmetric. `syrk` launches it for a CUDA tensor and takes the plain version
-`syrk_reference` only for a CPU tensor; for a CUDA tensor it launches the
-kernel or raises. `syrk.launches` counts the kernel's launches.
+symmetric. `syrk` launches one for a CUDA tensor and takes the plain version
+`syrk_reference` only for a CPU tensor; for a CUDA tensor it launches a
+kernel or raises. A bf16 operand goes to the wgmma kernel fed by TMA when
+`bf16_route` says TMA can describe it, else to the wmma kernel; fp32 to the
+FMA kernel. `syrk.launches` counts every launch, `syrk.wgmma_launches` the
+launches of the wgmma kernel.
 """
 
+import numpy as np
 import torch
 
 from kronfluence_tpu_torch.ops.kernels.build import check_launch, load_library
@@ -20,6 +24,10 @@ _TILE_N = 512
 _MIN_TILES = 4
 
 
+# Output tile edge of the CUDA kernels' bf16 triangle (`csrc/syrk.cu:kTile`).
+TILE = 128
+
+
 def _round_up(value: int, gran: int) -> int:
     return -(-value // gran) * gran
 
@@ -30,6 +38,37 @@ def syrk_supported(n: int, accum_dtype, tile_n: int = _TILE_N) -> bool:
         resolve_dtype(accum_dtype) == torch.float32
         and _round_up(n, tile_n) // tile_n >= _MIN_TILES
     )
+
+
+def bf16_route(n: int, data_ptr: int) -> str:
+    """The bf16 kernel a contiguous (rows, n) operand at `data_ptr` takes:
+    "wgmma" when a TMA tensor map can describe it (a row stride of whole
+    16-byte units, so n % 8 == 0, and a 16-byte aligned base), else "wmma"."""
+    return "wgmma" if n % 8 == 0 and data_ptr % 16 == 0 else "wmma"
+
+
+def tile_pair(p: int) -> tuple:
+    """The (i, j <= i) lower-triangle tile of CTA `p`, computed as the kernels'
+    `tile_pair` computes it (fp32 square root, then exact integer steps)."""
+    f32 = np.float32
+    i = int((np.sqrt(f32(8) * f32(p) + f32(1)) - f32(1)) * f32(0.5))
+    while i > 0 and i * (i + 1) // 2 > p:
+        i -= 1
+    while (i + 1) * (i + 2) // 2 <= p:
+        i += 1
+    return i, p - i * (i + 1) // 2
+
+
+def triangle_tiles(n: int, tile: int = TILE) -> int:
+    """CTAs of one bf16 launch at width n: the lower triangle's tiles."""
+    t = -(-n // tile)
+    return t * (t + 1) // 2
+
+
+def wgmma_smem_bytes() -> int:
+    """Dynamic shared memory of one CTA of the wgmma kernel (builds and loads
+    the kernels on first use)."""
+    return int(load_library().kf_syrk_bf16_wgmma_smem_bytes())
 
 
 def syrk_reference(flat: torch.Tensor, accum_dtype=torch.float32) -> torch.Tensor:
@@ -67,16 +106,19 @@ def syrk(flat: torch.Tensor, accum_dtype=torch.float32) -> torch.Tensor:
         lib = load_library()
         out = torch.empty((n, n), dtype=torch.float32, device=flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
-        aligned = flat.data_ptr() % 16 == 0
+        wgmma = False
         if flat.dtype == torch.bfloat16:
-            vec = int(aligned and n % 8 == 0)
-            err = lib.kf_syrk_bf16(flat.data_ptr(), out.data_ptr(), rows, n, vec, stream)
+            wgmma = bf16_route(n, flat.data_ptr()) == "wgmma"
+            launch = lib.kf_syrk_bf16_wgmma if wgmma else lib.kf_syrk_bf16
+            err = launch(flat.data_ptr(), out.data_ptr(), rows, n, stream)
         else:
-            vec = int(aligned and n % 4 == 0)
+            vec = int(flat.data_ptr() % 16 == 0 and n % 4 == 0)
             err = lib.kf_syrk_f32(flat.data_ptr(), out.data_ptr(), rows, n, vec, stream)
         check_launch(err, "syrk")
     syrk.launches += 1
+    syrk.wgmma_launches += wgmma
     return out
 
 
 syrk.launches = 0
+syrk.wgmma_launches = 0

@@ -2,9 +2,13 @@
 
 On the CPU the port's wrappers take their plain versions, so these tests hold
 the plain versions against the JAX Pallas kernel (interpret mode) and check
-the dispatch rules. The CUDA kernels themselves are compared with the plain
-versions on the card by chip_smoke.py and by the `cuda`-marked tests below.
+the dispatch rules, the kernels' triangle enumeration and the per-source
+build. The CUDA kernels themselves are compared with the plain versions on
+the card by chip_smoke.py and by the `cuda`-marked tests below.
 """
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +18,17 @@ import torch
 from kronfluence_tpu.ops.pallas.syrk import syrk as jax_syrk
 from kronfluence_tpu.ops.pallas.syrk import syrk_supported as jax_syrk_supported
 from kronfluence_tpu_torch.ops.covariance import bordered_gram, gram
+from kronfluence_tpu_torch.ops.kernels import build
 from kronfluence_tpu_torch.ops.kernels.probe import PROBE_SHAPE, probe, probe_reference
-from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference, syrk_supported
+from kronfluence_tpu_torch.ops.kernels.syrk import (
+    TILE,
+    bf16_route,
+    syrk,
+    syrk_reference,
+    syrk_supported,
+    tile_pair,
+    triangle_tiles,
+)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -56,12 +69,57 @@ def test_gpt2_widths_route_as_in_jax():
     assert not syrk_supported(769, torch.float32)
 
 
+@pytest.mark.parametrize(
+    "n,route",
+    [
+        # GPT-2 small's gram widths (2304 and 3072 reach K1) and their
+        # bias-augmented twins.
+        (768, "wgmma"), (769, "wmma"), (2304, "wgmma"), (3072, "wgmma"), (3073, "wmma"),
+        # Ragged widths: TMA needs a row stride of whole 16-byte units.
+        (2000, "wgmma"), (904, "wgmma"), (1001, "wmma"), (1004, "wmma"), (1020, "wmma"),
+    ],
+)
+def test_bf16_route_by_width(n, route):
+    """An aligned operand takes the wgmma kernel exactly when n % 8 == 0."""
+    a = torch.empty((4, n), dtype=torch.bfloat16)
+    assert a.data_ptr() % 16 == 0
+    assert bf16_route(n, a.data_ptr()) == route
+
+
+@pytest.mark.parametrize("offset,route", [(0, "wgmma"), (1, "wmma"), (4, "wmma"), (8, "wgmma")])
+def test_bf16_route_of_an_offset_view(offset, route):
+    """A contiguous view that starts `offset` bf16 elements into its storage
+    is 16-byte aligned only at multiples of 8 elements."""
+    rows, n = 16, 3072
+    base = torch.empty(rows * n + 8, dtype=torch.bfloat16)
+    view = base[offset:offset + rows * n].view(rows, n)
+    assert view.is_contiguous() and view.data_ptr() == base.data_ptr() + 2 * offset
+    assert bf16_route(n, view.data_ptr()) == route
+
+
+def test_tile_pair_covers_the_lower_triangle_once():
+    """CTA p's tile, as the kernels compute it: for every tile count T up to
+    64, the T(T+1)/2 CTAs take each (i, j <= i) exactly once, row by row."""
+    for t in range(1, 65):
+        got = [tile_pair(p) for p in range(t * (t + 1) // 2)]
+        assert got == [(i, j) for i in range(t) for j in range(i + 1)], t
+
+
+@pytest.mark.parametrize("n,tiles", [(3072, 300), (2304, 171), (2000, 136), (1001, 36), (128, 1)])
+def test_triangle_tiles(n, tiles):
+    assert triangle_tiles(n) == tiles
+    assert triangle_tiles(n) == len({tile_pair(p) for p in range(tiles)})
+    assert TILE == 128
+
+
 def test_cpu_tensor_takes_plain_path_and_counts_nothing():
-    before = syrk.launches
+    before, wgmma_before = syrk.launches, syrk.wgmma_launches
     a = torch.from_numpy(np.random.default_rng(1).standard_normal((64, 2048)).astype(np.float32))
     got = syrk(a, torch.float32)
     via_gram = gram(a, torch.float32)  # 2048 passes the shape rule
+    syrk(a.to(torch.bfloat16))
     assert syrk.launches == before
+    assert syrk.wgmma_launches == wgmma_before
     want = a.double().T @ a.double()
     np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-4, atol=1e-3)
     assert torch.equal(via_gram, got)
@@ -92,20 +150,29 @@ def test_probe_plain_version():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["normal", "abs"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("rows,n", [(8192, 3072), (1000, 2000), (300, 1001)])
-def test_cuda_syrk_matches_plain_version(rows, n, dtype):
-    """Card only: exact symmetry, and |kernel - plain| <= 1e-4 max|C| +
-    1e-4 |plain| (fp32 sums of exact products in another order)."""
+@pytest.mark.parametrize("rows,n", [(8192, 3072), (8192, 2304), (1000, 2000), (300, 1001)])
+def test_cuda_syrk_matches_plain_version(rows, n, dtype, kind):
+    """Card only: a bf16 operand takes the kernel `bf16_route` names (by the
+    wgmma counter: the wgmma kernel at n % 8 == 0, else wmma); C is exactly
+    symmetric, and |kernel - plain| <= 1e-4 max|C| + 1e-4 |plain| (fp32 sums
+    of exact products in another order), also on a positive-mean input
+    (|normal|, as post-GELU activations are), whose off-diagonal entries are
+    about as large as its diagonal."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CPU runs the plain version only")
     gen = torch.Generator("cuda").manual_seed(0)
-    a = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
-    before = syrk.launches
+    a = torch.randn(rows, n, generator=gen, device="cuda")
+    a = (a.abs() if kind == "abs" else a).to(dtype)
+    wgmma = dtype == torch.bfloat16 and bf16_route(n, a.data_ptr()) == "wgmma"
+    assert wgmma == (dtype == torch.bfloat16 and n % 8 == 0)
+    before, wgmma_before = syrk.launches, syrk.wgmma_launches
     got = syrk(a)
     want = syrk_reference(a)
     torch.cuda.synchronize()
     assert syrk.launches == before + 1
+    assert syrk.wgmma_launches == wgmma_before + wgmma
     assert torch.equal(got, got.T)
     assert bool(((got - want).abs() <= 1e-4 * want.abs().max() + 1e-4 * want.abs()).all())
 
@@ -117,3 +184,83 @@ def test_cuda_probe_runs():
     before = probe.launches
     assert torch.equal(probe("cuda").cpu(), torch.ones(PROBE_SHAPE))
     assert probe.launches == before + 1
+
+
+# The per-source build, driven by a stand-in for nvcc that writes its -o file
+# and logs what it compiled.
+_FAKE_NVCC = """import sys
+from pathlib import Path
+args = sys.argv[1:]
+out = Path(args[args.index("-o") + 1])
+with open(Path(__file__).with_name("calls.txt"), "a") as f:
+    f.write((args[-1] if "-c" in args else "link") + "\\n")
+if "-c" in args and "#error" in Path(args[-1]).read_text():
+    print("ptxas fatal: planted error")
+    sys.exit(1)
+out.write_text("built")
+"""
+
+
+@pytest.fixture
+def fake_build(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "common.cuh").write_text("// shared\n")
+    (csrc / "a.cu").write_text('#include "common.cuh"\n// a\n')
+    (csrc / "b.cu").write_text("#include <cuda_runtime.h>\n// b\n")
+    nvcc = tmp_path / "nvcc.py"
+    nvcc.write_text(_FAKE_NVCC)
+    script = tmp_path / "nvcc"
+    script.write_text(f"#!/bin/sh\nexec {sys.executable} {nvcc} \"$@\"\n")
+    script.chmod(0o755)
+    monkeypatch.setattr(build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "SOURCES", ("a.cu", "b.cu"))
+    monkeypatch.setattr(build, "_nvcc", lambda: str(script))
+
+    def calls():
+        path = tmp_path / "calls.txt"
+        lines = path.read_text().split() if path.exists() else []
+        path.unlink(missing_ok=True)
+        return [Path(line).name for line in lines]
+
+    return csrc, calls
+
+
+def test_object_names_follow_source_headers_and_flags(fake_build, monkeypatch):
+    csrc, _ = fake_build
+    a, b, lib = build.object_path("a.cu"), build.object_path("b.cu"), build.library_path()
+    assert a.name.startswith("a_") and b.name.startswith("b_") and a.suffix == ".o"
+    (csrc / "b.cu").write_text("// b, edited\n")
+    assert build.object_path("a.cu") == a and build.object_path("b.cu") != b
+    assert build.library_path() != lib
+    b = build.object_path("b.cu")
+    (csrc / "common.cuh").write_text("// shared, edited\n")
+    assert build.object_path("a.cu") != a and build.object_path("b.cu") == b
+    monkeypatch.setattr(build, "COMPILE_FLAGS", build.COMPILE_FLAGS + ("-DX",))
+    assert build.object_path("b.cu") != b
+
+
+def test_build_recompiles_only_the_edited_source(fake_build):
+    csrc, calls = fake_build
+    first = build.build_library()
+    assert first.exists() and sorted(calls()) == ["a.cu", "b.cu", "link"]
+    assert build.build_library() == first and calls() == []
+    (csrc / "b.cu").write_text("// b, edited\n")
+    second = build.build_library()
+    assert second != first and calls() == ["b.cu", "link"]
+    log = build.build_log_path().read_text()
+    assert "== a.cu" in log and "== b.cu" in log and "== link" in log
+
+
+def test_build_failure_raises_with_the_log_and_keeps_good_objects(fake_build):
+    csrc, calls = fake_build
+    (csrc / "b.cu").write_text("#error planted\n")
+    with pytest.raises(RuntimeError, match="planted error"):
+        build.build_library()
+    assert sorted(calls()) == ["a.cu", "b.cu"]
+    assert build.object_path("a.cu").exists() and not build.object_path("b.cu").exists()
+    assert not build.library_path().exists()
+    (csrc / "b.cu").write_text("// b, fixed\n")
+    build.build_library()
+    assert calls() == ["b.cu", "link"]
