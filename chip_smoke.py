@@ -45,19 +45,24 @@ each of which raises on failure:
   9. flash kernels: F1 (forward), F2 (dK, dV) and F3 (dQ) against their
      plain versions at every position of O, dQ, dK, dV: at the flash path's
      shape (B 16, H 12, T 512, D 64, bf16, padded mask), at D 128 and 256 in
-     bf16, in fp32 at D 64, and at T 128 without padding; median times beside
+     bf16, in fp32 at D 64, and at T 128 without padding; FB (the fused
+     backward, dQ, dK and dV in one launch) against its plain version at the
+     bf16 D 64 cases, where `backward_route` takes it; median times beside
      the plain versions, F.scaled_dot_product_attention (the library
-     yardstick), the naive form and the bound;
+     yardstick; for FB its backward alone), the naive form and the bound, and
+     FB against F2+F3 in turns;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). F1
      must launch 12 times per model forward (passes and discovery forwards),
-     F2 and F3 12 times per forward+backward pass, the naive form never, K1
-     36 times per covariance batch on the wgmma kernel; the covariance
-     factors are held against phase 5's and the scores' Pearson r against
-     phase 5's bf16 scores;
+     FB 12 times per forward+backward pass, F2 and F3 and the naive form
+     never, K1 36 times per covariance batch on the wgmma kernel; the
+     covariance factors are held against phase 5's and the scores' Pearson r
+     against phase 5's bf16 scores; covariance and lambda are timed in turns
+     with the naive form and with the backward on each route;
  11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
-     T 128, padded data): F1-F3 on the card, their plain versions on the CPU.
+     T 128, padded data), in fp32: F1, F2 and F3 (the split route) on the
+     card, FB never, their plain versions on the CPU.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -76,6 +81,13 @@ kernel as built (kStages 4, one CTA an SM) in turns against copies of
 csrc/syrk.cu built alone with kStages 3 (two CTAs an SM, and one) and, for
 timing only, one whose every tile loads a single stripe as a diagonal tile
 does (its results are wrong; it shows what the stripe loads cost).
+
+`python3 chip_smoke.py --profile-flash` instead times FB as built (64-key
+tile, 4 warps) in turns against copies of csrc/flash_backward.cu built alone
+with a 128-key tile (held to the same bf16 limit first) and, for timing only,
+without the dQ atomics (its dQ is wrong; it shows what the atomics cost),
+against F2+F3 and against the wrapper's zeroing and cast of the fp32 dQ sum
+alone, at the flash path's shape.
 """
 
 import copy
@@ -217,6 +229,23 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, names=None, calls: int = 20) -> float:
+    """Device time per call of the kernels whose names hold one of `names`,
+    or of every kernel the call launches (torch.profiler's CUDA activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (names is None or any(n in e.key for n in names)))
+    return us / calls / 1e3
 
 
 def phase_device() -> str:
@@ -595,12 +624,14 @@ def setup_main_path() -> dict:
 
 def flash_kernels():
     from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward,
         flash_backward_dkv,
         flash_backward_dq,
         flash_forward,
     )
 
-    return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq}
+    return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
+            "FB": flash_backward}
 
 
 def phase_main_path(card: str) -> dict:
@@ -721,10 +752,12 @@ def padded_segments(b: int, t: int, padded: bool, device) -> torch.Tensor:
 
 
 def flash_work(seg: torch.Tensor, heads: int, d: int, itemsize: int):
-    """(query-key pairs the mask keeps, F1 / F2 / F3 bytes and FLOPs) of one
-    call: every operand read once and every output written once; QK^T and
-    P V take 4 D FLOPs a kept pair (F1), F2 8 D (S^T, dP^T, dV, dK), F3 6 D
-    (S, dP, dQ)."""
+    """(query-key pairs the mask keeps, F1 / F2 / F3 / FB bytes and FLOPs) of
+    one call: every operand read once and every output written once (FB's dQ
+    in the operands' type, as the function returns it; the fp32 sum FB adds
+    into is its design's cost, not the function's); QK^T and P V take 4 D FLOPs a kept pair
+    (F1), F2 8 D (S^T, dP^T, dV, dK), F3 6 D (S, dP, dQ), FB 10 D (S, dP, dV,
+    dK, dQ, each once)."""
     b, t = seg.shape
     causal = torch.ones(t, t, dtype=torch.bool, device=seg.device).tril()
     pairs = heads * int((causal & (seg[:, :, None] == seg[:, None, :])).sum())
@@ -735,6 +768,7 @@ def flash_work(seg: torch.Tensor, heads: int, d: int, itemsize: int):
         "F1": (3 * block + block + 2 * stat + segb, 4.0 * d * pairs),
         "F2": (4 * block + 3 * stat + segb + 2 * block, 8.0 * d * pairs),
         "F3": (4 * block + 3 * stat + segb + block, 6.0 * d * pairs),
+        "FB": (4 * block + 3 * stat + segb + 3 * block, 10.0 * d * pairs),
     }
 
 
@@ -778,16 +812,20 @@ def dropped_block(q, k, v, seg, l, m, do, di, scale, block) -> dict:
 def phase_flash_kernels(card: str) -> dict:
     from kronfluence_tpu_torch.ops.attention import FlashAttention, naive_attention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
+        backward_route,
+        flash_backward,
         flash_backward_dkv,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_reference,
+        flash_backward_reference,
         flash_forward,
         flash_forward_reference,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0}
-    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3"}
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FB": 0.0}
+    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3",
+             "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
         gen = torch.Generator("cuda").manual_seed(b * t + d)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -801,45 +839,56 @@ def phase_flash_kernels(card: str) -> dict:
         ro, rl, rm = flash_forward_reference(q, k, v, seg, scale)
         rdk, rdv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
         rdq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
+        got = {"O": o, "dQ": dq, "dK": dk, "dV": dv}
+        want = {"O": ro, "dQ": rdq, "dK": rdk, "dV": rdv}
+        fused = backward_route(dtype, d) == "fused"
+        if fused:
+            # FB against its own plain version (computed on the same inputs).
+            for name, x, y in zip(("dQ", "dK", "dV"),
+                                  flash_backward(q, k, v, seg, l, m, do, di, scale),
+                                  flash_backward_reference(q, k, v, seg, l, m, do, di, scale)):
+                got[f"FB {name}"], want[f"FB {name}"] = x, y
         torch.cuda.synchronize()
         bf16 = dtype == torch.bfloat16
         measure, tol = (bf16_units, FLASH_BF16_UNITS) if bf16 else (relative_to_max, FLASH_FP32_TOL)
-        want = {"O": ro, "dQ": rdq, "dK": rdk, "dV": rdv}
         errs = {}
-        for name, got, ref, check, limit in (
-            *((n, g, want[n], measure, tol) for n, g in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv))),
+        for name, x, ref, check, limit in (
+            *((n, got[n], want[n], measure, tol) for n in got),
             ("l", l, rl, relative_to_max, FLASH_STATS_TOL), ("m", m, rm, relative_to_max, FLASH_STATS_TOL),
         ):
-            if not bool(torch.isfinite(got.float()).all()):
+            if not bool(torch.isfinite(x.float()).all()):
                 raise RuntimeError(f"flash {name} is not finite at {(b, h, t, d, dtype)}")
-            errs[name] = check(got, ref)
+            errs[name] = check(x, ref)
             if name in owner:
                 abs_errs[owner[name]] = max(abs_errs[owner[name]],
-                                            float((got.float() - ref.float()).abs().max()))
+                                            float((x.float() - ref.float()).abs().max()))
             if not errs[name] <= limit:
                 raise RuntimeError(f"flash {name} off its plain version at {(b, h, t, d, dtype)}: "
                                    f"{errs[name]:.3e} (limit {limit:g})")
         label = f"B {b} H {h} T {t} D {d} {str(dtype).split('.')[-1]}{' padded' if padded else ''}"
         how = "bf16 units of the row scale" if bf16 else "max |kernel - plain| / max |plain|"
-        log(f"flash {label}: O, dQ, dK, dV in {how}, l, m relative to max: " + ", ".join(
-            f"{k_} {v_:.3g}" for k_, v_ in errs.items()) + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g})")
+        log(f"flash {label}: O, dQ, dK, dV{' (F1-F3), FB dQ, dK, dV' if fused else ''} in {how}, "
+            f"l, m relative to max: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+            + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g}); backward route {backward_route(dtype, d)}")
         if (b, h, t, d, dtype) != (16, 12, 512, 64, torch.bfloat16):
             continue
 
         # The check must catch a skipped tile: the plain version without one
-        # block of P, held to the same limit, must fail it for every output.
+        # block of P, held to the same limit, must fail it for every output,
+        # against F1-F3's plain versions and against FB's.
         fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
-        fault_units = {name: bf16_units(fault[name], want[name]) for name in want}
+        fault_units = {name: bf16_units(fault[name.split()[-1]], want[name]) for name in want}
         sound_worst = max(errs[name] for name in want)
         log(f"flash {label}: planted fault (one 64 x 64 block of P left out, rows 384-447, keys "
-            f"192-255) against the plain version, bf16 units: " + ", ".join(
+            f"192-255) against the plain versions, bf16 units: " + ", ".join(
                 f"{k_} {v_:.3g}" for k_, v_ in fault_units.items())
             + f"; the kernels' worst here {sound_worst:.3g}; limit {tol:g}")
         if not min(fault_units.values()) > tol:
             raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile: {fault_units}")
         del fault
 
-        # Times at the flash path's shape: plain, kernel, kernel, plain.
+        # Times at the flash path's shape: plain, kernel, kernel, plain; FB
+        # against the split route F2 + F3 in turns.
         def f1():
             return flash_forward(q, k, v, seg, scale)
 
@@ -849,10 +898,19 @@ def phase_flash_kernels(card: str) -> dict:
         def f3():
             return flash_backward_dq(q, k, v, seg, l, m, do, di, scale)
 
-        def bwd():
+        def fb():
+            return flash_backward(q, k, v, seg, l, m, do, di, scale)
+
+        def split():
+            return f2(), f3()
+
+        def bwd_split():
             d_i = output_dot(o, do)
             flash_backward_dkv(q, k, v, seg, l, m, do, d_i, scale)
             flash_backward_dq(q, k, v, seg, l, m, do, d_i, scale)
+
+        def bwd():  # what FlashAttention.backward runs at this shape
+            flash_backward(q, k, v, seg, l, m, do, output_dot(o, do), scale)
 
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
 
@@ -871,6 +929,11 @@ def phase_flash_kernels(card: str) -> dict:
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
             torch.autograd.grad(out, leaves, do)
 
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
+
+        def sdpa_bwd():  # SDPA's backward alone, on one retained forward
+            torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
+
         att = (seg > 0).to(torch.int32)
 
         def naive_fwd_bwd():
@@ -881,42 +944,68 @@ def phase_flash_kernels(card: str) -> dict:
             "F1": lambda: flash_forward_reference(q, k, v, seg, scale),
             "F2": lambda: flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale),
             "F3": lambda: flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale),
+            "FB": lambda: flash_backward_reference(q, k, v, seg, l, m, do, di, scale),
         }
-        kernel = {"F1": f1, "F2": f2, "F3": f3}
+        kernel = {"F1": f1, "F2": f2, "F3": f3, "FB": fb}
         pairs, work = flash_work(seg, h, d, q.element_size())
         timing = {}
-        for name in ("F1", "F2", "F3"):
+        for name in ("F1", "F2", "F3", "FB"):
             p1 = median_ms(plain[name], iters=5, warmup=1)
+            s1 = median_ms(split) if name == "FB" else None
             k1 = median_ms(kernel[name])
             k2 = median_ms(kernel[name])
+            s2 = median_ms(split) if name == "FB" else None
             p2 = median_ms(plain[name], iters=5, warmup=1)
             bound, bound_by = roofline(*work[name], BF16_FLOPS)
             timing[name] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
-                                bound_by=bound_by, runs=(k1, k2, p1, p2))
+                                bound_by=bound_by, device_ms=device_ms(kernel[name]),
+                                runs=(k1, k2, p1, p2))
+            if name == "FB":
+                timing[name]["split_ms"] = (s1 + s2) / 2
+                timing[name]["split_runs"] = (s1, s2)
+                timing[name]["split_device_ms"] = device_ms(split)
+                timing[name]["kernel_device_ms"] = device_ms(fb, ("flash_bwd_fused_kernel",))
         extra = {
-            "F2+F3 with torch di": median_ms(bwd),
+            "F2+F3 with torch di": median_ms(bwd_split),
+            "FB with torch di (the Function's backward)": median_ms(bwd),
             "flash fwd+bwd (autograd Function)": median_ms(fwd_bwd),
             "SDPA fwd": median_ms(sdpa),
+            "SDPA bwd alone": median_ms(sdpa_bwd),
+            "SDPA bwd alone, device": device_ms(sdpa_bwd),
             "SDPA fwd+bwd": median_ms(sdpa_fwd_bwd),
             "naive fwd+bwd": median_ms(naive_fwd_bwd, iters=10),
         }
-        nbytes = work["F1"][0] + work["F2"][0] + work["F3"][0]
-        flops = work["F1"][1] + work["F2"][1] + work["F3"][1]
+        del sdpa_out
+        extra["host gap: Function fwd+bwd - (F1 + FB with torch di)"] = (
+            extra["flash fwd+bwd (autograd Function)"] - timing["F1"]["ms"]
+            - extra["FB with torch di (the Function's backward)"])
+        nbytes = work["F1"][0] + work["FB"][0]
+        flops = work["F1"][1] + work["FB"][1]
         extra["bound fwd+bwd"] = roofline(nbytes, flops, BF16_FLOPS)[0]
         for name, tm in timing.items():
             log(f"flash {name} at {label}: kernel {tm['ms']:.4f} ms ({tm['runs'][0]:.4f}, "
-                f"{tm['runs'][1]:.4f}), plain {tm['plain_ms']:.3f} ms ({tm['runs'][2]:.3f}, "
+                f"{tm['runs'][1]:.4f}; device {tm['device_ms']:.4f}), plain {tm['plain_ms']:.3f} ms ({tm['runs'][2]:.3f}, "
                 f"{tm['runs'][3]:.3f}), bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
                 f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP over {pairs:,} "
                 f"kept pairs) [{card}]")
+        fb_t = timing["FB"]
+        log(f"flash FB against F2+F3 in turns (plain, F2+F3, FB, FB, F2+F3, plain) at {label}: "
+            f"F2+F3 {fb_t['split_runs'][0]:.4f} / {fb_t['split_runs'][1]:.4f} ms, FB "
+            f"{fb_t['runs'][0]:.4f} / {fb_t['runs'][1]:.4f} ms (CUDA events around one call; FB "
+            f"includes the wrapper's zeroing of the fp32 dQ sum and its cast to bf16); device "
+            f"time per call (torch.profiler): F2+F3 {fb_t['split_device_ms']:.4f} ms, FB with "
+            f"the zeroing and cast {fb_t['device_ms']:.4f} ms, the FB kernel alone "
+            f"{fb_t['kernel_device_ms']:.4f} ms [{card}]")
         log(f"flash at {label}: " + ", ".join(f"{k_} {v_:.4f} ms" for k_, v_ in extra.items())
             + f" (CUDA-event medians; SDPA with the same boolean mask) [{card}]")
         timing["F1"]["library_ms"] = extra["SDPA fwd"]
+        timing["FB"]["library_ms"] = extra["SDPA bwd alone"]
         timing["F2"]["library_ms"] = timing["F3"]["library_ms"] = None
         for tm in timing.values():
             tm.pop("runs")
+            tm.pop("split_runs", None)
         timing["extra"] = extra
-    out = {name: dict(timing[name], max_abs_err=abs_errs[name]) for name in ("F1", "F2", "F3")}
+    out = {name: dict(timing[name], max_abs_err=abs_errs[name]) for name in ("F1", "F2", "F3", "FB")}
     out["extra"] = timing["extra"]
     return out
 
@@ -1138,7 +1227,8 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     passes = cov_b + lam_b + query_b + run["blocks"] * train_b
     forwards_only = 3 + 1
     layers = config.num_layers
-    want = {"F1": layers * (passes + forwards_only), "F2": layers * passes, "F3": layers * passes}
+    # bf16 at head_dim 64: the backward takes the fused route, FB, never F2 or F3.
+    want = {"F1": layers * (passes + forwards_only), "F2": 0, "F3": 0, "FB": layers * passes}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -1147,7 +1237,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want F1 {want['F1']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), F2 = F3 = {want['F2']}; naive attention calls {naive_calls}; syrk on "
+        f"forwards)), FB {want['FB']}, F2 = F3 = 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -1180,23 +1270,35 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     if not pearson >= FLASH_PEARSON_MIN:
         raise RuntimeError(f"flash path scores correlate with phase 5's at r {pearson:.4f}")
 
-    # The covariance and lambda stages of both models in turns (naive, flash,
-    # flash, naive) on the same data and eigenbasis: phase 5 ran first in the
+    # The covariance and lambda stages in turns on the same data and
+    # eigenbasis: the naive model, the flash model with its backward on the
+    # split route (F2 + F3), and on the fused route (FB, the rule's choice):
+    # naive, split, fused, fused, split, naive. Phase 5 ran first in the
     # process, so its stage seconds above are not a like-for-like comparison.
-    turns = {"naive": {"covariance": [], "lambda": []}, "flash": {"covariance": [], "lambda": []}}
-    for form in ("naive", "flash", "flash", "naive"):
-        m_ = ctx["model"] if form == "naive" else model
-        _, sec = _stage(fit_covariance_matrices_with_loader, m_, task,
-                        BatchLoader(data["cov"], COV_BATCH, device=device), ctx["factor_args"])
-        turns[form]["covariance"].append(sec)
-        _, sec = _stage(fit_lambda_matrices_with_loader, m_, task,
-                        BatchLoader(data["lambda"], LAMBDA_BATCH, device=device),
-                        ctx["factor_args"], eigen)
-        turns[form]["lambda"].append(sec)
-    log("stage seconds in turns (naive, flash, flash, naive): " + "; ".join(
-        f"{stage} naive {turns['naive'][stage][0]:.4f}/{turns['naive'][stage][1]:.4f}, flash "
-        f"{turns['flash'][stage][0]:.4f}/{turns['flash'][stage][1]:.4f}"
-        for stage in ("covariance", "lambda")) + f" [{card}]")
+    # The split turns replace the route rule for their duration only; the
+    # launch counts above are of the rule's own route.
+    from kronfluence_tpu_torch.ops import attention
+
+    rule = attention.backward_route
+    forms = ("naive", "flash split", "flash fused")
+    turns = {form: {"covariance": [], "lambda": []} for form in forms}
+    try:
+        for form in ("naive", "flash split", "flash fused", "flash fused", "flash split", "naive"):
+            attention.backward_route = (lambda dtype, d: "split") if form == "flash split" else rule
+            m_ = ctx["model"] if form == "naive" else model
+            _, sec = _stage(fit_covariance_matrices_with_loader, m_, task,
+                            BatchLoader(data["cov"], COV_BATCH, device=device), ctx["factor_args"])
+            turns[form]["covariance"].append(sec)
+            _, sec = _stage(fit_lambda_matrices_with_loader, m_, task,
+                            BatchLoader(data["lambda"], LAMBDA_BATCH, device=device),
+                            ctx["factor_args"], eigen)
+            turns[form]["lambda"].append(sec)
+    finally:
+        attention.backward_route = rule
+    log("stage seconds in turns (naive, flash split, flash fused, flash fused, flash split, "
+        "naive): " + "; ".join(f"{stage} " + ", ".join(
+            f"{form} {turns[form][stage][0]:.4f}/{turns[form][stage][1]:.4f}" for form in forms)
+            for stage in ("covariance", "lambda")) + f" [{card}]")
     return launches
 
 
@@ -1255,29 +1357,32 @@ K1_VARIANTS = {
 }
 
 
-def build_syrk_variant(index: int, replacements) -> ctypes.CDLL:
-    """csrc/syrk.cu with `replacements` applied, built alone into
-    _build/k1_variants/ and loaded."""
+def build_variant(source: str, index: int, replacements, argtypes: dict) -> ctypes.CDLL:
+    """csrc/<source> with `replacements` applied, built alone into
+    _build/variants/ and loaded with `argtypes` ({C function: argtypes})."""
     from kronfluence_tpu_torch.ops.kernels import build
 
-    src = (build.CSRC_DIR / "syrk.cu").read_text()
+    src = (build.CSRC_DIR / source).read_text()
     for old, new in replacements:
         if old not in src:
-            raise RuntimeError(f"csrc/syrk.cu no longer holds {old!r}")
+            raise RuntimeError(f"csrc/{source} no longer holds {old!r}")
         src = src.replace(old, new)
-    out = build.BUILD_DIR / "k1_variants"
+    out = build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
-    cu = out / f"syrk_variant_{index}.cu"
+    cu = out / f"{Path(source).stem}_variant_{index}.cu"
     cu.write_text(src)
     lib_path = cu.with_suffix(".so")
     done = subprocess.run([build._nvcc(), *build.COMPILE_FLAGS, "-shared", "-o", str(lib_path),
                            str(cu)], capture_output=True, text=True, timeout=600)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {cu.name}:\n{done.stdout[-3000:]}{done.stderr[-3000:]}")
+    for line in (done.stdout + done.stderr).splitlines():
+        if "Used" in line or "spill" in line:
+            log(f"    ptxas ({cu.name}): {line.split(':', 1)[-1].strip()}")
     lib = ctypes.CDLL(str(lib_path))
-    lib.kf_syrk_bf16_wgmma.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_void_p]
-    lib.kf_syrk_bf16_wgmma.restype = ctypes.c_int
+    for name, types in argtypes.items():
+        getattr(lib, name).argtypes = types
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -1315,7 +1420,9 @@ def profile_k1(card: str) -> None:
         f"{100 * k1_us / device_us:.1f}% of kernel time, {sum(e.count for e in k1)} kernel "
         f"launches ({syrk.launches} by its counter): " + ", ".join(e.key[:60] for e in k1))
 
-    variants = {name: build_syrk_variant(i, repl) for i, (name, repl) in enumerate(K1_VARIANTS.items())}
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    variants = {name: build_variant("syrk.cu", i, repl, {"kf_syrk_bf16_wgmma": [p, p, i32, i32, p]})
+                for i, (name, repl) in enumerate(K1_VARIANTS.items())}
     gen = torch.Generator("cuda").manual_seed(0)
     for rows, n in SYRK_MAIN_SHAPES:
         a = torch.randn(rows, n, generator=gen, device="cuda").to(torch.bfloat16)
@@ -1344,6 +1451,86 @@ def profile_k1(card: str) -> None:
             + f"; torch.mm(..., out_dtype=fp32) {lib_ms:.4f} ms [{card}]")
 
 
+# Copies of csrc/flash_backward.cu for `--profile-flash`: name -> text replacements.
+_FB_ATOMICS = """      atomicAdd(reinterpret_cast<float2*>(dq_rows + n * 8), make_float2(dq_acc[n][0], dq_acc[n][1]));
+      atomicAdd(reinterpret_cast<float2*>(dq_rows + 8 * kD + n * 8),
+                make_float2(dq_acc[n][2], dq_acc[n][3]));"""
+FB_VARIANTS = {
+    "128-key tile (8 warps, no register cap)": (
+        ("constexpr int kKeyTile = 64;", "constexpr int kKeyTile = 128;"),
+        ("__global__ void __launch_bounds__(kThreads, 3)", "__global__ void __launch_bounds__(kThreads)")),
+    # dQ is computed but never added (one store no input reaches): what the
+    # atomics cost.
+    "no dQ atomics (timing only)": ((_FB_ATOMICS, """      if (dq_acc[n][0] + dq_acc[n][1] + dq_acc[n][2] + dq_acc[n][3] == 1.0e38f) dq_rows[n * 8] = 0.f;"""),),
+}
+
+
+def profile_flash(card: str) -> None:
+    """FB as built (64-key tile) against FB_VARIANTS and F2+F3 at the flash
+    path's shape, in turns, after holding each variant to the bf16 limit."""
+    from kronfluence_tpu_torch.ops.attention import output_dot
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward,
+        flash_backward_dkv,
+        flash_backward_dq,
+        flash_backward_reference,
+        flash_forward,
+    )
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    variants = {name: build_variant("flash_backward.cu", i, repl,
+                                    {"kf_flash_bwd_fused": [*[p] * 11, i32, i32, i32, i32, f32, p]})
+                for i, (name, repl) in enumerate(FB_VARIANTS.items())}
+    b, h, t, d = FLASH_CASES[0][:4]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    seg = padded_segments(b, t, True, "cuda")
+    scale = d ** -0.5
+    o, l, m = flash_forward(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    want = flash_backward_reference(q, k, v, seg, l, m, do, di, scale)
+
+    def launch(lib):
+        dq = torch.zeros((b, h, t, d), dtype=torch.float32, device="cuda")
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check_launch(lib.kf_flash_bwd_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), l.data_ptr(), m.data_ptr(),
+            do.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+            float(scale), torch.cuda.current_stream().cuda_stream), "FB variant")
+        return dq.to(torch.bfloat16), dk, dv
+
+    for name, lib in variants.items():
+        if "timing only" in name:
+            continue
+        units = [bf16_units(x, y) for x, y in zip(launch(lib), want)]
+        log(f"FB variant '{name}': dQ, dK, dV in bf16 units {[round(u, 3) for u in units]}")
+        if not max(units) <= FLASH_BF16_UNITS:
+            raise RuntimeError(f"the FB variant '{name}' disagrees with the plain version")
+    fb_kernel, split_kernels = ("flash_bwd_fused_kernel",), ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")
+    fns = {"as built (64-key tile, 4 warps, 3 CTAs an SM)": (lambda: flash_backward(q, k, v, seg, l, m, do, di, scale),
+                                               fb_kernel),
+           **{name: (lambda lib=lib: launch(lib), fb_kernel) for name, lib in variants.items()},
+           "F2+F3": (lambda: (flash_backward_dkv(q, k, v, seg, l, m, do, di, scale),
+                              flash_backward_dq(q, k, v, seg, l, m, do, di, scale)), split_kernels)}
+    # What the wrapper adds around the kernel: zeroing the fp32 dQ sum and
+    # casting it to bf16.
+    dq_sum = torch.zeros((b, h, t, d), dtype=torch.float32, device="cuda")
+    fns["wrapper's dQ zeroing + cast alone"] = (
+        lambda: (dq_sum.zero_(), dq_sum.to(torch.bfloat16)), ("fill", "elementwise", "copy"))
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(reversed(fns))):
+        for name in order:
+            fn, kernels = fns[name]
+            times[name].append((median_ms(fn), device_ms(fn, kernels)))
+    log(f"FB at B {b} H {h} T {t} D {d} bf16 padded, in turns (there and back); ms per call: "
+        f"one call between CUDA events (median), and the device time of the kernels named "
+        f"(torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+
 def _max_rel(got: dict, want: dict) -> float:
     """max over modules of max|got - want| / max|want| (per-module scale)."""
     worst = 0.0
@@ -1354,7 +1541,10 @@ def _max_rel(got: dict, want: dict) -> float:
     return worst
 
 
-def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False) -> None:
+def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False) -> dict:
+    """A small fp32 GPT-2 through the four stages on the card and on the CPU;
+    returns the card side's flash launches (every count zeroed just before
+    the card side runs). fp32 takes the split backward, F2 + F3."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -1399,7 +1589,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
         model = prepare_model(module.to(device), task)
         data = {k: {c: v.to(device) for c, v in cols.items()} for k, cols in host.items()}
         before = syrk.launches
-        flash_before = {name: fn.launches for name, fn in flash.items()}
+        for fn in flash.values():
+            fn.launches = 0
         cov = fit_covariance_matrices_with_loader(
             model, task, BatchLoader(data["cov"], 8, device=device), factor_args
         )
@@ -1419,7 +1610,7 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
             BatchLoader(data["train"], 8, device=device), {**cov, **shared, **lam},
             factor_args, score_args,
         )
-        flash_launches = {name: fn.launches - flash_before[name] for name, fn in flash.items()}
+        flash_launches = {name: fn.launches for name, fn in flash.items()}
         out[device.type] = (cov, eig, lam, scores, syrk.launches - before, flash_launches)
     cov_c, eig_c, lam_c, sc_c, _, cpu_flash = out["cpu"]
     cov_g, eig_g, lam_g, sc_g, k1_launches, card_flash = out["cuda"]
@@ -1445,11 +1636,14 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
-    if any(cpu_flash.values()) or (attention == "flash") != all(card_flash.values()):
-        raise RuntimeError(f"flash launches off: card {card_flash}, CPU {cpu_flash}")
+    split = {"F1", "F2", "F3"} if attention == "flash" else set()
+    if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
+        raise RuntimeError(f"flash launches off: card {card_flash} (want F1, F2, F3 with flash, "
+                           f"FB never: fp32 takes the split route), CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
         raise RuntimeError(f"card disagrees with the CPU reference: {bad}")
+    return card_flash
 
 
 def main() -> None:
@@ -1465,26 +1659,40 @@ def main() -> None:
     if sys.argv[1:] == ["--profile-k1"]:
         profile_k1(card)
         return
+    if sys.argv[1:] == ["--profile-flash"]:
+        profile_flash(card)
+        return
     if sys.argv[1:]:
-        raise SystemExit(f"usage: python3 chip_smoke.py [--profile-eigh | --profile-k1]; "
-                         f"got {sys.argv[1:]}")
+        raise SystemExit(f"usage: python3 chip_smoke.py [--profile-eigh | --profile-k1 | "
+                         f"--profile-flash]; got {sys.argv[1:]}")
     probe_result = phase_probe()
     syrk_result = phase_syrk(card)
     jacobi_result = phase_jacobi_kernel(card)
     flash_result = phase_flash_kernels(card)
     ctx = phase_main_path(card)
     launches = dict(ctx["launches"], jacobi=phase_jacobi_path(card, ctx))
-    launches.update({k: v for k, v in phase_flash_path(card, ctx).items() if k.startswith("F")})
+    # Each flash kernel's launches are those of its own path: F1 and FB from
+    # phase 10 (bf16, head_dim 64: the fused route), F2 and F3 from phase 11
+    # (fp32: the split route).
+    flash_path = phase_flash_path(card, ctx)
+    launches.update(F1=flash_path["F1"], FB=flash_path["FB"])
     del ctx
     phase_reference()
-    phase_reference(attention="flash", seq=128, padded=True)
+    split_path = phase_reference(attention="flash", seq=128, padded=True)
+    launches.update(F2=split_path["F2"], F3=split_path["F3"])
     flash_result["F1"]["timings_ms"] = flash_result.pop("extra")
-    # The repo's function that reaches the TPU kernels, and each Pallas kernel
-    # in JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py).
+    # The repo's function that reaches the TPU kernels, each Pallas kernel in
+    # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
+    # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
-        "F1": ("flash_forward", "flash_attention.py:589"),
-        "F2": ("flash_backward_dkv", "flash_attention.py:941"),
-        "F3": ("flash_backward_dq", "flash_attention.py:1287"),
+        "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
+               "phase 10 (flash path, bf16)"),
+        "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
+               "phase 11 (flash reference, fp32: split route)"),
+        "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
+               "phase 11 (flash reference, fp32: split route)"),
+        "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
+               "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
     }
     kernels = [
         {
@@ -1515,13 +1723,14 @@ def main() -> None:
         {
             "name": name,
             "route": "cuda",
-            "source": "kronfluence_tpu_torch/csrc/flash_attention.cu",
+            "source": f"kronfluence_tpu_torch/csrc/{source}",
             "replaces": "kronfluence_tpu/ops/attention.py:227",
-            "pallas_kernel": f"jax/experimental/pallas/ops/tpu/{where}",
+            "pallas_kernel": [f"jax/experimental/pallas/ops/tpu/{w}" for w in where],
             "launches": launches[fid],
+            "launches_from": path,
             **flash_result[fid],
         }
-        for fid, (name, where) in replaced.items()
+        for fid, (name, where, source, path) in replaced.items()
     ]
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

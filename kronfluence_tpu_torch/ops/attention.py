@@ -7,10 +7,12 @@ no switch, probe or fallback:
 
   * "naive" materialises the (B, H, T, T) scores and probabilities (the
     models' form, `_naive_attention`);
-  * "flash" runs the `FlashAttention` autograd Function: F1 forward, F2 and
-    F3 backward (`ops/kernels/flash.py`, `csrc/flash_attention.cu`) for CUDA
-    tensors, their plain versions for CPU tensors. A shape the kernels do not
-    take raises; it never falls back to the naive form.
+  * "flash" runs the `FlashAttention` autograd Function: F1 forward; the
+    backward is FB, one fused launch, for bf16 at head_dim 64 and F2 + F3
+    otherwise (`flash.backward_route`; `ops/kernels/flash.py`,
+    `csrc/flash_attention.cu`, `csrc/flash_backward.cu`) for CUDA tensors,
+    their plain versions for CPU tensors. A shape the kernels do not take
+    raises; it never falls back to the naive form.
 
 Mask semantics of the flash form are those of JAX's flash kernel: the
 attention mask becomes segment ids (q = kv = mask) under the causal bound,
@@ -27,10 +29,11 @@ import torch
 
 from kronfluence_tpu_torch.ops.kernels.flash import (
     HEAD_DIMS,
+    backward_route,
+    flash_backward,
     flash_backward_dkv,
-    flash_backward_dkv_reference,
     flash_backward_dq,
-    flash_backward_dq_reference,
+    flash_backward_reference,
     flash_forward,
     flash_forward_reference,
 )
@@ -79,13 +82,11 @@ def flash_attention_reference(q, k, v, attention_mask, sm_scale: Optional[float]
 def flash_attention_backward_reference(
     q, k, v, attention_mask, o, l, m, do, sm_scale: Optional[float] = None
 ):
-    """Plain F2 + F3, with di = rowsum(O∘dO) in fp32 (fp64 for fp64): (dQ, dK, dV)."""
+    """Plain backward (FB's plain version, bit for bit F2's and F3's), with
+    di = rowsum(O∘dO) in fp32 (fp64 for fp64): (dQ, dK, dV)."""
     scale = 1.0 / math.sqrt(q.shape[-1]) if sm_scale is None else sm_scale
     seg = segment_ids_for(attention_mask, q)
-    di = output_dot(o, do)
-    dk, dv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
-    dq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
-    return dq, dk, dv
+    return flash_backward_reference(q, k, v, seg, l, m, do, output_dot(o, do), scale)
 
 
 def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -96,7 +97,8 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: F1 forward; backward di, F2, F3."""
+    """Causal, segment-masked attention: F1 forward; backward di, then FB or
+    F2 + F3 as `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
@@ -111,8 +113,11 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, segment_ids, o, l, m = ctx.saved_tensors
         do = do.contiguous()
         di = output_dot(o, do)
-        dk, dv = flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
-        dq = flash_backward_dq(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+        if backward_route(q.dtype, q.shape[-1]) == "fused":
+            dq, dk, dv = flash_backward(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+        else:
+            dk, dv = flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+            dq = flash_backward_dq(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
         return dq, dk, dv, None, None
 
 

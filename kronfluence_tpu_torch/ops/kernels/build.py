@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention.cu", "jacobi.cu", "probe.cu", "syrk.cu")
+SOURCES = ("flash_attention.cu", "flash_backward.cu", "jacobi.cu", "probe.cu", "syrk.cu")
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
@@ -158,7 +158,8 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_fwd.argtypes = [i32, *[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dkv.argtypes = [i32, *[ptr] * 10, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dq.argtypes = [i32, *[ptr] * 9, i32, i32, i32, i32, f32, ptr]
-    for name in ("kf_flash_fwd", "kf_flash_bwd_dkv", "kf_flash_bwd_dq"):
+    lib.kf_flash_bwd_fused.argtypes = [*[ptr] * 11, i32, i32, i32, i32, f32, ptr]
+    for name in ("kf_flash_fwd", "kf_flash_bwd_dkv", "kf_flash_bwd_dq", "kf_flash_bwd_fused"):
         getattr(lib, name).restype = i32
 
     import torch

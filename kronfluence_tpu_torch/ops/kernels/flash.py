@@ -1,14 +1,16 @@
-"""F1-F3: causal, segment-masked flash attention, hand-written for Hopper.
+"""F1-F3 and FB: causal, segment-masked flash attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
-The CUDA kernels are in `csrc/flash_attention.cu`.
+The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
+{64, 128, 256}, T a multiple of 64). FB, in `csrc/flash_backward.cu`, does
+F2's and F3's work in one launch for bf16 at D 64; `backward_route` is the
+rule that picks FB ("fused") or F2 + F3 ("split").
 
-Each wrapper launches its kernel for CUDA tensors (bf16 or fp32, D in
-{64, 128, 256}, T a multiple of 64) and takes its plain PyTorch version only
-for CPU tensors; for a CUDA tensor it launches the kernel or raises. Each
-counts its launches in `.launches`.
+Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
+version only for CPU tensors; for a CUDA tensor it launches the kernel or
+raises. Each counts its launches in `.launches`.
 
 Semantics (JAX's `mha_reference_no_custom_vjp` / `mha_reference_bwd`):
 logits = (Q Kᵀ)·scale + mask_value where the key lies above the diagonal or
@@ -29,6 +31,13 @@ from kronfluence_tpu_torch.ops.kernels.build import check_launch, load_library
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
+# The one operand type and head dim FB takes.
+FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
+
+
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """"fused" (FB, one launch) for bf16 at D 64, else "split" (F2 + F3)."""
+    return "fused" if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM else "split"
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -79,6 +88,19 @@ def flash_backward_dq_reference(q, k, v, segment_ids, l, m, do, di, sm_scale):
     dp = torch.matmul(do.to(c), v.to(c).transpose(-1, -2))
     ds = p * (dp - di[..., None]) * sm_scale
     return torch.matmul(ds.to(k.dtype).to(c), k.to(c)).to(q.dtype)
+
+
+def flash_backward_reference(q, k, v, segment_ids, l, m, do, di, sm_scale):
+    """Plain FB: (dQ, dK, dV), with P, dP and dS computed once; the same
+    operations as F2's and F3's plain versions, so bit for bit their results."""
+    p = _probabilities(q, k, segment_ids, l, m, sm_scale)
+    c = p.dtype
+    dv = torch.matmul(p.to(do.dtype).to(c).transpose(-1, -2), do.to(c))
+    dp = torch.matmul(do.to(c), v.to(c).transpose(-1, -2))
+    ds = (p * (dp - di[..., None]) * sm_scale).to(q.dtype).to(c)
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(c))
+    dq = torch.matmul(ds, k.to(c))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_cuda(tensors, segment_ids, stats=()) -> Tuple[int, int, int, int]:
@@ -168,6 +190,34 @@ def flash_backward_dq(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     return dq
 
 
+def flash_backward(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """FB: returns (dQ, dK, dV) from one launch; CUDA operands must be bf16 at
+    D 64 (`backward_route` "fused"). dQ is summed over key tiles with fp32
+    atomics, so on the card it is not bitwise reproducible."""
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    if backward_route(q.dtype, q.shape[-1]) != "fused":
+        raise ValueError(f"the fused flash backward takes {FUSED_DTYPE} at D {FUSED_HEAD_DIM}; "
+                         f"got {q.dtype}, D {q.shape[-1]}: use F2 and F3.")
+    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
+    # FB copies the segment ids and the statistics with 16-byte cp.async.
+    if any(x.data_ptr() % 16 for x in (segment_ids, l, m, di)):
+        raise ValueError("FB takes 16-byte aligned segment ids, l, m and di.")
+    with torch.cuda.device(q.device):
+        lib = load_library()
+        dq = torch.zeros((b, h, t, d), dtype=torch.float32, device=q.device)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = lib.kf_flash_bwd_fused(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
+            m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, t, d, float(sm_scale), _stream(q.device),
+        )
+        check_launch(err, "fused flash backward (FB)")
+    flash_backward.launches += 1
+    return dq.to(q.dtype), dk, dv
+
+
 flash_forward.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
+flash_backward.launches = 0

@@ -1,9 +1,10 @@
 """The port's attention module (`kronfluence_tpu_torch/ops/attention.py`)
-against JAX: the plain versions of F1-F3 and the `FlashAttention` Function
-against JAX's flash-attention reference (`mha_reference_no_custom_vjp` and
-its `jax.vjp`), and against the JAX package's naive form at valid query rows.
-On the CPU the F1-F3 wrappers take their plain versions; the CUDA kernels are
-compared with them on the card by chip_smoke.py and the `cuda`-marked test.
+against JAX: the plain versions of F1-F3 and FB (the fused backward) and the
+`FlashAttention` Function against JAX's flash-attention reference
+(`mha_reference_no_custom_vjp` and its `jax.vjp`), and against the JAX
+package's naive form at valid query rows. On the CPU the wrappers take their
+plain versions; the CUDA kernels are compared with them on the card by
+chip_smoke.py and the `cuda`-marked tests.
 """
 
 import math
@@ -31,11 +32,15 @@ from kronfluence_tpu_torch.ops.attention import (
     scaled_dot_attention,
     segment_ids_for,
 )
+from kronfluence_tpu_torch.ops.attention import output_dot
 from kronfluence_tpu_torch.ops.kernels.flash import (
+    backward_route,
+    flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_reference,
     flash_backward_dq,
     flash_backward_dq_reference,
+    flash_backward_reference,
     flash_forward,
     flash_forward_reference,
 )
@@ -238,3 +243,116 @@ def test_cuda_flash_kernels_match_plain_versions(d, dtype):
         else:
             bound = 1e-5 * size.max()
         assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16])
+def test_fused_plain_version_equals_split_pair(d, dtype):
+    """FB's plain version computes P, dP and dS once, with the same operations
+    as F2's and F3's plain versions: their results bit for bit."""
+    q, k, v, do, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 128, d, np.float32, seed=6))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    seg = segment_ids_for(mask, q)
+    scale = d ** -0.5
+    o, l, m = flash_forward_reference(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    dq, dk, dv = flash_backward_reference(q, k, v, seg, l, m, do, di, scale)
+    want_dk, want_dv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
+    want_dq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
+    assert dq.dtype == dk.dtype == dv.dtype == dtype
+    assert torch.equal(dq, want_dq) and torch.equal(dk, want_dk) and torch.equal(dv, want_dv)
+
+
+@pytest.mark.parametrize("t,d,dtype", CASES)
+def test_fused_wrapper_matches_jax_vjp(t, d, dtype):
+    """On CPU tensors `flash_backward` (FB's wrapper) gives JAX's VJP."""
+    q, k, v, do, mask = _inputs(2, 2, t, d, dtype, seed=7)
+    _, want_grads = _jax_reference(q, k, v, do, mask)
+    tq, tk, tv, tdo, tmask = map(torch.from_numpy, (q, k, v, do, mask))
+    seg = segment_ids_for(tmask, tq)
+    scale = 1.0 / math.sqrt(d)
+    o, l, m = flash_forward(tq, tk, tv, seg, scale)
+    grads = flash_backward(tq, tk, tv, seg, l, m, tdo, output_dot(o, tdo), scale)
+    for got, want in zip(grads, want_grads):
+        _close(got, want, TOL[dtype])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+def test_backward_route_is_fused_only_for_bf16_at_d64(dtype, d):
+    want = "fused" if (dtype, d) == (torch.bfloat16, 64) else "split"
+    assert backward_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_function_backward_follows_the_route(d, dtype):
+    """The Function's backward on CPU tensors: FB's plain version on the fused
+    route, F2's and F3's on the split one; the same gradients either way."""
+    q, k, v, do, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 128, d, np.float32, seed=8))
+    q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
+    seg = segment_ids_for(mask, q)
+    scale = d ** -0.5
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counts = (flash_backward.launches, flash_backward_dkv.launches, flash_backward_dq.launches)
+    out = FlashAttention.apply(*leaves, seg, scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    o, l, m = flash_forward_reference(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    want_dk, want_dv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
+    want_dq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
+    assert all(torch.equal(a, b) for a, b in zip(grads, (want_dq, want_dk, want_dv)))
+    assert counts == (flash_backward.launches, flash_backward_dkv.launches,
+                      flash_backward_dq.launches)
+
+
+def test_cpu_fused_wrapper_takes_plain_version_without_counting():
+    q, k, v, do, mask = map(torch.from_numpy, _inputs(2, 2, 128, 64, np.float32, seed=9))
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q, k, v, do))
+    seg = segment_ids_for(mask, q)
+    o, l, m = flash_forward(q, k, v, seg, 0.125)
+    di = output_dot(o, do)
+    before = flash_backward.launches
+    got = flash_backward(q, k, v, seg, l, m, do, di, 0.125)
+    want = flash_backward_reference(q, k, v, seg, l, m, do, di, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert flash_backward.launches == before
+
+
+def test_fused_wrapper_rejects_other_devices():
+    x = torch.empty((1, 1, 128, 64), dtype=torch.bfloat16, device="meta")
+    seg = torch.empty((1, 128), dtype=torch.int32, device="meta")
+    stat = torch.empty((1, 1, 128), device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_backward(x, x, x, seg, stat, stat, x, stat, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,padded", [(256, True), (128, False)])
+def test_cuda_fused_backward_matches_plain_version(t, padded):
+    """Card only: FB against its plain version at every position of dQ, dK and
+    dV, each element to 8 bf16 unit roundoffs u = 2^-8 of its row's scale,
+    u (|plain| + max |plain| of the row) + u^2 max |plain|, as chip_smoke.py
+    holds it (P and dS rounded to bf16 from fp32 values that differ in the
+    last bits, sums in another order, outputs rounded to bf16); the fp32 dQ
+    sum's atomics add in another order each run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU runs the plain versions only")
+    g = torch.Generator("cuda").manual_seed(1)
+    q, k, v, do = (torch.randn(2, 4, t, 64, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    seg = torch.ones(2, t, dtype=torch.int32, device="cuda")
+    if padded:
+        seg[1, t - 56:] = 0
+    o, l, m = flash_forward(q, k, v, seg, 0.125)
+    di = output_dot(o, do)
+    before = flash_backward.launches
+    got = flash_backward(q, k, v, seg, l, m, do, di, 0.125)
+    assert flash_backward.launches == before + 1
+    want = flash_backward_reference(q, k, v, seg, l, m, do, di, 0.125)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        x, y = x.float(), y.float()
+        size = y.abs()
+        bound = 8 * (2.0 ** -8 * (size + size.amax(-1, keepdim=True)) + 2.0 ** -16 * size.max())
+        assert bool(((x - y).abs() <= bound).all())
