@@ -45,24 +45,28 @@ each of which raises on failure:
   9. flash kernels: F1 (forward), F2 (dK, dV) and F3 (dQ) against their
      plain versions at every position of O, dQ, dK, dV: at the flash path's
      shape (B 16, H 12, T 512, D 64, bf16, padded mask), at D 128 and 256 in
-     bf16, in fp32 at D 64, and at T 128 without padding; FB (the fused
-     backward, dQ, dK and dV in one launch) against its plain version at the
-     bf16 D 64 cases, where `backward_route` takes it; median times beside
-     the plain versions, F.scaled_dot_product_attention (the library
-     yardstick; for FB its backward alone), the naive form and the bound, and
-     FB against F2+F3 in turns;
+     bf16, in fp32 at D 64, and at T 128 without padding; FF (the pipelined
+     forward: O, l, m) and FB (the fused backward, dQ, dK and dV in one
+     launch) against their plain versions at the bf16 D 64 cases, where
+     `forward_route` and `backward_route` take them; two planted faults (a
+     dropped block of P; the segment mask left off one tile) must read above
+     the limit; median times beside the plain versions,
+     F.scaled_dot_product_attention (the library yardstick; for FB its
+     backward alone), the naive form and the bound, FF against F1 and FB
+     against F2+F3 in turns;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
-     auto-sized query block (`query_gradient_accumulation_steps=None`). F1
+     auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F2 and F3 and the naive form
+     FB 12 times per forward+backward pass, F1, F2, F3 and the naive form
      never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
-     with the naive form and with the backward on each route;
+     with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
-     T 128, padded data), in fp32: F1, F2 and F3 (the split route) on the
-     card, FB never, their plain versions on the CPU.
+     T 128, padded data), in fp32: F1, F2 and F3 (the generic forward and
+     the split backward) on the card, FF and FB never, their plain versions
+     on the CPU.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -87,7 +91,10 @@ tile, 4 warps) in turns against copies of csrc/flash_backward.cu built alone
 with a 128-key tile (held to the same bf16 limit first) and, for timing only,
 without the dQ atomics (its dQ is wrong; it shows what the atomics cost),
 against F2+F3 and against the wrapper's zeroing and cast of the fp32 dQ sum
-alone, at the flash path's shape.
+alone, at the flash path's shape; then FF as built (64-query tile, 4 warps)
+in turns against copies of csrc/flash_forward.cu with a 128-query tile (8
+warps) and with registers capped for 4 CTAs an SM (each held to the bf16
+limit first), and against F1.
 """
 
 import copy
@@ -178,6 +185,11 @@ FLASH_STATS_TOL = 1e-5
 # The planted fault's block (query rows, key columns), below the diagonal at
 # T 512: 64 of the 385-448 keys those rows see.
 FLASH_FAULT_BLOCK = (slice(384, 448), slice(192, 256))
+# The second planted fault, against FF's masking decision: the plain O with
+# the segment mask left off one 64 x 64 tile below the diagonal whose query
+# rows cross a padding boundary (example 1 keeps 475 tokens): its padded
+# rows then attend to valid keys.
+FLASH_MASK_FAULT_BLOCK = (slice(448, 512), slice(384, 448))
 # (B, H, T, D, dtype, padded): the flash path's shape first.
 FLASH_CASES = (
     (16, 12, 512, 64, torch.bfloat16, True),
@@ -628,10 +640,11 @@ def flash_kernels():
         flash_backward_dkv,
         flash_backward_dq,
         flash_forward,
+        flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
-            "FB": flash_backward}
+            "FF": flash_forward_pipelined, "FB": flash_backward}
 
 
 def phase_main_path(card: str) -> dict:
@@ -752,11 +765,11 @@ def padded_segments(b: int, t: int, padded: bool, device) -> torch.Tensor:
 
 
 def flash_work(seg: torch.Tensor, heads: int, d: int, itemsize: int):
-    """(query-key pairs the mask keeps, F1 / F2 / F3 / FB bytes and FLOPs) of
-    one call: every operand read once and every output written once (FB's dQ
-    in the operands' type, as the function returns it; the fp32 sum FB adds
+    """(query-key pairs the mask keeps, F1 / FF / F2 / F3 / FB bytes and FLOPs)
+    of one call: every operand read once and every output written once (FB's
+    dQ in the operands' type, as the function returns it; the fp32 sum FB adds
     into is its design's cost, not the function's); QK^T and P V take 4 D FLOPs a kept pair
-    (F1), F2 8 D (S^T, dP^T, dV, dK), F3 6 D (S, dP, dQ), FB 10 D (S, dP, dV,
+    (F1 and FF), F2 8 D (S^T, dP^T, dV, dK), F3 6 D (S, dP, dQ), FB 10 D (S, dP, dV,
     dK, dQ, each once)."""
     b, t = seg.shape
     causal = torch.ones(t, t, dtype=torch.bool, device=seg.device).tril()
@@ -764,8 +777,10 @@ def flash_work(seg: torch.Tensor, heads: int, d: int, itemsize: int):
     block = b * heads * t * d * itemsize  # one (B, H, T, D) operand
     stat = b * heads * t * 4  # one fp32 (B, H, T) statistic
     segb = b * t * 4
+    forward = (3 * block + block + 2 * stat + segb, 4.0 * d * pairs)
     return pairs, {
-        "F1": (3 * block + block + 2 * stat + segb, 4.0 * d * pairs),
+        "F1": forward,
+        "FF": forward,
         "F2": (4 * block + 3 * stat + segb + 2 * block, 8.0 * d * pairs),
         "F3": (4 * block + 3 * stat + segb + block, 6.0 * d * pairs),
         "FB": (4 * block + 3 * stat + segb + 3 * block, 10.0 * d * pairs),
@@ -809,6 +824,22 @@ def dropped_block(q, k, v, seg, l, m, do, di, scale, block) -> dict:
     return {name: x.to(q.dtype) for name, x in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv))}
 
 
+def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
+    """The plain O with the segment mask left off one block (query rows, key
+    columns) below the diagonal, the causal mask kept: what a kernel that
+    took that tile for one segment would return."""
+    from kronfluence_tpu_torch.ops.kernels.flash import MASK_VALUE
+
+    f, t = torch.float32, q.shape[2]
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    keep = (causal & (seg[:, :, None] == seg[:, None, :]))[:, None].clone()
+    keep[:, :, block[0], block[1]] = causal[block[0], block[1]]
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
+    s = torch.where(keep, s, s + MASK_VALUE)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return (torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)).to(q.dtype)
+
+
 def phase_flash_kernels(card: str) -> dict:
     from kronfluence_tpu_torch.ops.attention import FlashAttention, naive_attention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -820,11 +851,13 @@ def phase_flash_kernels(card: str) -> dict:
         flash_backward_dq_reference,
         flash_backward_reference,
         flash_forward,
+        flash_forward_pipelined,
         flash_forward_reference,
+        forward_route,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FB": 0.0}
-    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3",
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0}
+    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
         gen = torch.Generator("cuda").manual_seed(b * t + d)
@@ -841,6 +874,13 @@ def phase_flash_kernels(card: str) -> dict:
         rdq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
         got = {"O": o, "dQ": dq, "dK": dk, "dV": dv}
         want = {"O": ro, "dQ": rdq, "dK": rdk, "dV": rdv}
+        stats = [("l", l, rl), ("m", m, rm)]
+        pipelined = forward_route(dtype, d) == "pipelined"
+        if pipelined:
+            # FF against the plain forward (the same one F1 is held to).
+            fo, fl, fm = flash_forward_pipelined(q, k, v, seg, scale)
+            got["FF O"], want["FF O"] = fo, ro
+            stats += [("FF l", fl, rl), ("FF m", fm, rm)]
         fused = backward_route(dtype, d) == "fused"
         if fused:
             # FB against its own plain version (computed on the same inputs).
@@ -854,7 +894,7 @@ def phase_flash_kernels(card: str) -> dict:
         errs = {}
         for name, x, ref, check, limit in (
             *((n, got[n], want[n], measure, tol) for n in got),
-            ("l", l, rl, relative_to_max, FLASH_STATS_TOL), ("m", m, rm, relative_to_max, FLASH_STATS_TOL),
+            *((n, x_, r_, relative_to_max, FLASH_STATS_TOL) for n, x_, r_ in stats),
         ):
             if not bool(torch.isfinite(x.float()).all()):
                 raise RuntimeError(f"flash {name} is not finite at {(b, h, t, d, dtype)}")
@@ -867,9 +907,10 @@ def phase_flash_kernels(card: str) -> dict:
                                    f"{errs[name]:.3e} (limit {limit:g})")
         label = f"B {b} H {h} T {t} D {d} {str(dtype).split('.')[-1]}{' padded' if padded else ''}"
         how = "bf16 units of the row scale" if bf16 else "max |kernel - plain| / max |plain|"
-        log(f"flash {label}: O, dQ, dK, dV{' (F1-F3), FB dQ, dK, dV' if fused else ''} in {how}, "
-            f"l, m relative to max: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
-            + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g}); backward route {backward_route(dtype, d)}")
+        log(f"flash {label}: O, dQ, dK, dV{' (F1-F3), FF O, FB dQ, dK, dV' if fused else ''} in "
+            f"{how}, l, m relative to max: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+            + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g}); forward route "
+            f"{forward_route(dtype, d)}, backward route {backward_route(dtype, d)}")
         if (b, h, t, d, dtype) != (16, 12, 512, 64, torch.bfloat16):
             continue
 
@@ -886,11 +927,24 @@ def phase_flash_kernels(card: str) -> dict:
         if not min(fault_units.values()) > tol:
             raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile: {fault_units}")
         del fault
+        # And a wrong masking decision: one tile taken for one segment.
+        mask_fault = unmasked_tile(q, k, v, seg, scale, FLASH_MASK_FAULT_BLOCK)
+        mask_units = {name: bf16_units(mask_fault, want[name]) for name in ("O", "FF O")}
+        log(f"flash {label}: planted fault (segment mask left off rows 448-511, keys 384-447) "
+            f"against the plain forward, bf16 units: " + ", ".join(
+                f"{k_} {v_:.3g}" for k_, v_ in mask_units.items())
+            + f"; F1 and FF here {errs['O']:.3g}, {errs['FF O']:.3g}; limit {tol:g}")
+        if not min(mask_units.values()) > tol:
+            raise RuntimeError(f"the bf16 limit {tol:g} does not catch an unmasked tile: {mask_units}")
+        del mask_fault
 
-        # Times at the flash path's shape: plain, kernel, kernel, plain; FB
-        # against the split route F2 + F3 in turns.
+        # Times at the flash path's shape: plain, kernel, kernel, plain; FF
+        # against F1 and FB against the split route F2 + F3 in turns.
         def f1():
             return flash_forward(q, k, v, seg, scale)
+
+        def ff():
+            return flash_forward_pipelined(q, k, v, seg, scale)
 
         def f2():
             return flash_backward_dkv(q, k, v, seg, l, m, do, di, scale)
@@ -942,14 +996,24 @@ def phase_flash_kernels(card: str) -> dict:
 
         plain = {
             "F1": lambda: flash_forward_reference(q, k, v, seg, scale),
+            "FF": lambda: flash_forward_reference(q, k, v, seg, scale),
             "F2": lambda: flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale),
             "F3": lambda: flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale),
             "FB": lambda: flash_backward_reference(q, k, v, seg, l, m, do, di, scale),
         }
-        kernel = {"F1": f1, "F2": f2, "F3": f3, "FB": fb}
+        kernel = {"F1": f1, "F2": f2, "F3": f3, "FF": ff, "FB": fb}
         pairs, work = flash_work(seg, h, d, q.element_size())
         timing = {}
-        for name in ("F1", "F2", "F3", "FB"):
+        # The forwards in turns: plain, F1, FF, FF, F1, plain.
+        p1 = median_ms(plain["F1"], iters=5, warmup=1)
+        g1, k1, k2, g2 = (median_ms(fn) for fn in (f1, ff, ff, f1))
+        p2 = median_ms(plain["F1"], iters=5, warmup=1)
+        for name, (r1, r2) in (("F1", (g1, g2)), ("FF", (k1, k2))):
+            bound, bound_by = roofline(*work[name], BF16_FLOPS)
+            timing[name] = dict(ms=(r1 + r2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
+                                bound_by=bound_by, device_ms=device_ms(kernel[name]),
+                                runs=(r1, r2, p1, p2))
+        for name in ("F2", "F3", "FB"):
             p1 = median_ms(plain[name], iters=5, warmup=1)
             s1 = median_ms(split) if name == "FB" else None
             k1 = median_ms(kernel[name])
@@ -968,19 +1032,22 @@ def phase_flash_kernels(card: str) -> dict:
         extra = {
             "F2+F3 with torch di": median_ms(bwd_split),
             "FB with torch di (the Function's backward)": median_ms(bwd),
-            "flash fwd+bwd (autograd Function)": median_ms(fwd_bwd),
+            "flash fwd+bwd (autograd Function: FF + FB)": median_ms(fwd_bwd),
+            "flash fwd+bwd, device": device_ms(fwd_bwd),
             "SDPA fwd": median_ms(sdpa),
+            "SDPA fwd, device": device_ms(sdpa),
             "SDPA bwd alone": median_ms(sdpa_bwd),
             "SDPA bwd alone, device": device_ms(sdpa_bwd),
             "SDPA fwd+bwd": median_ms(sdpa_fwd_bwd),
+            "SDPA fwd+bwd, device": device_ms(sdpa_fwd_bwd),
             "naive fwd+bwd": median_ms(naive_fwd_bwd, iters=10),
         }
         del sdpa_out
-        extra["host gap: Function fwd+bwd - (F1 + FB with torch di)"] = (
-            extra["flash fwd+bwd (autograd Function)"] - timing["F1"]["ms"]
+        extra["host gap: Function fwd+bwd - (FF + FB with torch di)"] = (
+            extra["flash fwd+bwd (autograd Function: FF + FB)"] - timing["FF"]["ms"]
             - extra["FB with torch di (the Function's backward)"])
-        nbytes = work["F1"][0] + work["FB"][0]
-        flops = work["F1"][1] + work["FB"][1]
+        nbytes = work["FF"][0] + work["FB"][0]
+        flops = work["FF"][1] + work["FB"][1]
         extra["bound fwd+bwd"] = roofline(nbytes, flops, BF16_FLOPS)[0]
         for name, tm in timing.items():
             log(f"flash {name} at {label}: kernel {tm['ms']:.4f} ms ({tm['runs'][0]:.4f}, "
@@ -988,6 +1055,11 @@ def phase_flash_kernels(card: str) -> dict:
                 f"{tm['runs'][3]:.3f}), bound {tm['bound_ms']:.4f} ms ({tm['bound_by']}: "
                 f"{work[name][0] / 1e6:.1f} MB, {work[name][1] / 1e9:.2f} GFLOP over {pairs:,} "
                 f"kept pairs) [{card}]")
+        ff_t, f1_t = timing["FF"], timing["F1"]
+        log(f"flash FF against F1 in turns (plain, F1, FF, FF, F1, plain) at {label}: F1 "
+            f"{f1_t['runs'][0]:.4f} / {f1_t['runs'][1]:.4f} ms, FF {ff_t['runs'][0]:.4f} / "
+            f"{ff_t['runs'][1]:.4f} ms (CUDA events around one call); device time per call "
+            f"(torch.profiler): F1 {f1_t['device_ms']:.4f} ms, FF {ff_t['device_ms']:.4f} ms [{card}]")
         fb_t = timing["FB"]
         log(f"flash FB against F2+F3 in turns (plain, F2+F3, FB, FB, F2+F3, plain) at {label}: "
             f"F2+F3 {fb_t['split_runs'][0]:.4f} / {fb_t['split_runs'][1]:.4f} ms, FB "
@@ -998,14 +1070,15 @@ def phase_flash_kernels(card: str) -> dict:
             f"{fb_t['kernel_device_ms']:.4f} ms [{card}]")
         log(f"flash at {label}: " + ", ".join(f"{k_} {v_:.4f} ms" for k_, v_ in extra.items())
             + f" (CUDA-event medians; SDPA with the same boolean mask) [{card}]")
-        timing["F1"]["library_ms"] = extra["SDPA fwd"]
+        timing["F1"]["library_ms"] = timing["FF"]["library_ms"] = extra["SDPA fwd"]
         timing["FB"]["library_ms"] = extra["SDPA bwd alone"]
         timing["F2"]["library_ms"] = timing["F3"]["library_ms"] = None
         for tm in timing.values():
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    out = {name: dict(timing[name], max_abs_err=abs_errs[name]) for name in ("F1", "F2", "F3", "FB")}
+    out = {name: dict(timing[name], max_abs_err=abs_errs[name])
+           for name in ("F1", "F2", "F3", "FF", "FB")}
     out["extra"] = timing["extra"]
     return out
 
@@ -1227,8 +1300,10 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     passes = cov_b + lam_b + query_b + run["blocks"] * train_b
     forwards_only = 3 + 1
     layers = config.num_layers
-    # bf16 at head_dim 64: the backward takes the fused route, FB, never F2 or F3.
-    want = {"F1": layers * (passes + forwards_only), "F2": 0, "F3": 0, "FB": layers * passes}
+    # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2 and
+    # F3 never.
+    want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
+            "FB": layers * passes}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -1236,8 +1311,8 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     log(f"flash path: query_gradient_accumulation_steps=None resolved to {run['accumulation']} "
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
-        + f"; want F1 {want['F1']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), FB {want['FB']}, F2 = F3 = 0; naive attention calls {naive_calls}; syrk on "
+        + f"; want FF {want['FF']} (12 x ({passes} forward+backward passes + {forwards_only} "
+        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -1271,32 +1346,21 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         raise RuntimeError(f"flash path scores correlate with phase 5's at r {pearson:.4f}")
 
     # The covariance and lambda stages in turns on the same data and
-    # eigenbasis: the naive model, the flash model with its backward on the
-    # split route (F2 + F3), and on the fused route (FB, the rule's choice):
-    # naive, split, fused, fused, split, naive. Phase 5 ran first in the
-    # process, so its stage seconds above are not a like-for-like comparison.
-    # The split turns replace the route rule for their duration only; the
-    # launch counts above are of the rule's own route.
-    from kronfluence_tpu_torch.ops import attention
-
-    rule = attention.backward_route
-    forms = ("naive", "flash split", "flash fused")
+    # eigenbasis, the naive model and the flash model (FF and FB): naive,
+    # flash, flash, naive. Phase 5 ran first in the process, so its stage
+    # seconds above are not a like-for-like comparison.
+    forms = ("naive", "flash")
     turns = {form: {"covariance": [], "lambda": []} for form in forms}
-    try:
-        for form in ("naive", "flash split", "flash fused", "flash fused", "flash split", "naive"):
-            attention.backward_route = (lambda dtype, d: "split") if form == "flash split" else rule
-            m_ = ctx["model"] if form == "naive" else model
-            _, sec = _stage(fit_covariance_matrices_with_loader, m_, task,
-                            BatchLoader(data["cov"], COV_BATCH, device=device), ctx["factor_args"])
-            turns[form]["covariance"].append(sec)
-            _, sec = _stage(fit_lambda_matrices_with_loader, m_, task,
-                            BatchLoader(data["lambda"], LAMBDA_BATCH, device=device),
-                            ctx["factor_args"], eigen)
-            turns[form]["lambda"].append(sec)
-    finally:
-        attention.backward_route = rule
-    log("stage seconds in turns (naive, flash split, flash fused, flash fused, flash split, "
-        "naive): " + "; ".join(f"{stage} " + ", ".join(
+    for form in ("naive", "flash", "flash", "naive"):
+        m_ = ctx["model"] if form == "naive" else model
+        _, sec = _stage(fit_covariance_matrices_with_loader, m_, task,
+                        BatchLoader(data["cov"], COV_BATCH, device=device), ctx["factor_args"])
+        turns[form]["covariance"].append(sec)
+        _, sec = _stage(fit_lambda_matrices_with_loader, m_, task,
+                        BatchLoader(data["lambda"], LAMBDA_BATCH, device=device),
+                        ctx["factor_args"], eigen)
+        turns[form]["lambda"].append(sec)
+    log("stage seconds in turns (naive, flash, flash, naive): " + "; ".join(f"{stage} " + ", ".join(
             f"{form} {turns[form][stage][0]:.4f}/{turns[form][stage][1]:.4f}" for form in forms)
             for stage in ("covariance", "lambda")) + f" [{card}]")
     return launches
@@ -1372,8 +1436,8 @@ def build_variant(source: str, index: int, replacements, argtypes: dict) -> ctyp
     cu = out / f"{Path(source).stem}_variant_{index}.cu"
     cu.write_text(src)
     lib_path = cu.with_suffix(".so")
-    done = subprocess.run([build._nvcc(), *build.COMPILE_FLAGS, "-shared", "-o", str(lib_path),
-                           str(cu)], capture_output=True, text=True, timeout=600)
+    done = subprocess.run([build._nvcc(), *build.COMPILE_FLAGS, "-I", str(build.CSRC_DIR), "-shared",
+                           "-o", str(lib_path), str(cu)], capture_output=True, text=True, timeout=600)
     if done.returncode != 0:
         raise RuntimeError(f"nvcc failed on {cu.name}:\n{done.stdout[-3000:]}{done.stderr[-3000:]}")
     for line in (done.stdout + done.stderr).splitlines():
@@ -1465,9 +1529,30 @@ FB_VARIANTS = {
 }
 
 
+# Copies of csrc/flash_forward.cu for `--profile-flash`: name -> text replacements.
+_FF_BOUNDS = "__global__ void __launch_bounds__(kThreads)\n    flash_fwd_pipelined_kernel"
+FF_VARIANTS = {
+    "128-query tile (8 warps)": (("constexpr int kQueryTile = 64;", "constexpr int kQueryTile = 128;"),),
+    "registers capped for 4 CTAs an SM": (
+        (_FF_BOUNDS, _FF_BOUNDS.replace("(kThreads)", "(kThreads, 4)")),),
+}
+
+
+def turns_ms(fns: dict) -> dict:
+    """{name: [(event ms, device ms) there, (...) back]} for {name: (fn,
+    kernel names)}, timed in turns, there and back."""
+    times = {name: [] for name in fns}
+    for order in (list(fns), list(reversed(fns))):
+        for name in order:
+            fn, kernels = fns[name]
+            times[name].append((median_ms(fn), device_ms(fn, kernels)))
+    return times
+
+
 def profile_flash(card: str) -> None:
-    """FB as built (64-key tile) against FB_VARIANTS and F2+F3 at the flash
-    path's shape, in turns, after holding each variant to the bf16 limit."""
+    """FB as built (64-key tile) against FB_VARIANTS and F2+F3, then FF as
+    built (64-query tile) against FF_VARIANTS and F1, at the flash path's
+    shape, in turns, after holding each variant to the bf16 limit."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.build import check_launch
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -1476,6 +1561,8 @@ def profile_flash(card: str) -> None:
         flash_backward_dq,
         flash_backward_reference,
         flash_forward,
+        flash_forward_pipelined,
+        flash_forward_reference,
     )
 
     p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -1519,12 +1606,41 @@ def profile_flash(card: str) -> None:
     dq_sum = torch.zeros((b, h, t, d), dtype=torch.float32, device="cuda")
     fns["wrapper's dQ zeroing + cast alone"] = (
         lambda: (dq_sum.zero_(), dq_sum.to(torch.bfloat16)), ("fill", "elementwise", "copy"))
-    times = {name: [] for name in fns}
-    for order in (list(fns), list(reversed(fns))):
-        for name in order:
-            fn, kernels = fns[name]
-            times[name].append((median_ms(fn), device_ms(fn, kernels)))
+    times = turns_ms(fns)
     log(f"FB at B {b} H {h} T {t} D {d} bf16 padded, in turns (there and back); ms per call: "
+        f"one call between CUDA events (median), and the device time of the kernels named "
+        f"(torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+    ff_variants = {name: build_variant("flash_forward.cu", i, repl,
+                                       {"kf_flash_fwd_pipelined": [*[p] * 7, i32, i32, i32, i32, f32, p]})
+                   for i, (name, repl) in enumerate(FF_VARIANTS.items())}
+    want_fwd = flash_forward_reference(q, k, v, seg, scale)
+
+    def launch_ff(lib):
+        out = torch.empty_like(q)
+        l_, m_ = (torch.empty((b, h, t), dtype=torch.float32, device="cuda") for _ in range(2))
+        check_launch(lib.kf_flash_fwd_pipelined(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+            l_.data_ptr(), m_.data_ptr(), b, h, t, d, float(scale),
+            torch.cuda.current_stream().cuda_stream), "FF variant")
+        return out, l_, m_
+
+    for name, lib in ff_variants.items():
+        o_, l_, m_ = launch_ff(lib)
+        errs = (bf16_units(o_, want_fwd[0]), relative_to_max(l_, want_fwd[1]),
+                relative_to_max(m_, want_fwd[2]))
+        log(f"FF variant '{name}': O in bf16 units, l, m relative to max {[f'{e:.3g}' for e in errs]}")
+        if not (errs[0] <= FLASH_BF16_UNITS and max(errs[1:]) <= FLASH_STATS_TOL):
+            raise RuntimeError(f"the FF variant '{name}' disagrees with the plain version")
+    ff_kernel = ("flash_fwd_pipelined_kernel",)
+    fns = {"as built (64-query tile, 4 warps)": (lambda: flash_forward_pipelined(q, k, v, seg, scale),
+                                                 ff_kernel),
+           **{name: (lambda lib=lib: launch_ff(lib), ff_kernel) for name, lib in ff_variants.items()},
+           "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",))}
+    times = turns_ms(fns)
+    log(f"FF at B {b} H {h} T {t} D {d} bf16 padded, in turns (there and back); ms per call: "
         f"one call between CUDA events (median), and the device time of the kernels named "
         f"(torch.profiler): " + "; ".join(
             f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
@@ -1544,7 +1660,8 @@ def _max_rel(got: dict, want: dict) -> float:
 def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False) -> dict:
     """A small fp32 GPT-2 through the four stages on the card and on the CPU;
     returns the card side's flash launches (every count zeroed just before
-    the card side runs). fp32 takes the split backward, F2 + F3."""
+    the card side runs). fp32 takes the generic forward, F1, and the split
+    backward, F2 + F3."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -1639,7 +1756,7 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     split = {"F1", "F2", "F3"} if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want F1, F2, F3 with flash, "
-                           f"FB never: fp32 takes the split route), CPU {cpu_flash}")
+                           f"FF and FB never: fp32 takes F1 and the split route), CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
         raise RuntimeError(f"card disagrees with the CPU reference: {bad}")
@@ -1671,26 +1788,27 @@ def main() -> None:
     flash_result = phase_flash_kernels(card)
     ctx = phase_main_path(card)
     launches = dict(ctx["launches"], jacobi=phase_jacobi_path(card, ctx))
-    # Each flash kernel's launches are those of its own path: F1 and FB from
-    # phase 10 (bf16, head_dim 64: the fused route), F2 and F3 from phase 11
-    # (fp32: the split route).
+    # Each flash kernel's launches are those of its own path: FF and FB from
+    # phase 10 (bf16, head_dim 64), F1, F2 and F3 from phase 11 (fp32).
     flash_path = phase_flash_path(card, ctx)
-    launches.update(F1=flash_path["F1"], FB=flash_path["FB"])
+    launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
-    launches.update(F2=split_path["F2"], F3=split_path["F3"])
-    flash_result["F1"]["timings_ms"] = flash_result.pop("extra")
+    launches.update(F1=split_path["F1"], F2=split_path["F2"], F3=split_path["F3"])
+    flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 10 (flash path, bf16)"),
+               "phase 11 (flash reference, fp32: generic forward)"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
                "phase 11 (flash reference, fp32: split route)"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
                "phase 11 (flash reference, fp32: split route)"),
+        "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
+               "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
                "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
     }

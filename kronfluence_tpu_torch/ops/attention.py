@@ -7,12 +7,14 @@ no switch, probe or fallback:
 
   * "naive" materialises the (B, H, T, T) scores and probabilities (the
     models' form, `_naive_attention`);
-  * "flash" runs the `FlashAttention` autograd Function: F1 forward; the
-    backward is FB, one fused launch, for bf16 at head_dim 64 and F2 + F3
-    otherwise (`flash.backward_route`; `ops/kernels/flash.py`,
-    `csrc/flash_attention.cu`, `csrc/flash_backward.cu`) for CUDA tensors,
-    their plain versions for CPU tensors. A shape the kernels do not take
-    raises; it never falls back to the naive form.
+  * "flash" runs the `FlashAttention` autograd Function. For bf16 at
+    head_dim 64 the forward is FF and the backward FB, one launch each;
+    otherwise the forward is F1 and the backward F2 + F3
+    (`flash.forward_route`, `flash.backward_route`; `ops/kernels/flash.py`,
+    `csrc/flash_forward.cu`, `csrc/flash_backward.cu`,
+    `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
+    CPU tensors. A shape the kernels do not take raises; it never falls back
+    to another kernel or to the naive form.
 
 Mask semantics of the flash form are those of JAX's flash kernel: the
 attention mask becomes segment ids (q = kv = mask) under the causal bound,
@@ -35,7 +37,9 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_dq,
     flash_backward_reference,
     flash_forward,
+    flash_forward_pipelined,
     flash_forward_reference,
+    forward_route,
 )
 
 ATTENTION_IMPLS = ("naive", "flash")
@@ -97,13 +101,16 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: F1 forward; backward di, then FB or
-    F2 + F3 as `backward_route` says."""
+    """Causal, segment-masked attention: FF or F1 forward as `forward_route`
+    says; backward di, then FB or F2 + F3 as `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, l, m = flash_forward(q, k, v, segment_ids, sm_scale)
+        if forward_route(q.dtype, q.shape[-1]) == "pipelined":
+            o, l, m = flash_forward_pipelined(q, k, v, segment_ids, sm_scale)
+        else:
+            o, l, m = flash_forward(q, k, v, segment_ids, sm_scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, l, m)
         ctx.sm_scale = sm_scale
         return o

@@ -1,12 +1,14 @@
-"""F1-F3 and FB: causal, segment-masked flash attention, hand-written for Hopper.
+"""F1-F3, FF and FB: causal, segment-masked flash attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
 The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
-{64, 128, 256}, T a multiple of 64). FB, in `csrc/flash_backward.cu`, does
-F2's and F3's work in one launch for bf16 at D 64; `backward_route` is the
-rule that picks FB ("fused") or F2 + F3 ("split").
+{64, 128, 256}, T a multiple of 64). For bf16 at D 64 two kernels of their
+own take over: FF, in `csrc/flash_forward.cu`, F1's work with a cp.async K/V
+ring (T a multiple of 64), and FB, in `csrc/flash_backward.cu`, F2's and
+F3's work in one launch. `forward_route` picks FF ("pipelined") or F1
+("generic"), `backward_route` FB ("fused") or F2 + F3 ("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel or
@@ -31,8 +33,13 @@ from kronfluence_tpu_torch.ops.kernels.build import check_launch, load_library
 MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
-# The one operand type and head dim FB takes.
+# The one operand type and head dim FF and FB take.
 FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
+
+
+def forward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """"pipelined" (FF) for bf16 at D 64, else "generic" (F1)."""
+    return "pipelined" if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM else "generic"
 
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -154,6 +161,32 @@ def flash_forward(q, k, v, segment_ids, sm_scale: float):
     return o, l, m
 
 
+def flash_forward_pipelined(q, k, v, segment_ids, sm_scale: float):
+    """FF: returns (O, l, m) like F1; CUDA operands must be bf16 at D 64
+    (`forward_route` "pipelined"), T a multiple of 64 (FF's query tile)."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
+    if forward_route(q.dtype, q.shape[-1]) != "pipelined":
+        raise ValueError(f"the pipelined flash forward takes {FUSED_DTYPE} at D {FUSED_HEAD_DIM}; "
+                         f"got {q.dtype}, D {q.shape[-1]}: use F1 (flash_forward).")
+    b, h, t, d = _check_cuda((q, k, v), segment_ids)
+    # FF copies the segment ids with 16-byte cp.async.
+    if segment_ids.data_ptr() % 16:
+        raise ValueError("FF takes 16-byte aligned segment ids.")
+    with torch.cuda.device(q.device):
+        lib = load_library()
+        o = torch.empty_like(q)
+        l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+        m = torch.empty_like(l)
+        err = lib.kf_flash_fwd_pipelined(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), o.data_ptr(),
+            l.data_ptr(), m.data_ptr(), b, h, t, d, float(sm_scale), _stream(q.device),
+        )
+        check_launch(err, "pipelined flash forward (FF)")
+    flash_forward_pipelined.launches += 1
+    return o, l, m
+
+
 def flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     """F2: returns (dK, dV)."""
     if q.device.type == "cpu":
@@ -218,6 +251,7 @@ def flash_backward(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
 
 
 flash_forward.launches = 0
+flash_forward_pipelined.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
 flash_backward.launches = 0

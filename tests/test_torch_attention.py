@@ -1,10 +1,11 @@
 """The port's attention module (`kronfluence_tpu_torch/ops/attention.py`)
-against JAX: the plain versions of F1-F3 and FB (the fused backward) and the
-`FlashAttention` Function against JAX's flash-attention reference
-(`mha_reference_no_custom_vjp` and its `jax.vjp`), and against the JAX
-package's naive form at valid query rows. On the CPU the wrappers take their
-plain versions; the CUDA kernels are compared with them on the card by
-chip_smoke.py and the `cuda`-marked tests.
+against JAX: the plain versions of F1-F3, FF (the pipelined forward) and FB
+(the fused backward) and the `FlashAttention` Function against JAX's
+flash-attention reference (`mha_reference_no_custom_vjp` and its `jax.vjp`),
+and against the JAX package's naive form at valid query rows; a blocked
+emulation of FF's schedule against the same reference. On the CPU the
+wrappers take their plain versions; the CUDA kernels are compared with them
+on the card by chip_smoke.py and the `cuda`-marked tests.
 """
 
 import math
@@ -32,6 +33,7 @@ from kronfluence_tpu_torch.ops.attention import (
     scaled_dot_attention,
     segment_ids_for,
 )
+from kronfluence_tpu_torch.ops import attention
 from kronfluence_tpu_torch.ops.attention import output_dot
 from kronfluence_tpu_torch.ops.kernels.flash import (
     backward_route,
@@ -42,7 +44,9 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_dq_reference,
     flash_backward_reference,
     flash_forward,
+    flash_forward_pipelined,
     flash_forward_reference,
+    forward_route,
 )
 
 # Relative to the largest reference value, at every position: fp64 sums in
@@ -356,3 +360,138 @@ def test_cuda_fused_backward_matches_plain_version(t, padded):
         size = y.abs()
         bound = 8 * (2.0 ** -8 * (size + size.amax(-1, keepdim=True)) + 2.0 ** -16 * size.max())
         assert bool(((x - y).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
+def test_forward_route_is_pipelined_only_for_bf16_at_d64(dtype, d):
+    want = "pipelined" if (dtype, d) == (torch.bfloat16, 64) else "generic"
+    assert forward_route(dtype, d) == want
+
+
+@pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
+                                     (64, torch.float32)])
+def test_function_forward_follows_the_route(monkeypatch, d, dtype):
+    """The Function's forward calls FF's wrapper on the "pipelined" route and
+    F1's on the "generic" one (each on CPU tensors: the plain forward)."""
+    q, k, v, _, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 128, d, np.float32, seed=10))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    seg = segment_ids_for(mask, q)
+    called = []
+    for name in ("flash_forward", "flash_forward_pipelined"):
+        wrapper = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *args, _n=name, _w=wrapper: called.append(_n) or _w(*args))
+    out = FlashAttention.apply(q, k, v, seg, d ** -0.5)
+    want = ("flash_forward_pipelined" if forward_route(dtype, d) == "pipelined"
+            else "flash_forward")
+    assert called == [want]
+    assert torch.equal(out, flash_forward_reference(q, k, v, seg, d ** -0.5)[0])
+
+
+def test_cpu_pipelined_wrapper_takes_plain_version_without_counting():
+    q, k, v, _, mask = map(torch.from_numpy, _inputs(2, 2, 128, 64, np.float32, seed=11))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    seg = segment_ids_for(mask, q)
+    before = flash_forward_pipelined.launches
+    got = flash_forward_pipelined(q, k, v, seg, 0.125)
+    want = flash_forward_reference(q, k, v, seg, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert flash_forward_pipelined.launches == before
+
+
+def test_pipelined_wrapper_rejects_other_devices():
+    x = torch.empty((1, 1, 128, 64), dtype=torch.bfloat16, device="meta")
+    seg = torch.empty((1, 128), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        flash_forward_pipelined(x, x, x, seg, 0.125)
+
+
+def _ff_schedule(q, k, v, seg, scale, tile):
+    """FF's schedule, blocked, in the operands' dtype, with square tiles: for
+    each query tile the key tiles from the diagonal down to 0; the mask only
+    on the diagonal tile and on tiles whose query and key segment ids are not
+    all one id (per example, as the CTA's vote decides); a base-2 online
+    softmax on the raw scores, P = 2^(s c - max c) with c = scale log2 e;
+    a masked P exactly 0. Returns (O, l, m), m in natural-log units."""
+    b, h, t, d = q.shape
+    c = scale * math.log2(math.e)
+    o, l, m = torch.zeros_like(q), q.new_zeros(b, h, t), q.new_zeros(b, h, t)
+    causal = torch.ones(t, t, dtype=torch.bool).tril()
+    for q0 in range(0, t, tile):
+        rows = slice(q0, q0 + tile)
+        sq = seg[:, rows]
+        acc = q.new_zeros(b, h, tile, d)
+        mx = torch.full((b, h, tile), -math.inf, dtype=q.dtype)
+        ls = q.new_zeros(b, h, tile)
+        for kt in range(q0 // tile, -1, -1):
+            cols = slice(kt * tile, kt * tile + tile)
+            sk = seg[:, cols]
+            s = torch.matmul(q[:, :, rows], k[:, :, cols].transpose(-1, -2))
+            one = (sq == sq[:, :1]).all(1) & (sk == sq[:, :1]).all(1)
+            need = ~one if kt * tile != q0 else torch.ones_like(one)
+            keep = causal[rows, cols][None] & (sq[:, :, None] == sk[:, None, :])
+            keep = (keep | ~need[:, None, None])[:, None]
+            new_mx = torch.maximum(mx, torch.where(keep, s, -math.inf).amax(-1))
+            alpha = torch.exp2((mx - new_mx) * c)
+            p = torch.where(keep, torch.exp2(s * c - (new_mx * c)[..., None]), 0.0)
+            ls = ls * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.matmul(p, v[:, :, cols])
+            mx = new_mx
+        o[:, :, rows], l[:, :, rows], m[:, :, rows] = acc / ls[..., None], ls, mx * scale
+    return o, l, m
+
+
+@pytest.mark.parametrize("tile", [16, 32])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_ff_schedule_matches_jax_reference(dtype, tile):
+    """The schedule FF runs, held against JAX's reference (O, l and m) on
+    padded segments: in key order from tile 0, as F1 walks, a padded row's
+    first key tiles are wholly masked, and the diagonal-first order never
+    starts a row on such a tile. Example 2 is unpadded, so its tiles below
+    the diagonal take the unmasked branch."""
+    b, h, t, d = 3, 2, 128, 64
+    rng = np.random.default_rng(12)
+    q, k, v = (rng.standard_normal((b, h, t, d)).astype(dtype) for _ in range(3))
+    mask = np.ones((b, t), np.int32)
+    mask[0, 70:] = 0
+    mask[1, 100:] = 0
+    # A padded row (segment 0) against key tile 0 (segment 1): fully masked.
+    assert (mask[0, 70:, None] != mask[0, None, :tile]).all()
+    seg = SegmentIds(q=jnp.asarray(mask), kv=jnp.asarray(mask))
+    scale = 1.0 / math.sqrt(d)
+    want = mha_reference_no_custom_vjp(*map(jnp.asarray, (q, k, v)), segment_ids=seg, causal=True,
+                                       sm_scale=scale, save_residuals=True)
+    got = _ff_schedule(*map(torch.from_numpy, (q, k, v, mask)), scale, tile)
+    for x, y in zip(got, want):
+        _close(x, np.asarray(y), TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,padded", [(256, True), (128, False)])
+def test_cuda_pipelined_forward_matches_plain_version(t, padded):
+    """Card only: FF against its plain version at every position of O, each
+    element to 8 bf16 unit roundoffs u = 2^-8 of its row's scale, u (|plain|
+    + max |plain| of the row) + u^2 max |plain|, as chip_smoke.py holds it (P
+    rounded to bf16 against a running rather than the final row max, sums in
+    another order, O rounded to bf16); l and m to 1e-5 of their largest
+    value (fp32 on both sides)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; the CPU runs the plain versions only")
+    g = torch.Generator("cuda").manual_seed(2)
+    q, k, v = (torch.randn(2, 4, t, 64, generator=g, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    seg = torch.ones(2, t, dtype=torch.int32, device="cuda")
+    if padded:
+        seg[1, t - 56:] = 0
+    before = flash_forward_pipelined.launches
+    o, l, m = flash_forward_pipelined(q, k, v, seg, 0.125)
+    assert flash_forward_pipelined.launches == before + 1
+    ro, rl, rm = flash_forward_reference(q, k, v, seg, 0.125)
+    torch.cuda.synchronize()
+    x, y = o.float(), ro.float()
+    size = y.abs()
+    bound = 8 * (2.0 ** -8 * (size + size.amax(-1, keepdim=True)) + 2.0 ** -16 * size.max())
+    assert bool(((x - y).abs() <= bound).all())
+    for got, want in ((l, rl), (m, rm)):
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
