@@ -33,15 +33,23 @@ each of which raises on failure:
   6. reference: a small fp32 GPT-2 runs the same slice on the card and on
      the CPU (plain versions, host LAPACK); covariances, eigenvalues, lambda
      and scores must agree;
-  7. K2 jacobi: the pivot-rotation kernel against its plain version at the
-     Jacobi path's launch shapes (m 64, Y 780 / 432 / 294), an odd Y, m 32,
-     sweeps 1 and 2; median times beside `torch.linalg.eigh` on the same
-     batch as a yardstick;
+  7. K2 jacobi: the pivot-rotation kernels against their plain version on
+     the route `jacobi_route` gives each case (the register kernel at the
+     Jacobi path's launch shapes, m 64, Y 780 / 432 / 294, and at an odd Y;
+     the generic kernel at m 32; sweeps 1 and 2), the route counters proving
+     which ran; the generic kernel also at the three m 64 shapes through its
+     own C entry point; a planted fault (one pair's rotation left out of one
+     round) must read above the limit at Y 294; the two kernels timed in
+     turns (CUDA events and torch.profiler device time) beside the plain
+     version, the bound and `torch.linalg.eigh` on the same batch as a
+     yardstick;
   8. Jacobi path: phase 5's covariance factors through
      `perform_eigendecomposition` with `eigendecomposition_solver="jacobi"`
-     (K2 must launch once per blocked-Jacobi round: sweeps x rounds summed
-     over chunks), then lambda and pairwise on that eigenbasis; the solver's
-     fp32 eigenpairs are held against cuSOLVER's on all 96 matrices;
+     (K2 must launch once per blocked-Jacobi round, sweeps x rounds summed
+     over chunks, every launch on the register route), then lambda and
+     pairwise on that eigenbasis; the solver's fp32 eigenpairs are held
+     against cuSOLVER's on all 96 matrices and against fp64 LAPACK, where a
+     solve at block_size 16 also runs K2's generic route;
   9. flash kernels: F1 (forward), F2 (dK, dV) and F3 (dQ) against their
      plain versions at every position of O, dQ, dK, dV: at the flash path's
      shape (B 16, H 12, T 512, D 64, bf16, padded mask), at D 128 and 256 in
@@ -76,7 +84,11 @@ package is not beside this file, it exits non-zero without a result line.
 times the eigendecomposition stage with each solver (cuSOLVER, Jacobi,
 Jacobi, cuSOLVER; the first of each is its first run in the process), then
 profiles one more run of each with torch.profiler and prints their kernel
-tables.
+tables, K2's launches and device time by route and its share of the Jacobi
+stage. First it times the register K2 as built (4 warps) in turns against
+copies of csrc/jacobi_m64.cu built alone (8 warps; 8 warps capped for 3
+CTAs an SM; 4 warps capped for 4 CTAs an SM), at the three launch shapes of
+the Jacobi path, and counts each one's SASS instructions.
 
 `python3 chip_smoke.py --profile-k1` instead times phase 5's covariance
 stage (cold, then warm), profiles one more warm run with torch.profiler (K1's
@@ -139,15 +151,18 @@ SYRK_FAULT_ROWS = (4096, 4160)
 # fp32 with sums in different orders; the preconditioner (heuristic damping)
 # amplifies those by its condition number, well under 1e3.
 REFERENCE_RTOL = 1e-3
-# K2 launch shapes of the Jacobi path (Y pivot blocks of m = 64), then an odd
-# Y, m = 32 and one sweep. The kernel repeats the plain version's IEEE
-# operations in the same order (explicitly rounded intrinsics, no FMA), so
-# the two agree to 1e-5 (bit for bit, so far). 126 rounds of fp32 rotations
-# leave V orthogonal to ~1e-5: limit 1e-4.
+# K2 launch shapes of the Jacobi path (Y pivot blocks of m = 64, the register
+# route), then an odd Y, and m = 32 (the generic route) with one sweep. Both
+# kernels repeat the plain version's IEEE operations in the same order
+# (explicitly rounded intrinsics, no FMA), so they agree to 1e-5 (bit for bit,
+# so far). 126 rounds of fp32 rotations leave V orthogonal to ~1e-5: limit 1e-4.
 JACOBI_MAIN_Y = (780, 432, 294)
 JACOBI_CASES = tuple((y, 64, 2) for y in JACOBI_MAIN_Y) + ((77, 64, 1), (300, 32, 2), (5, 32, 1))
 JACOBI_ATOL = 1e-5
 JACOBI_ORTH = 1e-4
+# The planted fault: the plain version with one pair's rotation left out of
+# one round (c = 1, s = 0), at Y 294.
+JACOBI_FAULT = {"y": 294, "round": 40, "pair": 7}
 # The Jacobi path's chunks (padded n, matrices), in solve order, for GPT-2
 # small's merged groups 3073 (24 matrices), 2304 (12) and 769 (60), under the
 # 64e6-element budget; and its limits against cuSOLVER, per matrix, relative to max|lambda|.
@@ -301,7 +316,8 @@ def phase_build() -> None:
 
 
 def sass_counts(library: Path, kernel: str, opcodes) -> dict:
-    """How often each opcode appears in `kernel`'s SASS in the library."""
+    """How often each opcode appears in `kernel`'s SASS in the library;
+    "instructions" counts them all."""
     from kronfluence_tpu_torch.ops.kernels import build
 
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
@@ -309,7 +325,8 @@ def sass_counts(library: Path, kernel: str, opcodes) -> dict:
                           text=True, check=True, timeout=300).stdout
     body = "".join(part for part in re.split(r"\n\s*Function : ", sass)
                    if kernel in part.split("\n", 1)[0])
-    return {op: body.count(op) for op in opcodes}
+    return {op: len(re.findall(r"/\*[0-9a-f]{4,}\*/" if op == "instructions"
+                               else rf"\b{re.escape(op)}\b", body)) for op in opcodes}
 
 
 def phase_probe() -> dict:
@@ -701,58 +718,129 @@ def sym_blocks(y: int, m: int, seed: int) -> torch.Tensor:
     return torch.from_numpy(base + base.transpose(0, 2, 1)).cuda()
 
 
-def phase_jacobi_kernel(card: str) -> dict:
+def jacobi_generic(s: torch.Tensor, sweeps: int) -> torch.Tensor:
+    """The generic kernel (csrc/jacobi.cu) through its own C entry point at any m;
+    the wrapper takes it only where `jacobi_route` says "generic"."""
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, load_library
+    from kronfluence_tpu_torch.ops.kernels.jacobi import _EPS
+
+    y, m, _ = s.shape
+    v = torch.empty_like(s)
+    err = load_library().kf_jacobi_pivot_rotations(
+        s.data_ptr(), v.data_ptr(), y, m, sweeps, ctypes.c_float(_EPS),
+        torch.cuda.current_stream().cuda_stream)
+    check_launch(err, "jacobi (generic)")
+    return v
+
+
+def jacobi_skipped_rotation(s: torch.Tensor, sweeps: int, skip_round: int, skip_pair: int):
+    """The plain version with pair `skip_pair`'s rotation left out of round
+    `skip_round`: what a kernel that lost one pair's coefficients once returns."""
+    from kronfluence_tpu_torch.ops.kernels.jacobi import _EPS, _round_tables, rotation_coefficients
+
+    y, m, _ = s.shape
+    rows, cols, seats, col_seats, sign = (torch.from_numpy(x).to(s.device) for x in _round_tables(m))
+    a, v = s.clone(), torch.eye(m, device=s.device).expand(y, m, m)
+
+    def gather(x, flat):
+        return x.reshape(y, m * m).index_select(1, flat).view(y, m, m)
+
+    for r in range(sweeps * (m - 1)):
+        d = a.diagonal(dim1=1, dim2=2)
+        c, sn = rotation_coefficients(d[:, 0::2], d[:, 1::2], a[:, 0::2, 1::2].diagonal(dim1=1, dim2=2), _EPS)
+        if r == skip_round:
+            c[:, skip_pair], sn[:, skip_pair] = 1.0, 0.0
+        c, sn = c.repeat_interleave(2, dim=1), sn.repeat_interleave(2, dim=1) * sign
+        a = c[:, :, None] * a - sn[:, :, None] * gather(a, rows)
+        a = c[:, None, :] * a - sn[:, None, :] * gather(a, cols)
+        a = gather(a, seats)
+        v = gather(c[:, None, :] * v - sn[:, None, :] * gather(v, cols), col_seats)
+    return v
+
+
+def phase_jacobi_kernel(card: str) -> tuple:
     from kronfluence_tpu_torch.ops.kernels.jacobi import (
         jacobi_pivot_rotations,
         jacobi_pivot_rotations_reference,
+        jacobi_route,
     )
 
-    worst = 0.0
+    worst = {"registers": 0.0, "generic": 0.0}
     timing = {}
+    kernel_names = {"registers": ["jacobi_registers_kernel"], "generic": ["jacobi_kernel"]}
     for y, m, sweeps in JACOBI_CASES:
         s = sym_blocks(y, m, seed=y * m + sweeps)
+        route = jacobi_route(m)
+        jacobi_pivot_rotations.registers_launches = jacobi_pivot_rotations.generic_launches = 0
         got = jacobi_pivot_rotations(s, sweeps)
+        counts = (jacobi_pivot_rotations.registers_launches, jacobi_pivot_rotations.generic_launches)
+        if counts != ((1, 0) if route == "registers" else (0, 1)):
+            raise RuntimeError(f"K2 at m {m} took routes (registers, generic) {counts}, want {route}")
         want = jacobi_pivot_rotations_reference(s, sweeps)
+        checked = {route: got}
+        if y in JACOBI_MAIN_Y:
+            checked["generic"] = jacobi_generic(s, sweeps)
         torch.cuda.synchronize()
-        err = float((got - want).abs().max())
         eye = torch.eye(m, device="cuda")
-        orth = float((got.transpose(1, 2) @ got - eye).abs().max())
 
         def off_mass(v):
             d = v.transpose(1, 2) @ s @ v
             return float((d - d * eye).square().sum().sqrt() / (s - s * eye).square().sum().sqrt())
 
-        ratio, plain_ratio = off_mass(got), off_mass(want)
-        line = (f"K2 Y {y} m {m} sweeps {sweeps}: max |V - plain| {err:.3e}, bitwise equal "
-                f"{bool(torch.equal(got, want))}, max |V^T V - I| {orth:.2e}, off-diagonal mass "
-                f"ratio {ratio:.4f} (plain {plain_ratio:.4f})")
-        if not (err <= JACOBI_ATOL and orth <= JACOBI_ORTH and ratio < 0.75
-                and abs(ratio - plain_ratio) <= 1e-3 * plain_ratio):
-            raise RuntimeError(f"K2 disagrees with its plain version: {line}")
-        worst = max(worst, err)
+        plain_ratio = off_mass(want)
+        line = f"K2 Y {y} m {m} sweeps {sweeps}, route {route}"
+        for name, v in checked.items():
+            err = float((v - want).abs().max())
+            orth = float((v.transpose(1, 2) @ v - eye).abs().max())
+            ratio = off_mass(v)
+            part = (f"{name}: max |V - plain| {err:.3e}, bitwise equal {bool(torch.equal(v, want))}, "
+                    f"max |V^T V - I| {orth:.2e}, off-diagonal mass ratio {ratio:.4f} (plain "
+                    f"{plain_ratio:.4f})")
+            line += "; " + part
+            if not (err <= JACOBI_ATOL and orth <= JACOBI_ORTH and ratio < 0.75
+                    and abs(ratio - plain_ratio) <= 1e-3 * plain_ratio):
+                raise RuntimeError(f"K2 disagrees with its plain version: {line}")
+            worst[name] = max(worst[name], err)
+        if y == JACOBI_FAULT["y"] and m == 64:
+            fault = jacobi_skipped_rotation(s, sweeps, JACOBI_FAULT["round"], JACOBI_FAULT["pair"])
+            fault_err = float((got - fault).abs().max())
+            line += (f"; planted fault (pair {JACOBI_FAULT['pair']}'s rotation left out of round "
+                     f"{JACOBI_FAULT['round']}) reads {fault_err:.3e} (limit {JACOBI_ATOL:g})")
+            if not fault_err > JACOBI_ATOL:
+                raise RuntimeError(f"K2's check misses a planted fault: {line}")
         if y in JACOBI_MAIN_Y:
+            fns = {"registers": (lambda: jacobi_pivot_rotations(s, sweeps), kernel_names["registers"]),
+                   "generic": (lambda: jacobi_generic(s, sweeps), kernel_names["generic"])}
+            turns = turns_ms(fns)
             p1 = median_ms(lambda: jacobi_pivot_rotations_reference(s, sweeps), iters=5, warmup=1)
-            k1 = median_ms(lambda: jacobi_pivot_rotations(s, sweeps))
-            k2 = median_ms(lambda: jacobi_pivot_rotations(s, sweeps))
-            p2 = median_ms(lambda: jacobi_pivot_rotations_reference(s, sweeps), iters=5, warmup=1)
             eigh_ms = median_ms(lambda: torch.linalg.eigh(s), iters=5, warmup=1)
             rounds = sweeps * (m - 1)
             # Per round and block: rows, columns and V, 3 m^2 operations each;
             # the blocks read once and V written once.
             bound, bound_by = roofline(2 * y * m * m * 4, 9.0 * m * m * rounds * y, FP32_FLOPS)
-            timing[y] = dict(ms=(k1 + k2) / 2, plain_ms=(p1 + p2) / 2, bound_ms=bound,
-                             bound_by=bound_by, eigh_ms=eigh_ms)
-            line += (f"; kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-                     f"{(p1 + p2) / 2:.3f} ms ({p1:.3f}, {p2:.3f}), bound {bound:.4f} ms "
-                     f"({bound_by}); yardstick torch.linalg.eigh on the same batch {eigh_ms:.3f} ms "
-                     f"(exact pivots, the JAX package's pivot=\"eigh\", ops/eigh.py:467-475; "
-                     f"not the same function) [{card}]")
+            timing[y] = {name: dict(ms=float(np.mean([e for e, _ in tt])),
+                                    device_ms=float(np.mean([d for _, d in tt])), turns=tt)
+                         for name, tt in turns.items()}
+            timing[y].update(plain_ms=p1, bound_ms=bound, bound_by=bound_by, eigh_ms=eigh_ms)
+            line += (f"; in turns (registers, generic, generic, registers), events / device ms: "
+                     + ", ".join(f"{name} " + " / ".join(f"{e:.4f}, {d:.4f}" for e, d in tt)
+                                 for name, tt in turns.items())
+                     + f"; plain {p1:.3f} ms, bound {bound:.4f} ms ({bound_by}); yardstick "
+                     f"torch.linalg.eigh on the same batch {eigh_ms:.3f} ms (exact pivots, the JAX "
+                     f"package's pivot=\"eigh\", ops/eigh.py:467-475; not the same function) [{card}]")
         log(line)
-    main = timing[JACOBI_MAIN_Y[0]]
-    return {"max_abs_err": worst, "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
-            "exact_pivot_eigh_ms": main["eigh_ms"],
-            "by_launch_shape": {f"Y{y} m64 sweeps2": t for y, t in timing.items()}}
+
+    def result(route: str) -> dict:
+        main = timing[JACOBI_MAIN_Y[-1]]
+        return {"max_abs_err": worst[route], "ms": main[route]["ms"],
+                "device_ms": main[route]["device_ms"], "plain_ms": main["plain_ms"],
+                "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+                "exact_pivot_eigh_ms": main["eigh_ms"], "main_shape": f"Y{JACOBI_MAIN_Y[-1]} m64 sweeps2",
+                "by_launch_shape": {f"Y{y} m64 sweeps2": {
+                    "ms": t[route]["ms"], "device_ms": t[route]["device_ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"]} for y, t in timing.items()}}
+
+    return result("registers"), result("generic")
 
 
 def padded_segments(b: int, t: int, padded: bool, device) -> torch.Tensor:
@@ -1121,13 +1209,13 @@ def compare_eigenpairs(cov32: dict, got: dict, want: dict) -> dict:
     return worst
 
 
-def phase_jacobi_path(card: str, ctx: dict) -> int:
+def phase_jacobi_path(card: str, ctx: dict) -> tuple:
     from kronfluence_tpu_torch.factor.eigen import (
         fit_lambda_matrices_with_loader,
         perform_eigendecomposition,
     )
     from kronfluence_tpu_torch.ops.eigh import eigh_batched
-    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations, jacobi_route
     from kronfluence_tpu_torch.ops.kernels.probe import probe
     from kronfluence_tpu_torch.ops.kernels.syrk import syrk
     from kronfluence_tpu_torch.score.pairwise import compute_pairwise_scores_with_loaders
@@ -1142,8 +1230,11 @@ def phase_jacobi_path(card: str, ctx: dict) -> int:
     torch.cuda.reset_peak_memory_stats()
     eigh_batched.chunks.clear()
     jacobi_pivot_rotations.launches = syrk.launches = probe.launches = 0
+    jacobi_pivot_rotations.registers_launches = jacobi_pivot_rotations.generic_launches = 0
     eigen, eig_s = _stage(perform_eigendecomposition, cov, jacobi_args)
     launches = jacobi_pivot_rotations.launches
+    by_route = {"registers": jacobi_pivot_rotations.registers_launches,
+                "generic": jacobi_pivot_rotations.generic_launches}
     eig_peak = torch.cuda.max_memory_allocated() / 2**30
     lam, lam_s = _stage(
         fit_lambda_matrices_with_loader, model, task,
@@ -1163,12 +1254,15 @@ def phase_jacobi_path(card: str, ctx: dict) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB in all [{card}]")
     log("Jacobi path chunks (padded n, matrices, sweeps, rounds per sweep): "
         + ", ".join(f"({c['n']}, {c['matrices']}, {c['sweeps']}, {c['rounds_per_sweep']})" for c in chunks))
-    log(f"Jacobi path kernel launches: jacobi {launches} (want sum of sweeps x rounds = {want}), "
-        f"syrk {syrk.launches}, probe {probe.launches}")
+    route = jacobi_route(64)  # the pivot block of the default block_size 32
+    log(f"Jacobi path kernel launches: jacobi {launches} (want sum of sweeps x rounds = {want}, "
+        f"all on jacobi_route(64) = {route!r}), by route {by_route}, syrk {syrk.launches}, "
+        f"probe {probe.launches}")
     if [(c["n"], c["matrices"]) for c in chunks] != JACOBI_CHUNKS:
         raise RuntimeError(f"Jacobi path chunks {chunks}, want (n, matrices) {JACOBI_CHUNKS}")
-    if launches != want or launches == 0:
-        raise RuntimeError(f"K2 launched {launches} times on the Jacobi path, want {want}")
+    if launches != want or launches == 0 or by_route[route] != launches:
+        raise RuntimeError(f"K2 launched {launches} times on the Jacobi path ({by_route}), want "
+                           f"{want}, all on the {route} route")
     check_artifacts(cov, eigen, lam, scores, COV_N * SEQ, LAMBDA_N, (QUERY_N, TRAIN_N))
     s_j = scores[ALL_MODULE_NAME].float().flatten()
     s_c = ctx["scores"][ALL_MODULE_NAME].float().flatten()
@@ -1196,17 +1290,20 @@ def phase_jacobi_path(card: str, ctx: dict) -> int:
     if not (worst["eigenvalues"] <= JACOBI_EIG_RTOL and worst["reconstruction"] <= JACOBI_RECON_RTOL
             and worst["orthogonality"] <= JACOBI_ORTH_ATOL):
         raise RuntimeError(f"the Jacobi path's eigenpairs are off cuSOLVER's: {worst}")
-    ground_truth(card, cov32, jacobi32, cusolver32)
-    return launches
+    generic = ground_truth(card, cov32, jacobi32, cusolver32)
+    return by_route, generic
 
 
-def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> None:
+def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> int:
     """Eigenvalues of both solvers against fp64 host LAPACK, relative to
     max|lambda|: four GPT-2 factors of width 769/768 from the Jacobi path, and
     three seeded 500 x 500 Wishart matrices (g g^T / 500, condition ~1e6)
-    solved here. The Jacobi solver is held to 5e-5, the JAX package's bound
-    against LAPACK (tests/test_eigh.py); cuSOLVER's error is printed."""
+    solved here, by the Jacobi solver at its default block_size 32 and at 16
+    (K2's generic route). The Jacobi solver is held to 5e-5, the JAX package's
+    bound against LAPACK (tests/test_eigh.py); cuSOLVER's error is printed.
+    Returns the generic route's launches."""
     from kronfluence_tpu_torch.ops.eigh import eigh_batched
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
     from kronfluence_tpu_torch.utils.constants import (
         ACTIVATION_COVARIANCE_MATRIX_NAME as ACT,
         ACTIVATION_EIGENVALUES_NAME as ACT_EVALS,
@@ -1234,13 +1331,26 @@ def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> No
     g = np.random.default_rng(0).standard_normal((3, 500, 500)).astype(np.float32)
     wishart = torch.from_numpy(g @ g.transpose(0, 2, 1) / 500).cuda()
     jac, cus = eigh_batched(wishart)[0], torch.linalg.eigh(wishart)[0]
+    # block_size 16: 32 x 32 pivot blocks, K2's generic route.
+    jacobi_pivot_rotations.registers_launches = jacobi_pivot_rotations.generic_launches = 0
+    eigh_batched.chunks.clear()
+    jac16 = eigh_batched(wishart, block_size=16)[0]
+    torch.cuda.synchronize()
+    generic = jacobi_pivot_rotations.generic_launches
+    want = sum(c["sweeps"] * c["rounds_per_sweep"] for c in eigh_batched.chunks)
     for i in range(3):
         rows.append((f"Wishart 500 #{i}", rel(jac[i], wishart[i]), rel(cus[i], wishart[i])))
+        rows.append((f"Wishart 500 #{i} block_size 16", rel(jac16[i], wishart[i]), rel(cus[i], wishart[i])))
     log("eigenvalues vs fp64 host LAPACK, max |dlambda| / max |lambda|: " + "; ".join(
         f"{label}: jacobi {j:.2e}, cuSOLVER {c:.2e}" for label, j, c in rows) + f" [{card}]")
+    log(f"block_size 16 on the Wishart matrices: K2 launches {generic} on the generic route (want "
+        f"{want}), {jacobi_pivot_rotations.registers_launches} on the register route (want 0)")
     bad = [label for label, j, _ in rows if not j <= 5e-5]
     if bad:
         raise RuntimeError(f"the Jacobi solver is off fp64 LAPACK by more than 5e-5 on {bad}")
+    if generic != want or generic == 0 or jacobi_pivot_rotations.registers_launches:
+        raise RuntimeError("block_size 16 did not run every K2 launch on the generic route")
+    return generic
 
 
 def phase_flash_path(card: str, ctx: dict) -> dict:
@@ -1375,6 +1485,7 @@ def profile_eigh(card: str) -> None:
     from kronfluence_tpu_torch.factor.eigen import perform_eigendecomposition
     from kronfluence_tpu_torch.utils.dataset import BatchLoader
 
+    profile_k2_variants(card)
     ctx = setup_main_path()
     cov = fit_covariance_matrices_with_loader(
         ctx["model"], ctx["task"], BatchLoader(ctx["data"]["cov"], COV_BATCH, device=ctx["device"]),
@@ -1391,8 +1502,70 @@ def profile_eigh(card: str) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, sec = _stage(perform_eigendecomposition, cov, args[solver])
-        kernel_table(prof, sec, f"eigendecomposition {solver}", card)
+        kernels = kernel_table(prof, sec, f"eigendecomposition {solver}", card)
         log(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=15))
+        if solver == "jacobi":
+            total = sum(e.self_device_time_total for e in kernels)
+            for name in ("jacobi_registers_kernel", "jacobi_kernel"):
+                k2 = [e for e in kernels if name in e.key]
+                us = sum(e.self_device_time_total for e in k2)
+                log(f"K2 {name}: {sum(e.count for e in k2)} launches, device time {us / 1e6:.4f} s, "
+                    f"{us / total:.3f} of the Jacobi stage's kernel time, {us / 1e6 / sec:.3f} of its "
+                    f"wall {sec:.4f} s [{card}]")
+
+
+# Copies of csrc/jacobi_m64.cu for `--profile-eigh`: name -> text replacements.
+_K2_WARPS = ("constexpr int kWarps = 4;", "constexpr int kWarps = 8;")
+_K2_BOUNDS = "__launch_bounds__(kThreads)"
+K2_VARIANTS = {
+    "8 warps": (_K2_WARPS,),
+    "8 warps, registers capped for 3 CTAs an SM": (
+        _K2_WARPS, (_K2_BOUNDS, "__launch_bounds__(kThreads, 3)")),
+    "4 warps, registers capped for 4 CTAs an SM": ((_K2_BOUNDS, "__launch_bounds__(kThreads, 4)"),),
+}
+K2_SASS_OPS = ("instructions", "FMUL", "FADD", "SHFL", "SEL", "MOV", "STS", "LDS")
+
+
+def profile_k2_variants(card: str) -> None:
+    """The register K2 as built (4 warps, 8 column pairs a thread) against
+    K2_VARIANTS, each built alone, its SASS counted and held bit for bit to
+    the plain version first, in turns at the Jacobi path's three launch
+    shapes."""
+    from kronfluence_tpu_torch.ops.kernels import build
+    from kronfluence_tpu_torch.ops.kernels.jacobi import (
+        _EPS,
+        jacobi_pivot_rotations,
+        jacobi_pivot_rotations_reference,
+    )
+
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    log(f"SASS of jacobi_registers_kernel as built: "
+        f"{sass_counts(build.library_path(), 'jacobi_registers_kernel', K2_SASS_OPS)}")
+    fns = {"4 warps (as built)": lambda s: jacobi_pivot_rotations(s, 2)}
+    for index, (name, replacements) in enumerate(K2_VARIANTS.items()):
+        lib = build_variant("jacobi_m64.cu", index, replacements,
+                            {"kf_jacobi_pivot_rotations_m64": [ptr, ptr, i32, i32, ctypes.c_float, ptr]})
+        log(f"SASS of jacobi_registers_kernel, {name}: "
+            f"{sass_counts(Path(lib._name), 'jacobi_registers_kernel', K2_SASS_OPS)}")
+
+        def launch(s, lib=lib, name=name):
+            v = torch.empty_like(s)
+            build.check_launch(lib.kf_jacobi_pivot_rotations_m64(
+                s.data_ptr(), v.data_ptr(), s.shape[0], 2, ctypes.c_float(_EPS),
+                torch.cuda.current_stream().cuda_stream), f"jacobi ({name})")
+            return v
+
+        fns[name] = launch
+    for y in JACOBI_MAIN_Y:
+        s = sym_blocks(y, 64, seed=y * 64 + 2)
+        want = jacobi_pivot_rotations_reference(s, 2)
+        for name, fn in fns.items():
+            if not torch.equal(fn(s), want):
+                raise RuntimeError(f"K2 {name} is not bitwise equal to the plain version at Y {y}")
+        turns = turns_ms({name: ((lambda fn=fn: fn(s)), ["jacobi_registers"]) for name, fn in fns.items()})
+        log(f"K2 variants at Y {y} m 64 sweeps 2, events / device ms there, back: " + "; ".join(
+            f"{name} " + ", ".join(f"{e:.4f} / {d:.4f}" for e, d in tt) for name, tt in turns.items())
+            + f" [{card}]")
 
 
 def kernel_table(prof, sec: float, what: str, card: str, top: int = 6) -> list:
@@ -1784,10 +1957,11 @@ def main() -> None:
                          f"--profile-flash]; got {sys.argv[1:]}")
     probe_result = phase_probe()
     syrk_result = phase_syrk(card)
-    jacobi_result = phase_jacobi_kernel(card)
+    jacobi_result, jacobi_generic_result = phase_jacobi_kernel(card)
     flash_result = phase_flash_kernels(card)
     ctx = phase_main_path(card)
-    launches = dict(ctx["launches"], jacobi=phase_jacobi_path(card, ctx))
+    jacobi_by_route, jacobi_generic_launches = phase_jacobi_path(card, ctx)
+    launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
     # phase 10 (bf16, head_dim 64), F1, F2 and F3 from phase 11 (fp32).
     flash_path = phase_flash_path(card, ctx)
@@ -1832,10 +2006,22 @@ def main() -> None:
         {
             "name": "jacobi",
             "route": "cuda",
-            "source": "kronfluence_tpu_torch/csrc/jacobi.cu",
+            "source": "kronfluence_tpu_torch/csrc/jacobi_m64.cu",
             "replaces": "kronfluence_tpu/ops/pallas/jacobi.py:66",
             "launches": launches["jacobi"],
+            "launches_by_route": jacobi_by_route,
+            "launches_from": "phase 8 (Jacobi path, m 64: register route)",
             **jacobi_result,
+        },
+        {
+            "name": "jacobi_generic",
+            "route": "cuda",
+            "source": "kronfluence_tpu_torch/csrc/jacobi.cu",
+            "replaces": "kronfluence_tpu/ops/pallas/jacobi.py:66",
+            "launches": jacobi_generic_launches,
+            "launches_from": "phase 8 (eigh_batched block_size 16 on the Wishart matrices, m 32: "
+                             "generic route)",
+            **jacobi_generic_result,
         },
     ] + [
         {

@@ -37,7 +37,9 @@
 //    __fsub_rn, ...), so nvcc fuses nothing into FMAs and the kernel repeats
 //    the plain PyTorch version's IEEE operations in the same order.
 //  * Later work: fuse the pivot extraction and the rotation products of the
-//    blocked solver around it, and keep A in registers across rounds.
+//    blocked solver around it. At m = 64 (the solver's default pivot block)
+//    the wrapper takes jacobi_m64.cu instead, which keeps A and V in
+//    registers and moves the seats by shuffles.
 //
 // Every launch runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError().

@@ -23,8 +23,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
-    "flash_attention.cu", "flash_backward.cu", "flash_forward.cu", "jacobi.cu", "probe.cu",
-    "syrk.cu",
+    "flash_attention.cu", "flash_backward.cu", "flash_forward.cu", "jacobi.cu",
+    "jacobi_m64.cu", "probe.cu", "syrk.cu",
 )
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -157,6 +157,8 @@ def load_library() -> ctypes.CDLL:
     lib.kf_syrk_f32.restype = i32
     lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
     lib.kf_jacobi_pivot_rotations.restype = i32
+    lib.kf_jacobi_pivot_rotations_m64.argtypes = [ptr, ptr, i32, i32, ctypes.c_float, ptr]
+    lib.kf_jacobi_pivot_rotations_m64.restype = i32
     f32 = ctypes.c_float
     lib.kf_flash_fwd.argtypes = [i32, *[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dkv.argtypes = [i32, *[ptr] * 10, i32, i32, i32, i32, f32, ptr]

@@ -8,10 +8,14 @@ coefficients, and applies the Brent-Luk seat exchange to A and to V's
 columns. It returns V, orthogonal with V^T S V approximately diagonal, in the
 JAX kernel's column layout.
 
-`jacobi_pivot_rotations` launches the CUDA kernel (`csrc/jacobi.cu`) for a
-CUDA tensor and takes the plain version `jacobi_pivot_rotations_reference`
-only for a CPU tensor; for a CUDA tensor it launches the kernel or raises.
-`jacobi_pivot_rotations.launches` counts the kernel's launches.
+`jacobi_pivot_rotations` launches a CUDA kernel for a CUDA tensor and takes
+the plain version `jacobi_pivot_rotations_reference` only for a CPU tensor;
+for a CUDA tensor it launches the kernel that `jacobi_route(m)` names or
+raises. Routes: "registers" (`csrc/jacobi_m64.cu`, m = 64, the blocked
+solver's default pivot block: A and V held in registers) and "generic"
+(`csrc/jacobi.cu`, every other even m up to 128: A and V in shared memory).
+`jacobi_pivot_rotations.launches` counts the launches of both,
+`.registers_launches` and `.generic_launches` those of each route.
 
 One deliberate difference from the JAX kernel: it computes each side of a
 pair's rotation separately, and when the pair's two diagonal entries are
@@ -32,6 +36,14 @@ from kronfluence_tpu_torch.ops.kernels.build import check_launch, load_library
 _EPS = float(np.finfo(np.float32).eps)
 # A and V of one block live in the shared memory of one CTA (2 m^2 fp32).
 MAX_M = 128
+# The block size of the register kernel: one lane a seat pair.
+REGISTERS_M = 64
+
+
+def jacobi_route(m: int) -> str:
+    """The CUDA kernel that takes (Y, m, m) blocks: "registers" at m = 64,
+    "generic" otherwise."""
+    return "registers" if m == REGISTERS_M else "generic"
 
 
 def _seat_source(i: int, m: int) -> int:
@@ -132,7 +144,8 @@ def _check_cuda_operand(s: torch.Tensor) -> None:
 def jacobi_pivot_rotations(s: torch.Tensor, sweeps: int, eps=None) -> torch.Tensor:
     """Diagonalizing rotations V (Y, m, m) of symmetric blocks s (Y, m, m).
 
-    CUDA: fp32 contiguous blocks, m even in [4, 128], via the CUDA kernel.
+    CUDA: fp32 contiguous blocks, m even in [4, 128], via the kernel of
+    `jacobi_route(m)`.
     CPU: the plain version. `eps` (the rotation threshold) defaults to fp32
     machine epsilon.
     """
@@ -142,16 +155,28 @@ def jacobi_pivot_rotations(s: torch.Tensor, sweeps: int, eps=None) -> torch.Tens
     _check_cuda_operand(s)
     eps = _EPS if eps is None else float(eps)
     y, m, _ = s.shape
+    route = jacobi_route(m)
     with torch.cuda.device(s.device):
         lib = load_library()
         v = torch.empty_like(s)
         stream = torch.cuda.current_stream(s.device).cuda_stream
-        err = lib.kf_jacobi_pivot_rotations(
-            s.data_ptr(), v.data_ptr(), y, m, sweeps, ctypes.c_float(eps), stream
-        )
-        check_launch(err, "jacobi")
+        if route == "registers":
+            err = lib.kf_jacobi_pivot_rotations_m64(
+                s.data_ptr(), v.data_ptr(), y, sweeps, ctypes.c_float(eps), stream
+            )
+        else:
+            err = lib.kf_jacobi_pivot_rotations(
+                s.data_ptr(), v.data_ptr(), y, m, sweeps, ctypes.c_float(eps), stream
+            )
+        check_launch(err, f"jacobi ({route})")
     jacobi_pivot_rotations.launches += 1
+    if route == "registers":
+        jacobi_pivot_rotations.registers_launches += 1
+    else:
+        jacobi_pivot_rotations.generic_launches += 1
     return v
 
 
 jacobi_pivot_rotations.launches = 0
+jacobi_pivot_rotations.registers_launches = 0
+jacobi_pivot_rotations.generic_launches = 0

@@ -1,6 +1,7 @@
 """The blocked-Jacobi eigensolver path of the port (`eigendecomposition_solver=
-"jacobi"`) against kronfluence_tpu: K2's plain version against the JAX Pallas
-kernel in interpret mode, the solver against the JAX solver's K2 route and
+"jacobi"`) against kronfluence_tpu: K2's plain version, and a CPU emulation of
+the m 64 register kernel's schedule, against the JAX Pallas kernel in
+interpret mode; K2's route rule; the solver against the JAX solver's K2 route and
 LAPACK, the eigendecomposition stage on the tiny GPT-2, and the solver
 dispatch. On the CPU the K2 wrapper takes its plain version; the CUDA kernel
 is compared with it on the card by chip_smoke.py and the `cuda`-marked tests.
@@ -35,6 +36,8 @@ from kronfluence_tpu_torch.ops.eigh import eigh_batched, gershgorin_pad
 from kronfluence_tpu_torch.ops.kernels.jacobi import (
     jacobi_pivot_rotations,
     jacobi_pivot_rotations_reference,
+    jacobi_route,
+    rotation_coefficients,
 )
 from kronfluence_tpu_torch.utils.constants import (
     ACTIVATION_COVARIANCE_MATRIX_NAME,
@@ -165,6 +168,137 @@ def test_k2_rejects_odd_small_or_nonsquare_blocks(shape):
 def test_k2_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         jacobi_pivot_rotations(torch.empty((2, 8, 8), device="meta"), 1)
+
+
+@pytest.mark.parametrize(
+    "m,route",
+    [(4, "generic"), (8, "generic"), (32, "generic"), (62, "generic"), (64, "registers"),
+     (66, "generic"), (128, "generic")],
+)
+def test_jacobi_route_takes_the_register_kernel_at_m_64_only(m, route):
+    assert jacobi_route(m) == route
+
+
+@pytest.mark.parametrize("m", [32, 64])
+def test_k2_cpu_tensor_counts_no_route(m):
+    s = torch.from_numpy(_sym_blocks(2, m, seed=m))
+    before = (jacobi_pivot_rotations.registers_launches, jacobi_pivot_rotations.generic_launches)
+    jacobi_pivot_rotations(s, 1)
+    after = (jacobi_pivot_rotations.registers_launches, jacobi_pivot_rotations.generic_launches)
+    assert after == before
+
+
+def _register_schedule(s: torch.Tensor, sweeps: int, warps: int = 4) -> torch.Tensor:
+    """csrc/jacobi_m64.cu's schedule on the CPU, owner for owner: warp w, lane
+    k holds the 2 x 2 tiles (seat pair k, column pair w * cols + j) of A and
+    V, as (Y, warp, lane, j, 4) with element (odd row) * 2 + (odd column).
+    Each round, every warp computes all pairs' coefficients from the pivots
+    (lane k pair k) and shuffles a column pair's to its tiles; A's rows then
+    columns are rotated; the row half of sigma moves rows between lanes
+    (shuffles up and down with the fixups of lanes 0, 1 and 31); each warp
+    writes its candidates for the next pivots to its own slot and lane k
+    reads the holder's; the column half moves columns between a thread's
+    tiles and hands the edge columns to the neighbouring warps. V trails A
+    by one round. The same operations as the plain version, so bit for bit
+    its V, unless a layout, shuffle or hand-off is wrong."""
+    y, m, _ = s.shape
+    assert m == 64 and s.dtype == torch.float32
+    pairs, cols = m // 2, m // 2 // warps
+    eps = float(np.finfo(np.float32).eps)
+    lane = torch.arange(pairs).view(1, 1, pairs, 1, 1)
+    warp = torch.arange(warps).view(1, warps, 1, 1)
+
+    def tiles(x):
+        return x.reshape(y, pairs, 2, warps, cols, 2).permute(0, 3, 1, 4, 2, 5).reshape(
+            y, warps, pairs, cols, 4)
+
+    def rot(c, x, sn, other):
+        return c * x - sn * other
+
+    def rotate_columns(x, c2, s2):
+        x0, x1, x2, x3 = x.unbind(-1)
+        return torch.stack([rot(c2, x0, s2, x1), rot(c2, x1, -s2, x0),
+                            rot(c2, x2, s2, x3), rot(c2, x3, -s2, x2)], -1)
+
+    def send_and_shift_columns(x):
+        up, down = x[:, :, :, -1][..., 0::2], x[:, :, :, 0][..., 1::2]
+        new = x.clone()
+        new[:, :, :, 2:, 0::2] = x[:, :, :, 1:-1, 0::2]
+        new[:, :, :, 1, 0::2] = torch.where(warp == 0, x[:, :, :, 0, 1::2], x[:, :, :, 0, 0::2])
+        new[:, :, :, :-1, 1::2] = x[:, :, :, 1:, 1::2]
+        new[:, -1, :, -1, 1::2] = x[:, -1, :, -1, 0::2]
+        return new, up, down
+
+    def receive_columns(x, up, down):
+        x[:, 1:, :, 0, 0::2] = up[:, :-1]
+        x[:, :-1, :, -1, 1::2] = down[:, 1:]
+        return x
+
+    def v_round(v, c2, s2):
+        return receive_columns(*send_and_shift_columns(rotate_columns(v, c2, s2)))
+
+    k = torch.arange(pairs)
+    pp_pair = torch.where(k <= 1, 0, k - 1)
+    q_pair = torch.where(k == pairs - 1, pairs - 1, k + 1)
+    a = tiles(s).clone()
+    v = tiles(torch.eye(m).expand(y, m, m)).clone()
+    diag = torch.stack([s[:, 2 * k, 2 * k], s[:, 2 * k + 1, 2 * k + 1], s[:, 2 * k, 2 * k + 1]], -1)
+    slots = diag[:, None].expand(y, warps, pairs, 3)  # round 0's pivots in every warp's slot
+    c2p = s2p = None
+    for r in range(sweeps * (m - 1)):
+        pivot = torch.stack([slots[:, pp_pair // cols, k, 0], slots[:, q_pair // cols, k, 1],
+                             slots[:, q_pair // cols, k, 2]], -1)
+        c, sn = rotation_coefficients(pivot[..., 0], pivot[..., 1], pivot[..., 2], eps)
+        if r > 0:
+            v = v_round(v, c2p, s2p)
+        c2, s2 = c.view(y, warps, 1, cols), sn.view(y, warps, 1, cols)
+        cr, sr = c.view(y, 1, pairs, 1), sn.view(y, 1, pairs, 1)
+        x0, x1, x2, x3 = a.unbind(-1)
+        a = torch.stack([rot(cr, x0, sr, x2), rot(cr, x1, sr, x3),
+                         rot(cr, x2, -sr, x0), rot(cr, x3, -sr, x1)], -1)
+        a = rotate_columns(a, c2, s2)
+        up = torch.roll(torch.where(lane == 0, a[..., 2:], a[..., :2]), 1, dims=2)
+        down = torch.roll(a[..., 2:], -1, dims=2)
+        a = torch.cat([torch.where(lane == 0, a[..., :2], up),
+                       torch.where(lane == pairs - 1, a[..., :2], down)], -1)
+        # Each warp's candidates, picked from its tiles (j = pair mod cols).
+        mine = a[:, :, k]  # (Y, warp, lane, j, 4)
+        slots = torch.stack([mine[:, :, k, pp_pair % cols, torch.where(k == 1, 1, 0)],
+                             mine[:, :, k, q_pair % cols, torch.where(k == pairs - 1, 2, 3)],
+                             mine[:, :, k, q_pair % cols, torch.where(k == pairs - 1, 0, 1)]], -1)
+        a = receive_columns(*send_and_shift_columns(a))
+        c2p, s2p = c2, s2
+    if c2p is not None:
+        v = v_round(v, c2p, s2p)
+    return v.view(y, warps, pairs, cols, 2, 2).permute(0, 2, 4, 1, 3, 5).reshape(y, m, m)
+
+
+@pytest.mark.parametrize("warps", [4, 8])
+@pytest.mark.parametrize("sweeps", [0, 1, 2])
+def test_register_schedule_matches_plain_version_bit_for_bit(sweeps, warps):
+    """The register kernel's owners, shuffles and hand-offs (4 warps as
+    built; 8 as its profiled copy), emulated on the CPU, give the plain
+    version's V bit for bit: an index fault moves V by O(1)."""
+    s = torch.from_numpy(_sym_blocks(3, 64, seed=640 + sweeps))
+    got = _register_schedule(s, sweeps, warps)
+    assert torch.equal(got, jacobi_pivot_rotations_reference(s, sweeps))
+
+
+@pytest.mark.parametrize("sweeps", [1, 2])
+def test_register_schedule_matches_jax_kernel(sweeps):
+    """The emulated schedule against the JAX kernel in interpret mode, with
+    test_k2_plain_version_matches_jax_kernel's per-block tolerance."""
+    s = _sym_blocks(2, 64, seed=6400 + sweeps)
+    want = np.asarray(
+        jax_pallas_jacobi.jacobi_pivot_rotations(jnp.asarray(s), sweeps=sweeps, interpret=True),
+        np.float64,
+    )
+    got = _register_schedule(torch.from_numpy(s), sweeps).double().numpy()
+    fp64 = jacobi_pivot_rotations_reference(torch.from_numpy(s).double(), sweeps).numpy()
+    sensitivity = np.abs(got - fp64).max(axis=(1, 2))
+    diff = np.abs(got - want).max(axis=(1, 2))
+    assert np.all(diff <= 1e-5 + 16.0 * sensitivity), (diff, sensitivity)
+    assert np.abs(np.einsum("yji,yjk->yik", got, got) - np.eye(64)).max() < 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -452,19 +586,25 @@ def test_jacobi_raises_at_llama_dims_before_solving(monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("y,m,sweeps", [(780, 64, 2), (294, 64, 2), (5, 32, 1)])
+@pytest.mark.parametrize(
+    "y,m,sweeps", [(780, 64, 2), (294, 64, 2), (77, 64, 1), (5, 32, 1), (300, 32, 2)]
+)
 def test_cuda_k2_matches_plain_version(y, m, sweeps):
-    """Card only: the kernel repeats the plain version's IEEE operations in
-    the same order (explicitly rounded intrinsics, no FMA), so the two agree
-    to 1e-5 on the same card; V is orthogonal."""
+    """Card only: each route's kernel repeats the plain version's IEEE
+    operations in the same order (explicitly rounded intrinsics, no FMA), so
+    the two agree to 1e-5 on the same card; V is orthogonal; the route's
+    counter counts the launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; the CPU runs the plain version only")
     s = torch.from_numpy(_sym_blocks(y, m, seed=y + m)).cuda()
     before = jacobi_pivot_rotations.launches
+    counter = f"{jacobi_route(m)}_launches"
+    route_before = getattr(jacobi_pivot_rotations, counter)
     got = jacobi_pivot_rotations(s, sweeps)
     want = jacobi_pivot_rotations_reference(s, sweeps)
     torch.cuda.synchronize()
     assert jacobi_pivot_rotations.launches == before + 1
+    assert getattr(jacobi_pivot_rotations, counter) == route_before + 1
     assert float((got - want).abs().max()) <= 1e-5
     eye = torch.eye(m, device="cuda")
     assert float((got.transpose(1, 2) @ got - eye).abs().max()) < 1e-5
