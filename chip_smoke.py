@@ -75,6 +75,21 @@ each of which raises on failure:
      T 128, padded data), in fp32: F1, F2 and F3 (the generic forward and
      the split backward) on the card, FF and FB never, their plain versions
      on the CPU.
+ 12. analyzer path: phase 5's model, recipe and data through the public
+     entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
+     artifacts in a temporary directory: `fit_all_factors`, then
+     `compute_pairwise_scores` (phase 5's 16 queries x 64 train) and
+     `compute_self_scores` (use_measurement_for_self_influence) on the 64
+     train examples. K1 must launch 36 times per covariance batch, all on
+     the wgmma kernel, K3 at least once, K2 and the flash kernels never.
+     Every artifact is read back from disk: the covariance factors, counts
+     and eigenpairs equal phase 5's bit for bit, lambda and the pairwise
+     scores the stage functions' on the same data from phase 5's factors;
+     the self scores match the pairwise diagonal with the train set as
+     queries. The same calls again on the finished directory must launch no
+     kernel and change no file. It prints the stage seconds beside phase
+     5's, the bytes written, the write and load seconds and the peak device
+     memory; the directory is deleted at the end.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -113,8 +128,10 @@ import copy
 import ctypes
 import json
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -221,6 +238,19 @@ FLASH_CASES = (
 # blocks, Pearson r at least 0.97, the JAX package's weakest fp8 certificate.
 FLASH_FACTOR_RTOL = 5e-2
 FLASH_PEARSON_MIN = 0.97
+# Phase 12: K1's launches per covariance batch on GPT-2 small (48 tracked
+# linears: the 2304- and 3072-wide gradient grams and the 3073-wide bordered
+# activation gram pass the shape rule, 36 of the 96 grams a batch).
+SYRK_LAUNCHES_PER_COV_BATCH = 36
+# Self scores against the pairwise diagonal, both bf16. Each side rounds each
+# of its 48 per-module scores to bf16 and sums them in bf16 (47 more
+# roundings of partial sums up to the largest score), from contractions taken
+# in another order (self: preconditioned gradient . gradient; pairwise: the
+# query block against the train tokens). Limit 8 bf16 units (2^-8 each) of
+# max |diagonal|: 2^-5. On an H100 80GB HBM3 it read 8.7e-3, 2.2 units.
+# A planted fault, the same check against the first superdiagonal (each
+# example's influence on its neighbour), must read above it.
+SELF_DIAGONAL_RTOL = 2.0 ** -5
 
 
 def log(msg: str) -> None:
@@ -710,7 +740,11 @@ def phase_main_path(card: str) -> dict:
     log(f"main path: {len(cov['activation_covariance'])} modules; scores {tuple(s.shape)} "
         f"{scores[ALL_MODULE_NAME].dtype}, finite, |s| max {float(s.abs().max()):.4e}, "
         f"mean {float(s.mean()):.4e}")
-    return dict(ctx, launches=launches, cov=cov, scores=scores, seconds=seconds, peak=peak)
+    # Phase 12 holds its artifacts against these; kept on the host so that the
+    # phases between hold no more device memory than before.
+    eigen_host = {k: {n: t.cpu() for n, t in v.items()} for k, v in eigen.items()}
+    return dict(ctx, launches=launches, cov=cov, eigen_host=eigen_host, scores=scores,
+                seconds=seconds, peak=peak)
 
 
 def sym_blocks(y: int, m: int, seed: int) -> torch.Tensor:
@@ -1476,6 +1510,249 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     return launches
 
 
+def artifact_bytes(root: Path) -> dict:
+    """Bytes on disk under `root`, by stage: the factor files of each stage
+    (partition-free names), the score files, and everything else (arguments,
+    metadata, profiler tables)."""
+    from kronfluence_tpu_torch.utils.constants import (
+        COVARIANCE_FACTOR_NAMES,
+        EIGENDECOMPOSITION_FACTOR_NAMES,
+        LAMBDA_FACTOR_NAMES,
+    )
+
+    groups = {"covariance": COVARIANCE_FACTOR_NAMES,
+              "eigendecomposition": EIGENDECOMPOSITION_FACTOR_NAMES,
+              "lambda": LAMBDA_FACTOR_NAMES}
+    out = {key: 0 for key in (*groups, "scores", "other")}
+    for path in root.rglob("*"):
+        if not path.is_file():
+            continue
+        key = next((g for g, names in groups.items() if path.stem in names), None)
+        if key is None:
+            key = "scores" if path.name.endswith("scores.safetensors") else "other"
+        out[key] += path.stat().st_size
+    return out
+
+
+def mount_of(path: Path) -> str:
+    """The mount point and file system type that hold `path` (/proc/self/mounts)."""
+    best = ("", "unknown")
+    for line in Path("/proc/self/mounts").read_text().splitlines():
+        fields = line.split()
+        mount, fstype = fields[1], fields[2]
+        if str(path).startswith(mount.rstrip("/") + "/") and len(mount) > len(best[0]):
+            best = (mount, fstype)
+    return f"{best[0]} ({best[1]})"
+
+
+def check_analyzer_launches(launches: dict, wgmma: int, naive_calls: int, cov_batches: int) -> None:
+    """Phase 12's kernel launches: K1 36 times a covariance batch, all on the
+    wgmma kernel, K3 at least once, K2 and the flash kernels never (naive
+    attention, the cuSOLVER eigendecomposition)."""
+    want = SYRK_LAUNCHES_PER_COV_BATCH * cov_batches
+    if not launches["syrk"] == wgmma == want:
+        raise RuntimeError(f"K1 launched {launches['syrk']} times through the Analyzer, {wgmma} "
+                           f"on the wgmma kernel; want {want}, all wgmma")
+    if launches["probe"] < 1:
+        raise RuntimeError("K3 was not launched through the Analyzer")
+    others = {k: v for k, v in launches.items() if k not in ("syrk", "probe") and v}
+    if others or naive_calls == 0:
+        raise RuntimeError(f"the Analyzer path launched {others} or never ran the naive form")
+
+
+def phase_analyzer(card: str, ctx: dict) -> tuple:
+    """Phase 5's model, recipe and data through the public entry point:
+    `Analyzer.fit_all_factors`, `compute_pairwise_scores` and
+    `compute_self_scores`, every artifact written to and read back from disk,
+    then the same calls again on the finished directory (resume)."""
+    from kronfluence_tpu_torch import Analyzer
+    from kronfluence_tpu_torch.factor import io as factor_io
+    from kronfluence_tpu_torch.factor.eigen import fit_lambda_matrices_with_loader
+    from kronfluence_tpu_torch.ops.attention import naive_attention
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.score.pairwise import compute_pairwise_scores_with_loaders
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    model, task, data, device = ctx["model"], ctx["task"], ctx["data"], ctx["device"]
+    factor_args, score_args = ctx["factor_args"], ctx["score_args"]
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in kernels.values():
+            fn.launches = 0
+        syrk.wgmma_launches = 0
+        naive_attention.calls = 0
+
+    def counts():
+        return {name: fn.launches for name, fn in kernels.items()}
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    start = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_"))
+    try:
+        log(f"analyzer path: artifacts under {root}, on {mount_of(root)}")
+        cov_batches = -(-COV_N // COV_BATCH)
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        # The public entry point, with explicit batch sizes; it moves the
+        # model to cuda:0 (where it is already).
+        analyzer = Analyzer("chip_smoke", model, task, output_dir=str(root), profile=True)
+        if analyzer.device != device or next(model.module.parameters()).device != device:
+            raise RuntimeError(f"the Analyzer runs on {analyzer.device}, not on {device}")
+        wall = {}
+        _, wall["fit_all_factors"] = timed(
+            analyzer.fit_all_factors, "ekfac", data["cov"], per_device_batch_size=COV_BATCH,
+            factor_args=factor_args)
+        _, wall["compute_pairwise_scores"] = timed(
+            analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
+            per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
+            score_args=score_args)
+        stage_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()}
+        self_args = copy.deepcopy(score_args)
+        self_args.use_measurement_for_self_influence = True
+        _, wall["compute_self_scores"] = timed(
+            analyzer.compute_self_scores, "self", "ekfac", data["train"],
+            per_device_train_batch_size=TRAIN_BATCH, score_args=self_args)
+        # The train set as queries: the pairwise diagonal is each example's
+        # self-influence (the task's measurement is its train loss).
+        diag_args = copy.deepcopy(score_args)
+        diag_args.query_gradient_accumulation_steps = TRAIN_N // QUERY_BATCH
+        _, wall["compute_pairwise_scores (train x train)"] = timed(
+            analyzer.compute_pairwise_scores, "train_x_train", "ekfac", data["train"],
+            data["train"], per_device_query_batch_size=QUERY_BATCH,
+            per_device_train_batch_size=TRAIN_BATCH, score_args=diag_args)
+        launches, wgmma, naive_calls = counts(), syrk.wgmma_launches, naive_attention.calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"analyzer path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+            + f"; syrk on the wgmma kernel {wgmma} (want {SYRK_LAUNCHES_PER_COV_BATCH} x "
+            f"{cov_batches} covariance batches = {SYRK_LAUNCHES_PER_COV_BATCH * cov_batches}, "
+            f"all wgmma); naive attention calls {naive_calls}")
+        check_analyzer_launches(launches, wgmma, naive_calls, cov_batches)
+
+        sizes = artifact_bytes(root)
+        log(f"analyzer path: bytes written " + ", ".join(f"{k} {v:,}" for k, v in sizes.items())
+            + f"; total {sum(sizes.values()):,} [{card}]")
+        stages = {
+            "covariance": ("Fit Covariance", "covariance"),
+            "eigendecomposition": ("Perform Eigendecomposition", "eigendecomposition"),
+            "lambda": ("Fit Lambda", "lambda"),
+            "pairwise": ("Compute Pairwise Score", "pairwise"),
+        }
+        log("analyzer path stage seconds (profiler, synchronized; the first pairwise call): "
+            + ", ".join(f"{k} {stage_rows[row][0]:.3f}" for k, (row, _) in stages.items())
+            + "; phase 5's stage functions: " + ", ".join(
+                f"{k} {ctx['seconds'][key]:.3f}" for k, (_, key) in stages.items())
+            + f"; calls: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items())
+            + f"; peak device memory {peak:.2f} GiB [{card}]")
+        io_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()
+                   if name.startswith(("Save", "Load"))}
+        log("analyzer path write and load seconds (profiler; the eigendecomposition write runs on "
+            "a background thread beside the lambda stage): " + ", ".join(
+                f"{name} {sec:.3f} ({calls} call{'s' if calls > 1 else ''})"
+                for name, (sec, calls) in io_rows.items()) + f" [{card}]")
+
+        # Every artifact read back from disk onto the card, against phase 5's
+        # in-memory results.
+        fdir = analyzer.factors_output_dir("ekfac")
+        cov, load_cov = timed(factor_io.load_covariance_matrices, fdir, device=device)
+        eigen, load_eig = timed(factor_io.load_eigendecomposition, fdir, device=device)
+        lam, load_lam = timed(factor_io.load_lambda_matrices, fdir, device=device)
+        read = sizes["covariance"] + sizes["eigendecomposition"] + sizes["lambda"]
+        log(f"analyzer path: factors read back onto the card in {load_cov:.3f} + {load_eig:.3f} + "
+            f"{load_lam:.3f} s ({read / (load_cov + load_eig + load_lam) / 1e9:.2f} GB/s) [{card}]")
+        unequal = [f"{factor} {name}" for factor, tensors in ctx["cov"].items()
+                   for name, t in tensors.items() if not torch.equal(cov[factor][name], t)]
+        if unequal or cov.keys() != ctx["cov"].keys():
+            raise RuntimeError(f"covariance read back differs from phase 5's: {unequal[:4]}")
+        # The bf16 recipe stores the eigenpairs in bf16, so their
+        # reconstruction is ~2^-8 off the covariance and the Jacobi path's
+        # fp32 limits do not apply to them; the same cuSOLVER solve of the same
+        # covariance is held bit for bit instead, with the worst gaps printed.
+        eigen5 = {k: {n: t.to(device) for n, t in v.items()} for k, v in ctx["eigen_host"].items()}
+        unequal = [f"{k} {n}" for k, v in eigen5.items() for n, t in v.items()
+                   if not torch.equal(eigen[k][n], t)]
+        worst = compare_eigenpairs(_to_fp32(ctx["cov"]), _to_fp32(eigen), _to_fp32(eigen5))
+        log("analyzer path vs phase 5: covariance and counts equal bit for bit; eigenpairs "
+            f"unequal in {len(unequal)} tensors (bit for bit required); per matrix relative to "
+            "max|lambda|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + " (bf16 eigenpairs)")
+        if unequal or eigen.keys() != eigen5.keys():
+            raise RuntimeError(f"eigenpairs read back differ from phase 5's: {unequal[:4]}")
+        # fit_all_factors takes one dataset for both stages, where phase 5
+        # fitted lambda on other examples: the reference lambda and scores are
+        # the stage functions on phase 12's data with phase 5's covariance and
+        # eigenpairs, in the same batches and order.
+        ref_lam = fit_lambda_matrices_with_loader(
+            model, task, BatchLoader(data["cov"], COV_BATCH, device=device), factor_args,
+            eigen_factors=eigen5)
+        ref_scores = compute_pairwise_scores_with_loaders(
+            model, task, BatchLoader(data["query"], QUERY_BATCH, device=device),
+            BatchLoader(data["train"], TRAIN_BATCH, device=device),
+            {**ctx["cov"], **eigen5, **ref_lam}, factor_args, score_args)
+        unequal = [f"{factor} {name}" for factor, tensors in ref_lam.items()
+                   for name, t in tensors.items() if not torch.equal(lam[factor][name], t)]
+        scores = analyzer.load_pairwise_scores("pairwise")
+        gap = float((scores[ALL_MODULE_NAME].float() - ref_scores[ALL_MODULE_NAME].float())
+                    .abs().max())
+        log(f"analyzer path vs the stage functions: lambda and counts unequal in {len(unequal)} "
+            f"tensors; pairwise scores {tuple(scores[ALL_MODULE_NAME].shape)} "
+            f"{scores[ALL_MODULE_NAME].dtype} through the disk, max |disk - memory| {gap:.3e} "
+            "(both required bit for bit)")
+        if unequal:
+            raise RuntimeError(f"lambda read back differs from the stage function's: {unequal[:4]}")
+        if not torch.equal(scores[ALL_MODULE_NAME], ref_scores[ALL_MODULE_NAME]):
+            raise RuntimeError(f"pairwise scores through the disk differ: {gap:.3e}")
+
+        self_scores = analyzer.load_self_scores("self")[ALL_MODULE_NAME].float()
+        if tuple(self_scores.shape) != (TRAIN_N,) or not bool(torch.isfinite(self_scores).all()):
+            raise RuntimeError(f"self scores: shape {tuple(self_scores.shape)} or non-finite")
+        train_x_train = analyzer.load_pairwise_scores("train_x_train")[ALL_MODULE_NAME].float()
+        diagonal = torch.diagonal(train_x_train)
+        scale = float(diagonal.abs().max())
+        self_gap = float((self_scores - diagonal).abs().max()) / scale
+        fault = float((self_scores[:-1] - torch.diagonal(train_x_train, 1)).abs().max()) / scale
+        log(f"analyzer path: self scores (use_measurement_for_self_influence=True) against the "
+            f"pairwise diagonal of train x train: max |self - diagonal| / max |diagonal| "
+            f"{self_gap:.3e} (limit {SELF_DIAGONAL_RTOL:g}); planted fault (against the first "
+            f"superdiagonal) {fault:.3e}; |self| max {float(self_scores.abs().max()):.4e}")
+        if not self_gap <= SELF_DIAGONAL_RTOL:
+            raise RuntimeError(f"self scores off the pairwise diagonal: {self_gap:.3e}")
+        if not fault > SELF_DIAGONAL_RTOL:
+            raise RuntimeError(f"the self-score check passes a planted fault: {fault:.3e}")
+
+        # Resume: the same calls on the finished directory run no stage.
+        mtimes = {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
+        zero_counts()
+        _, resume_fit = timed(analyzer.fit_all_factors, "ekfac", data["cov"],
+                              per_device_batch_size=COV_BATCH, factor_args=factor_args)
+        _, resume_pairwise = timed(
+            analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
+            per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
+            score_args=score_args)
+        resumed = counts()
+        touched = mtimes != {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
+        log(f"analyzer path resume: fit_all_factors {resume_fit:.3f} s (it reads the "
+            f"eigendecomposition back), compute_pairwise_scores {resume_pairwise:.3f} s; "
+            f"launches " + ", ".join(f"{k} {v}" for k, v in resumed.items())
+            + f"; files changed: {touched} [{card}]")
+        if any(resumed.values()) or touched:
+            raise RuntimeError(f"the resume ran a stage or wrote a file: {resumed}, {touched}")
+        log(f"analyzer path: phase 12 took {time.perf_counter() - start:.1f} s [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, wgmma
+
+
 def profile_eigh(card: str) -> None:
     """Cold and warm eigendecomposition seconds of both solvers on phase 5's
     covariance factors, and a torch.profiler kernel table of a warm run."""
@@ -1966,6 +2243,7 @@ def main() -> None:
     # phase 10 (bf16, head_dim 64), F1, F2 and F3 from phase 11 (fp32).
     flash_path = phase_flash_path(card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
+    analyzer_launches, analyzer_wgmma = phase_analyzer(card, ctx)
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
@@ -1993,6 +2271,8 @@ def main() -> None:
             "source": "kronfluence_tpu_torch/csrc/syrk.cu",
             "replaces": "kronfluence_tpu/ops/pallas/syrk.py:44",
             "launches": launches["syrk"],
+            "analyzer_launches": analyzer_launches["syrk"],
+            "analyzer_wgmma_launches": analyzer_wgmma,
             **syrk_result,
         },
         {
@@ -2001,6 +2281,7 @@ def main() -> None:
             "source": "kronfluence_tpu_torch/csrc/probe.cu",
             "replaces": "kronfluence_tpu/utils/platform.py:55",
             "launches": launches["probe"],
+            "analyzer_launches": analyzer_launches["probe"],
             **probe_result,
         },
         {

@@ -1,0 +1,263 @@
+"""Computer base: device, output layout, argument and metadata persistence,
+loaders, module partitions and factor loading.
+
+Port of `kronfluence_tpu/computer/computer.py`: the directory layout
+`{output_dir}/{name}/factors_{fname}|scores_{sname}`, the argument-conflict
+check on the key intersection, and the strategy-driven `load_all_factors`.
+The device is explicit: `cuda:0` unless `cpu=True`, and the model is moved
+there.
+"""
+
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from kronfluence_tpu_torch.arguments import Arguments, FactorArguments, ScoreArguments
+from kronfluence_tpu_torch.factor import io as factor_io
+from kronfluence_tpu_torch.factor.config import get_factor_config
+from kronfluence_tpu_torch.factor.covariance import discover_stage_specs
+from kronfluence_tpu_torch.prepare import PreparedModel, prepare_model
+from kronfluence_tpu_torch.task import Task
+from kronfluence_tpu_torch.utils.constants import (
+    FACTOR_ARGUMENTS_NAME,
+    FACTOR_SAVE_PREFIX,
+    SCORE_ARGUMENTS_NAME,
+    SCORE_SAVE_PREFIX,
+)
+from kronfluence_tpu_torch.utils.dataset import (
+    BatchLoader,
+    DataLoaderKwargs,
+    ProgressLoader,
+    dataset_length,
+    dataset_metadata,
+)
+from kronfluence_tpu_torch.utils.exceptions import FactorsNotFoundError
+from kronfluence_tpu_torch.utils.logger import (
+    PassThroughProfiler,
+    Profiler,
+    TraceProfiler,
+    get_logger,
+)
+from kronfluence_tpu_torch.utils.save import load_json, save_json
+
+
+def analysis_device(cpu: bool) -> torch.device:
+    """`cuda:0`, or the CPU when asked; never the CPU in place of a missing card."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "No CUDA device is available. Pass `cpu=True` to run the analysis on the CPU."
+        )
+    return torch.device("cuda", 0)
+
+
+class Computer:
+    """Base orchestration shared by FactorComputer and ScoreComputer."""
+
+    def __init__(
+        self,
+        name: str,
+        model: Any,
+        task: Task,
+        cpu: bool = False,
+        log_level: Optional[int] = None,
+        log_main_process_only: bool = True,
+        profile: Any = False,
+        disable_tqdm: bool = False,
+        output_dir: str = "./influence_results",
+    ) -> None:
+        # One process: every log line is the main process's (distribution is
+        # ROADMAP Queue 1, distribution), so `log_main_process_only` changes nothing.
+        del log_main_process_only
+        self.name = name
+        self.task = task
+        self.device = analysis_device(cpu)
+        self.model: PreparedModel = prepare_model(model, task)
+        self.model.module.to(self.device)
+        self.disable_tqdm = disable_tqdm
+        # Background artifact writes (perform_eigendecomposition async_save).
+        self._pending_saves: list = []
+        self.logger = get_logger(type(self).__name__, log_level)
+        if profile == "trace":
+            self.profiler = TraceProfiler(str(Path(output_dir) / "profiler_output"))
+        else:
+            self.profiler = Profiler() if profile else PassThroughProfiler()
+        self.output_dir = Path(output_dir).joinpath(name).resolve()
+        self.output_dir.mkdir(parents=True, exist_ok=True)
+        self._dataloader_params = DataLoaderKwargs()
+        self._specs_cache: Optional[Dict[str, Any]] = None
+
+    def _save_profile_summary(self, stage_name: str) -> None:
+        """Writes the profiler table of a stage to
+        `{output}/profiler_output/{stage}_rank_0_{time}.txt`."""
+        summary = self.profiler.summary()
+        if not summary:
+            return
+        profile_dir = self.output_dir / "profiler_output"
+        profile_dir.mkdir(parents=True, exist_ok=True)
+        path = profile_dir / f"{stage_name}_rank_0_{int(time.time())}.txt"
+        path.write_text(summary + "\n")
+        self.logger.info(f"Saved profiler summary at {path}.")
+
+    # -- Directory layout. --
+    def factors_output_dir(self, factors_name: str) -> Path:
+        return (self.output_dir / (FACTOR_SAVE_PREFIX + factors_name)).resolve()
+
+    def scores_output_dir(self, scores_name: str) -> Path:
+        return (self.output_dir / (SCORE_SAVE_PREFIX + scores_name)).resolve()
+
+    # -- Argument and metadata persistence. --
+    def _save_arguments(
+        self,
+        arguments_name: str,
+        arguments: Arguments,
+        output_dir: Path,
+        overwrite_output_dir: bool,
+    ) -> None:
+        path = output_dir / f"{arguments_name}_arguments.json"
+        arg_dict = arguments.to_dict()
+        if path.exists() and not overwrite_output_dir:
+            existing = load_json(path)
+            # Compared on the key intersection, as the JAX package does:
+            # artifacts written before a field existed run at its default.
+            shared = set(existing) & set(arg_dict)
+            if {k: existing[k] for k in shared} != {k: arg_dict[k] for k in shared}:
+                raise ValueError(
+                    f"Found existing arguments at {path} that differ from the current "
+                    "ones. Use `overwrite_output_dir=True` to overwrite."
+                )
+            if set(arg_dict) - set(existing):
+                self.logger.info(
+                    f"Existing arguments at {path} predate fields "
+                    f"{sorted(set(arg_dict) - set(existing))}; continuing with defaults."
+                )
+        else:
+            save_json(arg_dict, path)
+
+    def _load_arguments(self, arguments_name: str, output_dir: Path) -> Optional[Dict]:
+        path = output_dir / f"{arguments_name}_arguments.json"
+        return load_json(path) if path.exists() else None
+
+    def _save_dataset_metadata(
+        self,
+        dataset_name: str,
+        dataset: Any,
+        output_dir: Path,
+        overwrite_output_dir: bool,
+        indices: Optional[Sequence[int]] = None,
+    ) -> None:
+        path = output_dir / f"{dataset_name}_dataset_metadata.json"
+        metadata = dataset_metadata(dataset, indices)
+        if path.exists() and not overwrite_output_dir:
+            if load_json(path) != metadata:
+                raise ValueError(
+                    f"Found existing dataset metadata at {path} that differs from the "
+                    "current dataset. Use `overwrite_output_dir=True` to overwrite."
+                )
+        else:
+            save_json(metadata, path)
+
+    # -- Loaders. --
+    def _get_loader(
+        self,
+        dataset: Any,
+        per_device_batch_size: Optional[int],
+        indices: Optional[Sequence[int]] = None,
+        dataloader_kwargs: Optional[DataLoaderKwargs] = None,
+    ) -> ProgressLoader:
+        if per_device_batch_size is None:
+            self._find_executable_batch_size()
+        loader = BatchLoader(
+            dataset,
+            per_device_batch_size,
+            indices,
+            device=self.device,
+            dataloader_kwargs=dataloader_kwargs or self._dataloader_params,
+        )
+        return ProgressLoader(loader, self.logger, desc="Batches", disable=self.disable_tqdm)
+
+    def _find_executable_batch_size(self) -> int:
+        raise NotImplementedError(
+            "per_device_batch_size=None needs the memory model's batch-size estimate "
+            "(utils/memory.py:estimate_batch_size), which is not ported yet (ROADMAP "
+            "Queue 1, remaining stage options); pass a per-device batch size."
+        )
+
+    # -- Module discovery and partitions. --
+    def _layer_specs(self, dataset: Any = None) -> Dict[str, Any]:
+        if self._specs_cache is None:
+            if dataset is None:
+                raise RuntimeError(
+                    "Tracked modules are unknown until a dataset has been seen; run a "
+                    "factor/score stage first or pass a dataset."
+                )
+            batch, _ = BatchLoader(dataset, 1, device=self.device).probe()
+            self._specs_cache = discover_stage_specs(self.model, self.task, batch)
+            if not self._specs_cache:
+                raise FactorsNotFoundError("No tracked modules found in the model.")
+        return self._specs_cache
+
+    def tracked_module_names(self, dataset: Any = None) -> List[str]:
+        return sorted(self._layer_specs(dataset))
+
+    def _partition_module_names(
+        self, module_names: List[str], module_partitions: int
+    ) -> List[List[str]]:
+        return [list(chunk) for chunk in np.array_split(module_names, module_partitions)]
+
+    # -- Factor loading. --
+    def load_all_factors(self, factors_name: str) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Every artifact the fitted strategy needs for preconditioning, on
+        the analysis device."""
+        factors_dir = self.factors_output_dir(factors_name)
+        saved_args = self._load_arguments(FACTOR_ARGUMENTS_NAME, factors_dir)
+        config = get_factor_config((saved_args or {}).get("strategy", "ekfac"))
+        factors: Dict[str, Dict[str, torch.Tensor]] = {}
+        if config.requires_covariance_matrices_for_precondition:
+            factors.update(factor_io.load_covariance_matrices(factors_dir, device=self.device))
+        if config.requires_eigendecomposition_for_precondition:
+            if not factor_io.eigendecomposition_exist(factors_dir):
+                raise FactorsNotFoundError(
+                    f"Eigendecomposition results not found in {factors_dir}."
+                )
+            factors.update(factor_io.load_eigendecomposition(factors_dir, device=self.device))
+        if config.requires_lambda_matrices_for_precondition:
+            if not factor_io.lambda_matrices_exist(factors_dir):
+                raise FactorsNotFoundError(f"Lambda matrices not found in {factors_dir}.")
+            factors.update(factor_io.load_lambda_matrices(factors_dir, device=self.device))
+        return factors
+
+    def _load_args_as(self, cls, arguments_name: str, output_dir: Path):
+        """Persisted arguments JSON -> dataclass, dropping unknown fields."""
+        saved = self._load_arguments(arguments_name, output_dir)
+        if saved is None:
+            return None
+        known = {f.name for f in cls.__dataclass_fields__.values()}
+        return cls(**{k: v for k, v in saved.items() if k in known})
+
+    def load_factor_args(self, factors_name: str) -> Optional[FactorArguments]:
+        """The persisted FactorArguments of `factors_name`, or None when never fitted."""
+        return self._load_args_as(
+            FactorArguments, FACTOR_ARGUMENTS_NAME, self.factors_output_dir(factors_name)
+        )
+
+    def load_score_args(self, scores_name: str) -> Optional[ScoreArguments]:
+        """The persisted ScoreArguments of `scores_name`, or None when never computed."""
+        return self._load_args_as(
+            ScoreArguments, SCORE_ARGUMENTS_NAME, self.scores_output_dir(scores_name)
+        )
+
+    def loaded_factor_args(self, factors_name: str) -> FactorArguments:
+        """`load_factor_args`, or the default arguments when never fitted."""
+        return self.load_factor_args(factors_name) or FactorArguments()
+
+
+def example_indices(dataset: Any, indices: Optional[Sequence[int]]) -> np.ndarray:
+    """The example indices a stage runs over: `indices`, or the whole dataset."""
+    if indices is not None:
+        return np.asarray(indices, dtype=np.int64)
+    return np.arange(dataset_length(dataset))

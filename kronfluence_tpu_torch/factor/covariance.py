@@ -134,7 +134,7 @@ def fit_covariance_matrices_with_loader(
     factor_args = factor_args or FactorArguments()
     if factor_args.offload_activations_to_cpu:
         raise NotImplementedError(
-            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1 item 4, "
+            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1, "
             "remaining stage options)."
         )
     model = with_tracked(model, tracked_names)

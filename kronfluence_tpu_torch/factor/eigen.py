@@ -146,7 +146,7 @@ def _jacobi_eigendecomposition(covariance_factors, eigen_factors) -> None:
         raise NotImplementedError(
             f"eigendecomposition_solver='jacobi' at dimension {large} (>= {LARGE_EIGH_DIM}) "
             "needs the JAX package's per-matrix path (eigh_large), which is not ported "
-            "(ROADMAP Queue 1 item 13); use eigendecomposition_solver='auto'."
+            "(ROADMAP Queue 1, Llama scale); use eigendecomposition_solver='auto'."
         )
     for target, entries in merged.items():
         normalized, order = _assemble_group(covariance_factors, entries, target)
@@ -315,7 +315,7 @@ def fit_lambda_matrices_with_loader(
     factor_args = factor_args or FactorArguments()
     if factor_args.offload_activations_to_cpu:
         raise NotImplementedError(
-            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1 item 4, "
+            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1, "
             "remaining stage options)."
         )
     model = with_tracked(model, tracked_names)

@@ -61,7 +61,7 @@ def _to_tokens(spec: LayerSpec, a: torch.Tensor) -> torch.Tensor:
     if spec.kind != "linear":
         raise NotImplementedError(
             f"{spec.name}: only linear layers are ported; the conv path is ROADMAP "
-            "Queue 1 item 10."
+            "Queue 1, conv path."
         )
     return a.reshape(a.shape[0], -1, a.shape[-1])
 

@@ -24,7 +24,8 @@ def pairwise_score(
     """
     if isinstance(preconditioned, tuple):
         raise NotImplementedError(
-            "Low-rank query gradients are not ported yet (ROADMAP Queue 1 item 9)."
+            "Low-rank query gradients are not ported yet "
+            "(ROADMAP Queue 1, remaining score features)."
         )
     dtype = torch.promote_types(preconditioned.dtype, torch.promote_types(a_tok.dtype, g_tok.dtype))
     p, a, g = preconditioned.to(dtype), a_tok.to(dtype), g_tok.to(dtype)

@@ -53,19 +53,19 @@ def _check_ported(score_args: ScoreArguments) -> None:
     unported = {
         "query_gradient_low_rank": (
             score_args.query_gradient_low_rank is not None,
-            "ROADMAP Queue 1 item 9, remaining score features (ops/svd.py)",
+            "ROADMAP Queue 1, remaining score features (ops/svd.py)",
         ),
         "aggregate_query_gradients": (
             score_args.aggregate_query_gradients,
-            "ROADMAP Queue 1 item 9, remaining score features",
+            "ROADMAP Queue 1, remaining score features",
         ),
         "aggregate_train_gradients": (
             score_args.aggregate_train_gradients,
-            "ROADMAP Queue 1 item 9, remaining score features",
+            "ROADMAP Queue 1, remaining score features",
         ),
         "offload_activations_to_cpu": (
             score_args.offload_activations_to_cpu,
-            "ROADMAP Queue 1 item 4, remaining stage options",
+            "ROADMAP Queue 1, remaining stage options",
         ),
     }
     for name, (is_set, item) in unported.items():

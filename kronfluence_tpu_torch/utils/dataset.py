@@ -1,6 +1,7 @@
-"""Batching with a valid mask, and index partitions.
+"""Batching with a valid mask, index partitions, loader knobs, progress and
+dataset metadata.
 
-Port of the batching core of `kronfluence_tpu/utils/dataset.py`. Every batch
+Port of `kronfluence_tpu/utils/dataset.py`. Every batch
 has exactly `batch_size` rows: the last one is padded by repeating the first
 row of its range with `valid = 0`, and every statistic downstream masks the
 padded rows exactly (ops/flatten.py). Datasets are column stores: a dict of
@@ -9,11 +10,57 @@ the loader's `device` (the card unless the caller names another); a store whose 
 sliced there.
 """
 
+import dataclasses
+import logging
 import math
+import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+
+@dataclasses.dataclass
+class DataLoaderKwargs:
+    """Loader knobs, the JAX package's fields. The column-store loader
+    honours none of them: `pin_memory`, `persistent_workers` and
+    `prefetch_factor` are accepted and have no effect; `collate_fn`,
+    `num_workers > 0` and `drop_last` raise NotImplementedError (ROADMAP
+    Queue 1, remaining stage options)."""
+
+    num_workers: int = 0
+    collate_fn: Optional[Any] = None
+    pin_memory: bool = False
+    drop_last: bool = False
+    prefetch_factor: Optional[int] = None
+    persistent_workers: bool = False
+
+    def check_ported(self) -> None:
+        unported = {
+            "collate_fn": self.collate_fn is not None,
+            "num_workers": self.num_workers > 0,
+            "drop_last": self.drop_last,
+        }
+        for name, is_set in unported.items():
+            if is_set:
+                raise NotImplementedError(
+                    f"DataLoaderKwargs.{name} is not ported yet: the column-store BatchLoader "
+                    "has no such knob (ROADMAP Queue 1, remaining stage options)."
+                )
+
+
+def dataset_length(dataset: Dict[str, Any]) -> int:
+    """Examples in a column store (the length of its first column)."""
+    return len(next(iter(dataset.values())))
+
+
+def dataset_metadata(dataset: Any, indices: Optional[Sequence[int]] = None) -> Dict[str, Any]:
+    """Dataset fingerprint persisted next to artifacts, as the JAX package writes it."""
+    return {
+        "type": type(dataset).__name__,
+        "dataset_size": dataset_length(dataset),
+        "indices": list(map(int, indices)) if indices is not None else None,
+    }
 
 
 def make_indices_partition(
@@ -46,7 +93,9 @@ class BatchLoader:
         batch_size: int,
         indices: Optional[Sequence[int]] = None,
         device=None,
+        dataloader_kwargs: Optional[DataLoaderKwargs] = None,
     ) -> None:
+        (dataloader_kwargs or DataLoaderKwargs()).check_ported()
         if not isinstance(dataset, dict) or not dataset:
             raise TypeError("BatchLoader takes a column store: a dict of equal-length arrays.")
         self.columns = {name: _as_column(col) for name, col in dataset.items()}
@@ -87,6 +136,46 @@ class BatchLoader:
     def probe(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
         """First (batch, valid) pair, for shape and module discovery."""
         return next(iter(self))
+
+
+class ProgressLoader:
+    """Loader wrapper that reports each pass's progress through a logger at
+    INFO level (about every tenth of the batches, and at the end); every
+    other attribute is the wrapped loader's."""
+
+    def __init__(
+        self, loader: Any, logger: logging.Logger, desc: str = "Batches", disable: bool = False
+    ) -> None:
+        self._loader = loader
+        self._logger = logger
+        self._desc = desc
+        self._disable = disable
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._loader, name)
+
+    def __len__(self) -> int:
+        return len(self._loader)
+
+    def probe(self):
+        return probe_first(self._loader)
+
+    def __iter__(self):
+        if self._disable:
+            yield from self._loader
+            return
+        total = len(self._loader)
+        every = max(1, total // 10)
+        start = time.perf_counter()
+        for done, item in enumerate(self._loader, start=1):
+            yield item
+            if done % every == 0 or done == total:
+                elapsed = time.perf_counter() - start
+                left = elapsed / done * (total - done)
+                self._logger.info(
+                    f"{self._desc}: {done}/{total} [time left: {left:.1f} s, "
+                    f"time spent: {elapsed:.1f} s]"
+                )
 
 
 def probe_first(loader: Any) -> Tuple[Any, Any]:

@@ -71,6 +71,29 @@ def test_importing_every_module_loads_no_jax():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+def test_package_exports_the_api_and_builds_nothing():
+    """`import kronfluence_tpu_torch` exposes the JAX package's public names
+    and neither builds nor loads the kernel library."""
+    code = (
+        "import sys\n"
+        "import kronfluence_tpu_torch as kf\n"
+        "from kronfluence_tpu_torch.ops.kernels import build\n"
+        "names = ['Analyzer', 'prepare_model', 'FactorArguments', 'ScoreArguments', 'Task',\n"
+        "         '__version__']\n"
+        "missing = [n for n in names if not hasattr(kf, n)]\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "print('MISSING', missing, 'LOADED', build.load_library.cache_info().currsize,\n"
+        "      'libkf_kernels' in maps)\n"
+        "sys.exit(1 if missing or build.load_library.cache_info().currsize\n"
+        "         or 'libkf_kernels' in maps else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "script_alone"])
 def test_chip_smoke_fails_without_a_card(tmp_path, alone):
     """No CUDA card (or no package beside the script): non-zero exit, and the
