@@ -10,17 +10,17 @@ each of which raises on failure:
   2. build: compiles the hand-written kernels in kronfluence_tpu_torch/csrc/
      with nvcc (sm_90a; one object per source, each source whose object is
      missing compiled in its own process, all started together; one link)
-     and loads them; the wgmma syrk kernel's SASS must hold HGMMA and
-     UTMALDG (cuobjdump);
+     and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
+     HGMMA and UTMALDG (cuobjdump);
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
      launch against torch.add with CUDA events;
   4. K1 syrk: the triangle kernels against their plain version at the main
-     path's gram shapes and at ragged ones, in bf16 and fp32, and on a
+     path's gram shapes and at ragged ones, in bf16, fp16 and fp32, and on a
      positive-mean bf16 input (|normal|) at the main shapes; exact symmetry
-     required; the bf16 route (wgmma with TMA, or wmma) checked at each shape
-     by the rule and the launch counter; a planted fault (the plain version
+     required; the 16-bit route (wgmma with TMA, or wmma) checked at each
+     shape by the rule and the launch counters; a planted fault (the plain version
      with one 64-row slab left out) must read above the limit at each main
      shape; median times beside the library call and the bound;
   5. main path: GPT-2 small at full width (vocab 50,257, 12 layers, 12
@@ -90,6 +90,25 @@ each of which raises on failure:
      kernel and change no file. It prints the stage seconds beside phase
      5's, the bytes written, the write and load seconds and the peak device
      memory; the directory is deleted at the end.
+ 13. stage options: phase 5's model and recipe through the Analyzer again,
+     artifacts in a temporary directory. (a) covariance, lambda and pairwise
+     (16 queries) on 256 examples and self scores on 64, with every batch size
+     left to the memory model: each stage's estimated batch (and the batch JAX's
+     terms alone would pick), its planned bytes, its budget and its measured
+     peak; the peak must stay within the budget and the data must not set
+     the batch; K1 launches 36 times a covariance batch, and the fp32
+     model's covariance (summed in fp64) at the estimated batch matches the
+     one at batch 16. (b) every stage with
+     offload_activations_to_cpu=True and without, on phase 5's data: the
+     results agree (the sampled-Fisher lambda too) and each stage's peak is
+     lower with it; one covariance on the flash path, where the recompute
+     launches FF once more per layer and pass. (c) covariance and lambda
+     under fp16 autocast with loss scale 2^10, held against the bf16
+     factors, and a covariance with fp16 covariance dtypes, whose fp16
+     operands reach K1 (counted) and are held against its plain version. (d)
+     the covariance through a list of 72 dict rows with collate_fn, two
+     prefetch workers and drop_last, bit for bit the column store's over the
+     64 kept.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -156,8 +175,9 @@ SYRK_RAGGED_SHAPES = ((1000, 2000), (300, 1001))
 # partial sums: |kernel - plain| <= 1e-4 * max|C| + 1e-4 * |plain|.
 SYRK_RTOL = 1e-4
 SYRK_ATOL_SCALE = 1e-4
-# The bf16 kernel each shape must take: TMA describes n % 8 == 0 (torch's
-# allocations are 16-byte aligned); 1001 columns take the wmma kernel.
+# The 16-bit kernel (bf16 and fp16) each shape must take: TMA describes
+# n % 8 == 0 (torch's allocations are 16-byte aligned); 1001 columns take
+# the wmma kernel.
 SYRK_BF16_ROUTES = {(8192, 2304): "wgmma", (8192, 3072): "wgmma", (1000, 2000): "wgmma",
                     (300, 1001): "wmma"}
 # The planted fault: the plain version without these rows, one 64-row slab
@@ -251,6 +271,20 @@ SYRK_LAUNCHES_PER_COV_BATCH = 36
 # A planted fault, the same check against the first superdiagonal (each
 # example's influence on its neighbour), must read above it.
 SELF_DIAGONAL_RTOL = 2.0 ** -5
+# Phase 13 (stage options). (a) The estimated-batch fits run on 256 examples
+# (self scores on the first 64), more than any stage's estimate at GPT-2
+# small on 80 GB, so that the estimate sets the batch; the covariance of the fp32 model summed in fp64 at
+# the estimated batch against batch 16 differs by the order of the fp32
+# forward's GEMMs and of the fp64 sums only: 1e-5 of max|C|. (b)
+# Rematerialisation recomputes the same operations on the same inputs: 1e-6
+# of max (bit for bit, where the kernels are deterministic; FB's dQ atomics are
+# not, and the flash path is held to phase 10's limit). (d) 72 rows in
+# batches of 16 with drop_last keep 64.
+OPTIONS_N = 256
+OPTIONS_SELF_N = 64
+OPTIONS_BATCH_RTOL = 1e-5
+REMAT_RTOL = 1e-6
+LOADER_N = 72
 
 
 def log(msg: str) -> None:
@@ -339,10 +373,11 @@ def phase_build() -> None:
                 log(f"  {line.split(':', 1)[-1].strip()}")
             elif "Used" in line or "spill" in line:
                 log(f"    ptxas: {line.split(':', 1)[-1].strip()}")
-    counts = sass_counts(build.library_path(), "syrk_bf16_wgmma_kernel", ("HGMMA", "UTMALDG"))
-    log(f"SASS of syrk_bf16_wgmma_kernel: {counts}")
-    if not all(counts.values()):
-        raise RuntimeError(f"the wgmma syrk kernel lacks wgmma or TMA instructions: {counts}")
+    for kernel in ("syrk_bf16_wgmma_kernel", "syrk_f16_wgmma_kernel"):
+        counts = sass_counts(build.library_path(), kernel, ("HGMMA", "UTMALDG"))
+        log(f"SASS of {kernel}: {counts}")
+        if not all(counts.values()):
+            raise RuntimeError(f"{kernel} lacks wgmma or TMA instructions: {counts}")
 
 
 def sass_counts(library: Path, kernel: str, opcodes) -> dict:
@@ -431,18 +466,21 @@ def phase_syrk(card: str) -> dict:
     timing = {}
     cases = []
     for rows, n in SYRK_MAIN_SHAPES + SYRK_RAGGED_SHAPES:
-        cases += [(rows, n, torch.bfloat16, "normal"), (rows, n, torch.float32, "normal")]
+        cases += [(rows, n, torch.bfloat16, "normal"), (rows, n, torch.float32, "normal"),
+                  (rows, n, torch.float16, "normal")]
         if (rows, n) in SYRK_MAIN_SHAPES:
             cases.append((rows, n, torch.bfloat16, "|normal|"))
     for rows, n, dtype, kind in cases:
         a = torch.randn(rows, n, generator=gen, device="cuda")
         a = (a.abs() if kind == "|normal|" else a).to(dtype)
         name = f"{rows}x{n} {str(dtype).split('.')[-1]} {kind}"
-        before = syrk.wgmma_launches
+        before, f16_before = syrk.wgmma_launches, syrk.f16_launches
         got = syrk(a)
         want = syrk_reference(a)
         torch.cuda.synchronize()
-        if dtype == torch.bfloat16:
+        if syrk.f16_launches != f16_before + (dtype == torch.float16):
+            raise RuntimeError(f"K1's fp16 launch count is off at {name}")
+        if dtype in (torch.bfloat16, torch.float16):
             route = "wgmma" if syrk.wgmma_launches == before + 1 else "wmma"
             if not route == bf16_route(n, a.data_ptr()) == SYRK_BF16_ROUTES[(rows, n)]:
                 raise RuntimeError(f"K1 at {name} took {route}; the rule says "
@@ -479,12 +517,12 @@ def phase_syrk(card: str) -> dict:
             mm = median_ms(lambda: torch.matmul(a.T, a))
             # One library call with the same semantics (fp32 sums, fp32 out).
             lib = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32)) \
-                if dtype == torch.bfloat16 else mm
+                if dtype != torch.float32 else mm
             kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
             # The lower triangle with its diagonal: rows x n(n+1)/2 dot
             # products; A read once, C written once.
             flops = float(rows) * n * (n + 1)
-            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
             bound, bound_by = roofline(rows * n * a.element_size() + n * n * 4, flops, peak)
             timing[(rows, n, dtype)] = (kernel_ms, plain_ms, bound, bound_by, lib)
             line += (
@@ -504,6 +542,8 @@ def phase_syrk(card: str) -> dict:
     return {"max_abs_err": worst, **fields((8192, 3072, torch.bfloat16)),
             "timings_ms": {f"{rows}x{n}": fields((rows, n, torch.bfloat16))
                            for rows, n in SYRK_MAIN_SHAPES},
+            "timings_ms_fp16": {f"{rows}x{n}": fields((rows, n, torch.float16))
+                                for rows, n in SYRK_MAIN_SHAPES},
             "tiles": triangle_tiles(3072, TILE), "smem_bytes": smem}
 
 
@@ -1753,6 +1793,413 @@ def phase_analyzer(card: str, ctx: dict) -> tuple:
     return launches, wgmma
 
 
+def peak_of(fn, *args, **kwargs):
+    """(result, peak device bytes, seconds) of one call, the peak counter
+    reset just before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated(), time.perf_counter() - t0
+
+
+def _max_rel_all(got: dict, want: dict, names) -> float:
+    return max(_max_rel(got[name], want[name]) for name in names)
+
+
+def _bitwise(got: dict, want: dict, names) -> bool:
+    return all(torch.equal(got[f][m].cpu(), want[f][m].cpu()) for f in names for m in want[f])
+
+
+def stage_options_estimates(card: str, ctx: dict, analyzer, kernels: dict) -> dict:
+    """Phase 13 (a): covariance and lambda (fit_all_factors), pairwise and
+    self scores with every batch size left to the memory model, each stage's
+    planned bytes beside its budget and its measured peak; then covariance
+    again at batch 16."""
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.constants import COVARIANCE_FACTOR_NAMES
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    model, task, device = ctx["model"], ctx["task"], ctx["device"]
+    vocab = model.module.config.vocab_size
+    data = make_tokens(OPTIONS_N, SEQ, vocab, 11, device)
+    query = make_tokens(QUERY_N, SEQ, vocab, 5, device)
+    factor_args, score_args = ctx["factor_args"], copy.deepcopy(ctx["score_args"])
+    estimates, rows = {}, []
+
+    def run(stage, fn, *args, **kwargs):
+        for k in kernels.values():
+            k.launches = 0
+        analyzer.last_batch_estimate = None
+        _, peak, sec = peak_of(fn, *args, **kwargs)
+        est = dict(analyzer.last_batch_estimate, peak_bytes=peak, seconds=sec,
+                   syrk=syrk.launches, probe=kernels["probe"].launches)
+        planned = est["static_bytes"] + est["reserved_bytes"] + est["batch_size"] * (
+            est["per_example_bytes"] + est["untracked_bytes"])
+        jax_only = max(1, min(est["attempt"], int(
+            (est["budget_bytes"] - est["static_bytes"]) // est["per_example_bytes"])))
+        est.update(planned_bytes=planned, jax_model_batch=jax_only)
+        estimates[stage] = est
+        rows.append(f"{stage}: batch {est['batch_size']} (JAX's terms alone {jax_only}), "
+                    f"planned {planned / 2**30:.3f} GiB = static {est['static_bytes'] / 2**30:.3f}"
+                    f" + reserved {est['reserved_bytes'] / 2**30:.3f} + {est['batch_size']} x "
+                    f"({est['per_example_bytes'] / 2**20:.1f} + autograd "
+                    f"{est['untracked_bytes'] / 2**20:.1f} MiB), budget "
+                    f"{est['budget_bytes'] / 2**30:.3f} GiB, measured peak {peak / 2**30:.3f} GiB, "
+                    f"{sec:.3f} s")
+        return est
+
+    # fit_all_factors estimates covariance and lambda separately: the
+    # profiler rows give each stage's seconds, the peaks come from running
+    # the stages one by one with the same arguments.
+    run("covariance", analyzer.fit_covariance_matrices, "est", data, factor_args=factor_args)
+    cov_batches = -(-OPTIONS_N // estimates["covariance"]["batch_size"])
+    eigen = analyzer.perform_eigendecomposition("est", factor_args=factor_args,
+                                                return_in_memory=True)
+    run("lambda", analyzer.fit_lambda_matrices, "est", data, factor_args=factor_args,
+        eigen_factors=eigen)
+    del eigen
+    run("pairwise", analyzer.compute_pairwise_scores, "est", "est", query, data,
+        per_device_query_batch_size=QUERY_BATCH, score_args=score_args)
+    run("self", analyzer.compute_self_scores, "est_self", "est", data, score_args=score_args,
+        train_indices=np.arange(OPTIONS_SELF_N))
+    for row in rows:
+        log(f"stage options (a) estimated batch, {row} [{card}]")
+    for stage, est in estimates.items():
+        if not est["batch_size"] < est["attempt"]:
+            raise RuntimeError(f"{stage}: the data ({est['attempt']} examples) set the batch, "
+                               "not the estimate")
+        if not est["peak_bytes"] <= est["budget_bytes"]:
+            raise RuntimeError(f"{stage}: measured peak {est['peak_bytes']:,} B over the budget "
+                               f"{est['budget_bytes']:,.0f} B")
+    want = SYRK_LAUNCHES_PER_COV_BATCH * cov_batches
+    if estimates["covariance"]["syrk"] != want:
+        raise RuntimeError(f"K1 launched {estimates['covariance']['syrk']} times in the estimated "
+                           f"covariance fit; want {want}")
+    # The covariance estimate under remat, beside the one without.
+    remat_args = copy.deepcopy(factor_args)
+    remat_args.offload_activations_to_cpu = True
+    analyzer._find_executable_batch_size(data, OPTIONS_N, 4096, stage="covariance",
+                                         factor_args=remat_args)
+    remat_est = dict(analyzer.last_batch_estimate)
+    estimates["covariance"]["remat"] = remat_est
+    log(f"stage options (a): the covariance batch under remat {remat_est['batch_size']} "
+        f"({remat_est['per_example_bytes'] / 2**20:.1f} + autograd "
+        f"{remat_est['untracked_bytes'] / 2**20:.1f} MiB an example) against "
+        f"{estimates['covariance']['batch_size']} without [{card}]")
+    # What the port's terms are for: the covariance at the batch the JAX
+    # package's terms alone would pick (measured, not checked).
+    def fit(batch, args):  # the stage function: no artifacts written
+        return fit_covariance_matrices_with_loader(
+            model, task, BatchLoader(data, batch, device=device), args)
+
+    cov_est = estimates["covariance"]
+    _, jax_peak, _ = peak_of(fit, cov_est["jax_model_batch"], factor_args)
+    log(f"stage options (a): covariance at the batch JAX's terms alone pick, "
+        f"{cov_est['jax_model_batch']}: measured peak {jax_peak / 2**30:.3f} GiB against the "
+        f"budget {cov_est['budget_bytes'] / 2**30:.3f} GiB [{card}]")
+    cov_est["jax_model_peak_bytes"] = jax_peak
+
+    # The recipe's covariance at batch 16, for K1's count and beside the
+    # estimated batch's. The two differ by more than the order of fp32 sums:
+    # the bf16 forward is not batch-invariant on the card (cuBLAS takes other
+    # kernels at other row counts, and a bf16 output rounds differently when
+    # its fp32 sum does), and the recipe stores bf16 covariances. So the
+    # limit holds the fp32 model (amp_dtype float32) summed in fp64, where
+    # only the fp32 forward's GEMM order and the fp64 sums' order differ.
+    for k in kernels.values():
+        k.launches = 0
+    recipe_16 = fit(COV_BATCH, factor_args)
+    want16 = SYRK_LAUNCHES_PER_COV_BATCH * -(-OPTIONS_N // COV_BATCH)
+    if syrk.launches != want16:
+        raise RuntimeError(f"K1 launched {syrk.launches} times at batch {COV_BATCH}; want {want16}")
+    est_batch = estimates["covariance"]["batch_size"]
+    pairs = {"recipe": (analyzer.load_covariance_matrices("est"),
+                        {k: {n: t.cpu() for n, t in v.items()} for k, v in recipe_16.items()})}
+    exact = copy.deepcopy(factor_args)
+    exact.amp_dtype = "float32"
+    exact.activation_covariance_dtype = exact.gradient_covariance_dtype = "float64"
+    pairs["fp32"] = (fit(est_batch, exact), fit(COV_BATCH, exact))
+    gaps = {}
+    for key, (est_cov, b16_cov) in pairs.items():
+        gaps[key] = _max_rel_all(est_cov, b16_cov, COVARIANCE_FACTOR_NAMES[:2])
+        if not all(torch.equal(est_cov[f][m], b16_cov[f][m])
+                   for f in COVARIANCE_FACTOR_NAMES[2:] for m in b16_cov[f]):
+            raise RuntimeError(f"the covariance counts change with the batch size ({key})")
+    log(f"stage options (a): covariance at the estimated batch {est_batch} ({cov_batches} "
+        f"batches, K1 {estimates['covariance']['syrk']} launches) against batch {COV_BATCH} "
+        f"(K1 {want16}), counts equal: max |diff| / max |C| of the fp32 model summed in fp64 "
+        f"{gaps['fp32']:.3e} (limit {OPTIONS_BATCH_RTOL:g}); of the bf16 recipe {gaps['recipe']:.3e} "
+        f"[{card}]")
+    if not gaps["fp32"] <= OPTIONS_BATCH_RTOL:
+        raise RuntimeError(f"covariance differs with the batch size: {gaps['fp32']:.3e}")
+    estimates["covariance"]["batch_gaps"] = gaps
+    return estimates
+
+
+def stage_options_remat(card: str, ctx: dict, analyzer, kernels: dict) -> dict:
+    """Phase 13 (b): every stage with offload_activations_to_cpu=True (the
+    rematerialisation) and without, on phase 5's data at batch 16; sampled
+    lambda both ways; one covariance on the flash path both ways."""
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.models.transformer import gpt2_small, init_transformer
+    from kronfluence_tpu_torch.prepare import prepare_model
+    from kronfluence_tpu_torch.utils.constants import (
+        ALL_MODULE_NAME,
+        COVARIANCE_FACTOR_NAMES,
+        LAMBDA_FACTOR_NAMES,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    device, task, data = ctx["device"], ctx["task"], ctx["data"]
+    out, peaks, seconds, gaps, bitwise = {}, {}, {}, {}, {}
+    eigen = None
+    for remat in (False, True):
+        fargs = copy.deepcopy(ctx["factor_args"])
+        sargs = copy.deepcopy(ctx["score_args"])
+        fargs.offload_activations_to_cpu = sargs.offload_activations_to_cpu = remat
+        name = "remat" if remat else "plain"
+        res = {}
+
+        def measured(stage, fn, *args, **kwargs):
+            _, peaks[name, stage], seconds[name, stage] = peak_of(fn, *args, **kwargs)
+
+        measured("covariance", analyzer.fit_covariance_matrices, name, data["cov"],
+                 per_device_batch_size=COV_BATCH, factor_args=fargs)
+        if eigen is None:  # both runs' lambda and scores in the first run's eigenbasis
+            eigen = analyzer.perform_eigendecomposition(name, factor_args=fargs,
+                                                        return_in_memory=True)
+        measured("lambda", analyzer.fit_lambda_matrices, name, data["cov"],
+                 per_device_batch_size=COV_BATCH, factor_args=fargs, eigen_factors=eigen)
+        measured("pairwise", analyzer.compute_pairwise_scores, name, "plain", data["query"],
+                 data["train"], per_device_query_batch_size=QUERY_BATCH,
+                 per_device_train_batch_size=TRAIN_BATCH, score_args=sargs)
+        measured("self", analyzer.compute_self_scores, name + "_self", "plain", data["train"],
+                 per_device_train_batch_size=TRAIN_BATCH, score_args=sargs)
+        # The sampled Fisher: labels drawn from the stage's explicit generator.
+        sampled = copy.deepcopy(fargs)
+        sampled.use_empirical_fisher = False
+        analyzer.fit_lambda_matrices(name + "_sampled", data["cov"],
+                                     per_device_batch_size=COV_BATCH, factor_args=sampled,
+                                     eigen_factors=eigen)
+        res["covariance"] = analyzer.load_covariance_matrices(name)
+        res["lambda"] = analyzer.load_lambda_matrices(name)
+        res["sampled"] = analyzer.load_lambda_matrices(name + "_sampled")
+        res["pairwise"] = analyzer.load_pairwise_scores(name)
+        res["self"] = analyzer.load_self_scores(name + "_self")
+        out[name] = res
+    del eigen
+    plain, remat = out["plain"], out["remat"]
+    for key, names in (("covariance", COVARIANCE_FACTOR_NAMES[:2]),
+                       ("lambda", LAMBDA_FACTOR_NAMES[:1]), ("sampled", LAMBDA_FACTOR_NAMES[:1])):
+        gaps[key] = _max_rel_all(remat[key], plain[key], names)
+        bitwise[key] = _bitwise(remat[key], plain[key], plain[key])
+    for key in ("pairwise", "self"):
+        gaps[key] = _max_rel({ALL_MODULE_NAME: remat[key][ALL_MODULE_NAME]},
+                             {ALL_MODULE_NAME: plain[key][ALL_MODULE_NAME]})
+        bitwise[key] = torch.equal(remat[key][ALL_MODULE_NAME], plain[key][ALL_MODULE_NAME])
+    log("stage options (b) remat against none, max |diff| / max |plain| (limit "
+        f"{REMAT_RTOL:g}): " + ", ".join(f"{k} {v:.3e} (bitwise {bitwise[k]})"
+                                         for k, v in gaps.items()))
+    log("stage options (b) peak device memory and seconds of the Analyzer calls (their artifact "
+        "writes included), remat against none: " + ", ".join(
+        f"{stage} {peaks['remat', stage] / 2**30:.3f} / {peaks['plain', stage] / 2**30:.3f} GiB, "
+        f"{seconds['remat', stage]:.3f} / {seconds['plain', stage]:.3f} s"
+        for stage in ("covariance", "lambda", "pairwise", "self")) + f" [{card}]")
+    for key, gap in gaps.items():
+        if not gap <= REMAT_RTOL:
+            raise RuntimeError(f"remat changes {key}: {gap:.3e}")
+    for stage in ("covariance", "lambda", "pairwise", "self"):
+        if not peaks["remat", stage] < peaks["plain", stage]:
+            raise RuntimeError(f"remat does not lower the {stage} stage's peak: "
+                               f"{peaks['remat', stage]:,} >= {peaks['plain', stage]:,}")
+
+    # The stage alone, without the Analyzer's artifact writes, warm and in
+    # turns: what the recompute costs.
+    warm = {}
+    for remat in (True, False, False, True):
+        fargs = copy.deepcopy(ctx["factor_args"])
+        fargs.offload_activations_to_cpu = remat
+        _, _, sec = peak_of(fit_covariance_matrices_with_loader, ctx["model"], task,
+                            BatchLoader(data["cov"], COV_BATCH, device=device), fargs)
+        warm.setdefault(remat, []).append(sec)
+    log(f"stage options (b) covariance stage function in turns (remat, none, none, remat): "
+        f"remat {warm[True][0]:.3f} / {warm[True][1]:.3f} s, none {warm[False][0]:.3f} / "
+        f"{warm[False][1]:.3f} s [{card}]")
+
+    # One covariance on the flash path (FF, FB) with remat and without.
+    config = gpt2_small(max_seq_len=SEQ, dtype=torch.bfloat16, attention="flash")
+    flash = prepare_model(init_transformer(config, seed=0, device=device), task)
+    flash_cov, ff = {}, {}
+    batches = -(-COV_N // COV_BATCH)
+    for remat in (False, True):
+        fargs = copy.deepcopy(ctx["factor_args"])
+        fargs.offload_activations_to_cpu = remat
+        for k in kernels.values():
+            k.launches = 0
+        flash_cov[remat] = fit_covariance_matrices_with_loader(
+            flash, task, BatchLoader(data["cov"], COV_BATCH, device=device), fargs)
+        torch.cuda.synchronize()
+        ff[remat] = (kernels["FF"].launches, kernels["FB"].launches)
+    del flash
+    flash_gap = _max_rel_all(flash_cov[True], flash_cov[False], COVARIANCE_FACTOR_NAMES[:2])
+    # One more forward a pass under remat: the recompute of each attention.
+    want_ff = ff[False][0] + config.num_layers * batches
+    log(f"stage options (b) flash path covariance, remat against none: max |diff| / max |C| "
+        f"{flash_gap:.3e} (limit {FLASH_FACTOR_RTOL:g}); FF launches {ff[True][0]} against "
+        f"{ff[False][0]} (want {want_ff}: 12 more a pass, the recompute), FB {ff[True][1]} "
+        f"against {ff[False][1]}")
+    if not flash_gap <= FLASH_FACTOR_RTOL:
+        raise RuntimeError(f"remat changes the flash path's covariance: {flash_gap:.3e}")
+    if ff[True][0] != want_ff or ff[True][1] != ff[False][1] or ff[False][1] == 0:
+        raise RuntimeError(f"flash launches under remat {ff[True]}, without {ff[False]}")
+    return dict(peaks={f"{k[1]}_{k[0]}": v for k, v in peaks.items()}, gaps=gaps,
+                FF=ff[True][0], FB=ff[True][1], plain_covariance=plain["covariance"],
+                plain_lambda=plain["lambda"])
+
+
+def stage_options_fp16(card: str, ctx: dict, analyzer, kernels: dict, remat: dict) -> dict:
+    """Phase 13 (c): covariance and lambda under fp16 autocast with loss
+    scaling, against the bf16 factors; one covariance with fp16 covariance
+    dtypes, whose operands reach K1 in fp16."""
+    from kronfluence_tpu_torch.ops import covariance as covariance_ops
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference
+    from kronfluence_tpu_torch.utils.constants import (
+        COVARIANCE_FACTOR_NAMES,
+        LAMBDA_FACTOR_NAMES,
+    )
+
+    data = ctx["data"]
+    fargs = copy.deepcopy(ctx["factor_args"])
+    fargs.amp_dtype, fargs.amp_scale = "float16", 2.0 ** 10
+    analyzer.fit_covariance_matrices("fp16", data["cov"], per_device_batch_size=COV_BATCH,
+                                     factor_args=fargs)
+    # Lambda in the bf16 run's eigenbasis, so the two are comparable entry by entry.
+    analyzer.fit_lambda_matrices("fp16", data["cov"], per_device_batch_size=COV_BATCH,
+                                 factor_args=fargs, load_from_factors_name="plain")
+    cov16 = analyzer.load_covariance_matrices("fp16")
+    lam16 = analyzer.load_lambda_matrices("fp16")
+    finite = all(bool(torch.isfinite(t.float()).all()) for group in (cov16, lam16)
+                 for per in group.values() for t in per.values())
+    cov_gap = _max_rel_all(cov16, {k: {n: t.cpu() for n, t in v.items()}
+                                   for k, v in ctx["cov"].items()}, COVARIANCE_FACTOR_NAMES[:2])
+    lam_gap = _max_rel_all(lam16, remat["plain_lambda"], LAMBDA_FACTOR_NAMES[:1])
+
+    # fp16 covariance dtypes: record one K1 operand of each width as it is
+    # launched, then hold the kernel against its plain version on it.
+    f16 = copy.deepcopy(fargs)
+    f16.activation_covariance_dtype = f16.gradient_covariance_dtype = "float16"
+    seen = {}
+    real = covariance_ops.syrk
+
+    def recording(flat, accum_dtype=torch.float32):
+        if flat.dtype == torch.float16:
+            seen.setdefault(flat.shape[1], flat.clone())
+        return real(flat, accum_dtype)
+
+    for k in kernels.values():
+        k.launches = 0
+    syrk.f16_launches = 0
+    covariance_ops.syrk = recording
+    try:
+        analyzer.fit_covariance_matrices("fp16_dtypes", data["cov"],
+                                         per_device_batch_size=COV_BATCH, factor_args=f16)
+    finally:
+        covariance_ops.syrk = real
+    launches, f16_launches = syrk.launches, syrk.f16_launches
+    want = SYRK_LAUNCHES_PER_COV_BATCH * -(-COV_N // COV_BATCH)
+    cov16d = analyzer.load_covariance_matrices("fp16_dtypes")
+    finite16 = all(bool(torch.isfinite(t.float()).all()) for per in cov16d.values()
+                   for t in per.values())
+    errs = {}
+    for n, flat in sorted(seen.items()):
+        got, ref = syrk(flat), syrk_reference(flat, torch.float32)
+        errs[n] = float(((got - ref).abs() - SYRK_RTOL * ref.abs()).max() / ref.abs().max())
+    log(f"stage options (c) fp16 autocast with loss scale 2^10: factors finite {finite}; "
+        f"covariance against phase 5's bf16 max |diff| / max |C| {cov_gap:.3e}, lambda against "
+        f"the bf16 lambda in the same eigenbasis {lam_gap:.3e} (limit {FLASH_FACTOR_RTOL:g}); "
+        f"fp16 covariance dtypes: K1 launches {launches} (want {want}), {f16_launches} on fp16 "
+        f"operands, fp16 factors finite {finite16}; K1 against its fp32 plain version on the recorded fp16 operands, "
+        f"max (|diff| - {SYRK_RTOL:g} |plain|) / max |plain| by width: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (limit {SYRK_ATOL_SCALE:g}) [{card}]")
+    if not finite:
+        raise RuntimeError("fp16 autocast gave non-finite factors")
+    if not cov_gap <= FLASH_FACTOR_RTOL or not lam_gap <= FLASH_FACTOR_RTOL:
+        raise RuntimeError(f"fp16 factors off the bf16 ones: {cov_gap:.3e}, {lam_gap:.3e}")
+    if not launches == f16_launches == want or sorted(errs) != [2304, 3072]:
+        raise RuntimeError(f"K1 on fp16 operands: {launches} launches, {f16_launches} fp16, "
+                           f"widths {sorted(errs)}; want {want}, all fp16, 2304 and 3072")
+    if not all(e <= SYRK_ATOL_SCALE for e in errs.values()):
+        raise RuntimeError(f"K1 off its plain version on fp16 operands: {errs}")
+    return dict(syrk=launches, f16=f16_launches, errs=errs)
+
+
+def stage_options_loader(card: str, ctx: dict, analyzer, remat: dict) -> None:
+    """Phase 13 (d): the covariance of phase 5's data through a dataset of
+    rows with collate_fn, a prefetch thread and drop_last."""
+    from kronfluence_tpu_torch.utils.constants import COVARIANCE_FACTOR_NAMES
+    from kronfluence_tpu_torch.utils.dataset import DataLoaderKwargs
+
+    host = {k: v.cpu().numpy() for k, v in ctx["data"]["cov"].items()}
+    extra = make_tokens(LOADER_N - COV_N, SEQ, ctx["model"].module.config.vocab_size, 13, "cpu")
+    rows = [{k: v[i] for k, v in host.items()} for i in range(COV_N)]
+    rows += [{k: v[i].numpy() for k, v in extra.items()} for i in range(LOADER_N - COV_N)]
+
+    def collate(batch_rows):
+        return {k: np.stack([r[k] for r in batch_rows]) for k in batch_rows[0]}
+
+    kwargs = DataLoaderKwargs(collate_fn=collate, num_workers=2, drop_last=True)
+    analyzer.fit_covariance_matrices("rows", rows, per_device_batch_size=COV_BATCH,
+                                     dataloader_kwargs=kwargs, factor_args=ctx["factor_args"])
+    got = analyzer.load_covariance_matrices("rows")
+    same = _bitwise(got, remat["plain_covariance"], COVARIANCE_FACTOR_NAMES)
+    log(f"stage options (d) a list of {LOADER_N} dict rows with collate_fn, num_workers 2 and "
+        f"drop_last (the last {LOADER_N - COV_N} dropped): covariance and counts equal to the "
+        f"column store's over the first {COV_N}, bit for bit: {same}")
+    if not same:
+        raise RuntimeError("the loader knobs changed the covariance")
+
+
+def phase_stage_options(card: str, ctx: dict) -> dict:
+    """Phase 5's model and recipe through the public Analyzer with the stage
+    options: estimated batches, rematerialisation, fp16 loss scaling and the
+    loader knobs. Returns each kernel's launches in the phase."""
+    from kronfluence_tpu_torch import Analyzer
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    start = time.perf_counter()
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe)
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_options_"))
+    try:
+        log(f"stage options: artifacts under {root}")
+        analyzer = Analyzer("chip_smoke_options", ctx["model"], ctx["task"], output_dir=str(root))
+        parts = [time.perf_counter()]
+        estimates = stage_options_estimates(card, ctx, analyzer, kernels)
+        parts.append(time.perf_counter())
+        remat = stage_options_remat(card, ctx, analyzer, kernels)
+        parts.append(time.perf_counter())
+        fp16 = stage_options_fp16(card, ctx, analyzer, kernels, remat)
+        parts.append(time.perf_counter())
+        stage_options_loader(card, ctx, analyzer, remat)
+        parts.append(time.perf_counter())
+        log(f"stage options: phase 13 took {time.perf_counter() - start:.1f} s, (a) to (d) "
+            + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:])) + f" s [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # The launches of the runs whose counts phase 13 checks.
+    return {
+        "syrk": {"estimated_covariance": estimates["covariance"]["syrk"],
+                 "fp16_covariance": fp16["syrk"]},
+        "probe": {"estimated_covariance": estimates["covariance"]["probe"]},
+        "FF": {"flash_covariance_remat": remat["FF"]},
+        "FB": {"flash_covariance_remat": remat["FB"]},
+    }
+
+
 def profile_eigh(card: str) -> None:
     """Cold and warm eigendecomposition seconds of both solvers on phase 5's
     covariance factors, and a torch.profiler kernel table of a warm run."""
@@ -2244,6 +2691,7 @@ def main() -> None:
     flash_path = phase_flash_path(card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     analyzer_launches, analyzer_wgmma = phase_analyzer(card, ctx)
+    options_launches = phase_stage_options(card, ctx)
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
@@ -2273,6 +2721,7 @@ def main() -> None:
             "launches": launches["syrk"],
             "analyzer_launches": analyzer_launches["syrk"],
             "analyzer_wgmma_launches": analyzer_wgmma,
+            "stage_options_launches": options_launches["syrk"],
             **syrk_result,
         },
         {
@@ -2282,6 +2731,7 @@ def main() -> None:
             "replaces": "kronfluence_tpu/utils/platform.py:55",
             "launches": launches["probe"],
             "analyzer_launches": analyzer_launches["probe"],
+            "stage_options_launches": options_launches["probe"],
             **probe_result,
         },
         {
@@ -2313,6 +2763,7 @@ def main() -> None:
             "pallas_kernel": [f"jax/experimental/pallas/ops/tpu/{w}" for w in where],
             "launches": launches[fid],
             "launches_from": path,
+            **({"stage_options_launches": options_launches[fid]} if fid in options_launches else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

@@ -51,7 +51,6 @@ class Analyzer(FactorComputer, ScoreComputer):
             self._save_model()
 
     def set_dataloader_kwargs(self, dataloader_kwargs: DataLoaderKwargs) -> None:
-        dataloader_kwargs.check_ported()
         self._dataloader_params = dataloader_kwargs
 
     def _save_model(self) -> None:
@@ -72,6 +71,7 @@ class Analyzer(FactorComputer, ScoreComputer):
         factors_name: str,
         dataset: Any,
         per_device_batch_size: Optional[int] = None,
+        initial_per_device_batch_size_attempt: int = 4096,
         dataloader_kwargs: Optional[DataLoaderKwargs] = None,
         factor_args: Optional[FactorArguments] = None,
         overwrite_output_dir: bool = False,
@@ -83,6 +83,7 @@ class Analyzer(FactorComputer, ScoreComputer):
             factors_name=factors_name,
             dataset=dataset,
             per_device_batch_size=per_device_batch_size,
+            initial_per_device_batch_size_attempt=initial_per_device_batch_size_attempt,
             dataloader_kwargs=dataloader_kwargs,
             factor_args=factor_args,
             overwrite_output_dir=overwrite_output_dir,
@@ -99,6 +100,7 @@ class Analyzer(FactorComputer, ScoreComputer):
                 factors_name=factors_name,
                 dataset=dataset,
                 per_device_batch_size=per_device_batch_size,
+                initial_per_device_batch_size_attempt=initial_per_device_batch_size_attempt,
                 dataloader_kwargs=dataloader_kwargs,
                 factor_args=factor_args,
                 overwrite_output_dir=overwrite_output_dir,

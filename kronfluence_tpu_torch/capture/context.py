@@ -13,7 +13,8 @@ for the duration of one forward pass:
     probe perturbations and the reference's zero-parameter hack).
 
 A layer called several times in one forward (shared parameters) gets one
-record per use.
+record per use. A rematerialisation's recompute re-enters the hooks with
+`record=False`: the same operations, no new records.
 """
 
 import contextlib
@@ -51,9 +52,14 @@ class CaptureContext:
         self.probes: Dict[str, List[torch.Tensor]] = {}
         self.output_shapes: Dict[str, List[torch.Size]] = {}
 
-    def _hook(self, name: str, spec: LayerSpec):
+    def _hook(self, name: str, spec: LayerSpec, record: bool):
         def tap(module, args, output):
             del module
+            if not record:
+                # A recompute (capture/engine.py, remat): the same add of a
+                # zero probe that requires grad, so the recompute runs the
+                # captured forward's operations, and nothing is recorded.
+                return output + torch.zeros_like(output, requires_grad=True)
             self.specs.setdefault(name, spec)
             if self.mode == DISCOVER:
                 self.output_shapes.setdefault(name, []).append(output.shape)
@@ -66,9 +72,11 @@ class CaptureContext:
         return tap
 
     @contextlib.contextmanager
-    def activate(self):
+    def activate(self, record: bool = True):
+        """Hooks on every tracked Linear for the duration of the block;
+        `record=False` adds the probes and records nothing."""
         handles = [
-            module.register_forward_hook(self._hook(name, linear_spec(name, module)))
+            module.register_forward_hook(self._hook(name, linear_spec(name, module), record))
             for name, module in self.linears.items()
         ]
         try:

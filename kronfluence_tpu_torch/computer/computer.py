@@ -27,6 +27,7 @@ from kronfluence_tpu_torch.utils.constants import (
     SCORE_ARGUMENTS_NAME,
     SCORE_SAVE_PREFIX,
 )
+from kronfluence_tpu_torch.utils import memory
 from kronfluence_tpu_torch.utils.dataset import (
     BatchLoader,
     DataLoaderKwargs,
@@ -90,6 +91,7 @@ class Computer:
         self.output_dir.mkdir(parents=True, exist_ok=True)
         self._dataloader_params = DataLoaderKwargs()
         self._specs_cache: Optional[Dict[str, Any]] = None
+        self.last_batch_estimate: Optional[Dict[str, Any]] = None
 
     def _save_profile_summary(self, stage_name: str) -> None:
         """Writes the profiler table of a stage to
@@ -161,31 +163,100 @@ class Computer:
         else:
             save_json(metadata, path)
 
-    # -- Loaders. --
+    # -- Loaders and batch sizing. --
     def _get_loader(
         self,
         dataset: Any,
         per_device_batch_size: Optional[int],
         indices: Optional[Sequence[int]] = None,
+        initial_per_device_batch_size_attempt: int = 4096,
         dataloader_kwargs: Optional[DataLoaderKwargs] = None,
+        stage: Optional[str] = None,
+        factor_args: Optional[FactorArguments] = None,
+        score_args: Optional[ScoreArguments] = None,
+        resident_queries: int = 0,
     ) -> ProgressLoader:
+        dataloader_kwargs = dataloader_kwargs or self._dataloader_params
         if per_device_batch_size is None:
-            self._find_executable_batch_size()
+            total = len(indices) if indices is not None else dataset_length(dataset)
+            per_device_batch_size = self._find_executable_batch_size(
+                dataset, total, initial_per_device_batch_size_attempt, stage=stage,
+                factor_args=factor_args, score_args=score_args,
+                dataloader_kwargs=dataloader_kwargs, resident_queries=resident_queries,
+            )
         loader = BatchLoader(
             dataset,
             per_device_batch_size,
             indices,
             device=self.device,
-            dataloader_kwargs=dataloader_kwargs or self._dataloader_params,
+            dataloader_kwargs=dataloader_kwargs,
         )
         return ProgressLoader(loader, self.logger, desc="Batches", disable=self.disable_tqdm)
 
-    def _find_executable_batch_size(self) -> int:
-        raise NotImplementedError(
-            "per_device_batch_size=None needs the memory model's batch-size estimate "
-            "(utils/memory.py:estimate_batch_size), which is not ported yet (ROADMAP "
-            "Queue 1, remaining stage options); pass a per-device batch size."
+    def _find_executable_batch_size(
+        self,
+        dataset: Any,
+        total: int,
+        initial_attempt: int,
+        stage: Optional[str] = None,
+        factor_args: Optional[FactorArguments] = None,
+        score_args: Optional[ScoreArguments] = None,
+        dataloader_kwargs: Optional[DataLoaderKwargs] = None,
+        resident_queries: int = 0,
+    ) -> int:
+        """The memory model's batch size for `stage` (utils/memory.py): the
+        attempt clamped to the examples, probed on one example.
+
+        On the card the port plans what the JAX model leaves out: per
+        example, what torch's autograd keeps (`autograd_bytes`, twice for
+        self-influence through the measurement, whose capture runs beside the
+        loss's), and, for a pairwise train pass, the `resident_queries`
+        query gradients held beside it. On the CPU the batch is the JAX
+        package's. An estimation error raises: a guess in its place could
+        exceed the card's memory later in the stage."""
+        stage = stage or "covariance"
+        attempt = max(1, min(initial_attempt, total))
+        batch, _ = BatchLoader(
+            dataset, 1, device=self.device, dataloader_kwargs=dataloader_kwargs
+        ).probe()
+        probes = memory.probe_modules(self.model, self.task, batch, 1)
+        if not probes:
+            raise FactorsNotFoundError("No tracked modules found in the model.")
+        args = factor_args if factor_args is not None else score_args
+        untracked = reserved = 0.0
+        if self.device.type == "cuda":
+            untracked = memory.autograd_bytes(
+                self.model, self.task, batch, 1,
+                remat=bool(args is not None and args.offload_activations_to_cpu),
+                amp_dtype=args.amp_dtype if args is not None else None,
+            )
+            if stage == "self" and score_args.use_measurement_for_self_influence:
+                untracked *= 2
+            if resident_queries:
+                reserved = memory.query_block_bytes(probes, score_args, resident_queries)
+        budget = memory.device_memory_budget(self.device)
+        fit = memory.estimate_batch_size(
+            probes, stage, params=self.model.module, factor_args=factor_args,
+            score_args=score_args, budget_bytes=budget - reserved, max_batch_size=attempt,
+            untracked_bytes=untracked,
         )
+        if fit < attempt:
+            self.logger.info(
+                f"Memory estimate reduced the per-device batch size {attempt} -> {fit} "
+                f"for stage {stage!r}."
+            )
+        # What the last estimate planned, kept only for checks (chip_smoke.py
+        # prints it beside the measured peak); nothing in the package reads it.
+        self.last_batch_estimate = dict(
+            stage=stage, attempt=attempt, batch_size=fit, budget_bytes=budget,
+            reserved_bytes=reserved,
+            static_bytes=memory.static_bytes(probes, stage, self.model.module),
+            per_example_bytes=memory.stage_per_example_bytes(
+                probes, stage, factor_args=factor_args, score_args=score_args
+            ),
+            untracked_bytes=untracked,
+        )
+        return fit
 
     # -- Module discovery and partitions. --
     def _layer_specs(self, dataset: Any = None) -> Dict[str, Any]:

@@ -68,6 +68,7 @@ class FactorComputer(Computer):
         factors_name: str,
         dataset: Any,
         per_device_batch_size: Optional[int] = None,
+        initial_per_device_batch_size_attempt: int = 4096,
         dataloader_kwargs=None,
         factor_args: Optional[FactorArguments] = None,
         target_data_partitions: Optional[Sequence[int]] = None,
@@ -88,12 +89,14 @@ class FactorComputer(Computer):
         )
         self._run_partitioned_fit(
             stage="covariance",
+            factor_args=factor_args,
             fit_fn=lambda loader, names: fit_covariance_matrices_with_loader(
                 self.model, self.task, loader, factor_args, tracked_names=names
             ),
             dataset=dataset,
             indices=indices,
             per_device_batch_size=per_device_batch_size,
+            initial_attempt=initial_per_device_batch_size_attempt,
             dataloader_kwargs=dataloader_kwargs,
             data_partitions=factor_args.covariance_data_partitions,
             module_partitions=factor_args.covariance_module_partitions,
@@ -190,6 +193,7 @@ class FactorComputer(Computer):
         factors_name: str,
         dataset: Any,
         per_device_batch_size: Optional[int] = None,
+        initial_per_device_batch_size_attempt: int = 4096,
         dataloader_kwargs=None,
         factor_args: Optional[FactorArguments] = None,
         target_data_partitions: Optional[Sequence[int]] = None,
@@ -233,6 +237,7 @@ class FactorComputer(Computer):
         )
         self._run_partitioned_fit(
             stage="lambda",
+            factor_args=factor_args,
             fit_fn=lambda loader, names: fit_lambda_matrices_with_loader(
                 self.model, self.task, loader, factor_args,
                 eigen_factors=eigen_factors, tracked_names=names,
@@ -240,6 +245,7 @@ class FactorComputer(Computer):
             dataset=dataset,
             indices=indices,
             per_device_batch_size=per_device_batch_size,
+            initial_attempt=initial_per_device_batch_size_attempt,
             dataloader_kwargs=dataloader_kwargs,
             data_partitions=factor_args.lambda_data_partitions,
             module_partitions=factor_args.lambda_module_partitions,
@@ -254,10 +260,12 @@ class FactorComputer(Computer):
     def _run_partitioned_fit(
         self,
         stage: str,
+        factor_args: FactorArguments,
         fit_fn,
         dataset,
         indices: np.ndarray,
         per_device_batch_size,
+        initial_attempt: int,
         dataloader_kwargs,
         data_partitions: int,
         module_partitions: int,
@@ -274,7 +282,10 @@ class FactorComputer(Computer):
         title = stage.capitalize()
         module_names = self.tracked_module_names(dataset)
         if data_partitions == 1 and module_partitions == 1:
-            loader = self._get_loader(dataset, per_device_batch_size, indices, dataloader_kwargs)
+            loader = self._get_loader(
+                dataset, per_device_batch_size, indices, initial_attempt,
+                dataloader_kwargs=dataloader_kwargs, stage=stage, factor_args=factor_args,
+            )
             with self.profiler.profile(f"Fit {title}"):
                 factors = fit_fn(loader, None)
             with self.profiler.profile(f"Save {title}"):
@@ -304,7 +315,8 @@ class FactorComputer(Computer):
                     )
                     continue
                 loader = self._get_loader(
-                    dataset, per_device_batch_size, indices[start:end], dataloader_kwargs
+                    dataset, per_device_batch_size, indices[start:end], initial_attempt,
+                    dataloader_kwargs=dataloader_kwargs, stage=stage, factor_args=factor_args,
                 )
                 with self.profiler.profile(f"Fit {title}"):
                     factors = fit_fn(loader, module_groups[mi])

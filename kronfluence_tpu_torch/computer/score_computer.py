@@ -89,6 +89,7 @@ class ScoreComputer(Computer):
         train_dataset: Any,
         per_device_query_batch_size: int,
         per_device_train_batch_size: Optional[int] = None,
+        initial_per_device_train_batch_size_attempt: int = 4096,
         query_indices: Optional[Sequence[int]] = None,
         train_indices: Optional[Sequence[int]] = None,
         dataloader_kwargs=None,
@@ -115,18 +116,24 @@ class ScoreComputer(Computer):
         with self.profiler.profile("Load All Factors"):
             factors = self.load_all_factors(factors_name)
         query_loader = self._get_loader(
-            query_dataset, per_device_query_batch_size, query_indices, dataloader_kwargs
+            query_dataset, per_device_query_batch_size, query_indices,
+            dataloader_kwargs=dataloader_kwargs, stage="pairwise", score_args=score_args,
         )
         train_idx = example_indices(train_dataset, train_indices)
         module_groups = self._partition_module_names(
             self.tracked_module_names(train_dataset), score_args.module_partitions
         )
         data_ranges = make_indices_partition(len(train_idx), score_args.data_partitions)
+        # The query block the train pass holds, when its size is set.
+        steps = score_args.query_gradient_accumulation_steps
+        resident = min(steps * query_loader.batch_size, query_loader.num_examples) if steps else 0
 
         def compute_partition(di, mi):
             train_loader = self._get_loader(
                 train_dataset, per_device_train_batch_size,
-                train_idx[slice(*data_ranges[di])], dataloader_kwargs,
+                train_idx[slice(*data_ranges[di])], initial_per_device_train_batch_size_attempt,
+                dataloader_kwargs=dataloader_kwargs, stage="pairwise", score_args=score_args,
+                resident_queries=resident,
             )
             with self.profiler.profile("Compute Pairwise Score"):
                 return compute_pairwise_scores_with_loaders(
@@ -201,6 +208,7 @@ class ScoreComputer(Computer):
         factors_name: str,
         train_dataset: Any,
         per_device_train_batch_size: Optional[int] = None,
+        initial_per_device_train_batch_size_attempt: int = 4096,
         train_indices: Optional[Sequence[int]] = None,
         dataloader_kwargs=None,
         score_args: Optional[ScoreArguments] = None,
@@ -239,7 +247,8 @@ class ScoreComputer(Computer):
         def compute_partition(di, mi):
             train_loader = self._get_loader(
                 train_dataset, per_device_train_batch_size,
-                train_idx[slice(*data_ranges[di])], dataloader_kwargs,
+                train_idx[slice(*data_ranges[di])], initial_per_device_train_batch_size_attempt,
+                dataloader_kwargs=dataloader_kwargs, stage="self", score_args=score_args,
             )
             with self.profiler.profile("Compute Self-Influence Score"):
                 return compute_self_scores_with_loaders(

@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel kronfluence_tpu/ops/pallas/syrk.py:_syrk_kernel
 // (plus that wrapper's pad, tril and mirror passes). A is (rows, n) row-major,
-// in bf16 or fp32; C is (n, n) fp32 and comes out exactly symmetric.
+// in bf16, fp16 or fp32; C is (n, n) fp32 and comes out exactly symmetric.
 //
 // What bounds it on the H100. The lower triangle costs about n^2 * rows FLOPs
 // (2 * rows * 128^2 per output tile, T(T+1)/2 tiles for T = ceil(n / 128)):
@@ -14,11 +14,17 @@
 // cores at that ratio is what bounds a 128 x 128 tile.
 //
 // Three kernels, chosen by the wrapper (ops/kernels/syrk.py:bf16_route) from
-// the operand's type, width and alignment, never by a failure:
+// the operand's type, width and alignment, never by a failure. The two
+// tensor-core kernels are each built for bf16 and for fp16
+// (`syrk_bf16_wgmma_kernel` and `syrk_f16_wgmma_kernel` on one template body,
+// `syrk_wmma_kernel<T>`): the same instructions with the other
+// 16-bit operand type (wgmma's .f16 for .bf16, f16 wmma fragments, the
+// tensor map's FLOAT16 for BFLOAT16); fp16 x fp16 products are exact in fp32
+// as bf16 x bf16 ones are.
 //
-//  * syrk_bf16_wgmma_kernel: bf16 with n % 8 == 0 and a 16-byte aligned base,
-//    the operands the Tensor Memory Accelerator (TMA) can describe. GPT-2's
-//    grams (n 2304, 3072) all take it.
+//  * syrk_bf16_wgmma_kernel (syrk_f16_wgmma_kernel): bf16 (fp16) with n % 8
+//    == 0 and a 16-byte aligned base, the operands the Tensor Memory
+//    Accelerator (TMA) can describe. GPT-2's grams (n 2304, 3072) all take it.
 //      - One CTA per lower-triangle 128 x 128 tile (i, j); the pair comes from
 //        blockIdx.x (tile_pair), so the upper tiles are never computed.
 //      - TMA loads into a ring of kStages stages, each with a "full" and an
@@ -53,7 +59,7 @@
 //        written to C[i, j] along rows and to its mirror C[j, i] along rows,
 //        both from the same fp32 values. Diagonal tiles write their lower
 //        half and mirror it; columns >= n are masked.
-//  * syrk_bf16_kernel: bf16 operands TMA cannot describe (n % 8 != 0, or an
+//  * syrk_wmma_kernel: 16-bit operands TMA cannot describe (n % 8 != 0, or an
 //    unaligned base): wmma (mma.sync m16n16k16) from padded shared memory,
 //    32-row slabs staged through registers with one slab prefetched, masked
 //    scalar loads.
@@ -67,8 +73,11 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <cuda_fp16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -159,31 +168,42 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (1ull << 62);
 }
 
-// d (64 x 128, fp32) += A (64 x 16, M-major) * B (16 x 128, N-major).
-__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t desc_a,
-                                                    uint64_t desc_b) {
+// d (64 x 128, fp32) += A (64 x 16, M-major) * B (16 x 128, N-major), for
+// operands of the 16-bit type T (__nv_bfloat16 or __half).
 #define KF_D8(b)                                                                      \
   "+f"(d[b]), "+f"(d[b + 1]), "+f"(d[b + 2]), "+f"(d[b + 3]), "+f"(d[b + 4]),         \
       "+f"(d[b + 5]), "+f"(d[b + 6]), "+f"(d[b + 7])
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : KF_D8(0), KF_D8(8), KF_D8(16), KF_D8(24), KF_D8(32), KF_D8(40), KF_D8(48), KF_D8(56)
-      : "l"(desc_a), "l"(desc_b), "r"(1));
-#undef KF_D8
+#define KF_WGMMA_M64N128K16(TYPE)                                                     \
+  asm volatile(                                                                       \
+      "{\n"                                                                           \
+      ".reg .pred p;\n"                                                               \
+      "setp.ne.b32 p, %66, 0;\n"                                                      \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." TYPE "." TYPE " "                \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "                                             \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                                        \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                                      \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                                      \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                                      \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                                      \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                                      \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                                     \
+      "%64, %65, p, 1, 1, 1, 1;\n"                                                    \
+      "}\n"                                                                           \
+      : KF_D8(0), KF_D8(8), KF_D8(16), KF_D8(24), KF_D8(32), KF_D8(40), KF_D8(48),    \
+        KF_D8(56)                                                                     \
+      : "l"(desc_a), "l"(desc_b), "r"(1))
+
+template <typename T>
+__device__ __forceinline__ void wgmma_m64n128k16_mn(float (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b) {
+  if constexpr (std::is_same_v<T, __half>) {
+    KF_WGMMA_M64N128K16("f16");
+  } else {
+    KF_WGMMA_M64N128K16("bf16");
+  }
 }
+#undef KF_WGMMA_M64N128K16
+#undef KF_D8
 
 // Keeps the compiler from moving reads or writes of the accumulators across
 // the asynchronous wgmma issue and wait.
@@ -192,9 +212,11 @@ __device__ __forceinline__ void fence_accumulators(float (&d)[64]) {
   for (int x = 0; x < 64; ++x) asm volatile("" : "+f"(d[x])::"memory");
 }
 
-__global__ void __launch_bounds__(kWgThreads, 1)
-    syrk_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ c,
-                           int rows, int n) {
+// The wgmma kernel's body for operands of type T; `map` is the kernel's
+// __grid_constant__ tensor map.
+template <typename T>
+__device__ __forceinline__ void syrk_wgmma_body(const CUtensorMap* map, float* __restrict__ c,
+                                                int rows, int n) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[kStages];
   __shared__ uint64_t empty[kStages];
@@ -228,7 +250,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   if (warp == kConsumerWarps) {
     // Producer: lane 0 keeps every stage of the ring loaded.
     if (lane == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&map))
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                    : "memory");
       const uint32_t bytes = diag ? kStripeBytes : kStageBytes;
       for (int kt = 0; kt < slabs; ++kt) {
@@ -237,11 +259,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         mbar_expect_tx(&full[s], bytes);
         uint8_t* stage = ring + s * kStageBytes;
         const int r0 = kt * kWgSlab;
-        tma_load_box(stage, &map, &full[s], i0, r0);
-        tma_load_box(stage + kBoxBytes, &map, &full[s], i0 + kBoxCols, r0);
+        tma_load_box(stage, map, &full[s], i0, r0);
+        tma_load_box(stage + kBoxBytes, map, &full[s], i0 + kBoxCols, r0);
         if (!diag) {
-          tma_load_box(stage + kStripeBytes, &map, &full[s], j0, r0);
-          tma_load_box(stage + kStripeBytes + kBoxBytes, &map, &full[s], j0 + kBoxCols, r0);
+          tma_load_box(stage + kStripeBytes, map, &full[s], j0, r0);
+          tma_load_box(stage + kStripeBytes + kBoxBytes, map, &full[s], j0 + kBoxCols, r0);
         }
       }
     }
@@ -260,7 +282,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int kk = 0; kk < kWgSlab / kKStep; ++kk) {
-        wgmma_m64n128k16_mn(acc, smem_desc(a_addr + kk * kKStepBytes, kBoxBytes, 1024),
+        wgmma_m64n128k16_mn<T>(acc, smem_desc(a_addr + kk * kKStepBytes, kBoxBytes, 1024),
                             smem_desc(b_addr + kk * kKStepBytes, kBoxBytes, 1024));
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -317,6 +339,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
+__global__ void __launch_bounds__(kWgThreads, 1)
+    syrk_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ c,
+                           int rows, int n) {
+  syrk_wgmma_body<__nv_bfloat16>(&map, c, rows, n);
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1)
+    syrk_f16_wgmma_kernel(const __grid_constant__ CUtensorMap map, float* __restrict__ c,
+                          int rows, int n) {
+  syrk_wgmma_body<__half>(&map, c, rows, n);
+}
+
 // cuTensorMapEncodeTiled, reached through the runtime's driver entry point so
 // that the library needs no -lcuda.
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -356,7 +390,7 @@ constexpr int kStageLd = 20;                           // padded fp32 staging ro
 static_assert(kSlab * kChunksPerRow % kThreads == 0, "slab chunks must split evenly");
 static_assert(kSlab % 16 == 0, "slab must hold whole mma k-steps");
 
-// Eight consecutive bf16 of row gr starting at column gc, zero outside A,
+// Eight consecutive 16-bit values of row gr starting at column gc, zero outside A,
 // read element by element (the row stride or the base is not 16-byte aligned).
 __device__ __forceinline__ uint4 load_chunk_bf16(const uint16_t* __restrict__ a, int rows, int n,
                                                  int gr, int gc) {
@@ -377,8 +411,9 @@ __device__ __forceinline__ uint4 load_chunk_bf16(const uint16_t* __restrict__ a,
   return v;
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    syrk_bf16_kernel(const uint16_t* __restrict__ a, float* __restrict__ c, int rows, int n) {
+    syrk_wmma_kernel(const uint16_t* __restrict__ a, float* __restrict__ c, int rows, int n) {
   __shared__ __align__(128) uint16_t sa[kSlab][kLds];
   __shared__ __align__(128) uint16_t sb[kSlab][kLds];
   __shared__ __align__(128) float stage[kThreads / 32][16 * kStageLd];
@@ -436,16 +471,16 @@ __global__ void __launch_bounds__(kThreads)
     for (int kk = 0; kk < kSlab; kk += 16) {
       // A^T tile: element (m, k) = A[r0 + kk + k, i0 + m] sits at sa[kk + k][m],
       // i.e. column-major with leading dimension kLds.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::col_major> fa[kFragM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb[kFragN];
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> fa[kFragM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb[kFragN];
 #pragma unroll
       for (int x = 0; x < kFragM; ++x)
         wmma::load_matrix_sync(
-            fa[x], reinterpret_cast<const __nv_bfloat16*>(&sa[kk][wm * kWarpM + x * 16]), kLds);
+            fa[x], reinterpret_cast<const T*>(&sa[kk][wm * kWarpM + x * 16]), kLds);
 #pragma unroll
       for (int y = 0; y < kFragN; ++y)
         wmma::load_matrix_sync(
-            fb[y], reinterpret_cast<const __nv_bfloat16*>(&bs[kk][wn * kWarpN + y * 16]), kLds);
+            fb[y], reinterpret_cast<const T*>(&bs[kk][wn * kWarpN + y * 16]), kLds);
 #pragma unroll
       for (int x = 0; x < kFragM; ++x)
 #pragma unroll
@@ -581,9 +616,14 @@ inline long long triangle_pairs(int n, int tile) {
 
 extern "C" int kf_syrk_bf16_wgmma_smem_bytes() { return kWgSmemBytes; }
 
-// bf16 operand with n % 8 == 0 and a 16-byte aligned base (the wrapper's
+namespace {
+
+// A 16-bit operand with n % 8 == 0 and a 16-byte aligned base (the wrapper's
 // route rule); anything else is refused rather than computed wrongly.
-extern "C" int kf_syrk_bf16_wgmma(const void* a, void* c, int rows, int n, void* stream) {
+using WgmmaKernel = decltype(&syrk_bf16_wgmma_kernel);
+
+int launch_wgmma(WgmmaKernel kernel, CUtensorMapDataType type, const void* a, void* c, int rows,
+                 int n, void* stream) {
   if (rows <= 0 || n <= 0 || n % 8 != 0 || reinterpret_cast<uintptr_t>(a) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   EncodeTiledFn encode;
@@ -595,26 +635,47 @@ extern "C" int kf_syrk_bf16_wgmma(const void* a, void* c, int rows, int n, void*
   const cuuint32_t box[2] = {kBoxCols, kWgSlab};
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult encoded = encode(
-      &map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a), dims, strides, box,
-      elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      &map, type, 2, const_cast<void*>(a), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (encoded != CUDA_SUCCESS) return -static_cast<int>(encoded);
-  cudaError_t err = cudaFuncSetAttribute(
-      syrk_bf16_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long pairs = triangle_pairs(n, kTile);
-  syrk_bf16_wgmma_kernel<<<static_cast<unsigned>(pairs), kWgThreads, kWgSmemBytes,
-                           static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(c),
-                                                                rows, n);
+  kernel<<<static_cast<unsigned>(pairs), kWgThreads, kWgSmemBytes,
+           static_cast<cudaStream_t>(stream)>>>(map, static_cast<float*>(c), rows, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int kf_syrk_bf16(const void* a, void* c, int rows, int n, void* stream) {
+template <typename T>
+int launch_wmma(const void* a, void* c, int rows, int n, void* stream) {
   if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long pairs = triangle_pairs(n, kTile);
-  syrk_bf16_kernel<<<static_cast<unsigned>(pairs), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  syrk_wmma_kernel<T><<<static_cast<unsigned>(pairs), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(a), static_cast<float*>(c), rows, n);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int kf_syrk_bf16_wgmma(const void* a, void* c, int rows, int n, void* stream) {
+  return launch_wgmma(syrk_bf16_wgmma_kernel, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a, c, rows, n,
+                      stream);
+}
+
+extern "C" int kf_syrk_f16_wgmma(const void* a, void* c, int rows, int n, void* stream) {
+  return launch_wgmma(syrk_f16_wgmma_kernel, CU_TENSOR_MAP_DATA_TYPE_FLOAT16, a, c, rows, n,
+                      stream);
+}
+
+extern "C" int kf_syrk_bf16(const void* a, void* c, int rows, int n, void* stream) {
+  return launch_wmma<__nv_bfloat16>(a, c, rows, n, stream);
+}
+
+extern "C" int kf_syrk_f16(const void* a, void* c, int rows, int n, void* stream) {
+  return launch_wmma<__half>(a, c, rows, n, stream);
 }
 
 extern "C" int kf_syrk_f32(const void* a, void* c, int rows, int n, int vec, void* stream) {

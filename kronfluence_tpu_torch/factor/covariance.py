@@ -92,14 +92,18 @@ def discover_stage_specs(
     return discover_specs(model, train_loss_forward(model, task, batch, False, None))
 
 
-def _make_covariance_update(model, task, act_dtype, grad_dtype, sample, loss_scale=None):
+def _make_covariance_update(
+    model, task, act_dtype, grad_dtype, sample, loss_scale=None, remat=False
+):
     """Per-batch update: capture, flatten, and add each layer's grams."""
     act_accum = accumulation_dtype(act_dtype)
     grad_accum = accumulation_dtype(grad_dtype)
 
     def update(state, batch, valid, generator):
         forward = train_loss_forward(model, task, batch, sample, generator)
-        _, captures = capture(model, forward, loss_scale=loss_scale)
+        _, captures = capture(
+            model, forward, loss_scale=loss_scale, remat=remat, generator=generator
+        )
         masks = task.get_attention_mask(batch)
         for name, cap in captures.items():
             spec = cap.spec
@@ -132,11 +136,6 @@ def fit_covariance_matrices_with_loader(
     matrices in the covariance dtypes and the counts as int64 of shape (1,).
     """
     factor_args = factor_args or FactorArguments()
-    if factor_args.offload_activations_to_cpu:
-        raise NotImplementedError(
-            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1, "
-            "remaining stage options)."
-        )
     model = with_tracked(model, tracked_names)
     device = model.device
     act_dtype = resolve_dtype(factor_args.activation_covariance_dtype)
@@ -173,6 +172,7 @@ def fit_covariance_matrices_with_loader(
     update = _make_covariance_update(
         model, task, act_dtype, grad_dtype, sample,
         loss_scale_for(factor_args.amp_dtype, factor_args.amp_scale),
+        factor_args.offload_activations_to_cpu,
     )
     generator = torch.Generator(device).manual_seed(factor_args.seed) if sample else None
     for batch, valid in loader:

@@ -239,6 +239,7 @@ def perform_eigendecomposition(
 
 def _make_lambda_update(
     model, task, psg_dtype, lambda_dtype, sample, use_eigenbasis, iterative, loss_scale=None,
+    remat=False,
 ):
     """Per-batch Lambda update, with the JAX package's three branches."""
     lambda_accum = accumulation_dtype(lambda_dtype)
@@ -289,7 +290,9 @@ def _make_lambda_update(
 
     def update(state, batch, valid, generator, q_a_all, q_g_all):
         forward = train_loss_forward(model, task, batch, sample, generator)
-        _, captures = capture(model, forward, loss_scale=loss_scale)
+        _, captures = capture(
+            model, forward, loss_scale=loss_scale, remat=remat, generator=generator
+        )
         num_valid = valid.to(torch.int64).sum()
         for name, cap in captures.items():
             lam = state[name][LAMBDA_MATRIX_NAME]
@@ -313,11 +316,6 @@ def fit_lambda_matrices_with_loader(
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Fits Lambda matrices (squared per-sample gradients in the eigenbasis)."""
     factor_args = factor_args or FactorArguments()
-    if factor_args.offload_activations_to_cpu:
-        raise NotImplementedError(
-            "offload_activations_to_cpu is not ported yet (ROADMAP Queue 1, "
-            "remaining stage options)."
-        )
     model = with_tracked(model, tracked_names)
     device = model.device
     config = get_factor_config(factor_args.strategy)
@@ -360,6 +358,7 @@ def fit_lambda_matrices_with_loader(
         model, task, psg_dtype, lambda_dtype, sample, use_eigenbasis,
         factor_args.use_iterative_lambda_aggregation,
         loss_scale_for(factor_args.amp_dtype, factor_args.amp_scale),
+        factor_args.offload_activations_to_cpu,
     )
     generator = torch.Generator(device).manual_seed(factor_args.seed + 1) if sample else None
     for batch, valid in loader:

@@ -151,8 +151,12 @@ def load_library() -> ctypes.CDLL:
     lib.kf_syrk_bf16_wgmma.restype = i32
     lib.kf_syrk_bf16_wgmma_smem_bytes.argtypes = []
     lib.kf_syrk_bf16_wgmma_smem_bytes.restype = i32
+    lib.kf_syrk_f16_wgmma.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.kf_syrk_f16_wgmma.restype = i32
     lib.kf_syrk_bf16.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.kf_syrk_bf16.restype = i32
+    lib.kf_syrk_f16.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.kf_syrk_f16.restype = i32
     lib.kf_syrk_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.kf_syrk_f32.restype = i32
     lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]

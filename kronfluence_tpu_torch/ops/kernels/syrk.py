@@ -5,10 +5,11 @@ Port of `kronfluence_tpu/ops/pallas/syrk.py`. The CUDA kernels
 tile and its mirror from one set of fp32 sums, so the result is exactly
 symmetric. `syrk` launches one for a CUDA tensor and takes the plain version
 `syrk_reference` only for a CPU tensor; for a CUDA tensor it launches a
-kernel or raises. A bf16 operand goes to the wgmma kernel fed by TMA when
-`bf16_route` says TMA can describe it, else to the wmma kernel; fp32 to the
-FMA kernel. `syrk.launches` counts every launch, `syrk.wgmma_launches` the
-launches of the wgmma kernel.
+kernel or raises. A 16-bit operand (bf16 or fp16) goes to the wgmma kernel
+fed by TMA when `bf16_route` says TMA can describe it, else to the wmma
+kernel, each built for its type; fp32 to the FMA kernel. `syrk.launches`
+counts every launch, `syrk.wgmma_launches` the launches of the wgmma kernel
+and `syrk.f16_launches` those on fp16 operands.
 """
 
 import numpy as np
@@ -41,7 +42,8 @@ def syrk_supported(n: int, accum_dtype, tile_n: int = _TILE_N) -> bool:
 
 
 def bf16_route(n: int, data_ptr: int) -> str:
-    """The bf16 kernel a contiguous (rows, n) operand at `data_ptr` takes:
+    """The kernel a contiguous 16-bit (bf16 or fp16) (rows, n) operand at
+    `data_ptr` takes:
     "wgmma" when a TMA tensor map can describe it (a row stride of whole
     16-byte units, so n % 8 == 0, and a 16-byte aligned base), else "wmma"."""
     return "wgmma" if n % 8 == 0 and data_ptr % 16 == 0 else "wmma"
@@ -82,8 +84,8 @@ def _check_cuda_operand(flat: torch.Tensor, accum_dtype) -> None:
         raise ValueError(f"syrk takes a CPU or CUDA tensor; got device {flat.device}.")
     if flat.dim() != 2:
         raise ValueError(f"syrk takes a 2-D (rows, n) operand; got shape {tuple(flat.shape)}.")
-    if flat.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"syrk takes bf16 or fp32 operands; got {flat.dtype}.")
+    if flat.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+        raise TypeError(f"syrk takes bf16, fp16 or fp32 operands; got {flat.dtype}.")
     if resolve_dtype(accum_dtype) != torch.float32:
         raise TypeError(f"syrk accumulates and returns fp32; got accum_dtype {accum_dtype}.")
     if not flat.is_contiguous():
@@ -95,8 +97,8 @@ def _check_cuda_operand(flat: torch.Tensor, accum_dtype) -> None:
 def syrk(flat: torch.Tensor, accum_dtype=torch.float32) -> torch.Tensor:
     """Returns the symmetric (n, n) `flat^T @ flat` of a (rows, n) operand.
 
-    CUDA: bf16 or fp32 operand, fp32 result, via the hand-written kernel.
-    CPU: the plain version, in `accum_dtype`.
+    CUDA: bf16, fp16 or fp32 operand, fp32 result, via the hand-written
+    kernel. CPU: the plain version, in `accum_dtype`.
     """
     if flat.device.type == "cpu":
         return syrk_reference(flat, accum_dtype)
@@ -107,9 +109,14 @@ def syrk(flat: torch.Tensor, accum_dtype=torch.float32) -> torch.Tensor:
         out = torch.empty((n, n), dtype=torch.float32, device=flat.device)
         stream = torch.cuda.current_stream(flat.device).cuda_stream
         wgmma = False
-        if flat.dtype == torch.bfloat16:
+        if flat.dtype in (torch.bfloat16, torch.float16):
             wgmma = bf16_route(n, flat.data_ptr()) == "wgmma"
-            launch = lib.kf_syrk_bf16_wgmma if wgmma else lib.kf_syrk_bf16
+            launch = {
+                (torch.bfloat16, True): lib.kf_syrk_bf16_wgmma,
+                (torch.bfloat16, False): lib.kf_syrk_bf16,
+                (torch.float16, True): lib.kf_syrk_f16_wgmma,
+                (torch.float16, False): lib.kf_syrk_f16,
+            }[flat.dtype, wgmma]
             err = launch(flat.data_ptr(), out.data_ptr(), rows, n, stream)
         else:
             vec = int(flat.data_ptr() % 16 == 0 and n % 4 == 0)
@@ -117,8 +124,10 @@ def syrk(flat: torch.Tensor, accum_dtype=torch.float32) -> torch.Tensor:
         check_launch(err, "syrk")
     syrk.launches += 1
     syrk.wgmma_launches += wgmma
+    syrk.f16_launches += flat.dtype == torch.float16
     return out
 
 
 syrk.launches = 0
 syrk.wgmma_launches = 0
+syrk.f16_launches = 0

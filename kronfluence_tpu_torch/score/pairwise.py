@@ -45,7 +45,7 @@ from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
 from kronfluence_tpu_torch.utils.dataset import probe_first
 from kronfluence_tpu_torch.utils.dtypes import resolve_dtype
-from kronfluence_tpu_torch.utils.memory import max_queries_per_block, probe_modules
+from kronfluence_tpu_torch.utils.memory import log_hbm, max_queries_per_block, probe_modules
 
 
 def _check_ported(score_args: ScoreArguments) -> None:
@@ -63,10 +63,6 @@ def _check_ported(score_args: ScoreArguments) -> None:
             score_args.aggregate_train_gradients,
             "ROADMAP Queue 1, remaining score features",
         ),
-        "offload_activations_to_cpu": (
-            score_args.offload_activations_to_cpu,
-            "ROADMAP Queue 1, remaining stage options",
-        ),
     }
     for name, (is_set, item) in unported.items():
         if is_set:
@@ -81,9 +77,10 @@ def _build_query_step(model, task, score_args, strategy):
     precond_dtype = resolve_dtype(score_args.precondition_dtype)
     score_dtype = resolve_dtype(score_args.score_dtype)
     storage_dtype = resolve_dtype(score_args.query_gradient_storage_dtype)
+    remat = score_args.offload_activations_to_cpu
 
     def query_step(batch, valid, precondition_states):
-        _, captures = capture(model, measurement_forward(model, task, batch))
+        _, captures = capture(model, measurement_forward(model, task, batch), remat=remat)
         out = {}
         for name, cap in captures.items():
             psg = module_per_sample_gradients(cap, valid, psg_dtype, task, name)
@@ -103,6 +100,7 @@ def _make_train_apply(model, task, score_args, per_module):
     score_dtype = resolve_dtype(score_args.score_dtype)
     per_token = score_args.compute_per_token_scores
     post_process = task.enable_post_process_per_sample_gradient
+    remat = score_args.offload_activations_to_cpu
 
     def _chunk_score_psg(train_psg, pg):
         """Score slab against materialized train per-sample gradients."""
@@ -126,7 +124,7 @@ def _make_train_apply(model, task, score_args, per_module):
 
     def train_apply(batch, valid, query_block):
         forward = train_loss_forward(model, task, batch, sample=False, generator=None)
-        _, captures = capture(model, forward)
+        _, captures = capture(model, forward, remat=remat)
         per_module_scores = {}
         for name, cap in captures.items():
             chunks = query_block[name]  # one entry per accumulation step
@@ -264,7 +262,9 @@ def compute_pairwise_scores_with_loaders(
             f"{type(c).__name__}[{c.data.dtype if isinstance(c, QuantizedGradient) else c.dtype}]"
             for chunks in query_block.values() for c in chunks
         )
+        log_hbm("pairwise: query block resident", model.device)
         chunks_per_block.append(train_pass(query_block))
+        log_hbm("pairwise: train pass done", model.device)
         del query_block
     # What the last run resolved, kept only for checks (the tests and
     # chip_smoke.py read it to see that the recipe took effect); nothing in

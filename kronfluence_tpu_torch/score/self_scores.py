@@ -32,15 +32,6 @@ from kronfluence_tpu_torch.utils.dataset import probe_first
 from kronfluence_tpu_torch.utils.dtypes import resolve_dtype
 
 
-def _check_ported(score_args: ScoreArguments) -> None:
-    """Raises for score options this slice of the port does not carry yet."""
-    if score_args.offload_activations_to_cpu:
-        raise NotImplementedError(
-            "ScoreArguments.offload_activations_to_cpu is not ported yet "
-            "(ROADMAP Queue 1, remaining stage options)."
-        )
-
-
 def compute_self_scores_with_loaders(
     model: PreparedModel,
     task: Task,
@@ -53,7 +44,6 @@ def compute_self_scores_with_loaders(
     """Computes self-influence scores; returns {module_name or 'all_modules': (N,)}
     as CPU tensors in the score dtype."""
     score_args = score_args or ScoreArguments()
-    _check_ported(score_args)
     model = with_tracked(model, tracked_names)
     strategy_config = get_factor_config(factor_args.strategy)
     psg_dtype = resolve_dtype(score_args.per_sample_gradient_dtype)
@@ -61,6 +51,7 @@ def compute_self_scores_with_loaders(
     score_dtype = resolve_dtype(score_args.score_dtype)
     per_module = score_args.compute_per_module_scores
     use_measurement = score_args.use_measurement_for_self_influence
+    remat = score_args.offload_activations_to_cpu
 
     probe_batch, _ = probe_first(train_loader)
     specs = discover_stage_specs(model, task, probe_batch)
@@ -71,9 +62,11 @@ def compute_self_scores_with_loaders(
 
     def apply(batch: Any, valid: torch.Tensor) -> Dict[str, torch.Tensor]:
         forward = train_loss_forward(model, task, batch, sample=False, generator=None)
-        _, loss_caps = capture(model, forward)
+        _, loss_caps = capture(model, forward, remat=remat)
         if use_measurement:
-            _, meas_caps = capture(model, measurement_forward(model, task, batch))
+            _, meas_caps = capture(
+                model, measurement_forward(model, task, batch), remat=remat
+            )
         per_module_scores = {}
         for name, cap in loss_caps.items():
             loss_psg = module_per_sample_gradients(cap, valid, psg_dtype, task, name)

@@ -1,32 +1,45 @@
-"""Analytic device-memory model for sizing the pairwise query block.
+"""Analytic device-memory model: the executable batch size of each stage and
+the pairwise query block.
 
-Port of the query-block half of `kronfluence_tpu/utils/memory.py`: the
-per-module facts come from one discovery forward on the probe batch (token
-counts from the tracked layers' output shapes, dimensions from their
-LayerSpecs), and `max_queries_per_block` sizes the resident query block so
-that one block plus one train pass fits the planning budget. The model's
-terms and constants are the JAX package's, so both packages return the same
-integers for the same model, loaders and budget.
+Port of `kronfluence_tpu/utils/memory.py`. The per-module facts come from one
+discovery forward on the probe batch (token counts from the tracked layers'
+output shapes, dimensions from their LayerSpecs); the remat and
+iterative-lambda flags change the model where they change liveness.
+`estimate_batch_size` picks the largest batch whose working set fits the
+planning budget, `max_queries_per_block` the largest query block that fits
+beside one train pass. The terms and constants are the JAX package's, so both
+packages return the same integers for the same model, probes and budget.
 
-The device limit is the card's total memory (`torch.cuda.mem_get_info`), in
-the role of JAX's `bytes_limit`; on the CPU it is the JAX package's 15 GiB
-default. `estimate_batch_size` and `log_hbm` are not ported yet.
+The device limit is the card's total memory (`torch.cuda.mem_get_info`) and
+the memory in use `torch.cuda.memory_allocated` (the caching allocator's free
+blocks are not in use); on the CPU the limit is the JAX package's 15 GiB
+default. One term is the port's own: `autograd_bytes`, what torch's eager
+autograd keeps for the backward pass beyond the captured streams (the JAX
+model's residual multiplier stands for what XLA keeps). The Computer adds it
+on the card only, so on the CPU the batch is the JAX package's.
 """
 
 import dataclasses
+import os
+import sys
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from kronfluence_tpu_torch.capture.engine import discover
-from kronfluence_tpu_torch.factor.covariance import train_loss_forward
+from kronfluence_tpu_torch.capture.engine import captured_forward, discover
+from kronfluence_tpu_torch.factor.covariance import cast_params, train_loss_forward
 from kronfluence_tpu_torch.utils.dtypes import resolve_dtype
 
-#: Untracked intermediates (attention scores, layernorms,
-#: activations between tracked layers) survive to the backward pass: a small
-#: multiple of the tracked token streams.
+#: Fraction of the free device memory a stage's batch working set may fill.
+#: The rest covers scratch, temporaries and fragmentation.
+DEFAULT_BUDGET_FRACTION = 0.5
+
+#: Untracked intermediates (attention scores, layernorms, activations between
+#: tracked layers) survive to the backward pass: a small multiple of the
+#: tracked token streams, cut to about one by remat.
 RESIDUAL_MULTIPLIER = 2.0
+RESIDUAL_MULTIPLIER_REMAT = 1.0
 
 #: Fraction of the device's memory the pairwise stage may plan against. The
 #: sizer subtracts every major resident explicitly, so only scratch and
@@ -64,6 +77,34 @@ def probe_modules(model: Any, task: Any, batch: Any, batch_size: int) -> Dict[st
     return probes
 
 
+def autograd_bytes(
+    model: Any, task: Any, batch: Any, batch_size: int, *, remat: bool = False, amp_dtype=None
+) -> float:
+    """Bytes per example that torch's autograd keeps for the backward pass of
+    one captured train-loss forward on `batch` (of `batch_size` examples):
+    every storage it saves, once, less the parameters', plus twice the
+    largest (the first backward step's gradient and input gradient are
+    that size: for a language model, its log-probabilities over the
+    vocabulary). Under `remat` a region's saved tensors are placeholders and
+    are not counted. The forward is run, the backward is not."""
+    model = cast_params(model, amp_dtype)
+    params = {p.untyped_storage().data_ptr() for p in model.module.parameters()}
+    saved: Dict[int, int] = {}
+
+    def pack(t: torch.Tensor) -> torch.Tensor:
+        storage = t.untyped_storage()
+        if storage.data_ptr() not in params:
+            saved[storage.data_ptr()] = storage.nbytes()
+        return t
+
+    forward = train_loss_forward(model, task, batch, sample=False, generator=None)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        with captured_forward(model, forward, remat=remat):
+            pass
+    total = sum(saved.values()) + 2 * max(saved.values(), default=0)
+    return total / max(1, batch_size)
+
+
 def _dtype_bytes(dtype: Any, default: int = 4) -> int:
     try:
         return int(resolve_dtype(dtype).itemsize)
@@ -72,33 +113,68 @@ def _dtype_bytes(dtype: Any, default: int = 4) -> int:
 
 
 def per_example_bytes(
-    probes: Dict[str, ModuleProbe], *, capture_bytes: int = 4, psg_bytes: int = 4
+    probes: Dict[str, ModuleProbe],
+    stage: str,
+    *,
+    capture_bytes: int = 4,
+    stage_bytes: int = 4,
+    psg_bytes: int = 4,
+    remat: bool = False,
+    iterative_lambda: bool = False,
 ) -> float:
-    """Bytes of per-example device state live during one pairwise train step:
-    the captured token streams and their residuals, plus two of the largest
-    module's per-sample gradients (they are formed one module at a time)."""
+    """Bytes of per-example device state live during one `stage` step.
+
+    Per tracked module and use: the captured activation and output-gradient
+    token streams (all stages) with their untracked residuals (the residual
+    multiplier, cut by remat); for covariance, the flattened copies in the
+    covariance dtype; for lambda, the per-sample gradient (not with iterative
+    aggregation, which takes one example at a time); for pairwise and self,
+    two of the largest module's per-sample gradients (they are formed one
+    module at a time; self also holds the preconditioned copy).
+    """
     stream = 0.0
+    extra = 0.0
     psg_peak = 0.0
     for probe in probes.values():
         spec = probe.spec
-        stream += probe.uses * probe.tokens * (spec.in_dim + spec.gradient_dim) * capture_bytes
-        psg_peak = max(psg_peak, spec.activation_dim * spec.gradient_dim * psg_bytes)
-    return RESIDUAL_MULTIPLIER * stream + 2 * psg_peak
+        d_in = spec.activation_dim
+        d_out = spec.gradient_dim
+        stream += probe.uses * probe.tokens * (spec.in_dim + d_out) * capture_bytes
+        if stage == "covariance":
+            extra += probe.uses * probe.tokens * (d_in + d_out) * stage_bytes
+        elif stage == "lambda":
+            if not iterative_lambda:
+                extra += d_in * d_out * psg_bytes
+        elif stage in ("pairwise", "self"):
+            factor = 2 if stage == "self" else 1
+            psg_peak = max(psg_peak, factor * d_in * d_out * psg_bytes)
+    if stage in ("pairwise", "self"):
+        extra += 2 * psg_peak
+    residual = RESIDUAL_MULTIPLIER_REMAT if remat else RESIDUAL_MULTIPLIER
+    return residual * stream + extra
 
 
 def static_bytes(
-    probes: Dict[str, ModuleProbe], params: Optional[torch.nn.Module] = None, *, state_bytes: int = 4
+    probes: Dict[str, ModuleProbe],
+    stage: str,
+    params: Optional[torch.nn.Module] = None,
+    *,
+    state_bytes: int = 4,
 ) -> float:
-    """Per-run device state of the pairwise stage independent of batch size:
-    the parameter bytes of `params` (an nn.Module) plus each module's
-    eigenvectors and lambda (the precondition state)."""
+    """Per-run device state independent of batch size: the parameter bytes of
+    `params` (an nn.Module) plus the stage's factor arrays (covariance: the
+    two covariances; lambda: the eigenvectors and the lambda sum; pairwise
+    and self: the precondition state)."""
     total = 0.0
     if params is not None:
         total += sum(p.numel() * p.element_size() for p in params.parameters())
     for probe in probes.values():
         d_in = probe.spec.activation_dim
         d_out = probe.spec.gradient_dim
-        total += (d_in * d_in + d_out * d_out + d_in * d_out) * state_bytes
+        if stage == "covariance":
+            total += (d_in * d_in + d_out * d_out) * state_bytes
+        elif stage in ("lambda", "pairwise", "self"):
+            total += (d_in * d_in + d_out * d_out + d_in * d_out) * state_bytes
     return total
 
 
@@ -125,6 +201,101 @@ def device_memory_limit(device: Any) -> float:
     return float(_DEFAULT_LIMIT_BYTES)
 
 
+def device_memory_in_use(device: Any) -> float:
+    """Bytes the caching allocator has handed out on the card; 0 on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return float(torch.cuda.memory_allocated(device))
+    return 0.0
+
+
+def device_memory_budget(device: Any, fraction: float = DEFAULT_BUDGET_FRACTION) -> float:
+    """`fraction` of the device's free memory (at least a quarter of its limit)."""
+    limit = device_memory_limit(device)
+    return max(limit - device_memory_in_use(device), limit // 4) * fraction
+
+
+def log_hbm(label: str, device: Any = None) -> None:
+    """Prints the card's memory in use, its peak and its limit to stderr when
+    KF_MEM_LOG=1 (an aid for out-of-memory hunts; off by default)."""
+    if not os.environ.get("KF_MEM_LOG"):
+        return
+    device = torch.device("cuda" if device is None else device)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(
+        "HBM[%s]: in_use %.2f GB, peak %.2f GB, limit %.2f GB" % (
+            label,
+            device_memory_in_use(device) / 1024**3,
+            peak / 1024**3,
+            device_memory_limit(device) / 1024**3,
+        ),
+        file=sys.stderr, flush=True,
+    )
+
+
+def stage_per_example_bytes(
+    probes: Dict[str, ModuleProbe],
+    stage: str,
+    *,
+    factor_args: Any = None,
+    score_args: Any = None,
+) -> float:
+    """`per_example_bytes` with the byte widths and flags the stage's
+    arguments set (amp dtype, covariance and per-sample-gradient dtypes,
+    remat, iterative lambda)."""
+    remat = False
+    iterative = False
+    capture_b = stage_b = psg_b = 4
+    if factor_args is not None:
+        remat = bool(factor_args.offload_activations_to_cpu)
+        iterative = bool(factor_args.use_iterative_lambda_aggregation)
+        if factor_args.amp_dtype is not None:
+            capture_b = _dtype_bytes(factor_args.amp_dtype)
+        if stage == "covariance":
+            stage_b = _dtype_bytes(factor_args.activation_covariance_dtype)
+        psg_b = _dtype_bytes(factor_args.per_sample_gradient_dtype)
+    if score_args is not None:
+        remat = remat or bool(score_args.offload_activations_to_cpu)
+        if score_args.amp_dtype is not None:
+            capture_b = _dtype_bytes(score_args.amp_dtype)
+        psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
+    return per_example_bytes(
+        probes, stage, capture_bytes=capture_b, stage_bytes=stage_b, psg_bytes=psg_b,
+        remat=remat, iterative_lambda=iterative,
+    )
+
+
+def estimate_batch_size(
+    probes: Dict[str, ModuleProbe],
+    stage: str,
+    *,
+    params: Optional[torch.nn.Module] = None,
+    factor_args: Any = None,
+    score_args: Any = None,
+    budget_bytes: Optional[float] = None,
+    max_batch_size: int = 4096,
+    device: Any = None,
+    untracked_bytes: float = 0.0,
+) -> int:
+    """Largest per-device batch size whose working set fits the budget:
+    `budget_bytes`, or else `device_memory_budget(device)` (one of the two is
+    required), less `static_bytes`, over `stage_per_example_bytes` plus
+    `untracked_bytes` (the port's `autograd_bytes`; 0 gives the JAX
+    package's integer), clamped to [1, max_batch_size]."""
+    per_example = stage_per_example_bytes(
+        probes, stage, factor_args=factor_args, score_args=score_args
+    ) + untracked_bytes
+    if budget_bytes is None:
+        if device is None:
+            raise ValueError("estimate_batch_size needs budget_bytes or the device to plan for.")
+        budget_bytes = device_memory_budget(device)
+    budget_bytes -= static_bytes(probes, stage, params)
+    if per_example <= 0:
+        return max_batch_size
+    fit = int(budget_bytes // per_example)
+    return max(1, min(max_batch_size, fit))
+
+
 def max_queries_per_block(
     probes: Dict[str, ModuleProbe],
     score_args: Any,
@@ -149,11 +320,14 @@ def max_queries_per_block(
         if device is None:
             raise ValueError("max_queries_per_block needs budget_bytes or the device to plan for.")
         budget_bytes = device_memory_limit(device) * PAIRWISE_BUDGET_FRACTION
-    budget = budget_bytes - static_bytes(probes, params)
+    budget = budget_bytes - static_bytes(probes, "pairwise", params)
     amp = score_args.amp_dtype
     capture_b = _dtype_bytes(amp) if amp is not None else 4
     psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
-    budget -= train_batch_size * per_example_bytes(probes, capture_bytes=capture_b, psg_bytes=psg_b)
+    budget -= train_batch_size * per_example_bytes(
+        probes, "pairwise", capture_bytes=capture_b, psg_bytes=psg_b,
+        remat=bool(score_args.offload_activations_to_cpu),
+    )
     score_b = _dtype_bytes(score_args.score_dtype)
     tokens = max((p.tokens for p in probes.values()), default=1)
     per_query_scores = num_train * (tokens if score_args.compute_per_token_scores else 1) * score_b

@@ -2,7 +2,8 @@
 the JAX package's, on the tiny GPT-2 in fp64: the artifacts on disk, their
 names, arguments and metadata, the factors and the scores, cross-loading of
 factor directories in both directions, the safetensors format, partitions,
-resume, argument checks, task checks and the options that are not ported."""
+resume, argument checks, task checks, the batch sizes the memory model
+picks and the loader knobs."""
 
 import copy
 import json
@@ -26,6 +27,7 @@ from kronfluence_tpu.utils.common.factor_arguments import (
 from kronfluence_tpu.utils.common.score_arguments import (
     pytest_score_arguments as jax_score_args,
 )
+from kronfluence_tpu.utils.dataset import DataLoaderKwargs as JaxDataLoaderKwargs
 from kronfluence_tpu.utils.exceptions import (
     IllegalTaskConfigurationError as JaxIllegalTask,
     TrackedModuleNotFoundError as JaxTrackedNotFound,
@@ -348,21 +350,116 @@ def test_cpu_false_without_a_card_raises(runs, tmp_path, monkeypatch):
         Analyzer(NAME, runs["tmodel"], runs["ttask"], output_dir=str(tmp_path))
 
 
-@pytest.mark.parametrize(
-    "knob", ["batch_size_none", "collate_fn", "num_workers", "drop_last"]
-)
-def test_unported_options_raise(runs, tmp_path, knob):
-    analyzer = Analyzer(NAME, runs["tmodel"], runs["ttask"], cpu=True, output_dir=str(tmp_path))
-    kwargs = dict(per_device_batch_size=5, factor_args=pytest_factor_arguments())
-    if knob == "batch_size_none":
-        kwargs["per_device_batch_size"] = None
-    else:
-        value = {"collate_fn": list, "num_workers": 2, "drop_last": True}[knob]
-        kwargs["dataloader_kwargs"] = DataLoaderKwargs(**{knob: value})
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, remaining stage options"):
-            analyzer.set_dataloader_kwargs(DataLoaderKwargs(**{knob: value}))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, remaining stage options"):
-        analyzer.fit_covariance_matrices("f", runs["train"], **kwargs)
+# Both packages' budget functions give these bytes: the tiny GPT-2's fp64
+# recipe then runs covariance in batches of 3, lambda of 4, pairwise of 5 and
+# self of 4, each with a padded last batch.
+BUDGET = 3e6
+
+
+def _spy_batch_sizes(analyzer, monkeypatch):
+    chosen = []
+    real = analyzer._find_executable_batch_size
+
+    def spy(*args, **kwargs):
+        chosen.append(real(*args, **kwargs))
+        return chosen[-1]
+
+    monkeypatch.setattr(analyzer, "_find_executable_batch_size", spy)
+    return chosen
+
+
+def test_default_batch_sizes_match_jax(runs, tmp_path, monkeypatch):
+    """Every batch size left to the memory model: both packages pick the same
+    batches for the same budget and give the same factors and scores."""
+    from kronfluence_tpu.utils import memory as jax_memory
+    from kronfluence_tpu_torch.utils import memory as port_memory
+
+    monkeypatch.setattr(jax_memory, "device_memory_budget", lambda fraction=0.5: BUDGET)
+    monkeypatch.setattr(port_memory, "device_memory_budget", lambda device, fraction=0.5: BUDGET)
+    jax_analyzer = JaxAnalyzer(NAME, runs["jmodel"], runs["jtask"], params=runs["params"],
+                               cpu=True, output_dir=str(tmp_path / "jax"))
+    port = Analyzer(NAME, runs["tmodel"], runs["ttask"], cpu=True, output_dir=str(tmp_path / "port"))
+    chosen = {}
+    for key, analyzer, fargs, sargs in (
+        ("jax", jax_analyzer, jax_factor_args("ekfac"), jax_score_args()),
+        ("port", port, pytest_factor_arguments("ekfac"), pytest_score_arguments()),
+    ):
+        chosen[key] = _spy_batch_sizes(analyzer, monkeypatch)
+        analyzer.fit_all_factors("auto", runs["train"], factor_args=fargs)
+        analyzer.compute_pairwise_scores("auto", "auto", runs["query"], runs["train"],
+                                         per_device_query_batch_size=QUERY_BATCH,
+                                         score_args=sargs)
+        analyzer.compute_self_scores("auto_self", "auto", runs["train"], score_args=sargs)
+    assert chosen["port"] == chosen["jax"] == [3, 4, 5, 4]
+    assert port.last_batch_estimate["stage"] == "self"
+    assert port.last_batch_estimate["untracked_bytes"] == 0.0  # the JAX model on the CPU
+    for factor_names, load in ((COVARIANCE_FACTOR_NAMES, "load_covariance_matrices"),
+                               (LAMBDA_FACTOR_NAMES, "load_lambda_matrices")):
+        got, want = getattr(port, load)("auto"), getattr(jax_analyzer, load)("auto")
+        for factor in factor_names:
+            for module, tensor in want[factor].items():
+                _close(got[factor][module], tensor, f"{factor}/{module}")
+    _close(port.load_pairwise_scores("auto")[ALL_MODULE_NAME],
+           jax_analyzer.load_pairwise_scores("auto")[ALL_MODULE_NAME], "pairwise")
+    _close(port.load_self_scores("auto_self")[ALL_MODULE_NAME],
+           jax_analyzer.load_self_scores("auto_self")[ALL_MODULE_NAME], "self")
+
+
+def test_batch_size_attempt_clamps_the_estimate(runs, tmp_path, caplog):
+    """The attempt is clamped to the examples; the estimate never exceeds it,
+    and an info line says when the estimate cuts it."""
+    port = Analyzer(NAME, runs["tmodel"], runs["ttask"], cpu=True, output_dir=str(tmp_path),
+                    log_level=logging.INFO)
+    with caplog.at_level(logging.INFO):
+        port.fit_covariance_matrices("f", runs["train"], initial_per_device_batch_size_attempt=6,
+                                     factor_args=pytest_factor_arguments())
+    assert port.last_batch_estimate["attempt"] == 6
+    assert port.last_batch_estimate["batch_size"] == 6  # 7.5 GiB on the CPU fits all 6
+    assert not any("reduced the per-device batch size" in r.getMessage() for r in caplog.records)
+    port.fit_covariance_matrices("g", runs["train"], factor_args=pytest_factor_arguments())
+    assert port.last_batch_estimate["attempt"] == NUM_TRAIN
+
+
+def _rows(data):
+    return [{k: v[i] for k, v in data.items()} for i in range(len(data["input_ids"]))]
+
+
+def _stack_rows(rows):
+    return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+@pytest.mark.parametrize("knob", ["collate_fn", "num_workers", "drop_last"])
+def test_loader_knobs_match_jax(runs, tmp_path, knob):
+    """The covariance of the train set through each loader knob, by both
+    Analyzers: `collate_fn` on a dataset of rows, a prefetch thread, and
+    `drop_last` (10 examples in batches of 4: 8 kept); also set through
+    `set_dataloader_kwargs`."""
+    value = {"collate_fn": _stack_rows, "num_workers": 2, "drop_last": True}[knob]
+    data = _rows(runs["train"]) if knob == "collate_fn" else runs["train"]
+    results = {}
+    for key, analyzer, kwargs_cls, fargs in (
+        ("jax", JaxAnalyzer(NAME, runs["jmodel"], runs["jtask"], params=runs["params"], cpu=True,
+                            output_dir=str(tmp_path / "jax")), JaxDataLoaderKwargs,
+         jax_factor_args("ekfac")),
+        ("port", Analyzer(NAME, runs["tmodel"], runs["ttask"], cpu=True,
+                          output_dir=str(tmp_path / "port")), DataLoaderKwargs,
+         pytest_factor_arguments("ekfac")),
+    ):
+        analyzer.fit_covariance_matrices(
+            "f", data, per_device_batch_size=TRAIN_BATCH,
+            dataloader_kwargs=kwargs_cls(**{knob: value}), factor_args=fargs)
+        analyzer.set_dataloader_kwargs(kwargs_cls(**{knob: value}))
+        analyzer.fit_covariance_matrices("g", data, per_device_batch_size=TRAIN_BATCH,
+                                         factor_args=fargs)
+        results[key] = (analyzer.load_covariance_matrices("f"),
+                        analyzer.load_covariance_matrices("g"))
+    tokens = int(runs["train"]["attention_mask"][: 8 if knob == "drop_last" else NUM_TRAIN].sum())
+    for got, want in zip(results["port"], results["jax"]):
+        for factor in COVARIANCE_FACTOR_NAMES:
+            for module, tensor in want[factor].items():
+                _close(got[factor][module], tensor, f"{knob} {factor}/{module}")
+        count = got["num_activation_covariance_processed"]
+        assert {int(t[0]) for t in count.values()} == {tokens}
 
 
 # -- The safetensors format, against the `safetensors` package. --
