@@ -61,7 +61,9 @@ each of which raises on failure:
      the limit; median times beside the plain versions,
      F.scaled_dot_product_attention (the library yardstick; for FB its
      backward alone), the naive form and the bound, FF against F1 and FB
-     against F2+F3 in turns;
+     against F2+F3 in turns; then F1 and F2+F3 at the shapes their routes
+     serve (fp32 at D 64, bf16 at D 128) in turns against SDPA's forward and
+     backward;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
@@ -109,6 +111,24 @@ each of which raises on failure:
      the covariance through a list of 72 dict rows with collate_fn, two
      prefetch workers and drop_last, bit for bit the column store's over the
      64 kept.
+ 14. score features: on phase 12's factors, model and recipe, through its
+     Analyzer. (a) pairwise 16 x 64 with low-rank query blocks at rank 32
+     (randomized and full SVD) and rank 64, each timed (query gradients,
+     train pass) beside the dense and fp8 recipes and correlated with phase
+     12's dense scores; per module on the query step's output, the full
+     SVD's error must equal the optimal tail and the randomized one stay
+     within 1.5x of it; the low-rank contraction must equal the dense form
+     on the rebuilt block; the block's bytes must equal the memory model's;
+     with the block sized by the memory model the stage's peak must stay
+     within the sizer's plan (its terms, with the autograd and held-factor
+     terms it takes on the card, and its budget fraction's headroom); the
+     sizer's blocks at the bench's 481 x 4,656; one rank-32
+     call on the flash model (FF and FB counted). (b) aggregated query,
+     train and both against the sums of phase 12's scores, and bitwise equal
+     under offload_activations_to_cpu. (c) tests/test_lds.py's ridge problem
+     on the card through the Analyzer, retrains solved on the card: the
+     ekfac LDS above 0.35 and the identity one's; mismatched measurements
+     raise.
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -250,6 +270,11 @@ FLASH_CASES = (
     (8, 12, 512, 64, torch.float32, True),
     (16, 12, 128, 64, torch.bfloat16, False),
 )
+# The shapes F1, F2 and F3 serve since FF and FB took bf16 at D 64 (B, H, T,
+# D, dtype), padded: fp32 at GPT-2 small's width, phase 11's route, at phase
+# 10's batch and length; bf16 at D 128 (Llama's head size) over the same 768
+# model width.
+GENERIC_ROUTE_CASES = ((16, 12, 512, 64, torch.float32), (16, 6, 512, 128, torch.bfloat16))
 # The flash path against phase 5's naive path, same bf16 weights and data. The
 # two forms round differently in bf16 (fp32 softmax and P rounded before P V,
 # against bf16 scores and probabilities), a few bf16 steps per attention
@@ -285,6 +310,30 @@ OPTIONS_SELF_N = 64
 OPTIONS_BATCH_RTOL = 1e-5
 REMAT_RTOL = 1e-6
 LOADER_N = 72
+# Phase 14 (score features). (a) Low-rank query blocks at ranks 32 and 64, all
+# 16 queries one chunk, so every module takes `lowrank_route`'s order (at q 16
+# c_attn, c_fc and mlp/c_proj project the tokens, attn/c_proj rebuilds). The
+# SVD is held on the query step's fp32 output before the cast to the score
+# dtype, for the first SVD_CHECK_QUERIES queries: the full SVD's relative Frobenius error equals the optimal tail
+# (Eckart-Young, singular values in fp64) up to fp32 rounding, 1e-3 relative;
+# the randomized one (oversample 8, two power iterations) within 1.5x of it.
+# The contraction is held in fp32 (per-sample-gradient and score dtypes), on the
+# call's own bf16 factors: the low-rank route against the dense form on the
+# rebuilt block sum the same products in another order, 1e-3 of max|score|;
+# the call's bf16 scores against that fp32 route carry bf16 roundings only,
+# phase 12's limit of 8 bf16 units of the max, 2^-5. (b) Aggregated scores
+# against the row and column sums of phase 12's bf16 dense scores: the same
+# sums taken before the contraction instead of after, in bf16, 2^-5 of
+# max|sum|. (c) tests/test_lds.py's ridge problem on the card, with its bars.
+LOWRANK_RANKS = (32, 64)
+SVD_TAIL_RTOL = 1e-3
+SVD_CHECK_QUERIES = 2
+RANDOMIZED_TAIL_FACTOR = 1.5
+CONTRACTION_RTOL = 1e-3
+FEATURES_BF16_RTOL = 2.0 ** -5
+BENCH_QUERIES, BENCH_TRAIN = 481, 4656
+LDS_D, LDS_TRAIN, LDS_QUERY, LDS_SUBSETS, LDS_SEED, LDS_RIDGE = 6, 64, 8, 48, 3, 1e-3
+LDS_MIN = 0.35
 
 
 def log(msg: str) -> None:
@@ -1239,9 +1288,96 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
+    # F1, F2 and F3 report the shapes they serve; their bf16 D 64 times (the
+    # turns against FF and FB above) stay beside them.
+    routes = time_generic_routes(card)
+    for name in ("F1", "F2", "F3"):
+        at_d64 = timing[name]
+        timing[name] = dict(routes[name]["fp32 D 64"], shape="B 16 H 12 T 512 D 64 fp32 padded",
+                            at_bf16_d128=routes[name]["bf16 D 128"],
+                            at_bf16_d64={k: at_d64[k] for k in ("ms", "device_ms", "bound_ms")})
     out = {name: dict(timing[name], max_abs_err=abs_errs[name])
            for name in ("F1", "F2", "F3", "FF", "FB")}
     out["extra"] = timing["extra"]
+    out["extra"]["F2+F3 at their routes"] = routes["F2+F3"]
+    return out
+
+
+def time_generic_routes(card: str) -> dict:
+    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, in turns against SDPA's forward
+    and its backward alone with the same boolean mask: CUDA events around one
+    call (median), torch.profiler device time, the plain version and the
+    bound. {kernel: {case: numbers}}, kernel in F1, F2, F3, F2+F3."""
+    from kronfluence_tpu_torch.ops.attention import output_dot
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv,
+        flash_backward_dkv_reference,
+        flash_backward_dq,
+        flash_backward_dq_reference,
+        flash_forward,
+        flash_forward_reference,
+    )
+
+    out = {"F1": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    for b, h, t, d, dtype in GENERIC_ROUTE_CASES:
+        case = f"{'fp32' if dtype == torch.float32 else 'bf16'} D {d}"
+        gen = torch.Generator("cuda").manual_seed(b * t + d + 1)
+        q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        seg = padded_segments(b, t, True, "cuda")
+        scale = d ** -0.5
+        o, l, m = flash_forward(q, k, v, seg, scale)
+        di = output_dot(o, do)
+        keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
+            t, t, dtype=torch.bool, device="cuda").tril()
+        mask4 = keep[:, None]
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
+        fns = {
+            "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
+            "SDPA fwd": (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
+                                                                 scale=scale), None),
+            "F2": (lambda: flash_backward_dkv(q, k, v, seg, l, m, do, di, scale),
+                   ("flash_bwd_dkv_kernel",)),
+            "F3": (lambda: flash_backward_dq(q, k, v, seg, l, m, do, di, scale),
+                   ("flash_bwd_dq_kernel",)),
+            "F2+F3": (lambda: (flash_backward_dkv(q, k, v, seg, l, m, do, di, scale),
+                               flash_backward_dq(q, k, v, seg, l, m, do, di, scale)),
+                      ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
+            "SDPA bwd alone": (lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                                           retain_graph=True), None),
+        }
+        times = turns_ms(fns)
+        plain = {
+            "F1": median_ms(lambda: flash_forward_reference(q, k, v, seg, scale), 5, 1),
+            "F2": median_ms(lambda: flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale),
+                            5, 1),
+            "F3": median_ms(lambda: flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale),
+                            5, 1),
+        }
+        plain["F2+F3"] = plain["F2"] + plain["F3"]
+        pairs, work = flash_work(seg, h, d, q.element_size())
+        work["F2+F3"] = work["FB"]  # dQ, dK and dV, each written once
+        peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
+        library = {"F1": "SDPA fwd", "F2+F3": "SDPA bwd alone"}
+        for name in out:
+            bound, bound_by = roofline(*work[name], peak)
+            lib = library.get(name)
+            out[name][case] = dict(
+                ms=float(np.mean([e for e, _ in times[name]])),
+                device_ms=float(np.mean([dv for _, dv in times[name]])),
+                plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
+                library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
+                library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None)
+        del sdpa_out
+        log(f"flash generic routes at B {b} H {h} T {t} D {d} {case.split()[0]} padded ({pairs:,} "
+            f"kept pairs), in turns there and back, ms (CUDA events around one call, "
+            f"torch.profiler device time): " + "; ".join(
+                f"{name} " + " / ".join(f"({e:.4f}, {dv:.4f})" for e, dv in ts)
+                for name, ts in times.items()) + "; bounds " + ", ".join(
+                f"{name} {out[name][case]['bound_ms']:.4f} ({out[name][case]['bound_by']})"
+                for name in out) + "; plain " + ", ".join(
+                f"{name} {v:.3f}" for name, v in plain.items()) + f" [{card}]")
     return out
 
 
@@ -1478,11 +1614,12 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     # Model passes, from the loaders: a forward+backward per covariance and
     # lambda batch, per query batch, and per train batch of every query
     # block; a forward alone for each stage's module discovery (covariance,
-    # lambda, pairwise) and for the block sizer's probe.
+    # lambda, pairwise) and two for the block sizer (its module probe and,
+    # on the card, its probe of what autograd keeps).
     cov_b, lam_b = -(-COV_N // COV_BATCH), -(-LAMBDA_N // LAMBDA_BATCH)
     query_b, train_b = -(-QUERY_N // QUERY_BATCH), -(-TRAIN_N // TRAIN_BATCH)
     passes = cov_b + lam_b + query_b + run["blocks"] * train_b
-    forwards_only = 3 + 1
+    forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2 and
     # F3 never.
@@ -1600,11 +1737,13 @@ def check_analyzer_launches(launches: dict, wgmma: int, naive_calls: int, cov_ba
         raise RuntimeError(f"the Analyzer path launched {others} or never ran the naive form")
 
 
-def phase_analyzer(card: str, ctx: dict) -> tuple:
+def phase_analyzer(card: str, ctx: dict, root: Path) -> tuple:
     """Phase 5's model, recipe and data through the public entry point:
     `Analyzer.fit_all_factors`, `compute_pairwise_scores` and
-    `compute_self_scores`, every artifact written to and read back from disk,
-    then the same calls again on the finished directory (resume)."""
+    `compute_self_scores`, every artifact written to and read back from disk
+    under `root`, then the same calls again on the finished directory
+    (resume). Its artifacts stay under `root` for phase 14. Returns the
+    launches."""
     from kronfluence_tpu_torch import Analyzer
     from kronfluence_tpu_torch.factor import io as factor_io
     from kronfluence_tpu_torch.factor.eigen import fit_lambda_matrices_with_loader
@@ -1638,158 +1777,154 @@ def phase_analyzer(card: str, ctx: dict) -> tuple:
         return out, time.perf_counter() - t0
 
     start = time.perf_counter()
-    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_"))
-    try:
-        log(f"analyzer path: artifacts under {root}, on {mount_of(root)}")
-        cov_batches = -(-COV_N // COV_BATCH)
-        torch.cuda.reset_peak_memory_stats()
-        zero_counts()
-        # The public entry point, with explicit batch sizes; it moves the
-        # model to cuda:0 (where it is already).
-        analyzer = Analyzer("chip_smoke", model, task, output_dir=str(root), profile=True)
-        if analyzer.device != device or next(model.module.parameters()).device != device:
-            raise RuntimeError(f"the Analyzer runs on {analyzer.device}, not on {device}")
-        wall = {}
-        _, wall["fit_all_factors"] = timed(
-            analyzer.fit_all_factors, "ekfac", data["cov"], per_device_batch_size=COV_BATCH,
-            factor_args=factor_args)
-        _, wall["compute_pairwise_scores"] = timed(
-            analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
-            per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
-            score_args=score_args)
-        stage_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()}
-        self_args = copy.deepcopy(score_args)
-        self_args.use_measurement_for_self_influence = True
-        _, wall["compute_self_scores"] = timed(
-            analyzer.compute_self_scores, "self", "ekfac", data["train"],
-            per_device_train_batch_size=TRAIN_BATCH, score_args=self_args)
-        # The train set as queries: the pairwise diagonal is each example's
-        # self-influence (the task's measurement is its train loss).
-        diag_args = copy.deepcopy(score_args)
-        diag_args.query_gradient_accumulation_steps = TRAIN_N // QUERY_BATCH
-        _, wall["compute_pairwise_scores (train x train)"] = timed(
-            analyzer.compute_pairwise_scores, "train_x_train", "ekfac", data["train"],
-            data["train"], per_device_query_batch_size=QUERY_BATCH,
-            per_device_train_batch_size=TRAIN_BATCH, score_args=diag_args)
-        launches, wgmma, naive_calls = counts(), syrk.wgmma_launches, naive_attention.calls
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"analyzer path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
-            + f"; syrk on the wgmma kernel {wgmma} (want {SYRK_LAUNCHES_PER_COV_BATCH} x "
-            f"{cov_batches} covariance batches = {SYRK_LAUNCHES_PER_COV_BATCH * cov_batches}, "
-            f"all wgmma); naive attention calls {naive_calls}")
-        check_analyzer_launches(launches, wgmma, naive_calls, cov_batches)
+    log(f"analyzer path: artifacts under {root}, on {mount_of(root)}")
+    cov_batches = -(-COV_N // COV_BATCH)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    # The public entry point, with explicit batch sizes; it moves the
+    # model to cuda:0 (where it is already).
+    analyzer = Analyzer("chip_smoke", model, task, output_dir=str(root), profile=True)
+    if analyzer.device != device or next(model.module.parameters()).device != device:
+        raise RuntimeError(f"the Analyzer runs on {analyzer.device}, not on {device}")
+    wall = {}
+    _, wall["fit_all_factors"] = timed(
+        analyzer.fit_all_factors, "ekfac", data["cov"], per_device_batch_size=COV_BATCH,
+        factor_args=factor_args)
+    _, wall["compute_pairwise_scores"] = timed(
+        analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
+        per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
+        score_args=score_args)
+    stage_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()}
+    self_args = copy.deepcopy(score_args)
+    self_args.use_measurement_for_self_influence = True
+    _, wall["compute_self_scores"] = timed(
+        analyzer.compute_self_scores, "self", "ekfac", data["train"],
+        per_device_train_batch_size=TRAIN_BATCH, score_args=self_args)
+    # The train set as queries: the pairwise diagonal is each example's
+    # self-influence (the task's measurement is its train loss).
+    diag_args = copy.deepcopy(score_args)
+    diag_args.query_gradient_accumulation_steps = TRAIN_N // QUERY_BATCH
+    _, wall["compute_pairwise_scores (train x train)"] = timed(
+        analyzer.compute_pairwise_scores, "train_x_train", "ekfac", data["train"],
+        data["train"], per_device_query_batch_size=QUERY_BATCH,
+        per_device_train_batch_size=TRAIN_BATCH, score_args=diag_args)
+    launches, wgmma, naive_calls = counts(), syrk.wgmma_launches, naive_attention.calls
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"analyzer path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
+        + f"; syrk on the wgmma kernel {wgmma} (want {SYRK_LAUNCHES_PER_COV_BATCH} x "
+        f"{cov_batches} covariance batches = {SYRK_LAUNCHES_PER_COV_BATCH * cov_batches}, "
+        f"all wgmma); naive attention calls {naive_calls}")
+    check_analyzer_launches(launches, wgmma, naive_calls, cov_batches)
 
-        sizes = artifact_bytes(root)
-        log(f"analyzer path: bytes written " + ", ".join(f"{k} {v:,}" for k, v in sizes.items())
-            + f"; total {sum(sizes.values()):,} [{card}]")
-        stages = {
-            "covariance": ("Fit Covariance", "covariance"),
-            "eigendecomposition": ("Perform Eigendecomposition", "eigendecomposition"),
-            "lambda": ("Fit Lambda", "lambda"),
-            "pairwise": ("Compute Pairwise Score", "pairwise"),
-        }
-        log("analyzer path stage seconds (profiler, synchronized; the first pairwise call): "
-            + ", ".join(f"{k} {stage_rows[row][0]:.3f}" for k, (row, _) in stages.items())
-            + "; phase 5's stage functions: " + ", ".join(
-                f"{k} {ctx['seconds'][key]:.3f}" for k, (_, key) in stages.items())
-            + f"; calls: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items())
-            + f"; peak device memory {peak:.2f} GiB [{card}]")
-        io_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()
-                   if name.startswith(("Save", "Load"))}
-        log("analyzer path write and load seconds (profiler; the eigendecomposition write runs on "
-            "a background thread beside the lambda stage): " + ", ".join(
-                f"{name} {sec:.3f} ({calls} call{'s' if calls > 1 else ''})"
-                for name, (sec, calls) in io_rows.items()) + f" [{card}]")
+    sizes = artifact_bytes(root)
+    log(f"analyzer path: bytes written " + ", ".join(f"{k} {v:,}" for k, v in sizes.items())
+        + f"; total {sum(sizes.values()):,} [{card}]")
+    stages = {
+        "covariance": ("Fit Covariance", "covariance"),
+        "eigendecomposition": ("Perform Eigendecomposition", "eigendecomposition"),
+        "lambda": ("Fit Lambda", "lambda"),
+        "pairwise": ("Compute Pairwise Score", "pairwise"),
+    }
+    log("analyzer path stage seconds (profiler, synchronized; the first pairwise call): "
+        + ", ".join(f"{k} {stage_rows[row][0]:.3f}" for k, (row, _) in stages.items())
+        + "; phase 5's stage functions: " + ", ".join(
+            f"{k} {ctx['seconds'][key]:.3f}" for k, (_, key) in stages.items())
+        + f"; calls: " + ", ".join(f"{k} {v:.3f}" for k, v in wall.items())
+        + f"; peak device memory {peak:.2f} GiB [{card}]")
+    io_rows = {name: (sec, calls) for name, sec, calls in analyzer.profiler.rows()
+               if name.startswith(("Save", "Load"))}
+    log("analyzer path write and load seconds (profiler; the eigendecomposition write runs on "
+        "a background thread beside the lambda stage): " + ", ".join(
+            f"{name} {sec:.3f} ({calls} call{'s' if calls > 1 else ''})"
+            for name, (sec, calls) in io_rows.items()) + f" [{card}]")
 
-        # Every artifact read back from disk onto the card, against phase 5's
-        # in-memory results.
-        fdir = analyzer.factors_output_dir("ekfac")
-        cov, load_cov = timed(factor_io.load_covariance_matrices, fdir, device=device)
-        eigen, load_eig = timed(factor_io.load_eigendecomposition, fdir, device=device)
-        lam, load_lam = timed(factor_io.load_lambda_matrices, fdir, device=device)
-        read = sizes["covariance"] + sizes["eigendecomposition"] + sizes["lambda"]
-        log(f"analyzer path: factors read back onto the card in {load_cov:.3f} + {load_eig:.3f} + "
-            f"{load_lam:.3f} s ({read / (load_cov + load_eig + load_lam) / 1e9:.2f} GB/s) [{card}]")
-        unequal = [f"{factor} {name}" for factor, tensors in ctx["cov"].items()
-                   for name, t in tensors.items() if not torch.equal(cov[factor][name], t)]
-        if unequal or cov.keys() != ctx["cov"].keys():
-            raise RuntimeError(f"covariance read back differs from phase 5's: {unequal[:4]}")
-        # The bf16 recipe stores the eigenpairs in bf16, so their
-        # reconstruction is ~2^-8 off the covariance and the Jacobi path's
-        # fp32 limits do not apply to them; the same cuSOLVER solve of the same
-        # covariance is held bit for bit instead, with the worst gaps printed.
-        eigen5 = {k: {n: t.to(device) for n, t in v.items()} for k, v in ctx["eigen_host"].items()}
-        unequal = [f"{k} {n}" for k, v in eigen5.items() for n, t in v.items()
-                   if not torch.equal(eigen[k][n], t)]
-        worst = compare_eigenpairs(_to_fp32(ctx["cov"]), _to_fp32(eigen), _to_fp32(eigen5))
-        log("analyzer path vs phase 5: covariance and counts equal bit for bit; eigenpairs "
-            f"unequal in {len(unequal)} tensors (bit for bit required); per matrix relative to "
-            "max|lambda|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
-            + " (bf16 eigenpairs)")
-        if unequal or eigen.keys() != eigen5.keys():
-            raise RuntimeError(f"eigenpairs read back differ from phase 5's: {unequal[:4]}")
-        # fit_all_factors takes one dataset for both stages, where phase 5
-        # fitted lambda on other examples: the reference lambda and scores are
-        # the stage functions on phase 12's data with phase 5's covariance and
-        # eigenpairs, in the same batches and order.
-        ref_lam = fit_lambda_matrices_with_loader(
-            model, task, BatchLoader(data["cov"], COV_BATCH, device=device), factor_args,
-            eigen_factors=eigen5)
-        ref_scores = compute_pairwise_scores_with_loaders(
-            model, task, BatchLoader(data["query"], QUERY_BATCH, device=device),
-            BatchLoader(data["train"], TRAIN_BATCH, device=device),
-            {**ctx["cov"], **eigen5, **ref_lam}, factor_args, score_args)
-        unequal = [f"{factor} {name}" for factor, tensors in ref_lam.items()
-                   for name, t in tensors.items() if not torch.equal(lam[factor][name], t)]
-        scores = analyzer.load_pairwise_scores("pairwise")
-        gap = float((scores[ALL_MODULE_NAME].float() - ref_scores[ALL_MODULE_NAME].float())
-                    .abs().max())
-        log(f"analyzer path vs the stage functions: lambda and counts unequal in {len(unequal)} "
-            f"tensors; pairwise scores {tuple(scores[ALL_MODULE_NAME].shape)} "
-            f"{scores[ALL_MODULE_NAME].dtype} through the disk, max |disk - memory| {gap:.3e} "
-            "(both required bit for bit)")
-        if unequal:
-            raise RuntimeError(f"lambda read back differs from the stage function's: {unequal[:4]}")
-        if not torch.equal(scores[ALL_MODULE_NAME], ref_scores[ALL_MODULE_NAME]):
-            raise RuntimeError(f"pairwise scores through the disk differ: {gap:.3e}")
+    # Every artifact read back from disk onto the card, against phase 5's
+    # in-memory results.
+    fdir = analyzer.factors_output_dir("ekfac")
+    cov, load_cov = timed(factor_io.load_covariance_matrices, fdir, device=device)
+    eigen, load_eig = timed(factor_io.load_eigendecomposition, fdir, device=device)
+    lam, load_lam = timed(factor_io.load_lambda_matrices, fdir, device=device)
+    read = sizes["covariance"] + sizes["eigendecomposition"] + sizes["lambda"]
+    log(f"analyzer path: factors read back onto the card in {load_cov:.3f} + {load_eig:.3f} + "
+        f"{load_lam:.3f} s ({read / (load_cov + load_eig + load_lam) / 1e9:.2f} GB/s) [{card}]")
+    unequal = [f"{factor} {name}" for factor, tensors in ctx["cov"].items()
+               for name, t in tensors.items() if not torch.equal(cov[factor][name], t)]
+    if unequal or cov.keys() != ctx["cov"].keys():
+        raise RuntimeError(f"covariance read back differs from phase 5's: {unequal[:4]}")
+    # The bf16 recipe stores the eigenpairs in bf16, so their
+    # reconstruction is ~2^-8 off the covariance and the Jacobi path's
+    # fp32 limits do not apply to them; the same cuSOLVER solve of the same
+    # covariance is held bit for bit instead, with the worst gaps printed.
+    eigen5 = {k: {n: t.to(device) for n, t in v.items()} for k, v in ctx["eigen_host"].items()}
+    unequal = [f"{k} {n}" for k, v in eigen5.items() for n, t in v.items()
+               if not torch.equal(eigen[k][n], t)]
+    worst = compare_eigenpairs(_to_fp32(ctx["cov"]), _to_fp32(eigen), _to_fp32(eigen5))
+    log("analyzer path vs phase 5: covariance and counts equal bit for bit; eigenpairs "
+        f"unequal in {len(unequal)} tensors (bit for bit required); per matrix relative to "
+        "max|lambda|: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + " (bf16 eigenpairs)")
+    if unequal or eigen.keys() != eigen5.keys():
+        raise RuntimeError(f"eigenpairs read back differ from phase 5's: {unequal[:4]}")
+    # fit_all_factors takes one dataset for both stages, where phase 5
+    # fitted lambda on other examples: the reference lambda and scores are
+    # the stage functions on phase 12's data with phase 5's covariance and
+    # eigenpairs, in the same batches and order.
+    ref_lam = fit_lambda_matrices_with_loader(
+        model, task, BatchLoader(data["cov"], COV_BATCH, device=device), factor_args,
+        eigen_factors=eigen5)
+    ref_scores = compute_pairwise_scores_with_loaders(
+        model, task, BatchLoader(data["query"], QUERY_BATCH, device=device),
+        BatchLoader(data["train"], TRAIN_BATCH, device=device),
+        {**ctx["cov"], **eigen5, **ref_lam}, factor_args, score_args)
+    unequal = [f"{factor} {name}" for factor, tensors in ref_lam.items()
+               for name, t in tensors.items() if not torch.equal(lam[factor][name], t)]
+    scores = analyzer.load_pairwise_scores("pairwise")
+    gap = float((scores[ALL_MODULE_NAME].float() - ref_scores[ALL_MODULE_NAME].float())
+                .abs().max())
+    log(f"analyzer path vs the stage functions: lambda and counts unequal in {len(unequal)} "
+        f"tensors; pairwise scores {tuple(scores[ALL_MODULE_NAME].shape)} "
+        f"{scores[ALL_MODULE_NAME].dtype} through the disk, max |disk - memory| {gap:.3e} "
+        "(both required bit for bit)")
+    if unequal:
+        raise RuntimeError(f"lambda read back differs from the stage function's: {unequal[:4]}")
+    if not torch.equal(scores[ALL_MODULE_NAME], ref_scores[ALL_MODULE_NAME]):
+        raise RuntimeError(f"pairwise scores through the disk differ: {gap:.3e}")
 
-        self_scores = analyzer.load_self_scores("self")[ALL_MODULE_NAME].float()
-        if tuple(self_scores.shape) != (TRAIN_N,) or not bool(torch.isfinite(self_scores).all()):
-            raise RuntimeError(f"self scores: shape {tuple(self_scores.shape)} or non-finite")
-        train_x_train = analyzer.load_pairwise_scores("train_x_train")[ALL_MODULE_NAME].float()
-        diagonal = torch.diagonal(train_x_train)
-        scale = float(diagonal.abs().max())
-        self_gap = float((self_scores - diagonal).abs().max()) / scale
-        fault = float((self_scores[:-1] - torch.diagonal(train_x_train, 1)).abs().max()) / scale
-        log(f"analyzer path: self scores (use_measurement_for_self_influence=True) against the "
-            f"pairwise diagonal of train x train: max |self - diagonal| / max |diagonal| "
-            f"{self_gap:.3e} (limit {SELF_DIAGONAL_RTOL:g}); planted fault (against the first "
-            f"superdiagonal) {fault:.3e}; |self| max {float(self_scores.abs().max()):.4e}")
-        if not self_gap <= SELF_DIAGONAL_RTOL:
-            raise RuntimeError(f"self scores off the pairwise diagonal: {self_gap:.3e}")
-        if not fault > SELF_DIAGONAL_RTOL:
-            raise RuntimeError(f"the self-score check passes a planted fault: {fault:.3e}")
+    self_scores = analyzer.load_self_scores("self")[ALL_MODULE_NAME].float()
+    if tuple(self_scores.shape) != (TRAIN_N,) or not bool(torch.isfinite(self_scores).all()):
+        raise RuntimeError(f"self scores: shape {tuple(self_scores.shape)} or non-finite")
+    train_x_train = analyzer.load_pairwise_scores("train_x_train")[ALL_MODULE_NAME].float()
+    diagonal = torch.diagonal(train_x_train)
+    scale = float(diagonal.abs().max())
+    self_gap = float((self_scores - diagonal).abs().max()) / scale
+    fault = float((self_scores[:-1] - torch.diagonal(train_x_train, 1)).abs().max()) / scale
+    log(f"analyzer path: self scores (use_measurement_for_self_influence=True) against the "
+        f"pairwise diagonal of train x train: max |self - diagonal| / max |diagonal| "
+        f"{self_gap:.3e} (limit {SELF_DIAGONAL_RTOL:g}); planted fault (against the first "
+        f"superdiagonal) {fault:.3e}; |self| max {float(self_scores.abs().max()):.4e}")
+    if not self_gap <= SELF_DIAGONAL_RTOL:
+        raise RuntimeError(f"self scores off the pairwise diagonal: {self_gap:.3e}")
+    if not fault > SELF_DIAGONAL_RTOL:
+        raise RuntimeError(f"the self-score check passes a planted fault: {fault:.3e}")
 
-        # Resume: the same calls on the finished directory run no stage.
-        mtimes = {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
-        zero_counts()
-        _, resume_fit = timed(analyzer.fit_all_factors, "ekfac", data["cov"],
-                              per_device_batch_size=COV_BATCH, factor_args=factor_args)
-        _, resume_pairwise = timed(
-            analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
-            per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
-            score_args=score_args)
-        resumed = counts()
-        touched = mtimes != {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
-        log(f"analyzer path resume: fit_all_factors {resume_fit:.3f} s (it reads the "
-            f"eigendecomposition back), compute_pairwise_scores {resume_pairwise:.3f} s; "
-            f"launches " + ", ".join(f"{k} {v}" for k, v in resumed.items())
-            + f"; files changed: {touched} [{card}]")
-        if any(resumed.values()) or touched:
-            raise RuntimeError(f"the resume ran a stage or wrote a file: {resumed}, {touched}")
-        log(f"analyzer path: phase 12 took {time.perf_counter() - start:.1f} s [{card}]")
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    # Resume: the same calls on the finished directory run no stage.
+    mtimes = {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
+    zero_counts()
+    _, resume_fit = timed(analyzer.fit_all_factors, "ekfac", data["cov"],
+                          per_device_batch_size=COV_BATCH, factor_args=factor_args)
+    _, resume_pairwise = timed(
+        analyzer.compute_pairwise_scores, "pairwise", "ekfac", data["query"], data["train"],
+        per_device_query_batch_size=QUERY_BATCH, per_device_train_batch_size=TRAIN_BATCH,
+        score_args=score_args)
+    resumed = counts()
+    touched = mtimes != {p: p.stat().st_mtime_ns for p in root.rglob("*") if p.is_file()}
+    log(f"analyzer path resume: fit_all_factors {resume_fit:.3f} s (it reads the "
+        f"eigendecomposition back), compute_pairwise_scores {resume_pairwise:.3f} s; "
+        f"launches " + ", ".join(f"{k} {v}" for k, v in resumed.items())
+        + f"; files changed: {touched} [{card}]")
+    if any(resumed.values()) or touched:
+        raise RuntimeError(f"the resume ran a stage or wrote a file: {resumed}, {touched}")
+    log(f"analyzer path: phase 12 took {time.perf_counter() - start:.1f} s [{card}]")
     return launches, wgmma
 
 
@@ -2198,6 +2333,465 @@ def phase_stage_options(card: str, ctx: dict) -> dict:
         "FF": {"flash_covariance_remat": remat["FF"]},
         "FB": {"flash_covariance_remat": remat["FB"]},
     }
+
+
+def profiled_pairwise(analyzer, name: str, query, train, query_batch: int, score_args) -> tuple:
+    """(all-module scores as read back from disk, {query, train, call} seconds):
+    one `compute_pairwise_scores` call, its query-gradient and train-pass
+    seconds from the Analyzer's profiler regions (CUDA-synchronized)."""
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+
+    before = {row: sec for row, sec, _ in analyzer.profiler.rows()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    analyzer.compute_pairwise_scores(
+        name, "ekfac", query, train, per_device_query_batch_size=query_batch,
+        per_device_train_batch_size=TRAIN_BATCH, score_args=score_args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = {row: sec for row, sec, _ in analyzer.profiler.rows()}
+    seconds = {key: after.get(row, 0.0) - before.get(row, 0.0) for key, row in (
+        ("query", "Pairwise: query gradients"), ("train", "Pairwise: train pass"))}
+    seconds["call"] = wall
+    return analyzer.load_pairwise_scores(name)[ALL_MODULE_NAME], seconds
+
+
+def pearson(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.corrcoef(torch.stack([a.double().flatten(), b.double().flatten()]))[0, 1])
+
+
+def score_features_lowrank(card: str, ctx: dict, analyzer) -> dict:
+    """Phase 14 (a): low-rank query blocks through the Analyzer on phase 12's
+    factors, the SVD and the contraction held per module, the block's bytes
+    against the memory model, the sized stage's peak, and one call on the
+    flash model. Returns FF's and FB's launches in that call."""
+    from kronfluence_tpu_torch import Analyzer
+    from kronfluence_tpu_torch.models.transformer import gpt2_small, init_transformer
+    from kronfluence_tpu_torch.ops.scores import lowrank_route, rebuild
+    from kronfluence_tpu_torch.ops.svd import lowrank_factors_full, lowrank_factors_randomized
+    from kronfluence_tpu_torch.prepare import prepare_model
+    from kronfluence_tpu_torch.score import pairwise
+    from kronfluence_tpu_torch.score.common import prepare_precondition_states
+    from kronfluence_tpu_torch.utils import memory
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    model, task, data, device = ctx["model"], ctx["task"], ctx["data"], ctx["device"]
+    factor_args, recipe = ctx["factor_args"], ctx["score_args"]
+    dense = analyzer.load_pairwise_scores("pairwise")[ALL_MODULE_NAME]
+
+    def args_with(**fields):
+        args = copy.deepcopy(recipe)
+        for field, value in fields.items():
+            setattr(args, field, value)
+        return args
+
+    # Like-for-like stage seconds: phase 12's dense recipe and phase 10's fp8
+    # recipe (sized block) again, then the low-rank calls, all 16 queries in
+    # one chunk.
+    calls = {
+        "dense bf16 (phase 12)": (QUERY_BATCH, recipe),
+        "fp8 dense, sized (phase 10)": (QUERY_BATCH, args_with(
+            query_gradient_storage_dtype="float8_e4m3fn", query_gradient_accumulation_steps=None)),
+        "rank 32": (QUERY_N, args_with(query_gradient_low_rank=32,
+                                       query_gradient_accumulation_steps=1)),
+        "rank 32 full SVD": (QUERY_N, args_with(query_gradient_low_rank=32, use_full_svd=True,
+                                                query_gradient_accumulation_steps=1)),
+        "rank 64": (QUERY_N, args_with(query_gradient_low_rank=64,
+                                       query_gradient_accumulation_steps=1)),
+    }
+    # Each call's query block as the train pass received it, kept for the
+    # checks below (a wrapper around the stage's block collection).
+    recorded = {}
+    collect = pairwise._collect_blocks
+
+    def recording(blocks):
+        out = collect(blocks)
+        if current.startswith("rank"):
+            recorded.setdefault(current, []).append({n: list(c) for n, c in out.items()})
+        return out
+
+    results = {}
+    pairwise._collect_blocks = recording
+    try:
+        for i, (label, (qbs, args)) in enumerate(calls.items()):
+            current = label
+            scores, sec = profiled_pairwise(analyzer, f"features_{i}", data["query"],
+                                            data["train"], qbs, args)
+            if (tuple(scores.shape) != (QUERY_N, TRAIN_N)
+                    or not bool(torch.isfinite(scores.float()).all())):
+                raise RuntimeError(f"{label}: scores {tuple(scores.shape)} or non-finite")
+            results[label] = (scores, sec)
+    finally:
+        pairwise._collect_blocks = collect
+    log(f"score features (a) pairwise {QUERY_N} x {TRAIN_N} through the Analyzer, seconds (query "
+        "gradients, train pass, call) and Pearson r against phase 12's dense scores: " + "; ".join(
+            f"{label} {sec['query']:.3f}, {sec['train']:.3f}, {sec['call']:.3f}, r "
+            f"{pearson(scores, dense):.6f}" for label, (scores, sec) in results.items())
+        + f" [{card}]")
+    if not torch.equal(results["dense bf16 (phase 12)"][0], dense):
+        raise RuntimeError("phase 12's dense call, run again, changed its scores")
+
+    # The SVD, on the query step's fp32 output (the SVD's input) for the
+    # first SVD_CHECK_QUERIES queries: per-sample gradients do not depend on
+    # the rest of the batch. fp64 singular values cost about 3 s a query at
+    # GPT-2 small's 48 modules, the full SVD 2 s.
+    batch, valid = next(iter(BatchLoader(
+        {k: v[:SVD_CHECK_QUERIES] for k, v in data["query"].items()}, SVD_CHECK_QUERIES,
+        device=device)))
+    factors = analyzer.load_all_factors("ekfac")
+    held_factors = memory.factor_bytes_on(factors, device)  # what a score call holds
+    names = sorted(next(iter(factors.values())))
+    states = prepare_precondition_states(factors, factor_args.strategy, recipe, names)
+    del factors
+    grads = pairwise._build_query_step(model, task, args_with(score_dtype="float32"), "ekfac")(
+        batch, valid, states, 0)
+    del states
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    norms, tails = {}, {}
+    for name, g in grads.items():
+        sq = torch.linalg.svdvals(g.double()) ** 2  # (q, min(o, i))
+        norms[name] = sq.sum(-1).sqrt()
+        tails[name] = {r: sq[:, r:].sum(-1).sqrt() / norms[name] for r in LOWRANK_RANKS}
+    torch.cuda.synchronize()
+    log(f"score features (a): fp64 singular values of the query step's {len(grads)} modules x "
+        f"{SVD_CHECK_QUERIES} queries in {time.perf_counter() - t0:.2f} s")
+
+    def svd_pass(rank, full):
+        """Relative Frobenius errors (module -> (q,)) and the seconds of the
+        factorisations alone, as the query step runs them (fp32 factors)."""
+        errs, seconds = {}, 0.0
+        for name, g in grads.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if full:
+                left, right = lowrank_factors_full(g, rank, torch.float32)
+            else:
+                gen = torch.Generator(device=device).manual_seed(0)
+                left, right = lowrank_factors_randomized(g, rank, torch.float32, gen)
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            errs[name] = (g.double() - rebuild(left, right).double()).flatten(1).norm(dim=1) / norms[name]
+        return errs, seconds
+
+    svd_seconds = {}
+    worst = {}
+    for label, rank, full in (("randomized 32", 32, False), ("full 32", 32, True),
+                              ("randomized 64", 64, False), ("randomized 32 again", 32, False)):
+        errs, svd_seconds[label] = svd_pass(rank, full)
+        ratio = torch.stack([errs[n] / tails[n][rank] for n in grads])  # (modules, q)
+        if full:
+            worst[label] = float((ratio - 1).abs().max())
+            if not worst[label] <= SVD_TAIL_RTOL:
+                raise RuntimeError(f"the full SVD's error is off the optimal tail: {worst[label]:.3e}")
+        else:
+            worst[label] = float(ratio.max())
+            if not worst[label] <= RANDOMIZED_TAIL_FACTOR:
+                raise RuntimeError(f"the randomized SVD's error is {worst[label]:.3f}x the optimal")
+    tail_range = {r: (min(float(t[r].min()) for t in tails.values()),
+                      max(float(t[r].max()) for t in tails.values())) for r in LOWRANK_RANKS}
+    log("score features (a) SVD per module on the query step's output (fp32 factors): optimal "
+        "relative tail " + ", ".join(f"rank {r} {lo:.4f}-{hi:.4f}" for r, (lo, hi) in tail_range.items())
+        + f"; full SVD max |error / tail - 1| {worst['full 32']:.3e} (limit {SVD_TAIL_RTOL:g}); "
+        f"randomized max error / tail: rank 32 {worst['randomized 32']:.4f}, rank 64 "
+        f"{worst['randomized 64']:.4f} (limit {RANDOMIZED_TAIL_FACTOR}); seconds for the "
+        f"{len(grads)} modules x {SVD_CHECK_QUERIES} queries, in turns: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in svd_seconds.items()) + f" [{card}]")
+    # Which cuSOLVER routine torch.linalg.svd took, at c_fc's shape.
+    big = max(grads, key=lambda n: grads[n].shape[1] * grads[n].shape[2])
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.linalg.svd(grads[big], full_matrices=False)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+    log(f"score features (a) torch.linalg.svd of {big} {tuple(grads[big].shape)} fp32, its "
+        f"kernels by device time: " + "; ".join(f"{k[:70]} {us / 1e3:.2f} ms" for us, k in kernels[:6]))
+    shapes = {name: g.shape[1:] for name, g in grads.items()}
+    del grads
+
+    # The contraction, per call, on the block the call scored with: its
+    # bytes, then the low-rank route against the dense form on the rebuilt
+    # block in fp32.
+    probes = memory.probe_modules(model, task, batch, SVD_CHECK_QUERIES)
+    loader = BatchLoader(data["train"], TRAIN_BATCH, device=device)
+    for label in ("rank 32", "rank 32 full SVD", "rank 64"):
+        args = calls[label][1]
+        (block,) = recorded[label]
+        nbytes = sum(t.nbytes for chunks in block.values() for pair in chunks for t in pair)
+        planned = memory.query_block_bytes(probes, args, QUERY_N)
+        if nbytes != planned:
+            raise RuntimeError(f"{label}: the block holds {nbytes:,} B, the memory model "
+                               f"plans {planned:,.0f}")
+        fp32 = copy.deepcopy(args)
+        fp32.per_sample_gradient_dtype = fp32.score_dtype = "float32"
+        apply = pairwise._make_train_apply(model, task, fp32, False)
+        lowrank_block = {n: [(l.float(), r.float())] for n, ((l, r),) in block.items()}
+        dense_block = {n: [rebuild(l, r, torch.float32)] for n, ((l, r),) in block.items()}
+        del block, recorded[label]
+        got = torch.cat([apply(b, v, lowrank_block)[ALL_MODULE_NAME] for b, v in loader], dim=1)
+        want = torch.cat([apply(b, v, dense_block)[ALL_MODULE_NAME] for b, v in loader], dim=1)
+        del dense_block, lowrank_block
+        scale = float(want.abs().max())
+        gap = float((got - want).abs().max()) / scale
+        call_gap = float((results[label][0].float() - got.cpu()).abs().max()) / scale
+        log(f"score features (a) {label}: block {nbytes:,} B = the memory model's "
+            f"query_block_bytes; fp32 contraction, low-rank route against the dense form on the "
+            f"rebuilt block, max |diff| / max|score| {gap:.3e} (limit {CONTRACTION_RTOL:g}); the "
+            f"call's bf16 scores against it {call_gap:.3e} (limit {FEATURES_BF16_RTOL:g})")
+        if not gap <= CONTRACTION_RTOL:
+            raise RuntimeError(f"{label}: the low-rank contraction is off the dense form: {gap:.3e}")
+        if not call_gap <= FEATURES_BF16_RTOL:
+            raise RuntimeError(f"{label}: the call's scores are off its fp32 contraction: {call_gap:.3e}")
+    log(f"score features (a) contraction routes at {QUERY_N} queries x {TRAIN_BATCH} train "
+        f"examples x {SEQ} tokens: " + ", ".join(
+            f"{name.split('/', 1)[1]} {lowrank_route(QUERY_N, o, i, r, TRAIN_BATCH, SEQ)} at rank {r}"
+            for name, (o, i) in sorted(shapes.items())[:4] for r in LOWRANK_RANKS))
+
+    # The sizer's blocks at the bench's query and train counts, on the card
+    # (autograd's bytes an example included, as the stage plans them).
+    dense_bytes = memory.query_block_bytes(probes, recipe, 1)
+    per_example_autograd = memory.autograd_bytes(model, task, batch, SVD_CHECK_QUERIES,
+                                                 amp_dtype=recipe.amp_dtype)
+    blocks = {}
+    for label, args in (("bf16 dense", recipe),
+                        ("fp8 dense", args_with(query_gradient_storage_dtype="float8_e4m3fn")),
+                        ("rank 32", args_with(query_gradient_low_rank=32)),
+                        ("rank 64", args_with(query_gradient_low_rank=64))):
+        block_q = memory.max_queries_per_block(
+            probes, args, params=model.module, train_batch_size=TRAIN_BATCH, num_train=BENCH_TRAIN,
+            query_batch_size=QUERY_BATCH, device=device, untracked_bytes=per_example_autograd)
+        blocks[label] = (block_q, memory.query_block_bytes(probes, args, 1))
+    log(f"score features (a) the sizer at the bench's {BENCH_QUERIES} x {BENCH_TRAIN} (train batch "
+        f"{TRAIN_BATCH}, query batch {QUERY_BATCH}): queries a block (a query's block bytes): "
+        + ", ".join(f"{k} {min(q, BENCH_QUERIES)} of {q} ({b:,.0f} B, {dense_bytes / b:.1f}x "
+                    f"smaller than bf16 dense)" for k, (q, b) in blocks.items()) + f" [{card}]")
+    # The sized stage: its peak over what was resident before it (the
+    # parameters, phase 5's factors and data), while the query steps build
+    # the block and during the train pass, against the sizer's plan for the
+    # block it resolved (the terms it sizes against PAIRWISE_BUDGET_FRACTION
+    # of the card).
+    sized = args_with(query_gradient_low_rank=32, query_gradient_accumulation_steps=None)
+    peaks = {}
+
+    def peak_at_block(blocks):
+        torch.cuda.synchronize()
+        peaks["query steps"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return collect(blocks)
+
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    pairwise._collect_blocks = peak_at_block
+    try:
+        _, peak, sec = peak_of(profiled_pairwise, analyzer, "features_sized", data["query"],
+                               data["train"], QUERY_BATCH, sized)
+    finally:
+        pairwise._collect_blocks = collect
+    peaks["train pass"] = peak
+    run = pairwise.compute_pairwise_scores_with_loaders.last_run
+    q_block = run["accumulation"] * QUERY_BATCH
+    params = sum(p.numel() * p.element_size() for p in model.module.parameters())
+    plan = held_factors + memory.pairwise_plan_bytes(
+        probes, sized, q_block, params=model.module, train_batch_size=TRAIN_BATCH,
+        num_train=TRAIN_N, query_batch_size=QUERY_BATCH, device=device,
+        untracked_bytes=per_example_autograd)
+    own = {k: v - resident for k, v in peaks.items()}
+    log(f"score features (a) rank 32 with query_gradient_accumulation_steps=None: resolved "
+        f"{run['accumulation']} steps ({run['blocks']} block of {q_block} queries, "
+        f"{run['formats']}), {sec:.3f} s; peak over the {resident / 2**30:.3f} GiB resident "
+        f"before it: " + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in own.items())
+        + f"; the sizer's plan for this block, less the {params / 2**30:.3f} GiB of parameters "
+        f"already resident, {(plan - params) / 2**30:.3f} GiB (the factors the call holds "
+        f"{held_factors / 2**30:.3f} GiB, autograd {per_example_autograd / 2**20:.1f} MiB an "
+        f"example; the limit) [{card}]")
+    if not max(own.values()) <= plan - params:
+        raise RuntimeError(f"the sized low-rank stage's peak {max(own.values()):,} B is over its "
+                           f"plan {plan - params:,.0f} B")
+    if run["formats"] != ["LowRank[torch.bfloat16]"]:
+        raise RuntimeError(f"the sized call's blocks are not low-rank bf16: {run['formats']}")
+
+    # One rank-32 call on phase 10's flash model (FF and FB).
+    config = gpt2_small(max_seq_len=SEQ, dtype=torch.bfloat16, attention="flash")
+    flash_model = prepare_model(init_transformer(config, seed=0, device=device), task)
+    flash_analyzer = Analyzer(analyzer.name, flash_model, task,
+                              output_dir=str(analyzer.output_dir.parent), profile=True)
+    kernels = flash_kernels()
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    flash_scores, flash_sec = profiled_pairwise(flash_analyzer, "features_flash", data["query"],
+                                                data["train"], QUERY_N, calls["rank 32"][1])
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    passes = config.num_layers * (1 + TRAIN_N // TRAIN_BATCH)  # a query batch, the train batches
+    log(f"score features (a) rank 32 on the flash model: {flash_sec['query']:.3f}, "
+        f"{flash_sec['train']:.3f}, {flash_sec['call']:.3f} s, Pearson r against phase 12's dense "
+        f"{pearson(flash_scores, dense):.6f}, against the naive rank-32 call "
+        f"{pearson(flash_scores, results['rank 32'][0]):.6f}; launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()) + f" (want FB {passes}, FF a multiple of "
+        f"{config.num_layers} above it, F1-F3 0) [{card}]")
+    if (launches["FB"] != passes or launches["FF"] <= launches["FB"]
+            or launches["FF"] % config.num_layers):
+        raise RuntimeError(f"the flash low-rank call launched {launches}")
+    if any(launches[k] for k in ("F1", "F2", "F3")):
+        raise RuntimeError(f"the flash low-rank call took the generic routes: {launches}")
+    if not pearson(flash_scores, dense) >= FLASH_PEARSON_MIN:
+        raise RuntimeError("the flash low-rank scores do not follow the dense ones")
+    del flash_analyzer, flash_model
+    return {"FF": launches["FF"], "FB": launches["FB"]}
+
+
+def score_features_aggregated(card: str, ctx: dict, analyzer) -> None:
+    """Phase 14 (b): aggregated query and train gradients against the sums
+    of phase 12's dense scores, and bitwise under rematerialisation."""
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+
+    data = ctx["data"]
+    dense = analyzer.load_pairwise_scores("pairwise")[ALL_MODULE_NAME].float()
+    modes = {
+        "query": (dict(aggregate_query_gradients=True), dense.sum(0, keepdim=True)),
+        "train": (dict(aggregate_train_gradients=True), dense.sum(1, keepdim=True)),
+        "both": (dict(aggregate_query_gradients=True, aggregate_train_gradients=True),
+                 dense.sum().reshape(1, 1)),
+    }
+    rows = []
+    for mode, (fields, want) in modes.items():
+        got = {}
+        for remat in (False, True):
+            args = copy.deepcopy(ctx["score_args"])
+            args.offload_activations_to_cpu = remat
+            for field, value in fields.items():
+                setattr(args, field, value)
+            got[remat] = profiled_pairwise(analyzer, f"aggregated_{mode}_{remat}", data["query"],
+                                           data["train"], QUERY_BATCH, args)
+        scores, sec = got[False]
+        gap = float((scores.float() - want).abs().max() / want.abs().max())
+        same = torch.equal(scores, got[True][0])
+        rows.append(f"{mode} {tuple(scores.shape)} max |diff| / max|sum| {gap:.3e}, "
+                    f"{sec['call']:.3f} s, remat bitwise {same} ({got[True][1]['call']:.3f} s)")
+        if tuple(scores.shape) != tuple(want.shape) or not gap <= FEATURES_BF16_RTOL:
+            raise RuntimeError(f"aggregated {mode}: shape {tuple(scores.shape)}, gap {gap:.3e}")
+        if not same:
+            raise RuntimeError(f"aggregated {mode}: remat changed the scores")
+    log(f"score features (b) aggregated gradients against the sums of phase 12's dense scores "
+        f"(limit {FEATURES_BF16_RTOL:g}): " + "; ".join(rows) + f" [{card}]")
+
+
+def score_features_lds(card: str, root: Path, device: torch.device) -> dict:
+    """Phase 14 (c): tests/test_lds.py's ridge problem on the card through the
+    Analyzer, the retrains solved in closed form on the card. Returns the
+    launches of K1, K2 and K3 in its two `fit_all_factors` calls."""
+    from collections import OrderedDict
+
+    from kronfluence_tpu_torch import Analyzer, FactorArguments, ScoreArguments, Task, prepare_model
+    from kronfluence_tpu_torch import evaluate
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    class RegressionTask(Task):
+        def compute_train_loss(self, batch, model, sample=False, generator=None):
+            return 0.5 * torch.sum((model(batch["x"]) - batch["y"]) ** 2)
+
+        def compute_measurement(self, batch, model):
+            return self.compute_train_loss(batch, model)
+
+    rng = np.random.default_rng(0)  # tests/test_lds.py:_make_problem
+    w_true = rng.standard_normal((LDS_D, 1))
+    x_train = rng.standard_normal((LDS_TRAIN, LDS_D))
+    y_train = x_train @ w_true + 0.3 * rng.standard_normal((LDS_TRAIN, 1))
+    x_query = rng.standard_normal((LDS_QUERY, LDS_D))
+    y_query = x_query @ w_true + 0.3 * rng.standard_normal((LDS_QUERY, 1))
+    xt, yt, xq, yq = (torch.from_numpy(a).to(device) for a in (x_train, y_train, x_query, y_query))
+    eye = LDS_RIDGE * torch.eye(LDS_D, dtype=torch.float64, device=device)
+
+    def solve(idx):
+        xs, ys = xt[idx], yt[idx]
+        return torch.linalg.solve(xs.T @ xs + eye, xs.T @ ys)
+
+    task = RegressionTask()
+    sa = ScoreArguments(damping_factor=1e-3, per_sample_gradient_dtype="float64",
+                        precondition_dtype="float64", score_dtype="float64",
+                        query_gradient_svd_dtype="float64")
+    scores = {}
+    kernels = {"syrk": syrk, "probe": probe, "jacobi": jacobi_pivot_rotations}
+    torch.cuda.synchronize()
+    for fn in kernels.values():
+        fn.launches = 0
+    for strategy in ("ekfac", "identity"):
+        fc = torch.nn.Linear(LDS_D, 1, bias=False, dtype=torch.float64, device=device)
+        with torch.no_grad():
+            fc.weight.copy_(solve(torch.arange(LDS_TRAIN, device=device)).T)
+        model = prepare_model(torch.nn.Sequential(OrderedDict(fc=fc)), task)
+        analyzer = Analyzer(f"lds_{strategy}", model, task, output_dir=str(root / "lds"))
+        fa = FactorArguments(
+            strategy=strategy, use_empirical_fisher=True,
+            activation_covariance_dtype="float64", gradient_covariance_dtype="float64",
+            eigendecomposition_dtype="float64", per_sample_gradient_dtype="float64",
+            lambda_dtype="float64")
+        train, query = {"x": xt, "y": yt}, {"x": xq, "y": yq}
+        analyzer.fit_all_factors("f", train, per_device_batch_size=16, factor_args=fa)
+        analyzer.compute_pairwise_scores("s", "f", query, train, per_device_query_batch_size=8,
+                                         per_device_train_batch_size=16, score_args=sa)
+        scores[strategy] = analyzer.load_pairwise_scores("s")["all_modules"]
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+
+    def train_fn(idx, seed):
+        return solve(torch.from_numpy(idx).to(device))
+
+    def measure_fn(w):
+        return -0.5 * ((xq @ w - yq) ** 2).sum(dim=1)
+
+    masks = evaluate.sample_subset_masks(LDS_TRAIN, LDS_SUBSETS, 0.5, LDS_SEED)
+    measurements = evaluate.collect_subset_measurements(train_fn, measure_fn, masks)
+    lds = {s: evaluate.evaluate_lds(scores[s], train_fn, measure_fn, LDS_TRAIN, masks=masks,
+                                    measurements=measurements)[0] for s in scores}
+    try:
+        evaluate.linear_datamodeling_score(scores["ekfac"], measurements[:-1], masks)
+    except ValueError:
+        mismatch_raises = True
+    else:
+        mismatch_raises = False
+    log(f"score features (c) LDS on the card ({LDS_TRAIN} train, {LDS_QUERY} queries, "
+        f"{LDS_SUBSETS} retrains solved on the card, masks seed {LDS_SEED}): ekfac "
+        f"{lds['ekfac']:.6f}, identity {lds['identity']:.6f} (bars: ekfac > {LDS_MIN} and >= "
+        f"identity - 1e-6); {LDS_SUBSETS - 1} measurement rows for {LDS_SUBSETS} masks raise "
+        f"ValueError: {mismatch_raises}; kernel launches " + ", ".join(
+            f"{k} {v}" for k, v in launches.items()) + f" (want K3 at least 1) [{card}]")
+    if not launches["probe"]:
+        raise RuntimeError(f"the LDS problem's covariance stage launched no K3: {launches}")
+    if not (lds["ekfac"] > LDS_MIN and lds["ekfac"] > lds["identity"] - 1e-6):
+        raise RuntimeError(f"LDS off the JAX test's bars: {lds}")
+    if not mismatch_raises:
+        raise RuntimeError("mismatched measurements did not raise")
+    return launches
+
+
+def phase_score_features(card: str, ctx: dict, root: Path) -> dict:
+    """Low-rank query blocks, aggregated gradients and the LDS harness on
+    phase 12's factors, model and recipe, read from phase 12's directory
+    through an Analyzer of this phase. Returns the launches of each kernel
+    that phase 14 counts."""
+    from kronfluence_tpu_torch import Analyzer
+
+    start = time.perf_counter()
+    parts = [start]
+    analyzer = Analyzer("chip_smoke", ctx["model"], ctx["task"], output_dir=str(root),
+                        profile=True)
+    log(f"score features: {torch.cuda.memory_allocated() / 2**30:.3f} GiB in use on the card "
+        "as phase 14 starts")
+    launches = score_features_lowrank(card, ctx, analyzer)
+    parts.append(time.perf_counter())
+    score_features_aggregated(card, ctx, analyzer)
+    parts.append(time.perf_counter())
+    launches.update(score_features_lds(card, root, ctx["device"]))
+    parts.append(time.perf_counter())
+    log(f"score features: phase 14 took {parts[-1] - start:.1f} s, (a) to (c) "
+        + ", ".join(f"{b - a:.1f}" for a, b in zip(parts, parts[1:])) + f" s [{card}]")
+    return launches
 
 
 def profile_eigh(card: str) -> None:
@@ -2690,8 +3284,15 @@ def main() -> None:
     # phase 10 (bf16, head_dim 64), F1, F2 and F3 from phase 11 (fp32).
     flash_path = phase_flash_path(card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
-    analyzer_launches, analyzer_wgmma = phase_analyzer(card, ctx)
-    options_launches = phase_stage_options(card, ctx)
+    # Phase 12's artifacts stay on disk for phase 14, which reads them through
+    # an Analyzer of its own: phase 13 starts with nothing of phase 12's on the card.
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_"))
+    try:
+        analyzer_launches, analyzer_wgmma = phase_analyzer(card, ctx, root)
+        options_launches = phase_stage_options(card, ctx)
+        features_launches = phase_score_features(card, ctx, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
@@ -2722,6 +3323,7 @@ def main() -> None:
             "analyzer_launches": analyzer_launches["syrk"],
             "analyzer_wgmma_launches": analyzer_wgmma,
             "stage_options_launches": options_launches["syrk"],
+            "score_features_launches": features_launches["syrk"],
             **syrk_result,
         },
         {
@@ -2732,6 +3334,7 @@ def main() -> None:
             "launches": launches["probe"],
             "analyzer_launches": analyzer_launches["probe"],
             "stage_options_launches": options_launches["probe"],
+            "score_features_launches": features_launches["probe"],
             **probe_result,
         },
         {
@@ -2742,6 +3345,7 @@ def main() -> None:
             "launches": launches["jacobi"],
             "launches_by_route": jacobi_by_route,
             "launches_from": "phase 8 (Jacobi path, m 64: register route)",
+            "score_features_launches": features_launches["jacobi"],
             **jacobi_result,
         },
         {
@@ -2764,6 +3368,8 @@ def main() -> None:
             "launches": launches[fid],
             "launches_from": path,
             **({"stage_options_launches": options_launches[fid]} if fid in options_launches else {}),
+            **({"score_features_launches": features_launches[fid]}
+               if fid in features_launches else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

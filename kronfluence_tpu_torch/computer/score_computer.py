@@ -124,9 +124,12 @@ class ScoreComputer(Computer):
             self.tracked_module_names(train_dataset), score_args.module_partitions
         )
         data_ranges = make_indices_partition(len(train_idx), score_args.data_partitions)
-        # The query block the train pass holds, when its size is set.
+        # The query block the train pass holds, when its size is set (one
+        # row with aggregated query gradients).
         steps = score_args.query_gradient_accumulation_steps
         resident = min(steps * query_loader.batch_size, query_loader.num_examples) if steps else 0
+        if score_args.aggregate_query_gradients:
+            resident = 1
 
         def compute_partition(di, mi):
             train_loader = self._get_loader(
@@ -140,6 +143,7 @@ class ScoreComputer(Computer):
                     self.model, self.task, query_loader, train_loader, factors, factor_args,
                     score_args,
                     tracked_names=module_groups[mi] if len(module_groups) > 1 else None,
+                    profiler=self.profiler,
                 )
 
         aggregated = self._run_score_partitions(

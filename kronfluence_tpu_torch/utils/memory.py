@@ -13,10 +13,13 @@ packages return the same integers for the same model, probes and budget.
 The device limit is the card's total memory (`torch.cuda.mem_get_info`) and
 the memory in use `torch.cuda.memory_allocated` (the caching allocator's free
 blocks are not in use); on the CPU the limit is the JAX package's 15 GiB
-default. One term is the port's own: `autograd_bytes`, what torch's eager
+default. Two terms are the port's own, used on the card only, so that on the
+CPU the integers are the JAX package's: `autograd_bytes`, what torch's eager
 autograd keeps for the backward pass beyond the captured streams (the JAX
-model's residual multiplier stands for what XLA keeps). The Computer adds it
-on the card only, so on the CPU the batch is the JAX package's.
+model's residual multiplier stands for what XLA keeps), which the Computer's
+batch estimate and the pairwise block sizer add per example; and
+`lowrank_transient_bytes`, the temporary of the order the port contracts a
+low-rank query block in, which `pairwise_plan_bytes` holds.
 """
 
 import dataclasses
@@ -29,6 +32,8 @@ import torch
 
 from kronfluence_tpu_torch.capture.engine import captured_forward, discover
 from kronfluence_tpu_torch.factor.covariance import cast_params, train_loss_forward
+from kronfluence_tpu_torch.ops.scores import lowrank_transient_elements
+from kronfluence_tpu_torch.ops.svd import goes_lowrank
 from kronfluence_tpu_torch.utils.dtypes import resolve_dtype
 
 #: Fraction of the free device memory a stage's batch working set may fill.
@@ -95,7 +100,11 @@ def autograd_bytes(
         storage = t.untyped_storage()
         if storage.data_ptr() not in params:
             saved[storage.data_ptr()] = storage.nbytes()
-        return t
+        # Detached: the storage stays held (so no address is reused while
+        # the forward runs), but an op's saved output no longer refers back
+        # to its own node, a cycle through autograd's graph that no
+        # collector frees.
+        return t.detach()
 
     forward = train_loss_forward(model, task, batch, sample=False, generator=None)
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
@@ -180,17 +189,58 @@ def static_bytes(
 
 def query_block_bytes(probes: Dict[str, ModuleProbe], score_args: Any, num_queries: int) -> float:
     """Resident bytes of one preconditioned query-gradient block: per query
-    and module, the dense (o, i) gradient in the score dtype, or its
-    quantized payload plus one fp32 scale."""
+    and module, the low-rank pair's rank * (d_in + d_out) elements in the
+    score dtype where the module goes low-rank (`ops/svd.py:goes_lowrank`,
+    the pairwise stage's rule), else the quantized payload plus one fp32
+    scale, else the dense (o, i) gradient in the score dtype. An aggregated
+    block is one dense row a module, never low-rank or quantized."""
+    rank = score_args.query_gradient_low_rank
     storage = score_args.query_gradient_storage_dtype
-    if storage is None:
-        elem_b, query_b = _dtype_bytes(score_args.score_dtype), 0
-    else:
-        elem_b, query_b = _dtype_bytes(storage), 4
-    per_query = sum(
-        p.spec.activation_dim * p.spec.gradient_dim * elem_b + query_b for p in probes.values()
-    )
+    if score_args.aggregate_query_gradients:
+        storage = None
+    score_b = _dtype_bytes(score_args.score_dtype)
+    per_query = 0.0
+    for p in probes.values():
+        d_in, d_out = p.spec.activation_dim, p.spec.gradient_dim
+        if goes_lowrank(d_in, d_out, score_args):
+            per_query += rank * (d_in + d_out) * score_b
+        elif storage is not None:
+            per_query += d_in * d_out * _dtype_bytes(storage) + 4
+        else:
+            per_query += d_in * d_out * score_b
     return num_queries * per_query
+
+
+def lowrank_transient_bytes(
+    probes: Dict[str, ModuleProbe], score_args: Any, query_batch_size: int, train_batch_size: int
+) -> float:
+    """The largest temporary of a train pass over a low-rank block: one
+    module's chunk of `query_batch_size` queries (low-rank chunks stay one
+    query batch each) in the per-sample-gradient dtype, contracted in the
+    order `ops/scores.py:lowrank_route` picks, or rebuilt dense where the
+    per-sample gradients are materialized (several chunks, post-processing).
+    0 without a rank."""
+    rank = score_args.query_gradient_low_rank
+    if rank is None:
+        return 0.0
+    psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
+    worst = 0
+    for p in probes.values():
+        d_in, d_out = p.spec.activation_dim, p.spec.gradient_dim
+        if goes_lowrank(d_in, d_out, score_args):
+            q, b, t = query_batch_size, train_batch_size, p.tokens
+            route = lowrank_transient_elements(q, d_out, d_in, rank, b, t)
+            worst = max(worst, route, q * d_out * d_in)
+    return float(worst * psg_b)
+
+
+def factor_bytes_on(factors: Dict[str, Dict[str, torch.Tensor]], device: Any) -> float:
+    """Bytes of the factor tensors ({factor: {module: tensor}}) on `device`."""
+    device = torch.device(device)
+    return float(sum(
+        t.nbytes for per_module in factors.values() for t in per_module.values()
+        if t.device.type == device.type
+    ))
 
 
 def device_memory_limit(device: Any) -> float:
@@ -296,6 +346,50 @@ def estimate_batch_size(
     return max(1, min(max_batch_size, fit))
 
 
+def pairwise_plan_bytes(
+    probes: Dict[str, ModuleProbe],
+    score_args: Any,
+    num_queries: int,
+    *,
+    params: Optional[torch.nn.Module] = None,
+    train_batch_size: int = 1,
+    num_train: int = 0,
+    query_batch_size: int = 8,
+    device: Any = None,
+    untracked_bytes: float = 0.0,
+) -> float:
+    """Device bytes the pairwise stage plans for a block of `num_queries`:
+    the parameters and precondition state, one train batch's capture
+    streams and per-sample gradients plus `untracked_bytes` an example (the
+    port's `autograd_bytes`, 0 for the JAX package's terms), for a quantized
+    block two query-batch chunks of the largest module dequantized, on the
+    card the low-rank contraction's temporary (`lowrank_transient_bytes`),
+    and per query its block bytes and its score row."""
+    amp = score_args.amp_dtype
+    capture_b = _dtype_bytes(amp) if amp is not None else 4
+    psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
+    total = static_bytes(probes, "pairwise", params)
+    total += train_batch_size * (per_example_bytes(
+        probes, "pairwise", capture_bytes=capture_b, psg_bytes=psg_b,
+        remat=bool(score_args.offload_activations_to_cpu),
+    ) + untracked_bytes)
+    if score_args.query_gradient_storage_dtype is not None:
+        # One query-batch chunk of one module is dense at a time (the train
+        # pass dequantizes module by module); budget two such chunks.
+        max_module_oi = max(
+            (p.spec.activation_dim * p.spec.gradient_dim for p in probes.values()), default=0
+        )
+        total += 2 * query_batch_size * max_module_oi * psg_b
+    if device is not None and torch.device(device).type == "cuda":
+        # The port's own term, on the card only (the CPU keeps the JAX
+        # package's integers): the low-rank contraction's temporary.
+        total += lowrank_transient_bytes(probes, score_args, query_batch_size, train_batch_size)
+    score_b = _dtype_bytes(score_args.score_dtype)
+    tokens = max((p.tokens for p in probes.values()), default=1)
+    per_query_scores = num_train * (tokens if score_args.compute_per_token_scores else 1) * score_b
+    return total + num_queries * (query_block_bytes(probes, score_args, 1) + per_query_scores)
+
+
 def max_queries_per_block(
     probes: Dict[str, ModuleProbe],
     score_args: Any,
@@ -306,39 +400,22 @@ def max_queries_per_block(
     budget_bytes: Optional[float] = None,
     query_batch_size: int = 8,
     device: Any = None,
+    untracked_bytes: float = 0.0,
+    reserve_bytes: float = 0.0,
 ) -> int:
-    """Largest query count whose resident block fits beside the train pass.
-
-    The budget (`budget_bytes`, or else `PAIRWISE_BUDGET_FRACTION` of
-    `device`'s limit; one of the two is required) less the parameters and
-    precondition state, one train batch's capture streams and per-sample
-    gradients, and (for a quantized block) two query-batch chunks of the
-    largest module dequantized; divided by a query's block bytes plus its
-    score row.
-    """
+    """Largest query count whose `pairwise_plan_bytes` fits the budget
+    (`budget_bytes`, or else `PAIRWISE_BUDGET_FRACTION` of `device`'s limit;
+    one of the two is required) less `reserve_bytes`, residents the caller
+    knows of and the model cannot see; at most MAX_QUERIES_PER_BLOCK."""
     if budget_bytes is None:
         if device is None:
             raise ValueError("max_queries_per_block needs budget_bytes or the device to plan for.")
         budget_bytes = device_memory_limit(device) * PAIRWISE_BUDGET_FRACTION
-    budget = budget_bytes - static_bytes(probes, "pairwise", params)
-    amp = score_args.amp_dtype
-    capture_b = _dtype_bytes(amp) if amp is not None else 4
-    psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
-    budget -= train_batch_size * per_example_bytes(
-        probes, "pairwise", capture_bytes=capture_b, psg_bytes=psg_b,
-        remat=bool(score_args.offload_activations_to_cpu),
-    )
-    score_b = _dtype_bytes(score_args.score_dtype)
-    tokens = max((p.tokens for p in probes.values()), default=1)
-    per_query_scores = num_train * (tokens if score_args.compute_per_token_scores else 1) * score_b
-    per_query = query_block_bytes(probes, score_args, 1) + per_query_scores
-    if score_args.query_gradient_storage_dtype is not None:
-        # One query-batch chunk of one module is dense at a time (the train
-        # pass dequantizes module by module); budget two such chunks.
-        max_module_oi = max(
-            (p.spec.activation_dim * p.spec.gradient_dim for p in probes.values()), default=0
-        )
-        budget -= 2 * query_batch_size * max_module_oi * psg_b
+    plan = dict(params=params, train_batch_size=train_batch_size, num_train=num_train,
+                query_batch_size=query_batch_size, device=device, untracked_bytes=untracked_bytes)
+    fixed = pairwise_plan_bytes(probes, score_args, 0, **plan)
+    per_query = pairwise_plan_bytes(probes, score_args, 1, **plan) - fixed
     if per_query <= 0:
         return MAX_QUERIES_PER_BLOCK
-    return max(1, min(MAX_QUERIES_PER_BLOCK, int(budget // per_query)))
+    fit = int((budget_bytes - reserve_bytes - fixed) // per_query)
+    return max(1, min(MAX_QUERIES_PER_BLOCK, fit))

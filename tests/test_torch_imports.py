@@ -44,6 +44,14 @@ def _port_modules():
     )
 
 
+def test_every_module_is_checked():
+    """The checks above walk the package; the modules ported last are in it."""
+    modules = _port_modules()
+    for name in ("kronfluence_tpu_torch.ops.svd", "kronfluence_tpu_torch.evaluate",
+                 "kronfluence_tpu_torch.score.pairwise", "kronfluence_tpu_torch.ops.scores"):
+        assert name in modules
+
+
 def _clean_env():
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)

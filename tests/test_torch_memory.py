@@ -4,6 +4,8 @@ estimates on the tiny GPT-2, over stage x remat x iterative lambda x amp
 dtype; the JAX package's behaviour tests (tests/test_memory_estimate.py) on
 the port; and the port's own `autograd_bytes` term."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -224,6 +226,21 @@ def test_autograd_bytes_of_the_tiny_lm(lm):
     # The log-probabilities over the vocabulary, the largest saved tensor:
     # (3, 31, 128) fp64 a batch, three times (saved, gradient, input gradient).
     assert plain >= 3 * 31 * 128 * 8
+
+
+def test_autograd_bytes_leaves_no_tensor_behind(lm):
+    """The measuring forward's graph is freed when the call returns: no
+    tensor of it stays reachable, not even through a cycle (an op's saved
+    output referring back to its own node) that no collector frees."""
+    gc.collect()
+    gc.disable()
+    try:
+        before = {id(o) for o in gc.get_objects() if isinstance(o, torch.Tensor)}
+        memory.autograd_bytes(lm["tmodel"], lm["ttask"], lm["tbatch"], BATCH)
+        left = [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and id(o) not in before]
+    finally:
+        gc.enable()
+    assert left == []
 
 
 def test_query_block_bytes_match_jax(lm):

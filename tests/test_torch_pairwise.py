@@ -143,22 +143,3 @@ def test_fp32_recipe_matches(fp64):
     got, want = got[ALL_MODULE_NAME], np.asarray(want[ALL_MODULE_NAME])
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=1e-4 * np.abs(want).max())
-
-
-@pytest.mark.parametrize(
-    "field,value",
-    [
-        ("query_gradient_low_rank", 4),
-        ("aggregate_query_gradients", True),
-        ("aggregate_train_gradients", True),
-    ],
-)
-def test_unported_score_options_raise(fp64, field, value):
-    score_args = pytest_score_arguments()
-    setattr(score_args, field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_pairwise_scores_with_loaders(
-            fp64["tmodel"], fp64["ttask"], BatchLoader(fp64["query"], 2, device="cpu"),
-            BatchLoader(fp64["train"], TRAIN_BATCH, device="cpu"), fp64["tf"], fp64["targs"],
-            score_args,
-        )
