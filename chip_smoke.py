@@ -18,7 +18,8 @@ each of which raises on failure:
      launch against torch.add with CUDA events;
   4. K1 syrk: the triangle kernels against their plain version at the main
      path's gram shapes and at ragged ones, in bf16, fp16 and fp32, and on a
-     positive-mean bf16 input (|normal|) at the main shapes; exact symmetry
+     positive-mean bf16 input (|normal|) at the main shapes, and in bf16 at
+     phase 15's Llama grams (widths 4096 and 14336); exact symmetry
      required; the 16-bit route (wgmma with TMA, or wmma) checked at each
      shape by the rule and the launch counters; a planted fault (the plain version
      with one 64-row slab left out) must read above the limit at each main
@@ -62,8 +63,10 @@ each of which raises on failure:
      F.scaled_dot_product_attention (the library yardstick; for FB its
      backward alone), the naive form and the bound, FF against F1 and FB
      against F2+F3 in turns; then F1 and F2+F3 at the shapes their routes
-     serve (fp32 at D 64, bf16 at D 128) in turns against SDPA's forward and
-     backward;
+     serve (phase 15's Llama heads, bf16 at D 128 after the GQA repeat;
+     fp32 at D 64; bf16 at D 128 over GPT-2's width) in turns against SDPA's
+     forward and backward, and F1-F3 at the Llama shape against their plain
+     versions at every position;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
@@ -129,6 +132,27 @@ each of which raises on failure:
      on the card through the Analyzer, retrains solved on the card: the
      ekfac LDS above 0.35 and the identity one's; mismatched measurements
      raise.
+ 15. Llama at Llama-3-8B width (models/llama.py: RMSNorm, interleaved RoPE,
+     GQA, SwiGLU; d_model 4096, d_mlp 14336, 32 heads, 8 KV heads, vocab
+     128,256, T 512, bf16, attention="flash"; reduced: 2 of 32 layers) with
+     seeded random weights, through the Analyzer with the openwebtext recipe
+     (MLP-only tracking, extreme reduce memory with 3 module partitions,
+     sampled Fisher, every batch size left to the memory model, "auto"
+     eigendecomposition) on 32 train and 8 query examples: each stage's
+     estimated batch, plan and budget beside its measured peak (within it);
+     F1 once per attention forward and F2, F3 once per attention backward
+     (counted by hooks on the attention layers), FF, FB, K2 and the naive
+     form never, K1 on every covariance gram, all wgmma, K3 once per
+     covariance fit; the six 14336-dim factors solved one at a time by
+     `eigh_large` (the stage's peak within what was resident plus one
+     matrix and its solve; the checkpoints present while it runs and gone
+     after), each held in fp64 on the card (residual and orthogonality); a
+     rerun with two checkpoints planted solves the other four and gives the
+     same bits; the partitioned covariance and lambda bit for bit an
+     unpartitioned fit's on the same batches; rank-64 scores against dense
+     bf16 scores on the same factors (Pearson r); one covariance with the
+     smart-low-precision recipe (K1 12 a batch); and the covariance against
+     the same weights with attention="naive" (phase 10's limit).
 
 It prints one JSON line with the kernels' results before the last line, and
 ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
@@ -165,6 +189,7 @@ limit first), and against F1.
 
 import copy
 import ctypes
+import dataclasses
 import json
 import re
 import shutil
@@ -185,6 +210,11 @@ LAMBDA_N, LAMBDA_BATCH = 64, 16
 QUERY_N, QUERY_BATCH = 16, 8
 TRAIN_N, TRAIN_BATCH = 64, 16
 QUERY_ACC = 2
+# Phases 4 and 9 hold K1 and F1-F3 at phase 15's shapes: its covariance
+# batch (the memory model's estimate on an H100 80GB HBM3; phase 15 prints
+# its own) x T 512 rows at widths 4096 and 14336, and (batch, 32 heads after
+# the GQA repeat, 512, 128).
+LLAMA_BATCH = 30
 # K1 operands on the main path: rows = batch x seq = 16 x 512; 2304 is the
 # c_attn output gradient, 3072 the c_fc output gradient and the mlp/c_proj
 # input activation. The ragged shapes exercise the masked edges.
@@ -200,6 +230,10 @@ SYRK_ATOL_SCALE = 1e-4
 # the wmma kernel.
 SYRK_BF16_ROUTES = {(8192, 2304): "wgmma", (8192, 3072): "wgmma", (1000, 2000): "wgmma",
                     (300, 1001): "wmma"}
+# Phase 15's grams (bf16 only, as the recipe runs them): the activation of
+# gate and up and the output gradient of down at 4096, the others at 14336.
+SYRK_LLAMA_SHAPES = ((LLAMA_BATCH * SEQ, 4096), (LLAMA_BATCH * SEQ, 14336))
+SYRK_BF16_ROUTES.update({shape: "wgmma" for shape in SYRK_LLAMA_SHAPES})
 # The planted fault: the plain version without these rows, one 64-row slab
 # (one ring stage of the wgmma kernel) of the main shapes' 8,192.
 SYRK_FAULT_ROWS = (4096, 4160)
@@ -269,12 +303,17 @@ FLASH_CASES = (
     (4, 8, 512, 256, torch.bfloat16, True),
     (8, 12, 512, 64, torch.float32, True),
     (16, 12, 128, 64, torch.bfloat16, False),
+    (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, True),
 )
 # The shapes F1, F2 and F3 serve since FF and FB took bf16 at D 64 (B, H, T,
-# D, dtype), padded: fp32 at GPT-2 small's width, phase 11's route, at phase
-# 10's batch and length; bf16 at D 128 (Llama's head size) over the same 768
-# model width.
-GENERIC_ROUTE_CASES = ((16, 12, 512, 64, torch.float32), (16, 6, 512, 128, torch.bfloat16))
+# D, dtype, padded): Llama's, phase 15's path, unpadded as its data are;
+# fp32 at GPT-2 small's width, phase 11's route, at phase 10's batch and
+# length; bf16 at D 128 over the same 768 model width.
+GENERIC_ROUTE_CASES = {
+    "Llama bf16 D 128": (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, False),
+    "fp32 D 64": (16, 12, 512, 64, torch.float32, True),
+    "bf16 D 128": (16, 6, 512, 128, torch.bfloat16, True),
+}
 # The flash path against phase 5's naive path, same bf16 weights and data. The
 # two forms round differently in bf16 (fp32 softmax and P rounded before P V,
 # against bf16 scores and probabilities), a few bf16 steps per attention
@@ -334,6 +373,34 @@ FEATURES_BF16_RTOL = 2.0 ** -5
 BENCH_QUERIES, BENCH_TRAIN = 481, 4656
 LDS_D, LDS_TRAIN, LDS_QUERY, LDS_SUBSETS, LDS_SEED, LDS_RIDGE = 6, 64, 8, 48, 3, 1e-3
 LDS_MIN = 0.35
+# Phase 15 (Llama at Llama-3-8B width, 2 of 32 layers; the JAX package's own
+# 8B-width run: tests/test_llama_scale.py:297-313): the openwebtext recipe
+# (extreme reduce memory, 3 module partitions, rank-64 query blocks) on 32
+# train and 8 query examples. Two of the six 14336-dim factors are planted
+# as checkpoints for the rerun. Scores: rank-64 and dense blocks, each in the
+# recipe's bf16 and with fp32 preconditioning; the bf16 recipe against its
+# fp32 twin at Pearson r 0.99 or more, rank 64 against dense reported with
+# the optimal rank-64 tail that bounds it (at these random weights the
+# preconditioned gradients are far from rank 64, where GPT-2's were not:
+# phase 14 read r 0.9997). The eigenpairs' limits are stated where they are
+# checked.
+LLAMA_LAYERS = 2
+LLAMA_TRAIN_N, LLAMA_QUERY_N = 32, 8
+LLAMA_MODULE_PARTITIONS = 3
+LLAMA_RANK = 64
+LLAMA_PLANTED = 2
+LLAMA_PRECISION_PEARSON_MIN = 0.99
+LLAMA_SCORE_VARIANTS = (
+    ("lowrank", LLAMA_RANK, {}),
+    ("dense", None, {}),
+    ("lowrank fp32", LLAMA_RANK, {"precondition_dtype": "float32", "score_dtype": "float32"}),
+    ("dense fp32", None, {"precondition_dtype": "float32", "score_dtype": "float32"}),
+)
+# The low-rank path held at Llama's shapes on the first queries' blocks: the
+# randomized SVD within phase 14's 1.5x of the optimal rank-64 tail, and the
+# low-rank contraction against the dense form on the rebuilt block in fp32
+# (phase 14's 1e-3 of max|score|), over train batches of 8.
+LLAMA_CHECK_QUERIES, LLAMA_CHECK_BATCH = 2, 8
 
 
 def log(msg: str) -> None:
@@ -519,6 +586,8 @@ def phase_syrk(card: str) -> dict:
                   (rows, n, torch.float16, "normal")]
         if (rows, n) in SYRK_MAIN_SHAPES:
             cases.append((rows, n, torch.bfloat16, "|normal|"))
+    cases += [(rows, n, torch.bfloat16, "normal") for rows, n in SYRK_LLAMA_SHAPES]
+    timed = SYRK_MAIN_SHAPES + SYRK_LLAMA_SHAPES
     for rows, n, dtype, kind in cases:
         a = torch.randn(rows, n, generator=gen, device="cuda")
         a = (a.abs() if kind == "|normal|" else a).to(dtype)
@@ -550,14 +619,14 @@ def phase_syrk(card: str) -> dict:
         worst = max(worst, err)
         line = (f"K1 {name}: {route}; max |err| {err:.3e} of max |C| "
                 f"{float(want.abs().max()):.3e}, {units:.4f} units of the limit, symmetric")
-        if (rows, n) in SYRK_MAIN_SHAPES and dtype == torch.bfloat16:
+        if (rows, n) in timed and dtype == torch.bfloat16:
             r0, r1 = SYRK_FAULT_ROWS
             fault = syrk_units(syrk_reference(torch.cat([a[:r0], a[r1:]])), want)
             if not fault > 1.0:
                 raise RuntimeError(f"the planted fault (rows {r0}-{r1 - 1} left out) reads "
                                    f"{fault:.3f} units at {name}: the limit cannot see it")
             line += f"; planted fault (rows {r0}-{r1 - 1} left out) {fault:.2f} units"
-        if (rows, n) in SYRK_MAIN_SHAPES and kind == "normal":
+        if (rows, n) in timed and kind == "normal":
             # Alternate plain, kernel, kernel, plain against drift.
             p1 = median_ms(lambda: syrk_reference(a))
             k1 = median_ms(lambda: syrk(a))
@@ -589,8 +658,7 @@ def phase_syrk(card: str) -> dict:
                 "library_ms": lib}
 
     return {"max_abs_err": worst, **fields((8192, 3072, torch.bfloat16)),
-            "timings_ms": {f"{rows}x{n}": fields((rows, n, torch.bfloat16))
-                           for rows, n in SYRK_MAIN_SHAPES},
+            "timings_ms": {f"{rows}x{n}": fields((rows, n, torch.bfloat16)) for rows, n in timed},
             "timings_ms_fp16": {f"{rows}x{n}": fields((rows, n, torch.float16))
                                 for rows, n in SYRK_MAIN_SHAPES},
             "tiles": triangle_tiles(3072, TILE), "smem_bytes": smem}
@@ -1288,13 +1356,16 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # F1, F2 and F3 report the shapes they serve; their bf16 D 64 times (the
-    # turns against FF and FB above) stay beside them.
+    # F1, F2 and F3 report the shapes they serve, phase 15's (Llama) first;
+    # their bf16 D 64 times (the turns against FF and FB above) stay beside.
     routes = time_generic_routes(card)
     for name in ("F1", "F2", "F3"):
         at_d64 = timing[name]
-        timing[name] = dict(routes[name]["fp32 D 64"], shape="B 16 H 12 T 512 D 64 fp32 padded",
-                            at_bf16_d128=routes[name]["bf16 D 128"],
+        timing[name] = dict(routes[name]["Llama bf16 D 128"],
+                            shape=f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads "
+                                  f"after the GQA repeat)",
+                            at_fp32_d64=routes[name]["fp32 D 64"],
+                            at_bf16_d128_h6=routes[name]["bf16 D 128"],
                             at_bf16_d64={k: at_d64[k] for k in ("ms", "device_ms", "bound_ms")})
     out = {name: dict(timing[name], max_abs_err=abs_errs[name])
            for name in ("F1", "F2", "F3", "FF", "FB")}
@@ -1319,12 +1390,11 @@ def time_generic_routes(card: str) -> dict:
     )
 
     out = {"F1": {}, "F2": {}, "F3": {}, "F2+F3": {}}
-    for b, h, t, d, dtype in GENERIC_ROUTE_CASES:
-        case = f"{'fp32' if dtype == torch.float32 else 'bf16'} D {d}"
-        gen = torch.Generator("cuda").manual_seed(b * t + d + 1)
+    for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
+        gen = torch.Generator("cuda").manual_seed(b * t + d + h + 1)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
                        for _ in range(4))
-        seg = padded_segments(b, t, True, "cuda")
+        seg = padded_segments(b, t, padded, "cuda")
         scale = d ** -0.5
         o, l, m = flash_forward(q, k, v, seg, scale)
         di = output_dot(o, do)
@@ -1370,7 +1440,8 @@ def time_generic_routes(card: str) -> dict:
                 library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
                 library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None)
         del sdpa_out
-        log(f"flash generic routes at B {b} H {h} T {t} D {d} {case.split()[0]} padded ({pairs:,} "
+        log(f"flash generic routes, {case}, at B {b} H {h} T {t} D {d}"
+            f"{' padded' if padded else ''} ({pairs:,} "
             f"kept pairs), in turns there and back, ms (CUDA events around one call, "
             f"torch.profiler device time): " + "; ".join(
                 f"{name} " + " / ".join(f"({e:.4f}, {dv:.4f})" for e, dv in ts)
@@ -2794,6 +2865,683 @@ def phase_score_features(card: str, ctx: dict, root: Path) -> dict:
     return launches
 
 
+def openwebtext_task(num_layers: int):
+    """The openwebtext workload's task (examples/openwebtext/task.py,
+    LlamaMLPOnlyTask): the summed token cross-entropy on fp32 logits over the
+    shifted mask, labels sampled from the explicit generator by Gumbel-max
+    (as `jax.random.categorical` draws them; one fp32 noise tensor the size
+    of the logits), the margin measurement (the label's logit against the
+    logsumexp of the others), tracking the MLP projections of every layer."""
+    from kronfluence_tpu_torch.models.llama import mlp_tracked_modules
+    from kronfluence_tpu_torch.task import Task
+
+    class OpenWebTextTask(Task):
+        def compute_train_loss(self, batch, model, sample=False, generator=None):
+            logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1].float()
+            mask = batch["attention_mask"][:, 1:].to(torch.float32)
+            if sample:
+                noise = torch.empty_like(logits).exponential_(generator=generator)
+                labels = noise.log_().neg_().add_(logits.detach()).argmax(dim=-1)
+                del noise
+            else:
+                labels = batch["input_ids"][:, 1:].long()
+            losses = F.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), reduction="none"
+            ).reshape(mask.shape)
+            return torch.sum(losses * mask)
+
+        def compute_measurement(self, batch, model):
+            logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1].float()
+            labels = batch["input_ids"][:, 1:].long()[..., None]
+            mask = batch["attention_mask"][:, 1:].to(torch.float32)
+            correct = logits.gather(-1, labels)[..., 0]
+            others = logits.scatter(-1, labels, float("-inf"))
+            return -torch.sum((correct - torch.logsumexp(others, dim=-1)) * mask)
+
+        def get_influence_tracked_modules(self):
+            return mlp_tracked_modules(num_layers)
+
+        def get_attention_mask(self, batch):
+            return batch["attention_mask"]
+
+    return OpenWebTextTask()
+
+
+class PassCounter:
+    """While the block runs: model forwards (a pre-hook on the root module:
+    the probes', the discovery forwards' and every pass's), backward passes
+    (`torch.autograd.grad` calls), and each attention layer's forwards and
+    backwards (hooks on its output: a backward is counted where the output's
+    gradient is computed), beside every kernel's launch count, all set to 0
+    as it starts."""
+
+    def __init__(self, module, kernels: dict):
+        self.module, self.kernels = module, kernels
+        self.counts = {}
+
+    def __enter__(self):
+        from kronfluence_tpu_torch.models.llama import LlamaAttention
+        from kronfluence_tpu_torch.ops.attention import naive_attention
+        from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+        for fn in self.kernels.values():
+            fn.launches = 0
+        syrk.wgmma_launches = 0
+        naive_attention.calls = 0
+        counts = self.counts = {"forwards": 0, "backwards": 0, "attention forwards": {},
+                                "attention backwards": {}}
+
+        def bump(key, sub=None):
+            if sub is None:
+                counts[key] += 1
+            else:
+                counts[key][sub] = counts[key].get(sub, 0) + 1
+
+        def attention_hook(name):
+            def hook(_module, _args, output):
+                bump("attention forwards", name)
+                if output.requires_grad:
+                    output.register_hook(lambda grad: bump("attention backwards", name))
+            return hook
+
+        self._handles = [self.module.register_forward_pre_hook(lambda *_: bump("forwards"))] + [
+            m.register_forward_hook(attention_hook(name))
+            for name, m in self.module.named_modules() if isinstance(m, LlamaAttention)]
+        self._grad = torch.autograd.grad
+
+        def grad(*args, **kwargs):
+            bump("backwards")
+            return self._grad(*args, **kwargs)
+
+        torch.autograd.grad = grad
+        return self
+
+    def __exit__(self, *exc):
+        from kronfluence_tpu_torch.ops.attention import naive_attention
+        from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+        torch.autograd.grad = self._grad
+        for handle in self._handles:
+            handle.remove()
+        self.counts.update({name: fn.launches for name, fn in self.kernels.items()},
+                           wgmma=syrk.wgmma_launches, naive=naive_attention.calls)
+        return False
+
+
+def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits: int = 0,
+                         cov_batches: int = 0) -> None:
+    """F1 once per attention layer and model forward; F2 and F3 once per
+    attention backward (MLP-only tracking with frozen weights: an attention
+    layer has a backward only above a tracked projection, so the first layer
+    never has one); FF, FB, K2 and the naive form never; in a covariance
+    stage K1 on every gram (two per projection, 6 a layer and batch), all
+    wgmma, and K3 once per covariance fit (one per module partition)."""
+    fwd = sum(counts["attention forwards"].values())
+    bwd = sum(counts["attention backwards"].values())
+    want = {"F1": fwd, "F2": bwd, "F3": bwd, "FF": 0, "FB": 0, "jacobi": 0, "naive": 0}
+    if covariance_fits:
+        want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
+                    probe=covariance_fits)
+    else:
+        want.update(syrk=0, probe=0)
+    off = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if fwd != layers * counts["forwards"] or bwd > (layers - 1) * counts["backwards"]:
+        off["attention passes"] = (fwd, bwd, counts["forwards"], counts["backwards"])
+    if counts["backwards"] and not bwd:
+        off["no attention backward"] = counts["attention backwards"]
+    if off:
+        raise RuntimeError(f"Llama {stage}: launches off (got, want): {off}")
+
+
+def watch_estimates(analyzer) -> list:
+    """Records each batch estimate the Analyzer makes, with the peak device
+    memory of what ran after it until the next (its partition's stage)."""
+    records = []
+    real = analyzer._find_executable_batch_size
+
+    def estimate(*args, **kwargs):
+        close_estimate(records)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fit = real(*args, **kwargs)
+        est = dict(analyzer.last_batch_estimate)
+        est["planned_bytes"] = est["static_bytes"] + est["reserved_bytes"] + est["batch_size"] * (
+            est["per_example_bytes"] + est["untracked_bytes"])
+        records.append(est)
+        return fit
+
+    analyzer._find_executable_batch_size = estimate
+    return records
+
+
+def close_estimate(records: list) -> None:
+    if records and "peak_bytes" not in records[-1]:
+        torch.cuda.synchronize()
+        records[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
+
+
+def log_estimates(card: str, stage: str, records: list) -> None:
+    for i, est in enumerate(records):
+        log(f"Llama {stage} estimate {i + 1}/{len(records)}: batch {est['batch_size']} of "
+            f"{est['attempt']}, planned {est['planned_bytes'] / 2**30:.3f} GiB = static "
+            f"{est['static_bytes'] / 2**30:.3f} + reserved {est['reserved_bytes'] / 2**30:.3f} + "
+            f"{est['batch_size']} x ({est['per_example_bytes'] / 2**20:.1f} + autograd "
+            f"{est['untracked_bytes'] / 2**20:.1f} MiB), budget {est['budget_bytes'] / 2**30:.3f} "
+            f"GiB, measured peak {est['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+        if not est["peak_bytes"] <= est["budget_bytes"]:
+            raise RuntimeError(f"Llama {stage}: measured peak {est['peak_bytes']:,} B over the "
+                               f"budget {est['budget_bytes']:,.0f} B")
+
+
+def watch_large_solves(scratch: Path) -> dict:
+    """Wraps the eigendecomposition's `eigh_large`: each large matrix's
+    seconds from the start of its build to its result, a host copy of its
+    fp32 eigenpairs (for the residuals after the stage; the copy's seconds
+    apart), the seconds of the callback (the cast and the checkpoint's
+    write), and the scratch directory's files after its checkpoint; and
+    each batched cuSOLVER group's (dimension, matrices, seconds)."""
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+
+    record = {"real": eigen_mod.eigh_large, "real_group": eigen_mod._cusolver_group,
+              "solves": [], "host": [], "files": [], "copy_s": 0.0, "result_s": 0.0,
+              "calls": [], "groups": []}
+
+    def timed_group(covariance_factors, eigen_factors, entries):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        record["real_group"](covariance_factors, eigen_factors, entries)
+        torch.cuda.synchronize()
+        record["groups"].append((entries[0][1], len(entries), time.perf_counter() - t))
+
+    def watched(matrices, on_result):
+        record["calls"].append(len(matrices))
+        clock = [time.perf_counter()]
+
+        def landed(i, evals, evecs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            record["solves"].append(t - clock[0])
+            record["host"].append((evals.cpu(), evecs.cpu()))
+            t1 = time.perf_counter()
+            record["copy_s"] += t1 - t
+            on_result(i, evals, evecs)  # the cast and the checkpoint's write
+            torch.cuda.synchronize()
+            record["result_s"] += time.perf_counter() - t1
+            record["files"].append(sorted(p.name for p in scratch.iterdir())
+                                   if scratch.exists() else [])
+            clock[0] = time.perf_counter()
+
+        return record["real"](matrices, landed)
+
+    eigen_mod.eigh_large = watched
+    eigen_mod._cusolver_group = timed_group
+    return record
+
+
+def unwatch_large_solves(record: dict) -> None:
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+
+    eigen_mod.eigh_large = record["real"]
+    eigen_mod._cusolver_group = record["real_group"]
+
+
+def eigen_residuals(cov: dict, record: dict, order: list, device) -> list:
+    """Per large matrix, in fp64 on the card: ‖C − QΛQᵀ‖_F / ‖C‖_F and
+    ‖QᵀQ − I‖_max of the solver's fp32 eigenpairs, C the normalized,
+    symmetrized covariance the solver was given."""
+    from kronfluence_tpu_torch.factor.eigen import _FACTOR_PAIRS
+
+    out = []
+    for (pair_idx, name), (evals, evecs) in zip(order, record["host"]):
+        cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
+        c = cov[cov_name][name].to(device, torch.float64) / float(cov[count_name][name])
+        c = 0.5 * (c + c.T)
+        q = evecs.to(device, torch.float64)
+        lam = evals.to(device, torch.float64)
+        residual = float(torch.linalg.matrix_norm(c - (q * lam) @ q.T) / torch.linalg.matrix_norm(c))
+        eye = torch.eye(q.shape[0], dtype=torch.float64, device=device)
+        orth = float((q.T @ q - eye).abs().max())
+        out.append(dict(module=name, factor=cov_name, n=q.shape[0], residual=residual,
+                        orthogonality=orth))
+        del c, q, lam, eye
+    torch.cuda.empty_cache()
+    return out
+
+
+def llama_lowrank_checks(card: str, analyzer, model, task, query, train, device,
+                         recorded: list) -> dict:
+    """Phase 15's low-rank path at Llama's shapes, on the first
+    LLAMA_CHECK_QUERIES queries: (1) the randomized SVD of the query step's
+    output (the recipe's bf16 preconditioning, in fp32 as the SVD takes it)
+    against the optimal rank-64 tail, from the fp64 eigenvalues of each
+    gradient's smaller Gram matrix; (2) the recorded rank-64 block's
+    contraction with the train examples against the dense form on the
+    rebuilt block, both in fp32."""
+    from kronfluence_tpu_torch.ops.scores import rebuild
+    from kronfluence_tpu_torch.ops.svd import lowrank_factors_randomized
+    from kronfluence_tpu_torch.score import pairwise
+    from kronfluence_tpu_torch.score.common import prepare_precondition_states
+    from kronfluence_tpu_torch.utils.common.score_arguments import (
+        extreme_reduce_memory_score_arguments,
+    )
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    dense_args = extreme_reduce_memory_score_arguments()
+    dense_args.score_dtype = "float32"
+    batch, valid = next(iter(BatchLoader(
+        {k: v[:LLAMA_CHECK_QUERIES] for k, v in query.items()}, LLAMA_CHECK_QUERIES,
+        device=device)))
+    factors = analyzer.load_all_factors("ekfac")
+    names = sorted(next(iter(factors.values())))
+    states = prepare_precondition_states(factors, "ekfac", dense_args, names)
+    del factors
+    grads = pairwise._build_query_step(model, task, dense_args, "ekfac")(batch, valid, states, 0)
+    del states
+    tails, ratios = {}, {}
+    for name, g in grads.items():
+        g64 = g.double()
+        gram = g64 @ g64.transpose(1, 2) if g.shape[1] <= g.shape[2] else \
+            g64.transpose(1, 2) @ g64
+        sq = torch.linalg.eigvalsh(gram).flip(-1).clamp_min(0)  # squared singular values
+        norm = sq.sum(-1).sqrt()
+        tails[name] = sq[:, LLAMA_RANK:].sum(-1).sqrt() / norm
+        gen = torch.Generator(device=device).manual_seed(0)
+        left, right = lowrank_factors_randomized(g, LLAMA_RANK, torch.float32, gen)
+        err = (g64 - rebuild(left, right).double()).flatten(1).norm(dim=1) / norm
+        ratios[name] = err / tails[name]
+        del g64, gram, left, right
+    del grads
+    worst_ratio = max(float(r.max()) for r in ratios.values())
+    log(f"Llama low-rank SVD on {LLAMA_CHECK_QUERIES} queries' preconditioned gradients: optimal "
+        f"rank-{LLAMA_RANK} relative tail by module " + ", ".join(
+            f"{n} {float(t.min()):.4f}-{float(t.max()):.4f}" for n, t in tails.items())
+        + f"; randomized SVD error / optimal at most {worst_ratio:.4f} (limit "
+        f"{RANDOMIZED_TAIL_FACTOR}) [{card}]")
+    if not worst_ratio <= RANDOMIZED_TAIL_FACTOR:
+        raise RuntimeError(f"Llama: the randomized SVD's error is {worst_ratio:.3f}x the optimal")
+
+    block = {n: c for part in recorded for n, c in part.items()}
+    fp32 = extreme_reduce_memory_score_arguments(query_gradient_low_rank=LLAMA_RANK)
+    fp32.per_sample_gradient_dtype = fp32.score_dtype = "float32"
+    apply = pairwise._make_train_apply(model, task, fp32, False)
+    loader = BatchLoader(train, LLAMA_CHECK_BATCH, device=device)
+    lowrank_block = {n: [(l.float(), r.float()) for l, r in c] for n, c in block.items()}
+    got = torch.cat([apply(b, v, lowrank_block)[ALL_MODULE_NAME] for b, v in loader], dim=1)
+    del lowrank_block
+    dense_block = {n: [rebuild(l, r, torch.float32) for l, r in c] for n, c in block.items()}
+    want = torch.cat([apply(b, v, dense_block)[ALL_MODULE_NAME] for b, v in loader], dim=1)
+    del dense_block, block
+    gap = float((got - want).abs().max()) / float(want.abs().max())
+    log(f"Llama low-rank contraction ({len(recorded)} module partitions' blocks, "
+        f"{LLAMA_CHECK_QUERIES} queries x {LLAMA_TRAIN_N} train, fp32): low-rank route against "
+        f"the dense form on the rebuilt block, max |diff| / max|score| {gap:.3e} (limit "
+        f"{CONTRACTION_RTOL:g}) [{card}]")
+    if not gap <= CONTRACTION_RTOL:
+        raise RuntimeError(f"Llama: the low-rank contraction is off the dense form: {gap:.3e}")
+    torch.cuda.empty_cache()
+    return dict(tails={n: t.tolist() for n, t in tails.items()}, svd_ratio=worst_ratio,
+                contraction_gap=gap)
+
+
+def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 15: Llama at Llama-3-8B width, 2 of 32 layers, through the
+    Analyzer with the openwebtext recipe on `device`; returns the launches
+    and numbers for the kernels line."""
+    from kronfluence_tpu_torch import Analyzer, prepare_model
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.factor.eigen import (
+        _FACTOR_PAIRS,
+        _checkpoint_path,
+        fit_lambda_matrices_with_loader,
+        perform_eigendecomposition,
+    )
+    from kronfluence_tpu_torch.models import llama as llama_mod
+    from kronfluence_tpu_torch.score import pairwise
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        extreme_reduce_memory_factor_arguments,
+        smart_low_precision_factor_arguments,
+    )
+    from kronfluence_tpu_torch.utils.common.score_arguments import (
+        extreme_reduce_memory_score_arguments,
+    )
+    from kronfluence_tpu_torch.utils.constants import (
+        ALL_MODULE_NAME,
+        COVARIANCE_FACTOR_NAMES,
+        EIGENDECOMPOSITION_FACTOR_NAMES,
+        LAMBDA_FACTOR_NAMES,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+    from kronfluence_tpu_torch.utils.save import save_file
+
+    start = time.perf_counter()
+    config = llama_mod.llama3_8b_config(num_layers=LLAMA_LAYERS, max_seq_len=SEQ,
+                                        dtype=torch.bfloat16, attention="flash")
+    layers = config.num_layers
+    task = openwebtext_task(layers)
+    t0 = time.perf_counter()
+    module = llama_mod.init_llama(config, seed=0, device=device)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in module.parameters())
+    log(f"Llama: Llama-3-8B widths (d_model {config.d_model}, d_mlp {config.d_mlp}, "
+        f"{config.num_heads} heads, {config.num_kv_heads} KV heads, head_dim {config.head_dim}, "
+        f"vocab {config.vocab_size:,}, T {SEQ}), bf16, flash attention; reduced: {layers} of 32 "
+        f"layers; {params:,} parameters initialised from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s; {LLAMA_TRAIN_N} train and {LLAMA_QUERY_N} query "
+        f"examples of synthetic tokens [{card}]")
+    train = make_tokens(LLAMA_TRAIN_N, SEQ, config.vocab_size, 21, device)
+    query = make_tokens(LLAMA_QUERY_N, SEQ, config.vocab_size, 22, device)
+    recipe = extreme_reduce_memory_factor_arguments(
+        strategy="ekfac", module_partitions=LLAMA_MODULE_PARTITIONS)
+    recipe.eigendecomposition_dtype = "float32"
+    recipe.eigendecomposition_solver = "auto"
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_llama_"))
+    out = {"seconds": {}, "launches": {}}
+    try:
+        analyzer = Analyzer("llama", prepare_model(module, task), task, profile=True,
+                            output_dir=str(root), cpu=device.type == "cpu")
+        model = analyzer.model
+        factors_dir = analyzer.factors_output_dir("ekfac")
+
+        # (a) Covariance: 3 module partitions, each estimating its batch.
+        estimates = watch_estimates(analyzer)
+        with PassCounter(module, kernels) as counter:
+            _, _, sec = peak_of(analyzer.fit_covariance_matrices, "ekfac", train,
+                                factor_args=recipe)
+        close_estimate(estimates)
+        cov_estimates = list(estimates)
+        batches = {e["batch_size"] for e in cov_estimates}
+        if len(batches) != 1 or len(cov_estimates) != LLAMA_MODULE_PARTITIONS:
+            raise RuntimeError(f"Llama covariance: estimates {cov_estimates}")
+        cov_batch = batches.pop()
+        cov_batches = -(-LLAMA_TRAIN_N // cov_batch)
+        log_estimates(card, "covariance", cov_estimates)
+        check_llama_launches("covariance", counter.counts, layers,
+                             covariance_fits=LLAMA_MODULE_PARTITIONS,
+                             cov_batches=cov_batches)
+        out["seconds"]["covariance"] = sec
+        out["launches"]["covariance"] = dict(counter.counts)
+        log(f"Llama covariance: {sec:.3f} s, batch {cov_batch} ({cov_batches} batches a "
+            f"partition; phases 4 and 9 held K1 and F1-F3 at batch {LLAMA_BATCH}), launches "
+            f"{counter.counts} [{card}]")
+        if not cov_batch < LLAMA_TRAIN_N:
+            raise RuntimeError(f"Llama covariance: the data ({LLAMA_TRAIN_N}) set the batch")
+
+        # (a) Eigendecomposition: "auto", the 14336 group one matrix at a time.
+        cov = analyzer.load_covariance_matrices("ekfac")
+        cov_bytes = sum(t.nbytes for k in COVARIANCE_FACTOR_NAMES[:2] for t in cov[k].values())
+        large = [((p, name), t.shape[0]) for p, (cname, *_rest) in enumerate(_FACTOR_PAIRS)
+                 for name, t in cov[cname].items() if t.shape[0] >= eigen_mod.LARGE_EIGH_DIM]
+        order = [key for key, _ in large]
+        n = large[0][1]
+        if sorted({d for _, d in large}) != [config.d_mlp] or len(large) != 3 * layers:
+            raise RuntimeError(f"Llama: large factors {large}")
+        scratch = factors_dir / "eigendecomposition_scratch"
+        # One matrix's solve, measured alone: the device bytes torch.linalg.eigh
+        # (cuSOLVER's syevd) takes beyond its fp32 input.
+        pair_idx, name = order[0]
+        c_name, n_name = _FACTOR_PAIRS[pair_idx][:2]
+        one = cov[c_name][name].to(device, torch.float32) / float(cov[n_name][name])
+        one = 0.5 * (one + one.T)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        _, solve_peak, solve_sec = peak_of(torch.linalg.eigh, one)
+        solve_bytes = solve_peak - before
+        del one
+        torch.cuda.empty_cache()
+        record = watch_large_solves(scratch)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        try:
+            with PassCounter(module, kernels) as counter:
+                _, peak, sec = peak_of(analyzer.perform_eigendecomposition, "ekfac",
+                                       factor_args=recipe)
+        finally:
+            unwatch_large_solves(record)
+        eigen = analyzer.load_eigendecomposition("ekfac")
+        result_bytes = sum(t.nbytes for k in EIGENDECOMPOSITION_FACTOR_NAMES
+                           for t in eigen[k].values())
+        if any(counter.counts[k] for k in kernels) or counter.counts["forwards"]:
+            raise RuntimeError(f"Llama eigendecomposition launched {counter.counts}")
+        if record["calls"] != [3 * layers]:
+            raise RuntimeError(f"Llama: eigh_large calls {record['calls']}")
+        if [len(f) for f in record["files"]] != list(range(1, 3 * layers + 1)):
+            raise RuntimeError(f"Llama: scratch files as each solve landed {record['files']}")
+        if scratch.exists():
+            raise RuntimeError("Llama: the eigendecomposition scratch outlived the stage")
+        # What was resident (the model, the data, the covariance the stage
+        # loads, the results as they accumulate), plus one matrix (its fp32
+        # input and its build's fp32 temporary), plus its solve as measured
+        # alone above. The group stacked would hold the other five inputs too.
+        matrix_bytes = 2 * n * n * 4
+        limit = resident + cov_bytes + result_bytes + matrix_bytes + solve_bytes
+        groups_s = sum(t for _, _, t in record["groups"])
+        rest = sec - sum(record["solves"]) - record["copy_s"] - record["result_s"] - groups_s
+        log(f"Llama eigendecomposition: {sec:.3f} s, peak {peak / 2**30:.3f} GiB against the "
+            f"per-matrix limit {limit / 2**30:.3f} GiB = resident {resident / 2**30:.3f} + "
+            f"covariance {cov_bytes / 2**30:.3f} + results {result_bytes / 2**30:.3f} + one "
+            f"matrix {matrix_bytes / 2**30:.3f} + its solve {solve_bytes / 2**30:.3f} (one "
+            f"{n} torch.linalg.eigh alone: {solve_sec:.3f} s); the other "
+            f"{len(large) - 1} inputs stacked beside it would add "
+            f"{(len(large) - 1) * n * n * 4 / 2**30:.3f} GiB; each {n} solve (build and "
+            f"eigh), s: " + ", ".join(f"{s:.3f}" for s in record["solves"])
+            + f"; casts and checkpoint writes {record['result_s']:.3f} s; host copies for the "
+            f"residual check {record['copy_s']:.3f} s; batched groups " + ", ".join(
+                f"{m} x {d} {t:.3f} s" for d, m, t in record["groups"])
+            + f"; the covariance load and the artifact write {rest:.3f} s; scratch files as each landed "
+            f"{[len(f) for f in record['files']]}, none after [{card}]")
+        if not peak <= limit:
+            raise RuntimeError(f"Llama eigendecomposition peak {peak:,} B over the per-matrix "
+                               f"limit {limit:,} B")
+        residuals = eigen_residuals(cov, record, order, device)
+        limit_res = n * 2.0 ** -24
+        for r in residuals:
+            log(f"Llama eigenpairs {r['factor']} {r['module']} (n {r['n']}): "
+                f"||C - Q L Q^T||_F / ||C||_F {r['residual']:.3e}, ||Q^T Q - I||_max "
+                f"{r['orthogonality']:.3e} (limits n u = {limit_res:.3e}) [{card}]")
+            if not (r["residual"] <= limit_res and r["orthogonality"] <= limit_res):
+                raise RuntimeError(f"Llama eigenpairs off: {r}")
+        out["seconds"]["eigendecomposition"] = sec
+        out["eigen"] = dict(solves=record["solves"], peak_bytes=peak, limit_bytes=limit,
+                            solve_bytes=solve_bytes, residuals=residuals,
+                            checkpoint_s=record["result_s"], groups=record["groups"],
+                            rest_s=rest)
+        del record
+
+        # A rerun of the stage with two checkpoints planted (from the saved
+        # eigenpairs) solves the other four, and gives the same bits.
+        rerun = root / "rerun_scratch"
+        for (pair_idx, name) in order[:LLAMA_PLANTED]:
+            _c, _n, vec_name, val_name = _FACTOR_PAIRS[pair_idx]
+            save_file({"evals": eigen[val_name][name], "evecs": eigen[vec_name][name]},
+                      _checkpoint_path(rerun, val_name, name))
+        record = watch_large_solves(rerun)
+        cov_dev = {k: {m: t.to(device) for m, t in v.items()} for k, v in cov.items()}
+        try:
+            t0 = time.perf_counter()
+            again = perform_eigendecomposition(cov_dev, recipe, scratch_dir=rerun)
+            torch.cuda.synchronize()
+            rerun_sec = time.perf_counter() - t0
+        finally:
+            unwatch_large_solves(record)
+        del cov_dev
+        solved = len(record["solves"])
+        same = all(torch.equal(again[k][m].cpu(), eigen[k][m]) for k in eigen for m in eigen[k])
+        log(f"Llama eigendecomposition rerun with {LLAMA_PLANTED} checkpoints planted: "
+            f"{solved} of {len(large)} large matrices solved in {rerun_sec:.3f} s ("
+            + ", ".join(f"{s:.3f}" for s in record["solves"]) + f" s), eigenpairs bitwise equal "
+            f"to the first call's: {same} [{card}]")
+        if solved != len(large) - LLAMA_PLANTED or not same:
+            raise RuntimeError("Llama: the checkpointed rerun solved the planted matrices again "
+                               "or changed the eigenpairs")
+        del again, record
+        shutil.rmtree(rerun)
+
+        # (a) Lambda: partitions as the covariance.
+        estimates.clear()
+        with PassCounter(module, kernels) as counter:
+            _, _, sec = peak_of(analyzer.fit_lambda_matrices, "ekfac", train, factor_args=recipe)
+        close_estimate(estimates)
+        lam_estimates = list(estimates)
+        log_estimates(card, "lambda", lam_estimates)
+        check_llama_launches("lambda", counter.counts, layers)
+        lam_batches = {e["batch_size"] for e in lam_estimates}
+        if len(lam_batches) != 1:
+            raise RuntimeError(f"Llama lambda: estimates {lam_estimates}")
+        lam_batch = lam_batches.pop()
+        out["seconds"]["lambda"] = sec
+        out["launches"]["lambda"] = dict(counter.counts)
+        log(f"Llama lambda: {sec:.3f} s, batch {lam_batch}, launches {counter.counts} [{card}]")
+
+        # (a) Pairwise 8 x 32: rank-64 query blocks, then dense bf16 blocks,
+        # then both with fp32 preconditioning. The rank-64 call's block is
+        # recorded as the train pass received it (the module partitions' in
+        # turn) for the contraction check below.
+        scores, score_estimates, recorded = {}, {}, []
+        collect = pairwise._collect_blocks
+
+        def recording(blocks):
+            out_blocks = collect(blocks)
+            if current == "lowrank":
+                recorded.append({n: [(l[:LLAMA_CHECK_QUERIES].clone(),
+                                      r[:LLAMA_CHECK_QUERIES].clone()) for l, r in c]
+                                 for n, c in out_blocks.items()})
+            return out_blocks
+
+        pairwise._collect_blocks = recording
+        for name, rank, changes in LLAMA_SCORE_VARIANTS:
+            current = name
+            score_args = extreme_reduce_memory_score_arguments(query_gradient_low_rank=rank)
+            for field, value in changes.items():
+                setattr(score_args, field, value)
+            estimates.clear()
+            before = {row: s for row, s, _ in analyzer.profiler.rows()}
+            with PassCounter(module, kernels) as counter:
+                _, _, sec = peak_of(analyzer.compute_pairwise_scores, name, "ekfac", query,
+                                    train, per_device_query_batch_size=LLAMA_QUERY_N,
+                                    score_args=score_args)
+            close_estimate(estimates)
+            after = {row: s for row, s, _ in analyzer.profiler.rows()}
+            parts = {key: after.get(row, 0.0) - before.get(row, 0.0) for key, row in (
+                ("query gradients", "Pairwise: query gradients"),
+                ("train pass", "Pairwise: train pass"))}
+            log_estimates(card, f"pairwise ({name})", estimates)
+            check_llama_launches(f"pairwise ({name})", counter.counts, layers)
+            scores[name] = analyzer.load_pairwise_scores(name)[ALL_MODULE_NAME].float()
+            score_estimates[name] = list(estimates)
+            out["seconds"][f"pairwise {name}"] = dict(parts, call=sec)
+            out["launches"][f"pairwise {name}"] = dict(counter.counts)
+            log(f"Llama pairwise {LLAMA_QUERY_N} x {LLAMA_TRAIN_N}, {name}: {sec:.3f} s "
+                f"(query gradients {parts['query gradients']:.3f}, train pass "
+                f"{parts['train pass']:.3f}), launches {counter.counts} [{card}]")
+        pairwise._collect_blocks = collect
+        for name, s in scores.items():
+            if (tuple(s.shape) != (LLAMA_QUERY_N, LLAMA_TRAIN_N)
+                    or not bool(torch.isfinite(s).all())):
+                raise RuntimeError(f"Llama scores {name}: shape {tuple(s.shape)} or not finite")
+        names = list(scores)
+        rs = {f"{a} ~ {b}": pearson(scores[a], scores[b])
+              for i, a in enumerate(names) for b in names[i + 1:]}
+        log("Llama scores, Pearson r between variants: " + "; ".join(
+            f"{k} {v:.6f}" for k, v in rs.items()) + f" (limit {LLAMA_PRECISION_PEARSON_MIN} "
+            f"for each recipe against its fp32 twin) [{card}]")
+        for pair in ("lowrank ~ lowrank fp32", "dense ~ dense fp32"):
+            if not rs[pair] >= LLAMA_PRECISION_PEARSON_MIN:
+                raise RuntimeError(f"Llama scores: {pair} r {rs[pair]:.6f}")
+        out["pearson"] = rs
+        out["lowrank_checks"] = llama_lowrank_checks(
+            card, analyzer, model, task, query, train, device, recorded)
+        del recorded
+        written = artifact_bytes(root)
+        log(f"Llama artifacts: {sum(written.values()):,} bytes written ("
+            + ", ".join(f"{k} {v:,}" for k, v in written.items()) + ")")
+        del scores
+
+        # Partitions: the module-partitioned factors against unpartitioned
+        # fits on the same batches (the stage functions, no artifacts).
+        plain = copy.deepcopy(recipe)
+        plain.covariance_module_partitions = plain.lambda_module_partitions = 1
+        plain_cov = fit_covariance_matrices_with_loader(
+            model, task, BatchLoader(train, cov_batch, device=device), plain)
+        plain_lam = fit_lambda_matrices_with_loader(
+            model, task, BatchLoader(train, lam_batch, device=device), plain,
+            eigen_factors={k: {m: t.to(device) for m, t in v.items()} for k, v in eigen.items()})
+        lam = analyzer.load_lambda_matrices("ekfac")
+        gaps = {}
+        for what, got, want, names in (("covariance", cov, plain_cov, COVARIANCE_FACTOR_NAMES),
+                                       ("lambda", lam, plain_lam, LAMBDA_FACTOR_NAMES)):
+            bitwise = _bitwise(got, want, names)
+            gaps[what] = 0.0 if bitwise else _max_rel_all(
+                {k: got[k] for k in names[:1]}, {k: want[k] for k in names[:1]}, names[:1])
+            log(f"Llama {what}: {LLAMA_MODULE_PARTITIONS} module partitions against one fit on "
+                f"the same batches: bitwise equal {bitwise} (max |diff| / max {gaps[what]:.3e}) "
+                f"[{card}]")
+            if not bitwise:
+                raise RuntimeError(f"Llama {what}: partitioned and unpartitioned fits differ")
+        del plain_lam, lam, eigen
+
+        # (b) One covariance stage with the smart-low-precision recipe (no
+        # partitions, no remat), its batch estimated too.
+        smart = smart_low_precision_factor_arguments(strategy="ekfac")
+        estimates.clear()
+        with PassCounter(module, kernels) as counter:
+            _, _, sec = peak_of(analyzer.fit_covariance_matrices, "smart", train,
+                                factor_args=smart)
+        close_estimate(estimates)
+        log_estimates(card, "covariance (smart low precision)", estimates)
+        smart_batches = -(-LLAMA_TRAIN_N // estimates[0]["batch_size"])
+        check_llama_launches("covariance (smart low precision)", counter.counts, layers,
+                             covariance_fits=1, cov_batches=smart_batches)
+        out["seconds"]["covariance smart"] = sec
+        out["launches"]["covariance smart"] = dict(counter.counts)
+        log(f"Llama covariance, smart low precision: {sec:.3f} s, batch "
+            f"{estimates[0]['batch_size']}, K1 {counter.counts['syrk']} launches "
+            f"({counter.counts['wgmma']} wgmma) = 12 x {smart_batches} batches [{card}]")
+        out["estimates"] = dict(covariance=cov_estimates, lambda_=lam_estimates,
+                                smart=list(estimates), **score_estimates)
+        del analyzer
+
+        # Flash against naive: the same weights with attention="naive", the
+        # dataset's labels on both sides (as phase 10): labels sampled from
+        # near-uniform logits flip where the two forms round differently.
+        empirical = copy.deepcopy(plain)
+        empirical.use_empirical_fisher = True
+        del plain_cov
+        flash_cov = fit_covariance_matrices_with_loader(
+            model, task, BatchLoader(train, cov_batch, device=device), empirical)
+        naive_module = llama_mod.init_llama(dataclasses.replace(config, attention="naive"),
+                                            seed=0, device=device)
+        naive_model = prepare_model(naive_module, task)
+        naive_cov = fit_covariance_matrices_with_loader(
+            naive_model, task, BatchLoader(train, cov_batch, device=device), empirical)
+        worst = {}
+        for factor_name in COVARIANCE_FACTOR_NAMES[:2]:
+            for name, want in flash_cov[factor_name].items():
+                worst[f"{factor_name} {name}"] = relative_to_max(naive_cov[factor_name][name], want)
+        gap = max(worst.values())
+        log(f"Llama covariance, flash against naive attention on the same weights and batches: "
+            f"max |diff| / max |C| {gap:.3e} (limit {FLASH_FACTOR_RTOL:g}) [{card}]")
+        if not gap <= FLASH_FACTOR_RTOL:
+            raise RuntimeError(f"Llama flash against naive: {worst}")
+        out["flash_vs_naive"] = gap
+        del naive_module, naive_model, naive_cov, flash_cov, cov
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del module, model
+    torch.cuda.empty_cache()
+    out["batch"] = cov_batch
+    out["peak_bytes"] = max([out["eigen"]["peak_bytes"]] + [
+        e["peak_bytes"] for records in out["estimates"].values() for e in records])
+    log(f"Llama: phase 15 took {time.perf_counter() - start:.1f} s; peak device memory "
+        f"{out['peak_bytes'] / 2**30:.3f} GiB (the largest stage peak) [{card}]")
+    return out
+
+
 def profile_eigh(card: str) -> None:
     """Cold and warm eigendecomposition seconds of both solvers on phase 5's
     covariance factors, and a torch.profiler kernel table of a warm run."""
@@ -3296,18 +4044,21 @@ def main() -> None:
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
-    launches.update(F1=split_path["F1"], F2=split_path["F2"], F3=split_path["F3"])
+    llama = phase_llama(card)
+    llama_launches = {key: sum(c[key] for c in llama["launches"].values())
+                      for key in ("F1", "F2", "F3", "syrk", "probe")}
+    launches.update(F1=llama_launches["F1"], F2=llama_launches["F2"], F3=llama_launches["F3"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 11 (flash reference, fp32: generic forward)"),
+               "phase 15 (Llama, bf16 D 128: generic forward), all stages"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "phase 11 (flash reference, fp32: split route)"),
+               "phase 15 (Llama, bf16 D 128: split route), all stages"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "phase 11 (flash reference, fp32: split route)"),
+               "phase 15 (Llama, bf16 D 128: split route), all stages"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
@@ -3324,6 +4075,7 @@ def main() -> None:
             "analyzer_wgmma_launches": analyzer_wgmma,
             "stage_options_launches": options_launches["syrk"],
             "score_features_launches": features_launches["syrk"],
+            "llama_launches": llama_launches["syrk"],
             **syrk_result,
         },
         {
@@ -3335,6 +4087,7 @@ def main() -> None:
             "analyzer_launches": analyzer_launches["probe"],
             "stage_options_launches": options_launches["probe"],
             "score_features_launches": features_launches["probe"],
+            "llama_launches": llama_launches["probe"],
             **probe_result,
         },
         {
@@ -3370,6 +4123,9 @@ def main() -> None:
             **({"stage_options_launches": options_launches[fid]} if fid in options_launches else {}),
             **({"score_features_launches": features_launches[fid]}
                if fid in features_launches else {}),
+            **({"fp32_reference_launches": split_path[fid]} if fid in ("F1", "F2", "F3") else {}),
+            **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
+               if fid in ("F1", "F2", "F3") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

@@ -7,6 +7,7 @@ persistence, partition aggregation, and factor reuse through
 `load_from_factors_name`.
 """
 
+import shutil
 import threading
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -148,8 +149,12 @@ class FactorComputer(Computer):
             raise FactorsNotFoundError(f"Covariance matrices not found in {source_dir}.")
         with self.profiler.profile("Load Covariance"):
             covariance = factor_io.load_covariance_matrices(source_dir, device=self.device)
+        # Per-matrix checkpoints of the factors of dimension >= 6144, the
+        # longest solves of the stage: a rerun after a failure resumes from
+        # them. Removed once the artifact is saved.
+        scratch_dir = factors_dir / "eigendecomposition_scratch"
         with self.profiler.profile("Perform Eigendecomposition"):
-            eigen = _perform_eigendecomposition(covariance, factor_args)
+            eigen = _perform_eigendecomposition(covariance, factor_args, scratch_dir=scratch_dir)
         del covariance
         with self.profiler.profile("Save Eigendecomposition (host copy)"):
             host_files = factor_io.factors_to_host(eigen, EIGENDECOMPOSITION_FACTOR_NAMES)
@@ -157,6 +162,7 @@ class FactorComputer(Computer):
         def _write() -> float:
             start = get_time(synchronize=False)
             factor_io.write_factors(factors_dir, host_files)
+            shutil.rmtree(scratch_dir, ignore_errors=True)
             self.logger.info(f"Saved eigendecomposition results at {factors_dir}.")
             return get_time(synchronize=False) - start
 

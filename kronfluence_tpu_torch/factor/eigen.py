@@ -17,6 +17,9 @@ Port of `kronfluence_tpu/factor/eigen.py`:
     associativity, fewer FLOPs when tokens per sample < activation dim).
 """
 
+import functools
+import logging
+from pathlib import Path
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -33,7 +36,7 @@ from kronfluence_tpu_torch.factor.covariance import (
     with_tracked,
 )
 from kronfluence_tpu_torch.ops.covariance import per_sample_gradient as psg_op
-from kronfluence_tpu_torch.ops.eigh import LARGE_EIGH_DIM, gershgorin_pad, eigh_batched
+from kronfluence_tpu_torch.ops.eigh import LARGE_EIGH_DIM, eigh_batched, eigh_large, gershgorin_pad
 from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.task import Task
@@ -56,6 +59,8 @@ from kronfluence_tpu_torch.utils.dtypes import (
     resolve_dtype,
 )
 from kronfluence_tpu_torch.utils.exceptions import FactorsNotFoundError
+from kronfluence_tpu_torch.utils.logger import get_logger
+from kronfluence_tpu_torch.utils.save import load_file, save_file
 
 _FACTOR_PAIRS = (
     (
@@ -137,54 +142,137 @@ def _split_group_result(ev, vec, dim: int):
     return ev[:dim], vec / torch.linalg.norm(vec, dim=0, keepdim=True)
 
 
-def _jacobi_eigendecomposition(covariance_factors, eigen_factors) -> None:
-    """The JAX package's "jacobi" route: merged dim groups, one batched
-    blocked-Jacobi solve per group; results in each covariance's dtype."""
-    merged = _merge_dim_groups(_dim_groups(covariance_factors))
-    large = sorted(t for t in merged if t >= LARGE_EIGH_DIM)
-    if large:
-        raise NotImplementedError(
-            f"eigendecomposition_solver='jacobi' at dimension {large} (>= {LARGE_EIGH_DIM}) "
-            "needs the JAX package's per-matrix path (eigh_large), which is not ported "
-            "(ROADMAP Queue 1, Llama scale); use eigendecomposition_solver='auto'."
-        )
-    for target, entries in merged.items():
-        normalized, order = _assemble_group(covariance_factors, entries, target)
-        evals, evecs = eigh_batched(normalized)
-        for k, (pair_idx, module_name, dim) in enumerate(order):
-            cov_name, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
-            ev, vec = _split_group_result(evals[k], evecs[k], dim)
-            dtype = covariance_factors[cov_name][module_name].dtype
-            eigen_factors[eval_name][module_name] = ev.to(dtype)
-            eigen_factors[evec_name][module_name] = vec.to(dtype)
+def _checkpoint_path(scratch_dir, eval_name: str, module_name: str) -> Path:
+    """One solved matrix's checkpoint, in the JAX package's names."""
+    return Path(scratch_dir) / f"{eval_name}.{module_name.replace('/', '__')}.safetensors"
 
 
-def _device_eigendecomposition(covariance_factors, eigen_factors, solver: str = "auto") -> None:
+def _normalized(covariance_factors, pair_idx: int, module_name: str) -> torch.Tensor:
+    """One factor in fp32, divided by its count and symmetrized, built
+    without a stack (the values `_normalize_stacked` gives that matrix)."""
+    cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
+    count = covariance_factors[count_name][module_name].reshape(()).to(torch.float32)
+    matrix = covariance_factors[cov_name][module_name].to(torch.float32) / count
+    return (matrix + matrix.T).mul_(0.5)
+
+
+def _large_group_eigendecomposition(
+    covariance_factors, eigen_factors, entries, scratch_dir=None
+) -> None:
+    """Per-matrix path for dims >= LARGE_EIGH_DIM (Llama's MLP factors), after
+    the JAX package's. Each matrix is normalized and symmetrized alone and
+    solved by `eigh_large`; the group is never stacked, so the device holds
+    one matrix and its solve beside the results (six 14336-dim factors
+    stacked are 4.9 GB in fp32 before the solver's copies). Each result goes
+    to its covariance's dtype and device.
+
+    `scratch_dir`: each solved matrix's eigenpairs are written there as it
+    lands (through a temporary file and a rename) and reloaded on a rerun
+    instead of being solved again; the FactorComputer deletes the directory
+    once the eigendecomposition artifact is saved."""
+    pending = []
+    for (pair_idx, module_name), _dim in entries:
+        cov_name, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+        original = covariance_factors[cov_name][module_name]
+        ckpt = None if scratch_dir is None else _checkpoint_path(scratch_dir, eval_name, module_name)
+        if ckpt is not None and ckpt.exists():
+            saved = load_file(ckpt, device=original.device)
+            eigen_factors[eval_name][module_name] = saved["evals"].to(original.dtype)
+            eigen_factors[evec_name][module_name] = saved["evecs"].to(original.dtype)
+            continue
+        pending.append((pair_idx, module_name, ckpt))
+
+    def on_result(j: int, evals: torch.Tensor, evecs: torch.Tensor) -> None:
+        pair_idx, module_name, ckpt = pending[j]
+        cov_name, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+        like = covariance_factors[cov_name][module_name]
+        evals = evals.to(device=like.device, dtype=like.dtype)
+        evecs = evecs.to(device=like.device, dtype=like.dtype)
+        if ckpt is not None:
+            tmp = ckpt.with_suffix(".tmp")
+            save_file({"evals": evals, "evecs": evecs}, tmp)
+            tmp.replace(ckpt)
+        eigen_factors[eval_name][module_name] = evals
+        eigen_factors[evec_name][module_name] = evecs
+
+    eigh_large(
+        [functools.partial(_normalized, covariance_factors, p, n) for p, n, _ in pending],
+        on_result,
+    )
+
+
+def _cusolver_group(covariance_factors, eigen_factors, entries) -> None:
+    """One batched `torch.linalg.eigh` over a group of one dimension."""
+    mats, counts = [], []
+    for (pair_idx, module_name), _dim in entries:
+        cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
+        mats.append(covariance_factors[cov_name][module_name])
+        counts.append(covariance_factors[count_name][module_name].reshape(()))
+    evals, evecs = torch.linalg.eigh(_normalize_stacked(torch.stack(mats), torch.stack(counts)))
+    for k, ((pair_idx, module_name), _dim) in enumerate(entries):
+        _cov, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+        dtype = mats[k].dtype
+        eigen_factors[eval_name][module_name] = evals[k].to(dtype)
+        eigen_factors[evec_name][module_name] = evecs[k].to(dtype)
+
+
+def _jacobi_group(covariance_factors, eigen_factors, entries, target: int) -> None:
+    """The JAX package's "jacobi" route for one merged group: one batched
+    blocked-Jacobi solve; results in each covariance's dtype."""
+    normalized, order = _assemble_group(covariance_factors, entries, target)
+    evals, evecs = eigh_batched(normalized)
+    for k, (pair_idx, module_name, dim) in enumerate(order):
+        cov_name, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
+        ev, vec = _split_group_result(evals[k], evecs[k], dim)
+        dtype = covariance_factors[cov_name][module_name].dtype
+        eigen_factors[eval_name][module_name] = ev.to(dtype)
+        eigen_factors[evec_name][module_name] = vec.to(dtype)
+
+
+def _device_eigendecomposition(
+    covariance_factors, eigen_factors, solver: str = "auto", scratch_dir=None
+) -> None:
     """fp32 device path. "auto" / "qdwh": one batched `torch.linalg.eigh` per
     matrix dimension, across both factor families. "jacobi": the blocked
-    Jacobi solver. Results in each covariance's dtype."""
+    Jacobi solver on the JAX package's merged dim groups. Either way a group
+    of dimension >= LARGE_EIGH_DIM is solved one matrix at a time
+    (`_large_group_eigendecomposition`, checkpointed in `scratch_dir`), with
+    cuSOLVER; under "jacobi" such a group raises before anything is solved.
+    Results in each covariance's dtype."""
     if solver == "dc":
         raise NotImplementedError(
             "eigendecomposition_solver='dc' (kronfluence_tpu/ops/eigh_dc.py) is TPU-only and "
             "on ROADMAP's 'Not to port' list; use 'auto' or 'jacobi'."
         )
-    if solver == "jacobi":
-        _jacobi_eigendecomposition(covariance_factors, eigen_factors)
-        return
-    if solver not in ("auto", "qdwh"):
+    if solver not in ("auto", "qdwh", "jacobi"):
         raise ValueError(f"Unknown eigendecomposition_solver {solver!r}.")
-    for entries in _dim_groups(covariance_factors).values():
-        mats, counts = [], []
-        for pair_idx, module_name in entries:
-            cov_name, count_name = _FACTOR_PAIRS[pair_idx][:2]
-            mats.append(covariance_factors[cov_name][module_name])
-            counts.append(covariance_factors[count_name][module_name].reshape(()))
-        evals, evecs = torch.linalg.eigh(_normalize_stacked(torch.stack(mats), torch.stack(counts)))
-        for k, (pair_idx, module_name) in enumerate(entries):
-            _cov, _count, evec_name, eval_name = _FACTOR_PAIRS[pair_idx]
-            dtype = mats[k].dtype
-            eigen_factors[eval_name][module_name] = evals[k].to(dtype)
-            eigen_factors[evec_name][module_name] = evecs[k].to(dtype)
+    if solver == "jacobi":
+        groups = _merge_dim_groups(_dim_groups(covariance_factors))
+        large = sorted(t for t in groups if t >= LARGE_EIGH_DIM)
+        if large:
+            raise NotImplementedError(
+                f"eigendecomposition_solver='jacobi' at dimension {large} (>= {LARGE_EIGH_DIM}) "
+                "needs the JAX package's host-loop Jacobi solver (eigh_jacobi_hostloop), which "
+                "is not ported (ROADMAP Queue 1, Llama scale); use "
+                "eigendecomposition_solver='auto', which solves these one matrix at a time."
+            )
+    else:
+        groups = {
+            dim: [(key, dim) for key in keys] for dim, keys in _dim_groups(covariance_factors).items()
+        }
+    log = get_logger("kronfluence_tpu_torch.factor.eigen", level=logging.INFO)
+    log.info("eigendecomposition groups: %s", {t: len(e) for t, e in groups.items()})
+    for target, entries in groups.items():
+        log.info(
+            "eigendecomposition group dim=%d (%d matrices): %s", target, len(entries),
+            "per-matrix eigh_large" if target >= LARGE_EIGH_DIM else solver,
+        )
+        if target >= LARGE_EIGH_DIM:
+            _large_group_eigendecomposition(covariance_factors, eigen_factors, entries, scratch_dir)
+        elif solver == "jacobi":
+            _jacobi_group(covariance_factors, eigen_factors, entries, target)
+        else:
+            _cusolver_group(covariance_factors, eigen_factors, entries)
 
 
 def _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name) -> None:
@@ -214,8 +302,13 @@ def _runs_on_device(dtype_name: str, factor: torch.Tensor) -> bool:
 def perform_eigendecomposition(
     covariance_factors: Dict[str, Dict[str, torch.Tensor]],
     factor_args: Optional[FactorArguments] = None,
+    scratch_dir=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Eigendecomposes both covariance factors of every module."""
+    """Eigendecomposes both covariance factors of every module.
+
+    `scratch_dir` holds the per-matrix checkpoints of the factors of
+    dimension >= LARGE_EIGH_DIM on the device path
+    (`_large_group_eigendecomposition`)."""
     factor_args = factor_args or FactorArguments()
     dtype_name = canonical_dtype_name(factor_args.eigendecomposition_dtype)
     eigen_factors: Dict[str, Dict[str, Any]] = {
@@ -230,7 +323,7 @@ def perform_eigendecomposition(
     first = next(iter(covariance_factors[ACTIVATION_COVARIANCE_MATRIX_NAME].values()))
     if _runs_on_device(dtype_name, first):
         _device_eigendecomposition(
-            covariance_factors, eigen_factors, factor_args.eigendecomposition_solver
+            covariance_factors, eigen_factors, factor_args.eigendecomposition_solver, scratch_dir
         )
     else:
         _host_eigendecomposition(covariance_factors, eigen_factors, dtype_name)

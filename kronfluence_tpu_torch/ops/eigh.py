@@ -28,17 +28,29 @@ Host-side index tables are built with numpy and moved to the device once per
 call. `eigh_batched.chunks` records, for each chunk solved by the blocked
 path, its padded size, matrix count, sweeps run and rounds per sweep: K2
 launches once per round.
+
+`eigh_large` is the per-matrix protocol of the JAX package's `eigh_large`
+for dimensions at or above `LARGE_EIGH_DIM` (Llama's MLP factors): each
+matrix is built, solved by `torch.linalg.eigh` (cuSOLVER on the card, LAPACK
+on the CPU) and handed to a callback alone, so one matrix and its solve are
+on the device at a time. The JAX package's host-LAPACK retry after an
+out-of-memory error and its `KF_LARGE_EIGH_*` switches are not ported: a
+failed solve raises, and the per-matrix checkpoints the callback writes are
+what a rerun resumes from.
 """
 
 import contextlib
 import functools
+import logging
 import math
-from typing import Tuple
+import time
+from typing import Callable, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+from kronfluence_tpu_torch.utils.logger import get_logger
 
 _EPS = float(np.finfo(np.float32).eps)
 # Peak-memory bound of the batched solve: ~8 live (n, n) fp32 tensors per
@@ -46,8 +58,8 @@ _EPS = float(np.finfo(np.float32).eps)
 # (kronfluence_tpu/ops/eigh.py:860-863). Chunking decides which matrices share
 # a convergence test, so the port keeps the JAX package's value.
 CHUNK_BUDGET_ELEMS = 64_000_000
-# At or above this dimension the JAX package solves one matrix at a time
-# (`eigh_large`); that path is not ported.
+# At or above this dimension a factor group is solved one matrix at a time
+# (`eigh_large`), never stacked.
 LARGE_EIGH_DIM = 6144
 
 
@@ -317,3 +329,33 @@ def eigh_batched(
 
 
 eigh_batched.chunks = []
+
+
+def eigh_large(
+    matrices: Sequence[Callable[[], torch.Tensor]],
+    on_result: Callable[[int, torch.Tensor, torch.Tensor], None],
+) -> None:
+    """Solves large symmetric matrices one at a time, ascending eigenvalues.
+
+    `matrices[i]()` builds the i-th (n, n) matrix when its solve starts;
+    `torch.linalg.eigh` solves it on the matrix's device; `on_result(i,
+    evals, evecs)` takes the result as it lands. Every reference to the
+    matrix and its result is dropped before the next matrix is built, so
+    the device holds what was resident, what the callback keeps, and one
+    matrix with its solve. A failed solve raises (no host retry).
+    """
+    log = get_logger("kronfluence_tpu_torch.ops.eigh", level=logging.INFO)
+    for i, build in enumerate(matrices):
+        start = time.perf_counter()
+        matrix = build()
+        n, device = matrix.shape[-1], matrix.device
+        evals, evecs = torch.linalg.eigh(matrix)
+        del matrix
+        on_result(i, evals, evecs)
+        del evals, evecs
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        log.info(
+            "eigh_large: matrix %d/%d (dim %d) solved in %.1f s",
+            i + 1, len(matrices), n, time.perf_counter() - start,
+        )
