@@ -11,7 +11,8 @@ each of which raises on failure:
      with nvcc (sm_90a; one object per source, each source whose object is
      missing compiled in its own process, all started together; one link)
      and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
-     HGMMA and UTMALDG (cuobjdump);
+     HGMMA and UTMALDG, and F2H's and F3H's HMMA and LDSM (cuobjdump; their
+     registers, spills and CTAs an SM printed beside);
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
@@ -66,20 +67,26 @@ each of which raises on failure:
      serve (phase 15's Llama heads, bf16 at D 128 after the GQA repeat;
      fp32 at D 64; bf16 at D 128 over GPT-2's width) in turns against SDPA's
      forward and backward, and F1-F3 at the Llama shape against their plain
-     versions at every position;
+     versions at every position. F2H and F3H (the bf16 D 128 backward,
+     `backward_route` "split_h") against F2's and F3's plain versions at
+     every position at the bf16 D 128 cases (Llama's, padded and not), two
+     calls bitwise equal, the dropped-block fault planted at Llama's shape;
+     F2H + F3H timed in turns against F2 + F3 and SDPA's backward at both
+     bf16 D 128 route cases (it must beat F2 + F3 by device time), and the
+     Function's backward split by device time into di and the kernels;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3 and the naive form
-     never, K1 36 times per covariance batch on the wgmma kernel; the
+     FB 12 times per forward+backward pass, F1, F2, F3, F2H, F3H and the
+     naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
      T 128, padded data), in fp32: F1, F2 and F3 (the generic forward and
-     the split backward) on the card, FF and FB never, their plain versions
-     on the CPU.
+     the split backward) on the card, FF, FB, F2H and F3H never, their plain
+     versions on the CPU; the kernels line reads F2's and F3's launches here.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -140,9 +147,9 @@ each of which raises on failure:
      sampled Fisher, every batch size left to the memory model, "auto"
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
-     F1 once per attention forward and F2, F3 once per attention backward
-     (counted by hooks on the attention layers), FF, FB, K2 and the naive
-     form never, K1 on every covariance gram, all wgmma, K3 once per
+     F1 once per attention forward and F2H, F3H once per attention backward
+     (counted by hooks on the attention layers), F2, F3, FF, FB, K2 and the
+     naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -184,7 +191,13 @@ against F2+F3 and against the wrapper's zeroing and cast of the fp32 dQ sum
 alone, at the flash path's shape; then FF as built (64-query tile, 4 warps)
 in turns against copies of csrc/flash_forward.cu with a 128-query tile (8
 warps) and with registers capped for 4 CTAs an SM (each held to the bf16
-limit first), and against F1.
+limit first), and against F1; then F2H and F3H at Llama's heads (B 30, H
+32, T 512, D 128) as built (4 warps of 16 keys over all of D, 32-query
+steps, a 2-stage ring) against copies of csrc/flash_backward_d128.cu with the
+other register layout (8 warps, two a 16-key group, P^T and dS^T through
+shared memory), a 3-stage query ring and 64-query steps, each held to the bf16 limit
+first, with each kernel's SASS counts (HMMA, LDSM, local LDL/STL), registers
+a thread and CTAs an SM, and against F2 and F3.
 """
 
 import copy
@@ -494,6 +507,30 @@ def phase_build() -> None:
         log(f"SASS of {kernel}: {counts}")
         if not all(counts.values()):
             raise RuntimeError(f"{kernel} lacks wgmma or TMA instructions: {counts}")
+    lib = build.load_library()
+    for which, kernel in enumerate(D128_KERNELS):
+        counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
+        log(f"SASS of {kernel}: {counts}; {d128_occupancy(lib, which)}")
+        if not (counts["HMMA"] and counts["LDSM"]):
+            raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
+
+
+# F2H and F3H (csrc/flash_backward_d128.cu), in the order of
+# kf_flash_bwd_d128_occupancy's `which`, and the SASS opcodes counted for them
+# (LDL and STL are local loads and stores: spills).
+D128_KERNELS = ("flash_bwd_dkv_d128_kernel", "flash_bwd_dq_d128_kernel")
+D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
+
+
+def d128_occupancy(lib, which: int) -> dict:
+    """Registers a thread, local (spill) bytes a thread and CTAs an SM of F2H
+    (which 0) or F3H (1) in `lib`, as the CUDA runtime reports them."""
+    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = lib.kf_flash_bwd_d128_occupancy(which, ctypes.byref(regs), ctypes.byref(local),
+                                          ctypes.byref(ctas))
+    if err:
+        raise RuntimeError(f"kf_flash_bwd_d128_occupancy failed with CUDA error {err}")
+    return {"registers": regs.value, "local_bytes": local.value, "ctas_per_sm": ctas.value}
 
 
 def sass_counts(library: Path, kernel: str, opcodes) -> dict:
@@ -842,13 +879,16 @@ def flash_kernels():
     from kronfluence_tpu_torch.ops.kernels.flash import (
         flash_backward,
         flash_backward_dkv,
+        flash_backward_dkv_d128,
         flash_backward_dq,
+        flash_backward_dq_d128,
         flash_forward,
         flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
-            "FF": flash_forward_pipelined, "FB": flash_backward}
+            "FF": flash_forward_pipelined, "FB": flash_backward,
+            "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128}
 
 
 def phase_main_path(card: str) -> dict:
@@ -1125,8 +1165,10 @@ def phase_flash_kernels(card: str) -> dict:
         backward_route,
         flash_backward,
         flash_backward_dkv,
+        flash_backward_dkv_d128,
         flash_backward_dkv_reference,
         flash_backward_dq,
+        flash_backward_dq_d128,
         flash_backward_dq_reference,
         flash_backward_reference,
         flash_forward,
@@ -1135,9 +1177,10 @@ def phase_flash_kernels(card: str) -> dict:
         forward_route,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0}
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "F2H": 0.0, "F3H": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF",
-             "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB"}
+             "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
+             "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
         gen = torch.Generator("cuda").manual_seed(b * t + d)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1167,6 +1210,21 @@ def phase_flash_kernels(card: str) -> dict:
                                   flash_backward(q, k, v, seg, l, m, do, di, scale),
                                   flash_backward_reference(q, k, v, seg, l, m, do, di, scale)):
                 got[f"FB {name}"], want[f"FB {name}"] = x, y
+        split_h = backward_route(dtype, d) == "split_h"
+        if split_h:
+            # F2H and F3H against F2's and F3's plain versions (the same
+            # inputs); a second call must give the same bits.
+            hdk, hdv = flash_backward_dkv_d128(q, k, v, seg, l, m, do, di, scale)
+            hdq = flash_backward_dq_d128(q, k, v, seg, l, m, do, di, scale)
+            again = (*flash_backward_dkv_d128(q, k, v, seg, l, m, do, di, scale),
+                     flash_backward_dq_d128(q, k, v, seg, l, m, do, di, scale))
+            bitwise = [torch.equal(x, y) for x, y in zip((hdk, hdv, hdq), again)]
+            log(f"flash F2H, F3H at {(b, h, t, d)}: two calls bitwise equal (dK, dV, dQ) {bitwise}")
+            if not all(bitwise):
+                raise RuntimeError(f"F2H/F3H are not bitwise reproducible at {(b, h, t, d)}")
+            del again
+            for name, x, y in (("F2H dK", hdk, rdk), ("F2H dV", hdv, rdv), ("F3H dQ", hdq, rdq)):
+                got[name], want[name] = x, y
         torch.cuda.synchronize()
         bf16 = dtype == torch.bfloat16
         measure, tol = (bf16_units, FLASH_BF16_UNITS) if bf16 else (relative_to_max, FLASH_FP32_TOL)
@@ -1186,10 +1244,24 @@ def phase_flash_kernels(card: str) -> dict:
                                    f"{errs[name]:.3e} (limit {limit:g})")
         label = f"B {b} H {h} T {t} D {d} {str(dtype).split('.')[-1]}{' padded' if padded else ''}"
         how = "bf16 units of the row scale" if bf16 else "max |kernel - plain| / max |plain|"
-        log(f"flash {label}: O, dQ, dK, dV{' (F1-F3), FF O, FB dQ, dK, dV' if fused else ''} in "
-            f"{how}, l, m relative to max: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+        log(f"flash {label}: {', '.join(got)} in {how}, l, m relative to max: "
+            + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
             + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g}); forward route "
             f"{forward_route(dtype, d)}, backward route {backward_route(dtype, d)}")
+        if split_h and b == LLAMA_BATCH:
+            # The check must catch a skipped tile of F2H and F3H at Llama's
+            # shape: the plain version without one block of P.
+            fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
+            names = ("F2H dK", "F2H dV", "F3H dQ")
+            fault_units = {n: bf16_units(fault[n.split()[-1]], want[n]) for n in names}
+            log(f"flash {label}: planted fault (one 64 x 64 block of P left out, rows 384-447, "
+                f"keys 192-255) against F2H's and F3H's plain versions, bf16 units: " + ", ".join(
+                    f"{k_} {v_:.3g}" for k_, v_ in fault_units.items())
+                + f"; the kernels here {max(errs[n] for n in names):.3g}; limit {tol:g}")
+            if not min(fault_units.values()) > tol:
+                raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile of F2H "
+                                   f"or F3H: {fault_units}")
+            del fault
         if (b, h, t, d, dtype) != (16, 12, 512, 64, torch.bfloat16):
             continue
 
@@ -1356,40 +1428,58 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # F1, F2 and F3 report the shapes they serve, phase 15's (Llama) first;
-    # their bf16 D 64 times (the turns against FF and FB above) stay beside.
+    # F1, F2H and F3H report phase 15's shape (Llama), F2 and F3 fp32 at D 64
+    # (phase 11's route); the bf16 D 64 times of F1-F3 (the turns against FF
+    # and FB above) stay beside.
     routes = time_generic_routes(card)
-    for name in ("F1", "F2", "F3"):
-        at_d64 = timing[name]
-        timing[name] = dict(routes[name]["Llama bf16 D 128"],
-                            shape=f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads "
-                                  f"after the GQA repeat)",
-                            at_fp32_d64=routes[name]["fp32 D 64"],
-                            at_bf16_d128_h6=routes[name]["bf16 D 128"],
-                            at_bf16_d64={k: at_d64[k] for k in ("ms", "device_ms", "bound_ms")})
+    llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
+    at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
+              for name in ("F1", "F2", "F3")}
+    timing["F1"] = dict(routes["F1"]["Llama bf16 D 128"], shape=llama_shape,
+                        at_fp32_d64=routes["F1"]["fp32 D 64"],
+                        at_bf16_d128_h6=routes["F1"]["bf16 D 128"], at_bf16_d64=at_d64["F1"])
+    for name in ("F2", "F3"):
+        timing[name] = dict(routes[name]["fp32 D 64"],
+                            shape="B 16 H 12 T 512 D 64 fp32 padded (the split route, phase 11's)",
+                            at_llama_bf16_d128=routes[name]["Llama bf16 D 128"],
+                            at_bf16_d128_h6=routes[name]["bf16 D 128"], at_bf16_d64=at_d64[name])
+    for name in ("F2H", "F3H"):
+        timing[name] = dict(routes[name]["Llama bf16 D 128"], shape=llama_shape,
+                            at_bf16_d128_h6=routes[name]["bf16 D 128"])
+    timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
+    timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
+    timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
     out = {name: dict(timing[name], max_abs_err=abs_errs[name])
-           for name in ("F1", "F2", "F3", "FF", "FB")}
+           for name in ("F1", "F2", "F3", "FF", "FB", "F2H", "F3H")}
     out["extra"] = timing["extra"]
     out["extra"]["F2+F3 at their routes"] = routes["F2+F3"]
     return out
 
 
 def time_generic_routes(card: str) -> dict:
-    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, in turns against SDPA's forward
-    and its backward alone with the same boolean mask: CUDA events around one
-    call (median), torch.profiler device time, the plain version and the
-    bound. {kernel: {case: numbers}}, kernel in F1, F2, F3, F2+F3."""
+    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `backward_route` gives
+    "split_h" (bf16 D 128) F2H + F3H too, in turns against SDPA's forward and
+    its backward alone with the same boolean mask: CUDA events around one call
+    (median), torch.profiler device time, the plain version and the bound.
+    At the split_h cases F2H and F3H are first held against their plain
+    versions, and the Function's backward (di, then F2H and F3H) is split by
+    device time into di and the kernels. {kernel: {case: numbers}}, kernel in
+    F1, F2, F3, F2+F3, F2H, F3H, F2H+F3H."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
+        backward_route,
         flash_backward_dkv,
+        flash_backward_dkv_d128,
         flash_backward_dkv_reference,
         flash_backward_dq,
+        flash_backward_dq_d128,
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_reference,
     )
 
-    out = {"F1": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    dkv_h, dq_h = ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)
+    out = {"F1": {}, "F2": {}, "F3": {}, "F2+F3": {}, "F2H": {}, "F3H": {}, "F2H+F3H": {}}
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
         gen = torch.Generator("cuda").manual_seed(b * t + d + h + 1)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1398,6 +1488,17 @@ def time_generic_routes(card: str) -> dict:
         scale = d ** -0.5
         o, l, m = flash_forward(q, k, v, seg, scale)
         di = output_dot(o, do)
+        args = (q, k, v, seg, l, m, do, di, scale)
+        split_h = backward_route(dtype, d) == "split_h"
+        if split_h:
+            got = (*flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args))
+            want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
+            units = [bf16_units(x, y) for x, y in zip(got, want)]
+            log(f"flash F2H, F3H at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ in bf16 units "
+                f"{[round(u_, 3) for u_ in units]} (limit {FLASH_BF16_UNITS:g})")
+            if not max(units) <= FLASH_BF16_UNITS:
+                raise RuntimeError(f"F2H/F3H off their plain versions at {case}: {units}")
+            del got, want
         keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
             t, t, dtype=torch.bool, device="cuda").tril()
         mask4 = keep[:, None]
@@ -1407,30 +1508,37 @@ def time_generic_routes(card: str) -> dict:
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
             "SDPA fwd": (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
                                                                  scale=scale), None),
-            "F2": (lambda: flash_backward_dkv(q, k, v, seg, l, m, do, di, scale),
-                   ("flash_bwd_dkv_kernel",)),
-            "F3": (lambda: flash_backward_dq(q, k, v, seg, l, m, do, di, scale),
-                   ("flash_bwd_dq_kernel",)),
-            "F2+F3": (lambda: (flash_backward_dkv(q, k, v, seg, l, m, do, di, scale),
-                               flash_backward_dq(q, k, v, seg, l, m, do, di, scale)),
+            "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
+            "F3": (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",)),
+            "F2+F3": (lambda: (flash_backward_dkv(*args), flash_backward_dq(*args)),
                       ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
             "SDPA bwd alone": (lambda: torch.autograd.grad(sdpa_out, leaves, do,
                                                            retain_graph=True), None),
         }
+        if split_h:
+            fns.update({
+                "F2H": (lambda: flash_backward_dkv_d128(*args), dkv_h),
+                "F3H": (lambda: flash_backward_dq_d128(*args), dq_h),
+                "F2H+F3H": (lambda: (flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args)),
+                            dkv_h + dq_h),
+            })
         times = turns_ms(fns)
         plain = {
             "F1": median_ms(lambda: flash_forward_reference(q, k, v, seg, scale), 5, 1),
-            "F2": median_ms(lambda: flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale),
-                            5, 1),
-            "F3": median_ms(lambda: flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale),
-                            5, 1),
+            "F2": median_ms(lambda: flash_backward_dkv_reference(*args), 5, 1),
+            "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
+        # F2H's and F3H's plain versions are F2's and F3's.
+        plain.update({"F2H": plain["F2"], "F3H": plain["F3"], "F2H+F3H": plain["F2+F3"]})
         pairs, work = flash_work(seg, h, d, q.element_size())
-        work["F2+F3"] = work["FB"]  # dQ, dK and dV, each written once
+        work["F2+F3"] = work["F2H+F3H"] = work["FB"]  # dQ, dK and dV, each written once
+        work["F2H"], work["F3H"] = work["F2"], work["F3"]
         peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        library = {"F1": "SDPA fwd", "F2+F3": "SDPA bwd alone"}
+        library = {"F1": "SDPA fwd", "F2+F3": "SDPA bwd alone", "F2H+F3H": "SDPA bwd alone"}
         for name in out:
+            if name not in times:
+                continue
             bound, bound_by = roofline(*work[name], peak)
             lib = library.get(name)
             out[name][case] = dict(
@@ -1439,6 +1547,23 @@ def time_generic_routes(card: str) -> dict:
                 plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
                 library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
                 library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None)
+        extra = ""
+        if split_h:
+            # The Function's backward at this shape (FlashAttention.backward):
+            # di = rowsum(O * dO) in torch ops, then F2H and F3H.
+            def function_backward():
+                d_i = output_dot(o, do)
+                flash_backward_dkv_d128(q, k, v, seg, l, m, do, d_i, scale)
+                flash_backward_dq_d128(q, k, v, seg, l, m, do, d_i, scale)
+
+            whole, kernels = device_ms(function_backward), device_ms(function_backward, dkv_h + dq_h)
+            pair = out["F2H+F3H"][case]
+            pair.update(function_backward_device_ms=whole, kernels_device_ms=kernels,
+                        di_device_ms=whole - kernels,
+                        split_floor_ms=(work["F2"][0] + work["F3"][0]) / HBM_BYTES_PER_S * 1e3)
+            extra = (f"; the Function's backward {whole:.4f} ms by device time: di {whole - kernels:.4f}, "
+                     f"F2H + F3H {kernels:.4f}; the split pair's byte floor "
+                     f"{pair['split_floor_ms']:.4f} ms")
         del sdpa_out
         log(f"flash generic routes, {case}, at B {b} H {h} T {t} D {d}"
             f"{' padded' if padded else ''} ({pairs:,} "
@@ -1447,8 +1572,13 @@ def time_generic_routes(card: str) -> dict:
                 f"{name} " + " / ".join(f"({e:.4f}, {dv:.4f})" for e, dv in ts)
                 for name, ts in times.items()) + "; bounds " + ", ".join(
                 f"{name} {out[name][case]['bound_ms']:.4f} ({out[name][case]['bound_by']})"
-                for name in out) + "; plain " + ", ".join(
-                f"{name} {v:.3f}" for name, v in plain.items()) + f" [{card}]")
+                for name in out if case in out[name]) + "; plain " + ", ".join(
+                f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
+            + f" [{card}]")
+        if split_h and not out["F2H+F3H"][case]["device_ms"] < out["F2+F3"][case]["device_ms"]:
+            raise RuntimeError(f"F2H + F3H are not faster than F2 + F3 at {case}: "
+                               f"{out['F2H+F3H'][case]['device_ms']:.4f} against "
+                               f"{out['F2+F3'][case]['device_ms']:.4f} ms by device time")
     return out
 
 
@@ -1692,10 +1822,10 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     passes = cov_b + lam_b + query_b + run["blocks"] * train_b
     forwards_only = 3 + 2
     layers = config.num_layers
-    # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2 and
-    # F3 never.
+    # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
+    # F2H and F3H never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes}
+            "FB": layers * passes, "F2H": 0, "F3H": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -1704,7 +1834,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want FF {want['FF']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = 0; naive attention calls {naive_calls}; syrk on "
+        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = F2H = F3H = 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -2702,12 +2832,12 @@ def score_features_lowrank(card: str, ctx: dict, analyzer) -> dict:
         f"{pearson(flash_scores, dense):.6f}, against the naive rank-32 call "
         f"{pearson(flash_scores, results['rank 32'][0]):.6f}; launches " + ", ".join(
             f"{k} {v}" for k, v in launches.items()) + f" (want FB {passes}, FF a multiple of "
-        f"{config.num_layers} above it, F1-F3 0) [{card}]")
+        f"{config.num_layers} above it, F1-F3, F2H, F3H 0) [{card}]")
     if (launches["FB"] != passes or launches["FF"] <= launches["FB"]
             or launches["FF"] % config.num_layers):
         raise RuntimeError(f"the flash low-rank call launched {launches}")
-    if any(launches[k] for k in ("F1", "F2", "F3")):
-        raise RuntimeError(f"the flash low-rank call took the generic routes: {launches}")
+    if any(launches[k] for k in ("F1", "F2", "F3", "F2H", "F3H")):
+        raise RuntimeError(f"the flash low-rank call took the generic or D 128 routes: {launches}")
     if not pearson(flash_scores, dense) >= FLASH_PEARSON_MIN:
         raise RuntimeError("the flash low-rank scores do not follow the dense ones")
     del flash_analyzer, flash_model
@@ -2970,15 +3100,17 @@ class PassCounter:
 
 def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits: int = 0,
                          cov_batches: int = 0) -> None:
-    """F1 once per attention layer and model forward; F2 and F3 once per
-    attention backward (MLP-only tracking with frozen weights: an attention
-    layer has a backward only above a tracked projection, so the first layer
-    never has one); FF, FB, K2 and the naive form never; in a covariance
+    """F1 once per attention layer and model forward; F2H and F3H (bf16 at D
+    128: the "split_h" route) once per attention backward (MLP-only tracking
+    with frozen weights: an attention layer has a backward only above a
+    tracked projection, so the first layer never has one); F2, F3, FF, FB, K2
+    and the naive form never; in a covariance
     stage K1 on every gram (two per projection, 6 a layer and batch), all
     wgmma, and K3 once per covariance fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
-    want = {"F1": fwd, "F2": bwd, "F3": bwd, "FF": 0, "FB": 0, "jacobi": 0, "naive": 0}
+    want = {"F1": fwd, "F2H": bwd, "F3H": bwd, "F2": 0, "F3": 0, "FF": 0, "FB": 0, "jacobi": 0,
+            "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -3267,7 +3399,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
         out["seconds"]["covariance"] = sec
         out["launches"]["covariance"] = dict(counter.counts)
         log(f"Llama covariance: {sec:.3f} s, batch {cov_batch} ({cov_batches} batches a "
-            f"partition; phases 4 and 9 held K1 and F1-F3 at batch {LLAMA_BATCH}), launches "
+            f"partition; phases 4 and 9 held K1, F1, F2H and F3H at batch {LLAMA_BATCH}), launches "
             f"{counter.counts} [{card}]")
         if not cov_batch < LLAMA_TRAIN_N:
             raise RuntimeError(f"Llama covariance: the data ({LLAMA_TRAIN_N}) set the batch")
@@ -3777,6 +3909,19 @@ FF_VARIANTS = {
 }
 
 
+# Copies of csrc/flash_backward_d128.cu for `--profile-flash`: name -> text
+# replacements (F2H's other register layout, its buffering and its query
+# step; F3H is left as built).
+D128_VARIANTS = {
+    "F2H with paired warps (8 warps, 64-query steps, P^T and dS^T through shared memory)": (
+        ("constexpr bool kPairedWarps = false;", "constexpr bool kPairedWarps = true;"),),
+    "F2H with a 3-stage query ring": (("constexpr int kDkvStages = 2;",
+                                       "constexpr int kDkvStages = 3;"),),
+    "F2H with 64-query steps": (("constexpr int kDkvQueries = kPairedWarps ? 64 : 32;",
+                                 "constexpr int kDkvQueries = 64;"),),
+}
+
+
 def turns_ms(fns: dict) -> dict:
     """{name: [(event ms, device ms) there, (...) back]} for {name: (fn,
     kernel names)}, timed in turns, there and back."""
@@ -3880,6 +4025,78 @@ def profile_flash(card: str) -> None:
            "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",))}
     times = turns_ms(fns)
     log(f"FF at B {b} H {h} T {t} D {d} bf16 padded, in turns (there and back); ms per call: "
+        f"one call between CUDA events (median), and the device time of the kernels named "
+        f"(torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+    profile_d128(card)
+
+
+def profile_d128(card: str) -> None:
+    """F2H and F3H as built against copies of csrc/flash_backward_d128.cu
+    (D128_VARIANTS), each held to the bf16 limit first, with each kernel's
+    SASS counts, registers, spills and CTAs an SM; then F2H as built and its
+    copies, F3H, and F2 and F3 in turns at Llama's shape."""
+    from kronfluence_tpu_torch.ops.attention import output_dot
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv,
+        flash_backward_dkv_reference,
+        flash_backward_dq,
+        flash_backward_dq_reference,
+        flash_forward,
+    )
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {"kf_flash_bwd_dkv_d128": [*[p] * 10, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_dq_d128": [*[p] * 9, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_d128_occupancy": [i32, p, p, p]}
+    libs = {"as built": (load_library(), library_path())}
+    for i, (name, repl) in enumerate(D128_VARIANTS.items()):
+        lib = build_variant("flash_backward_d128.cu", i, repl, argtypes)
+        libs[name] = (lib, Path(lib._name))
+    for name, (lib, path) in libs.items():
+        for which, kernel in enumerate(D128_KERNELS):
+            log(f"F2H/F3H '{name}', {kernel}: SASS {sass_counts(path, kernel, D128_OPCODES)}; "
+                f"{d128_occupancy(lib, which)}")
+    b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["Llama bf16 D 128"]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    seg = padded_segments(b, t, padded, "cuda")
+    scale = d ** -0.5
+    o, l, m = flash_forward(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    args = (q, k, v, seg, l, m, do, di, scale)
+    ptrs = [x.data_ptr() for x in (q, k, v, seg, l, m, do, di)]
+
+    def dkv(lib):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check_launch(lib.kf_flash_bwd_dkv_d128(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, t, d,
+                                               float(scale), torch.cuda.current_stream().cuda_stream),
+                     "F2H variant")
+        return dk, dv
+
+    def dq(lib):
+        out = torch.empty_like(q)
+        check_launch(lib.kf_flash_bwd_dq_d128(*ptrs, out.data_ptr(), b, h, t, d, float(scale),
+                                              torch.cuda.current_stream().cuda_stream), "F3H variant")
+        return out
+
+    want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
+    for name, (lib, _) in libs.items():
+        units = [bf16_units(x, y) for x, y in zip((*dkv(lib), dq(lib)), want)]
+        log(f"F2H/F3H '{name}': dK, dV, dQ in bf16 units {[round(u, 3) for u in units]}")
+        if not max(units) <= FLASH_BF16_UNITS:
+            raise RuntimeError(f"the F2H/F3H copy '{name}' disagrees with the plain version")
+    del want
+    dkv_k, dq_k = (D128_KERNELS[0],), (D128_KERNELS[1],)
+    fns = {f"F2H {name}": (lambda lib=lib: dkv(lib), dkv_k) for name, (lib, _) in libs.items()}
+    fns["F3H as built"] = (lambda: dq(libs["as built"][0]), dq_k)
+    fns["F2"] = (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",))
+    fns["F3"] = (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",))
+    times = turns_ms(fns)
+    log(f"F2H and F3H at B {b} H {h} T {t} D {d} bf16, in turns (there and back); ms per call: "
         f"one call between CUDA events (median), and the device time of the kernels named "
         f"(torch.profiler): " + "; ".join(
             f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
@@ -3995,7 +4212,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     split = {"F1", "F2", "F3"} if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want F1, F2, F3 with flash, "
-                           f"FF and FB never: fp32 takes F1 and the split route), CPU {cpu_flash}")
+                           f"FF, FB, F2H and F3H never: fp32 takes F1 and the split route), "
+                           f"CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
         raise RuntimeError(f"card disagrees with the CPU reference: {bad}")
@@ -4046,8 +4264,11 @@ def main() -> None:
     split_path = phase_reference(attention="flash", seq=128, padded=True)
     llama = phase_llama(card)
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
-                      for key in ("F1", "F2", "F3", "syrk", "probe")}
-    launches.update(F1=llama_launches["F1"], F2=llama_launches["F2"], F3=llama_launches["F3"])
+                      for key in ("F1", "F2H", "F3H", "syrk", "probe")}
+    # F1, F2H and F3H from phase 15 (Llama, bf16 D 128), F2 and F3 from phase
+    # 11 (fp32, the split route).
+    launches.update(F1=llama_launches["F1"], F2H=llama_launches["F2H"], F3H=llama_launches["F3H"],
+                    F2=split_path["F2"], F3=split_path["F3"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
@@ -4056,13 +4277,17 @@ def main() -> None:
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
                "phase 15 (Llama, bf16 D 128: generic forward), all stages"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "phase 15 (Llama, bf16 D 128: split route), all stages"),
+               "phase 11 (reference, fp32: split route)"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "phase 15 (Llama, bf16 D 128: split route), all stages"),
+               "phase 11 (reference, fp32: split route)"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
                "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
+        "F2H": ("flash_backward_dkv_d128", ["flash_attention.py:941"], "flash_backward_d128.cu",
+                "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
+        "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
+                "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
     }
     kernels = [
         {
@@ -4125,7 +4350,7 @@ def main() -> None:
                if fid in features_launches else {}),
             **({"fp32_reference_launches": split_path[fid]} if fid in ("F1", "F2", "F3") else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
-               if fid in ("F1", "F2", "F3") else {}),
+               if fid in ("F1", "F2H", "F3H") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

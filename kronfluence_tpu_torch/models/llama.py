@@ -17,7 +17,7 @@ Numerics that follow the flax model:
     (`repeat_interleave`, `jnp.repeat`), not a tiling of the heads;
   * attention goes through `ops/attention.py:scaled_dot_attention`, naive or
     flash as `LlamaConfig.attention` says (bf16 at head_dim 128 takes F1 and
-    F2 + F3).
+    F2H + F3H).
 
 `LlamaConfig.dtype` is both the parameter and the compute dtype.
 """

@@ -8,13 +8,15 @@ no switch, probe or fallback:
   * "naive" materialises the (B, H, T, T) scores and probabilities (the
     models' form, `_naive_attention`);
   * "flash" runs the `FlashAttention` autograd Function. For bf16 at
-    head_dim 64 the forward is FF and the backward FB, one launch each;
-    otherwise the forward is F1 and the backward F2 + F3
-    (`flash.forward_route`, `flash.backward_route`; `ops/kernels/flash.py`,
-    `csrc/flash_forward.cu`, `csrc/flash_backward.cu`,
-    `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
-    CPU tensors. A shape the kernels do not take raises; it never falls back
-    to another kernel or to the naive form.
+    head_dim 64 the forward is FF and the backward FB, one launch each; for
+    bf16 at head_dim 128 (Llama) the forward is F1 and the backward F2H +
+    F3H, two deterministic kernels; otherwise the forward is F1 and the
+    backward F2 + F3 (`flash.forward_route`, `flash.backward_route`;
+    `ops/kernels/flash.py`, `csrc/flash_forward.cu`, `csrc/flash_backward.cu`,
+    `csrc/flash_backward_d128.cu`, `csrc/flash_attention.cu`) for CUDA
+    tensors, their plain versions for CPU tensors. A shape the kernels do
+    not take raises; it never falls back to another kernel or to the naive
+    form.
 
 Mask semantics of the flash form are those of JAX's flash kernel: the
 attention mask becomes segment ids (q = kv = mask) under the causal bound,
@@ -34,7 +36,9 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     backward_route,
     flash_backward,
     flash_backward_dkv,
+    flash_backward_dkv_d128,
     flash_backward_dq,
+    flash_backward_dq_d128,
     flash_backward_reference,
     flash_forward,
     flash_forward_pipelined,
@@ -102,7 +106,7 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """Causal, segment-masked attention: FF or F1 forward as `forward_route`
-    says; backward di, then FB or F2 + F3 as `backward_route` says."""
+    says; backward di, then FB, F2H + F3H or F2 + F3 as `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
@@ -120,8 +124,12 @@ class FlashAttention(torch.autograd.Function):
         q, k, v, segment_ids, o, l, m = ctx.saved_tensors
         do = do.contiguous()
         di = output_dot(o, do)
-        if backward_route(q.dtype, q.shape[-1]) == "fused":
+        route = backward_route(q.dtype, q.shape[-1])
+        if route == "fused":
             dq, dk, dv = flash_backward(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+        elif route == "split_h":
+            dk, dv = flash_backward_dkv_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+            dq = flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
         else:
             dk, dv = flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
             dq = flash_backward_dq(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)

@@ -1,4 +1,5 @@
-"""F1-F3, FF and FB: causal, segment-masked flash attention, hand-written for Hopper.
+"""F1-F3, FF, FB, F2H and F3H: causal, segment-masked flash attention,
+hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
@@ -7,8 +8,11 @@ The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
 {64, 128, 256}, T a multiple of 64). For bf16 at D 64 two kernels of their
 own take over: FF, in `csrc/flash_forward.cu`, F1's work with a cp.async K/V
 ring (T a multiple of 64), and FB, in `csrc/flash_backward.cu`, F2's and
-F3's work in one launch. `forward_route` picks FF ("pipelined") or F1
-("generic"), `backward_route` FB ("fused") or F2 + F3 ("split").
+F3's work in one launch. For bf16 at D 128 (Llama's heads) F2H and F3H, in
+`csrc/flash_backward_d128.cu`, take F2's and F3's work: two deterministic
+kernels with ldmatrix fragments and cp.async rings. `forward_route` picks FF
+("pipelined") or F1 ("generic"); `backward_route` FB ("fused"), F2H + F3H
+("split_h") or F2 + F3 ("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel or
@@ -35,6 +39,8 @@ HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # The one operand type and head dim FF and FB take.
 FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
+# The one head dim F2H and F3H take, in FUSED_DTYPE.
+SPLIT_H_HEAD_DIM = 128
 
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -43,8 +49,13 @@ def forward_route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """"fused" (FB, one launch) for bf16 at D 64, else "split" (F2 + F3)."""
-    return "fused" if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM else "split"
+    """"fused" (FB, one launch) for bf16 at D 64, "split_h" (F2H + F3H) for
+    bf16 at D 128, else "split" (F2 + F3)."""
+    if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
+        return "fused"
+    if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
+        return "split_h"
+    return "split"
 
 
 def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -250,8 +261,59 @@ def flash_backward(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     return dq.to(q.dtype), dk, dv
 
 
+def _check_split_h(q, segment_ids, l, m, di, name: str) -> None:
+    if backward_route(q.dtype, q.shape[-1]) != "split_h":
+        raise ValueError(f"{name} takes {FUSED_DTYPE} at D {SPLIT_H_HEAD_DIM}; got {q.dtype}, "
+                         f"D {q.shape[-1]}: use the route `backward_route` gives.")
+    # F2H and F3H copy the segment ids (F2H also l, m and di) with 16-byte cp.async.
+    if any(x.data_ptr() % 16 for x in (segment_ids, l, m, di)):
+        raise ValueError(f"{name} takes 16-byte aligned segment ids, l, m and di.")
+
+
+def flash_backward_dkv_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F2H: returns (dK, dV) like F2; CUDA operands must be bf16 at D 128
+    (`backward_route` "split_h"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dkv_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
+    _check_split_h(q, segment_ids, l, m, di, "F2H")
+    with torch.cuda.device(q.device):
+        lib = load_library()
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        err = lib.kf_flash_bwd_dkv_d128(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
+            m.data_ptr(), do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, h, t, d, float(sm_scale), _stream(q.device),
+        )
+        check_launch(err, "flash backward dK/dV at D 128 (F2H)")
+    flash_backward_dkv_d128.launches += 1
+    return dk, dv
+
+
+def flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F3H: returns dQ like F3; CUDA operands must be bf16 at D 128
+    (`backward_route` "split_h"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dq_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
+    _check_split_h(q, segment_ids, l, m, di, "F3H")
+    with torch.cuda.device(q.device):
+        lib = load_library()
+        dq = torch.empty_like(q)
+        err = lib.kf_flash_bwd_dq_d128(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
+            m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            b, h, t, d, float(sm_scale), _stream(q.device),
+        )
+        check_launch(err, "flash backward dQ at D 128 (F3H)")
+    flash_backward_dq_d128.launches += 1
+    return dq
+
+
 flash_forward.launches = 0
 flash_forward_pipelined.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
 flash_backward.launches = 0
+flash_backward_dkv_d128.launches = 0
+flash_backward_dq_d128.launches = 0

@@ -39,8 +39,10 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     backward_route,
     flash_backward,
     flash_backward_dkv,
+    flash_backward_dkv_d128,
     flash_backward_dkv_reference,
     flash_backward_dq,
+    flash_backward_dq_d128,
     flash_backward_dq_reference,
     flash_backward_reference,
     flash_forward,
@@ -283,31 +285,45 @@ def test_fused_wrapper_matches_jax_vjp(t, d, dtype):
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
-def test_backward_route_is_fused_only_for_bf16_at_d64(dtype, d):
-    want = "fused" if (dtype, d) == (torch.bfloat16, 64) else "split"
+def test_backward_route_is_fused_at_bf16_d64_and_split_h_at_bf16_d128(dtype, d):
+    want = {(torch.bfloat16, 64): "fused", (torch.bfloat16, 128): "split_h"}.get((dtype, d), "split")
     assert backward_route(dtype, d) == want
 
 
+# The wrappers `FlashAttention.backward` calls on each route.
+BACKWARD_WRAPPERS = {"fused": ["flash_backward"],
+                     "split_h": ["flash_backward_dkv_d128", "flash_backward_dq_d128"],
+                     "split": ["flash_backward_dkv", "flash_backward_dq"]}
+
+
 @pytest.mark.parametrize("d,dtype", [(64, torch.bfloat16), (128, torch.bfloat16),
-                                     (64, torch.float32)])
-def test_function_backward_follows_the_route(d, dtype):
-    """The Function's backward on CPU tensors: FB's plain version on the fused
-    route, F2's and F3's on the split one; the same gradients either way."""
+                                     (64, torch.float32), (256, torch.bfloat16)])
+def test_function_backward_follows_the_route(monkeypatch, d, dtype):
+    """The Function's backward on CPU tensors calls FB's wrapper on the fused
+    route, F2H's and F3H's on the split_h route and F2's and F3's on the split
+    one, each taking its plain version: the same gradients either way."""
     q, k, v, do, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 128, d, np.float32, seed=8))
     q, k, v, do = (x.to(dtype) for x in (q, k, v, do))
     seg = segment_ids_for(mask, q)
     scale = d ** -0.5
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    counts = (flash_backward.launches, flash_backward_dkv.launches, flash_backward_dq.launches)
+    wrappers = (flash_backward, flash_backward_dkv, flash_backward_dq, flash_backward_dkv_d128,
+                flash_backward_dq_d128)
+    counts = [fn.launches for fn in wrappers]
+    called = []
+    for name in sum(BACKWARD_WRAPPERS.values(), []):
+        wrapper = getattr(attention, name)
+        monkeypatch.setattr(attention, name,
+                            lambda *args, _n=name, _w=wrapper: called.append(_n) or _w(*args))
     out = FlashAttention.apply(*leaves, seg, scale)
     grads = torch.autograd.grad(out, leaves, do)
+    assert called == BACKWARD_WRAPPERS[backward_route(dtype, d)]
     o, l, m = flash_forward_reference(q, k, v, seg, scale)
     di = output_dot(o, do)
     want_dk, want_dv = flash_backward_dkv_reference(q, k, v, seg, l, m, do, di, scale)
     want_dq = flash_backward_dq_reference(q, k, v, seg, l, m, do, di, scale)
     assert all(torch.equal(a, b) for a, b in zip(grads, (want_dq, want_dk, want_dv)))
-    assert counts == (flash_backward.launches, flash_backward_dkv.launches,
-                      flash_backward_dq.launches)
+    assert counts == [fn.launches for fn in wrappers]
 
 
 def test_cpu_fused_wrapper_takes_plain_version_without_counting():
