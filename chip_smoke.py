@@ -11,8 +11,9 @@ each of which raises on failure:
      with nvcc (sm_90a; one object per source, each source whose object is
      missing compiled in its own process, all started together; one link)
      and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
-     HGMMA and UTMALDG, and F2H's and F3H's HMMA and LDSM (cuobjdump; their
-     registers, spills and CTAs an SM printed beside);
+     HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
+     (cuobjdump; their registers, spills and CTAs an SM printed beside);
+     FFH must show no local loads or stores (no spills);
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
@@ -73,20 +74,29 @@ each of which raises on failure:
      calls bitwise equal, the dropped-block fault planted at Llama's shape;
      F2H + F3H timed in turns against F2 + F3 and SDPA's backward at both
      bf16 D 128 route cases (it must beat F2 + F3 by device time), and the
-     Function's backward split by device time into di and the kernels;
+     Function's backward split by device time into di and the kernels. FFH
+     (the bf16 D 128 forward, `forward_route` "pipelined_h") against F1's
+     plain version at every position of O, l and m at the bf16 D 128 cases
+     ((8, 12, 512, 128) padded, Llama's padded and not, (16, 6, 512, 128)),
+     two calls bitwise equal, both planted faults (the dropped block; the
+     mask left off a tile) at Llama's shape; FFH timed in turns against F1
+     and SDPA's forward at both bf16 D 128 route cases (it must beat F1 by
+     device time), and the Function's forward split by device time into the
+     operands' .contiguous() copies and FFH;
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3, F2H, F3H and the
-     naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     FB 12 times per forward+backward pass, F1, F2, F3, FFH, F2H, F3H and
+     the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
      T 128, padded data), in fp32: F1, F2 and F3 (the generic forward and
-     the split backward) on the card, FF, FB, F2H and F3H never, their plain
-     versions on the CPU; the kernels line reads F2's and F3's launches here.
+     the split backward) on the card, FF, FB, FFH, F2H and F3H never, their
+     plain versions on the CPU; the kernels line reads F1's, F2's and F3's
+     launches here.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -147,9 +157,9 @@ each of which raises on failure:
      sampled Fisher, every batch size left to the memory model, "auto"
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
-     F1 once per attention forward and F2H, F3H once per attention backward
-     (counted by hooks on the attention layers), F2, F3, FF, FB, K2 and the
-     naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     FFH once per attention forward and F2H, F3H once per attention backward
+     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, K2 and
+     the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -191,7 +201,13 @@ against F2+F3 and against the wrapper's zeroing and cast of the fp32 dQ sum
 alone, at the flash path's shape; then FF as built (64-query tile, 4 warps)
 in turns against copies of csrc/flash_forward.cu with a 128-query tile (8
 warps) and with registers capped for 4 CTAs an SM (each held to the bf16
-limit first), and against F1; then F2H and F3H at Llama's heads (B 30, H
+limit first), and against F1; then FFH at Llama's heads (B 30, H 32, T 512,
+D 128) and at (16, 6, 512, 128) as built (128-query tile, 8 warps, Q's
+fragments in registers) against copies of csrc/flash_forward.cu with a
+64-query tile of 4 warps, and with that tile reloading Q's fragments from
+shared memory every key tile, each held to the bf16 limit first, with each
+kernel's SASS counts, registers, spills and CTAs an SM, and against F1;
+then F2H and F3H at Llama's heads (B 30, H
 32, T 512, D 128) as built (4 warps of 16 keys over all of D, 32-query
 steps, a 2-stage ring) against copies of csrc/flash_backward_d128.cu with the
 other register layout (8 warps, two a 16-key group, P^T and dS^T through
@@ -451,21 +467,48 @@ def median_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, names=None, calls: int = 20) -> float:
+# Spin kernels that open each device_ms window (about 1 us each).
+PRIMER_KERNELS = 64
+
+
+def device_ms(fn, names=None, calls: int = 20, tries: int = 5) -> float:
     """Device time per call of the kernels whose names hold one of `names`,
-    or of every kernel the call launches (torch.profiler's CUDA activity)."""
+    or of every kernel the call launches (torch.profiler's CUDA activity).
+    The profiler loses a window's first kernels once `--profile-*` has
+    loaded kernel libraries of its own (on an H100: 19 of 20 recorded after
+    two, 3 of 20 behind 16 spin kernels after seven), now and then all of a
+    window's (0 of 20), or hands some to the next window (24 of 20). So a
+    window opens with PRIMER_KERNELS spin kernels, not counted, and each
+    kernel name counts as its mean time times the launches a call makes:
+    its count over `calls`, rounded. A name whose count is more than a
+    quarter of `calls` off that multiple, or a window with no kernel of the
+    call, is profiled again, at most `tries` times in all; a name with too
+    few events for one a call came late from an earlier window."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+    for _ in range(tries):
+        fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and (names is None or any(n in e.key for n in names)))
-    return us / calls / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIMER_KERNELS):
+                torch.cuda._sleep(1000)
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key
+                  and (names is None or any(n in e.key for n in names))]
+        us, whole = 0.0, True
+        for e in events:
+            per_call = round(e.count / calls)
+            if per_call:
+                whole = whole and abs(e.count - per_call * calls) <= calls / 4
+                us += per_call * e.self_device_time_total / e.count
+        if whole and us > 0:
+            return us / 1e3
+        log(f"torch.profiler recorded {[(e.key[:40], e.count) for e in events]} for {calls} "
+            f"calls{f' of kernels named {names}' if names else ''}: profiling again")
+    raise RuntimeError(f"torch.profiler kept losing device events of {names or 'the call'}")
 
 
 def phase_device() -> str:
@@ -510,26 +553,38 @@ def phase_build() -> None:
     lib = build.load_library()
     for which, kernel in enumerate(D128_KERNELS):
         counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
-        log(f"SASS of {kernel}: {counts}; {d128_occupancy(lib, which)}")
+        log(f"SASS of {kernel}: {counts}; {occupancy(lib, D128_OCCUPANCY, which)}")
         if not (counts["HMMA"] and counts["LDSM"]):
             raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
+    for which, kernel in enumerate(FWD_KERNELS):
+        counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
+        occ = occupancy(lib, FWD_OCCUPANCY, which)
+        log(f"SASS of {kernel}: {counts}; {occ}")
+        if not (counts["HMMA"] and counts["LDSM"]):
+            raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
+        if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
+            raise RuntimeError(f"FFH spills: {counts}, {occ}")
 
 
-# F2H and F3H (csrc/flash_backward_d128.cu), in the order of
-# kf_flash_bwd_d128_occupancy's `which`, and the SASS opcodes counted for them
-# (LDL and STL are local loads and stores: spills).
+# F2H and F3H (csrc/flash_backward_d128.cu), and FF and FFH
+# (csrc/flash_forward.cu), in the order of their occupancy entry's `which`,
+# and the SASS opcodes counted for them (LDL and STL are local loads and
+# stores: spills).
 D128_KERNELS = ("flash_bwd_dkv_d128_kernel", "flash_bwd_dq_d128_kernel")
+D128_OCCUPANCY = "kf_flash_bwd_d128_occupancy"
+FWD_KERNELS = ("flash_fwd_pipelined_kernel", "flash_fwd_d128_kernel")
+FWD_OCCUPANCY = "kf_flash_fwd_occupancy"
 D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
 
 
-def d128_occupancy(lib, which: int) -> dict:
-    """Registers a thread, local (spill) bytes a thread and CTAs an SM of F2H
-    (which 0) or F3H (1) in `lib`, as the CUDA runtime reports them."""
+def occupancy(lib, entry: str, which: int) -> dict:
+    """Registers a thread, local (spill) bytes a thread and CTAs an SM of the
+    kernel `which` of the occupancy entry point `entry` in `lib`, as the CUDA
+    runtime reports them."""
     regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = lib.kf_flash_bwd_d128_occupancy(which, ctypes.byref(regs), ctypes.byref(local),
-                                          ctypes.byref(ctas))
+    err = getattr(lib, entry)(which, ctypes.byref(regs), ctypes.byref(local), ctypes.byref(ctas))
     if err:
-        raise RuntimeError(f"kf_flash_bwd_d128_occupancy failed with CUDA error {err}")
+        raise RuntimeError(f"{entry} failed with CUDA error {err}")
     return {"registers": regs.value, "local_bytes": local.value, "ctas_per_sm": ctas.value}
 
 
@@ -883,11 +938,12 @@ def flash_kernels():
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_forward,
+        flash_forward_d128,
         flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
-            "FF": flash_forward_pipelined, "FB": flash_backward,
+            "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128}
 
 
@@ -1159,6 +1215,19 @@ def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
     return (torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
+def ffh_checked(q, k, v, seg, scale, shape) -> tuple:
+    """FFH's (O, l, m), after a second call has given the same bits."""
+    from kronfluence_tpu_torch.ops.kernels.flash import flash_forward_d128
+
+    out = flash_forward_d128(q, k, v, seg, scale)
+    again = flash_forward_d128(q, k, v, seg, scale)
+    bitwise = [torch.equal(x, y) for x, y in zip(out, again)]
+    log(f"flash FFH at {shape}: two calls bitwise equal (O, l, m) {bitwise}")
+    if not all(bitwise):
+        raise RuntimeError(f"FFH is not bitwise reproducible at {shape}")
+    return out
+
+
 def phase_flash_kernels(card: str) -> dict:
     from kronfluence_tpu_torch.ops.attention import FlashAttention, naive_attention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -1172,13 +1241,15 @@ def phase_flash_kernels(card: str) -> dict:
         flash_backward_dq_reference,
         flash_backward_reference,
         flash_forward,
+        flash_forward_d128,
         flash_forward_pipelined,
         flash_forward_reference,
         forward_route,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "F2H": 0.0, "F3H": 0.0}
-    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF",
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "F2H": 0.0,
+                "F3H": 0.0}
+    owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
              "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
@@ -1203,6 +1274,12 @@ def phase_flash_kernels(card: str) -> dict:
             fo, fl, fm = flash_forward_pipelined(q, k, v, seg, scale)
             got["FF O"], want["FF O"] = fo, ro
             stats += [("FF l", fl, rl), ("FF m", fm, rm)]
+        pipelined_h = forward_route(dtype, d) == "pipelined_h"
+        if pipelined_h:
+            # FFH against the plain forward; a second call must give the same bits.
+            fo, fl, fm = ffh_checked(q, k, v, seg, scale, (b, h, t, d))
+            got["FFH O"], want["FFH O"] = fo, ro
+            stats += [("FFH l", fl, rl), ("FFH m", fm, rm)]
         fused = backward_route(dtype, d) == "fused"
         if fused:
             # FB against its own plain version (computed on the same inputs).
@@ -1249,9 +1326,22 @@ def phase_flash_kernels(card: str) -> dict:
             + f" (limits {tol:g}; l, m {FLASH_STATS_TOL:g}); forward route "
             f"{forward_route(dtype, d)}, backward route {backward_route(dtype, d)}")
         if split_h and b == LLAMA_BATCH:
-            # The check must catch a skipped tile of F2H and F3H at Llama's
-            # shape: the plain version without one block of P.
+            # The check must catch a skipped tile of FFH, F2H and F3H at
+            # Llama's shape: the plain version without one block of P; and a
+            # wrong masking decision of FFH: one tile taken for one segment.
             fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
+            mask_fault = unmasked_tile(q, k, v, seg, scale, FLASH_MASK_FAULT_BLOCK)
+            ffh_faults = {"dropped block": bf16_units(fault["O"], want["FFH O"]),
+                          "unmasked tile": bf16_units(mask_fault, want["FFH O"])}
+            log(f"flash {label}: planted faults against FFH's plain version (one 64 x 64 block "
+                f"of P left out, rows 384-447, keys 192-255; the segment mask left off rows "
+                f"448-511, keys 384-447), bf16 units of O: " + ", ".join(
+                    f"{k_} {v_:.3g}" for k_, v_ in ffh_faults.items())
+                + f"; FFH here {errs['FFH O']:.3g}; limit {tol:g}")
+            if not min(ffh_faults.values()) > tol:
+                raise RuntimeError(f"the bf16 limit {tol:g} does not catch FFH's planted faults: "
+                                   f"{ffh_faults}")
+            del mask_fault
             names = ("F2H dK", "F2H dV", "F3H dQ")
             fault_units = {n: bf16_units(fault[n.split()[-1]], want[n]) for n in names}
             log(f"flash {label}: planted fault (one 64 x 64 block of P left out, rows 384-447, "
@@ -1428,44 +1518,44 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # F1, F2H and F3H report phase 15's shape (Llama), F2 and F3 fp32 at D 64
-    # (phase 11's route); the bf16 D 64 times of F1-F3 (the turns against FF
+    # FFH, F2H and F3H report phase 15's shape (Llama), F1-F3 fp32 at D 64
+    # (phase 11's routes); the bf16 D 64 times of F1-F3 (the turns against FF
     # and FB above) stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
-    timing["F1"] = dict(routes["F1"]["Llama bf16 D 128"], shape=llama_shape,
-                        at_fp32_d64=routes["F1"]["fp32 D 64"],
-                        at_bf16_d128_h6=routes["F1"]["bf16 D 128"], at_bf16_d64=at_d64["F1"])
-    for name in ("F2", "F3"):
+    for name in ("F1", "F2", "F3"):
         timing[name] = dict(routes[name]["fp32 D 64"],
-                            shape="B 16 H 12 T 512 D 64 fp32 padded (the split route, phase 11's)",
+                            shape="B 16 H 12 T 512 D 64 fp32 padded (phase 11's routes)",
                             at_llama_bf16_d128=routes[name]["Llama bf16 D 128"],
                             at_bf16_d128_h6=routes[name]["bf16 D 128"], at_bf16_d64=at_d64[name])
-    for name in ("F2H", "F3H"):
+    for name in ("FFH", "F2H", "F3H"):
         timing[name] = dict(routes[name]["Llama bf16 D 128"], shape=llama_shape,
                             at_bf16_d128_h6=routes[name]["bf16 D 128"])
     timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
     timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
     timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
     out = {name: dict(timing[name], max_abs_err=abs_errs[name])
-           for name in ("F1", "F2", "F3", "FF", "FB", "F2H", "F3H")}
+           for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H")}
     out["extra"] = timing["extra"]
     out["extra"]["F2+F3 at their routes"] = routes["F2+F3"]
     return out
 
 
 def time_generic_routes(card: str) -> dict:
-    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `backward_route` gives
-    "split_h" (bf16 D 128) F2H + F3H too, in turns against SDPA's forward and
-    its backward alone with the same boolean mask: CUDA events around one call
-    (median), torch.profiler device time, the plain version and the bound.
-    At the split_h cases F2H and F3H are first held against their plain
-    versions, and the Function's backward (di, then F2H and F3H) is split by
-    device time into di and the kernels. {kernel: {case: numbers}}, kernel in
-    F1, F2, F3, F2+F3, F2H, F3H, F2H+F3H."""
-    from kronfluence_tpu_torch.ops.attention import output_dot
+    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and at the bf16 D 128 cases,
+    where `forward_route` gives "pipelined_h" and `backward_route` "split_h",
+    FFH and F2H + F3H too, in turns against SDPA's forward and its backward
+    alone with the same boolean mask: CUDA events around one call (median),
+    torch.profiler device time, the plain version and the bound. There FFH,
+    F2H and F3H are first held against their plain versions (FFH twice,
+    bitwise), FFH must beat F1 and F2H + F3H must beat F2 + F3 by device time,
+    the Function's forward (the operands' .contiguous() copies, then FFH) is
+    split by device time into the copies and FFH, and its backward (di, then
+    F2H and F3H) into di and the kernels. {kernel: {case: numbers}}, kernel
+    in F1, FFH, F2, F3, F2+F3, F2H, F3H, F2H+F3H."""
+    from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
         flash_backward_dkv,
@@ -1475,11 +1565,15 @@ def time_generic_routes(card: str) -> dict:
         flash_backward_dq_d128,
         flash_backward_dq_reference,
         flash_forward,
+        flash_forward_d128,
         flash_forward_reference,
+        forward_route,
     )
 
     dkv_h, dq_h = ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)
-    out = {"F1": {}, "F2": {}, "F3": {}, "F2+F3": {}, "F2H": {}, "F3H": {}, "F2H+F3H": {}}
+    ffh_k = (FWD_KERNELS[1],)
+    out = {"F1": {}, "FFH": {}, "F2": {}, "F3": {}, "F2+F3": {}, "F2H": {}, "F3H": {},
+           "F2H+F3H": {}}
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
         gen = torch.Generator("cuda").manual_seed(b * t + d + h + 1)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1490,6 +1584,18 @@ def time_generic_routes(card: str) -> dict:
         di = output_dot(o, do)
         args = (q, k, v, seg, l, m, do, di, scale)
         split_h = backward_route(dtype, d) == "split_h"
+        pipelined_h = forward_route(dtype, d) == "pipelined_h"
+        if pipelined_h:
+            got = ffh_checked(q, k, v, seg, scale, case)
+            want = flash_forward_reference(q, k, v, seg, scale)
+            errs = [bf16_units(got[0], want[0])] + [relative_to_max(x, y)
+                                                    for x, y in zip(got[1:], want[1:])]
+            log(f"flash FFH at {case} (B {b} H {h} T {t} D {d}): O in bf16 units, l, m relative "
+                f"to max {[f'{e:.3g}' for e in errs]} (limits {FLASH_BF16_UNITS:g}; "
+                f"{FLASH_STATS_TOL:g})")
+            if not (errs[0] <= FLASH_BF16_UNITS and max(errs[1:]) <= FLASH_STATS_TOL):
+                raise RuntimeError(f"FFH off its plain version at {case}: {errs}")
+            del got, want
         if split_h:
             got = (*flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args))
             want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
@@ -1506,6 +1612,8 @@ def time_generic_routes(card: str) -> dict:
         sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
         fns = {
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
+            **({"FFH": (lambda: flash_forward_d128(q, k, v, seg, scale), ffh_k)}
+               if pipelined_h else {}),
             "SDPA fwd": (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
                                                                  scale=scale), None),
             "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
@@ -1529,13 +1637,15 @@ def time_generic_routes(card: str) -> dict:
             "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
-        # F2H's and F3H's plain versions are F2's and F3's.
-        plain.update({"F2H": plain["F2"], "F3H": plain["F3"], "F2H+F3H": plain["F2+F3"]})
+        # FFH's plain version is F1's, F2H's and F3H's are F2's and F3's.
+        plain.update({"FFH": plain["F1"], "F2H": plain["F2"], "F3H": plain["F3"],
+                      "F2H+F3H": plain["F2+F3"]})
         pairs, work = flash_work(seg, h, d, q.element_size())
         work["F2+F3"] = work["F2H+F3H"] = work["FB"]  # dQ, dK and dV, each written once
-        work["F2H"], work["F3H"] = work["F2"], work["F3"]
+        work["FFH"], work["F2H"], work["F3H"] = work["F1"], work["F2"], work["F3"]
         peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        library = {"F1": "SDPA fwd", "F2+F3": "SDPA bwd alone", "F2H+F3H": "SDPA bwd alone"}
+        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "F2+F3": "SDPA bwd alone",
+                   "F2H+F3H": "SDPA bwd alone"}
         for name in out:
             if name not in times:
                 continue
@@ -1548,6 +1658,19 @@ def time_generic_routes(card: str) -> dict:
                 library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
                 library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None)
         extra = ""
+        if pipelined_h:
+            # The Function's forward at this shape (FlashAttention.forward):
+            # .contiguous() on the operands, then FFH. Llama's attention hands
+            # it contiguous operands (RoPE's stack, repeat_interleave), as here.
+            def function_forward():
+                with torch.no_grad():
+                    FlashAttention.apply(q, k, v, seg, scale)
+
+            whole, kernel = device_ms(function_forward), device_ms(function_forward, ffh_k)
+            out["FFH"][case].update(function_forward_device_ms=whole, kernel_device_ms=kernel,
+                                    copies_device_ms=whole - kernel)
+            extra += (f"; the Function's forward {whole:.4f} ms by device time: the "
+                      f".contiguous() copies {whole - kernel:.4f}, FFH {kernel:.4f}")
         if split_h:
             # The Function's backward at this shape (FlashAttention.backward):
             # di = rowsum(O * dO) in torch ops, then F2H and F3H.
@@ -1561,7 +1684,7 @@ def time_generic_routes(card: str) -> dict:
             pair.update(function_backward_device_ms=whole, kernels_device_ms=kernels,
                         di_device_ms=whole - kernels,
                         split_floor_ms=(work["F2"][0] + work["F3"][0]) / HBM_BYTES_PER_S * 1e3)
-            extra = (f"; the Function's backward {whole:.4f} ms by device time: di {whole - kernels:.4f}, "
+            extra += (f"; the Function's backward {whole:.4f} ms by device time: di {whole - kernels:.4f}, "
                      f"F2H + F3H {kernels:.4f}; the split pair's byte floor "
                      f"{pair['split_floor_ms']:.4f} ms")
         del sdpa_out
@@ -1575,6 +1698,10 @@ def time_generic_routes(card: str) -> dict:
                 for name in out if case in out[name]) + "; plain " + ", ".join(
                 f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
             + f" [{card}]")
+        if pipelined_h and not out["FFH"][case]["device_ms"] < out["F1"][case]["device_ms"]:
+            raise RuntimeError(f"FFH is not faster than F1 at {case}: "
+                               f"{out['FFH'][case]['device_ms']:.4f} against "
+                               f"{out['F1'][case]['device_ms']:.4f} ms by device time")
         if split_h and not out["F2H+F3H"][case]["device_ms"] < out["F2+F3"][case]["device_ms"]:
             raise RuntimeError(f"F2H + F3H are not faster than F2 + F3 at {case}: "
                                f"{out['F2H+F3H'][case]['device_ms']:.4f} against "
@@ -1823,9 +1950,9 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # F2H and F3H never.
+    # FFH, F2H and F3H never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "F2H": 0, "F3H": 0}
+            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -1834,7 +1961,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want FF {want['FF']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = F2H = F3H = 0; naive attention calls {naive_calls}; syrk on "
+        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = FFH = F2H = F3H = 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -2832,11 +2959,11 @@ def score_features_lowrank(card: str, ctx: dict, analyzer) -> dict:
         f"{pearson(flash_scores, dense):.6f}, against the naive rank-32 call "
         f"{pearson(flash_scores, results['rank 32'][0]):.6f}; launches " + ", ".join(
             f"{k} {v}" for k, v in launches.items()) + f" (want FB {passes}, FF a multiple of "
-        f"{config.num_layers} above it, F1-F3, F2H, F3H 0) [{card}]")
+        f"{config.num_layers} above it, F1-F3, FFH, F2H, F3H 0) [{card}]")
     if (launches["FB"] != passes or launches["FF"] <= launches["FB"]
             or launches["FF"] % config.num_layers):
         raise RuntimeError(f"the flash low-rank call launched {launches}")
-    if any(launches[k] for k in ("F1", "F2", "F3", "F2H", "F3H")):
+    if any(launches[k] for k in ("F1", "F2", "F3", "FFH", "F2H", "F3H")):
         raise RuntimeError(f"the flash low-rank call took the generic or D 128 routes: {launches}")
     if not pearson(flash_scores, dense) >= FLASH_PEARSON_MIN:
         raise RuntimeError("the flash low-rank scores do not follow the dense ones")
@@ -3100,17 +3227,17 @@ class PassCounter:
 
 def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits: int = 0,
                          cov_batches: int = 0) -> None:
-    """F1 once per attention layer and model forward; F2H and F3H (bf16 at D
-    128: the "split_h" route) once per attention backward (MLP-only tracking
-    with frozen weights: an attention layer has a backward only above a
-    tracked projection, so the first layer never has one); F2, F3, FF, FB, K2
-    and the naive form never; in a covariance
+    """FFH (bf16 at D 128: the "pipelined_h" route) once per attention layer
+    and model forward; F2H and F3H (the "split_h" route) once per attention
+    backward (MLP-only tracking with frozen weights: an attention layer has a
+    backward only above a tracked projection, so the first layer never has
+    one); F1, F2, F3, FF, FB, K2 and the naive form never; in a covariance
     stage K1 on every gram (two per projection, 6 a layer and batch), all
     wgmma, and K3 once per covariance fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
-    want = {"F1": fwd, "F2H": bwd, "F3H": bwd, "F2": 0, "F3": 0, "FF": 0, "FB": 0, "jacobi": 0,
-            "naive": 0}
+    want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
+            "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -3399,7 +3526,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
         out["seconds"]["covariance"] = sec
         out["launches"]["covariance"] = dict(counter.counts)
         log(f"Llama covariance: {sec:.3f} s, batch {cov_batch} ({cov_batches} batches a "
-            f"partition; phases 4 and 9 held K1, F1, F2H and F3H at batch {LLAMA_BATCH}), launches "
+            f"partition; phases 4 and 9 held K1, FFH, F2H and F3H at batch {LLAMA_BATCH}), launches "
             f"{counter.counts} [{card}]")
         if not cov_batch < LLAMA_TRAIN_N:
             raise RuntimeError(f"Llama covariance: the data ({LLAMA_TRAIN_N}) set the batch")
@@ -3900,12 +4027,20 @@ FB_VARIANTS = {
 }
 
 
-# Copies of csrc/flash_forward.cu for `--profile-flash`: name -> text replacements.
-_FF_BOUNDS = "__global__ void __launch_bounds__(kThreads)\n    flash_fwd_pipelined_kernel"
+# Copies of csrc/flash_forward.cu for `--profile-flash`: name -> text
+# replacements, FF's (D 64) and FFH's (D 128).
+_FF_BOUNDS = "__global__ void __launch_bounds__(FF::kThreads)\n    flash_fwd_pipelined_kernel"
+_FFH_SHAPE = "using FFH = Shape<128, 128, true>;"
 FF_VARIANTS = {
-    "128-query tile (8 warps)": (("constexpr int kQueryTile = 64;", "constexpr int kQueryTile = 128;"),),
+    "128-query tile (8 warps)": (("using FF = Shape<64, 64, true>;",
+                                  "using FF = Shape<64, 128, true>;"),),
     "registers capped for 4 CTAs an SM": (
-        (_FF_BOUNDS, _FF_BOUNDS.replace("(kThreads)", "(kThreads, 4)")),),
+        (_FF_BOUNDS, _FF_BOUNDS.replace("(FF::kThreads)", "(FF::kThreads, 4)")),),
+}
+FFH_VARIANTS = {
+    "64-query tile (4 warps)": ((_FFH_SHAPE, "using FFH = Shape<128, 64, true>;"),),
+    "64-query tile (4 warps), Q's fragments reloaded from shared memory every key tile": (
+        (_FFH_SHAPE, "using FFH = Shape<128, 64, false>;"),),
 }
 
 
@@ -3936,7 +4071,8 @@ def turns_ms(fns: dict) -> dict:
 def profile_flash(card: str) -> None:
     """FB as built (64-key tile) against FB_VARIANTS and F2+F3, then FF as
     built (64-query tile) against FF_VARIANTS and F1, at the flash path's
-    shape, in turns, after holding each variant to the bf16 limit."""
+    shape, in turns, after holding each variant to the bf16 limit; then FFH
+    and F2H + F3H at Llama's (profile_ffh, profile_d128)."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.build import check_launch
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -4029,7 +4165,65 @@ def profile_flash(card: str) -> None:
         f"(torch.profiler): " + "; ".join(
             f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
             for name, ts in times.items()) + f" [{card}]")
+    profile_ffh(card)
     profile_d128(card)
+
+
+def profile_ffh(card: str) -> None:
+    """FFH as built against copies of csrc/flash_forward.cu (FFH_VARIANTS)
+    with each kernel's SASS counts, registers, spills and CTAs an SM; then,
+    at both bf16 D 128 cases of GENERIC_ROUTE_CASES, each held to the bf16
+    limit and all of them and F1 timed in turns."""
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import flash_forward, flash_forward_reference
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {"kf_flash_fwd_d128": [*[p] * 7, i32, i32, i32, i32, f32, p],
+                "kf_flash_fwd_occupancy": [i32, p, p, p]}
+    libs = {"as built (128-query tile, 8 warps, Q in registers)": (load_library(), library_path())}
+    for i, (name, repl) in enumerate(FFH_VARIANTS.items()):
+        lib = build_variant("flash_forward.cu", len(FF_VARIANTS) + i, repl, argtypes)
+        libs[name] = (lib, Path(lib._name))
+    kernel = FWD_KERNELS[1]
+    for name, (lib, path) in libs.items():
+        log(f"FFH '{name}': SASS {sass_counts(path, kernel, D128_OPCODES)}; "
+            f"{occupancy(lib, FWD_OCCUPANCY, 1)}")
+    for case in ("Llama bf16 D 128", "bf16 D 128"):
+        b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES[case]
+        gen = torch.Generator("cuda").manual_seed(b * t + d)
+        q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        seg = padded_segments(b, t, padded, "cuda")
+        scale = d ** -0.5
+
+        def launch(lib):
+            out = torch.empty_like(q)
+            l_, m_ = (torch.empty((b, h, t), dtype=torch.float32, device="cuda") for _ in range(2))
+            check_launch(lib.kf_flash_fwd_d128(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(), out.data_ptr(),
+                l_.data_ptr(), m_.data_ptr(), b, h, t, d, float(scale),
+                torch.cuda.current_stream().cuda_stream), "FFH copy")
+            return out, l_, m_
+
+        want = flash_forward_reference(q, k, v, seg, scale)
+        for name, (lib, _) in libs.items():
+            o_, l_, m_ = launch(lib)
+            errs = (bf16_units(o_, want[0]), relative_to_max(l_, want[1]),
+                    relative_to_max(m_, want[2]))
+            log(f"FFH '{name}' at {case}: O in bf16 units, l, m relative to max "
+                f"{[f'{e:.3g}' for e in errs]}")
+            if not (errs[0] <= FLASH_BF16_UNITS and max(errs[1:]) <= FLASH_STATS_TOL):
+                raise RuntimeError(f"the FFH copy '{name}' disagrees with the plain version")
+        del want
+        fns = {f"FFH {name}": (lambda lib=lib: launch(lib), (kernel,))
+               for name, (lib, _) in libs.items()}
+        fns["F1"] = (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",))
+        times = turns_ms(fns)
+        log(f"FFH at B {b} H {h} T {t} D {d} bf16{' padded' if padded else ''}, in turns (there "
+            f"and back); ms per call: one call between CUDA events (median), and the device time "
+            f"of the kernels named (torch.profiler): " + "; ".join(
+                f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+                for name, ts in times.items()) + f" [{card}]")
 
 
 def profile_d128(card: str) -> None:
@@ -4058,7 +4252,7 @@ def profile_d128(card: str) -> None:
     for name, (lib, path) in libs.items():
         for which, kernel in enumerate(D128_KERNELS):
             log(f"F2H/F3H '{name}', {kernel}: SASS {sass_counts(path, kernel, D128_OPCODES)}; "
-                f"{d128_occupancy(lib, which)}")
+                f"{occupancy(lib, D128_OCCUPANCY, which)}")
     b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["Llama bf16 D 128"]
     gen = torch.Generator("cuda").manual_seed(b * t + d)
     q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -4212,7 +4406,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     split = {"F1", "F2", "F3"} if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want F1, F2, F3 with flash, "
-                           f"FF, FB, F2H and F3H never: fp32 takes F1 and the split route), "
+                           f"FF, FB, FFH, F2H and F3H never: fp32 takes F1 and the split "
+                           f"route), "
                            f"CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
@@ -4264,18 +4459,19 @@ def main() -> None:
     split_path = phase_reference(attention="flash", seq=128, padded=True)
     llama = phase_llama(card)
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
-                      for key in ("F1", "F2H", "F3H", "syrk", "probe")}
-    # F1, F2H and F3H from phase 15 (Llama, bf16 D 128), F2 and F3 from phase
-    # 11 (fp32, the split route).
-    launches.update(F1=llama_launches["F1"], F2H=llama_launches["F2H"], F3H=llama_launches["F3H"],
-                    F2=split_path["F2"], F3=split_path["F3"])
+                      for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
+    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128), F1, F2 and F3 from
+    # phase 11 (fp32: the generic forward and the split route).
+    launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
+                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path["F2"],
+                    F3=split_path["F3"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 15 (Llama, bf16 D 128: generic forward), all stages"),
+               "phase 11 (reference, fp32: generic forward)"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
                "phase 11 (reference, fp32: split route)"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
@@ -4284,6 +4480,8 @@ def main() -> None:
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
                "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
+        "FFH": ("flash_forward_d128", ["flash_attention.py:589"], "flash_forward.cu",
+                "phase 15 (Llama, bf16 D 128: pipelined_h forward), all stages"),
         "F2H": ("flash_backward_dkv_d128", ["flash_attention.py:941"], "flash_backward_d128.cu",
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
         "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
@@ -4350,7 +4548,7 @@ def main() -> None:
                if fid in features_launches else {}),
             **({"fp32_reference_launches": split_path[fid]} if fid in ("F1", "F2", "F3") else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
-               if fid in ("F1", "F2H", "F3H") else {}),
+               if fid in ("FFH", "F2H", "F3H") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

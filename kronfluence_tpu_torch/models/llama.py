@@ -16,8 +16,8 @@ Numerics that follow the flax model:
   * GQA repeats each KV head into consecutive query heads
     (`repeat_interleave`, `jnp.repeat`), not a tiling of the heads;
   * attention goes through `ops/attention.py:scaled_dot_attention`, naive or
-    flash as `LlamaConfig.attention` says (bf16 at head_dim 128 takes F1 and
-    F2H + F3H).
+    flash as `LlamaConfig.attention` says (bf16 at head_dim 128 takes FFH
+    and F2H + F3H).
 
 `LlamaConfig.dtype` is both the parameter and the compute dtype.
 """

@@ -9,8 +9,8 @@ no switch, probe or fallback:
     models' form, `_naive_attention`);
   * "flash" runs the `FlashAttention` autograd Function. For bf16 at
     head_dim 64 the forward is FF and the backward FB, one launch each; for
-    bf16 at head_dim 128 (Llama) the forward is F1 and the backward F2H +
-    F3H, two deterministic kernels; otherwise the forward is F1 and the
+    bf16 at head_dim 128 (Llama) the forward is FFH and the backward F2H +
+    F3H, all three deterministic; otherwise the forward is F1 and the
     backward F2 + F3 (`flash.forward_route`, `flash.backward_route`;
     `ops/kernels/flash.py`, `csrc/flash_forward.cu`, `csrc/flash_backward.cu`,
     `csrc/flash_backward_d128.cu`, `csrc/flash_attention.cu`) for CUDA
@@ -41,6 +41,7 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_dq_d128,
     flash_backward_reference,
     flash_forward,
+    flash_forward_d128,
     flash_forward_pipelined,
     flash_forward_reference,
     forward_route,
@@ -105,14 +106,18 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: FF or F1 forward as `forward_route`
-    says; backward di, then FB, F2H + F3H or F2 + F3 as `backward_route` says."""
+    """Causal, segment-masked attention: FF, FFH or F1 forward as
+    `forward_route` says; backward di, then FB, F2H + F3H or F2 + F3 as
+    `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        if forward_route(q.dtype, q.shape[-1]) == "pipelined":
+        route = forward_route(q.dtype, q.shape[-1])
+        if route == "pipelined":
             o, l, m = flash_forward_pipelined(q, k, v, segment_ids, sm_scale)
+        elif route == "pipelined_h":
+            o, l, m = flash_forward_d128(q, k, v, segment_ids, sm_scale)
         else:
             o, l, m = flash_forward(q, k, v, segment_ids, sm_scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, l, m)

@@ -169,12 +169,14 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_bwd_dq.argtypes = [i32, *[ptr] * 9, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_fused.argtypes = [*[ptr] * 11, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_fwd_pipelined.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_fwd_d128.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_fwd_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_bwd_dkv_d128.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dq_d128.argtypes = [*[ptr] * 9, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_d128_occupancy.argtypes = [i32, ptr, ptr, ptr]
     for name in ("kf_flash_fwd", "kf_flash_bwd_dkv", "kf_flash_bwd_dq", "kf_flash_bwd_fused",
-                 "kf_flash_fwd_pipelined", "kf_flash_bwd_dkv_d128", "kf_flash_bwd_dq_d128",
-                 "kf_flash_bwd_d128_occupancy"):
+                 "kf_flash_fwd_pipelined", "kf_flash_fwd_d128", "kf_flash_fwd_occupancy",
+                 "kf_flash_bwd_dkv_d128", "kf_flash_bwd_dq_d128", "kf_flash_bwd_d128_occupancy"):
         getattr(lib, name).restype = i32
 
     import torch

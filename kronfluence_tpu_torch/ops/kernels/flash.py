@@ -1,18 +1,20 @@
-"""F1-F3, FF, FB, F2H and F3H: causal, segment-masked flash attention,
+"""F1-F3, FF, FFH, FB, F2H and F3H: causal, segment-masked flash attention,
 hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
 The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
-{64, 128, 256}, T a multiple of 64). For bf16 at D 64 two kernels of their
-own take over: FF, in `csrc/flash_forward.cu`, F1's work with a cp.async K/V
-ring (T a multiple of 64), and FB, in `csrc/flash_backward.cu`, F2's and
-F3's work in one launch. For bf16 at D 128 (Llama's heads) F2H and F3H, in
-`csrc/flash_backward_d128.cu`, take F2's and F3's work: two deterministic
-kernels with ldmatrix fragments and cp.async rings. `forward_route` picks FF
-("pipelined") or F1 ("generic"); `backward_route` FB ("fused"), F2H + F3H
-("split_h") or F2 + F3 ("split").
+{64, 128, 256}, T a multiple of 64). In bf16 at D 64 (GPT-2's heads) two
+kernels of their own take over: FF, F1's work with a cp.async K/V ring (T a
+multiple of 64), and FB, in `csrc/flash_backward.cu`, F2's and F3's work in
+one launch. In bf16 at D 128 (Llama's heads) FFH, the same pipelined body as
+FF instanced at D 128 (both in `csrc/flash_forward.cu`), takes F1's work,
+and F2H and F3H, in `csrc/flash_backward_d128.cu`, take F2's and F3's: two
+deterministic kernels with ldmatrix fragments and cp.async rings.
+`forward_route` picks FF ("pipelined"), FFH ("pipelined_h") or F1
+("generic"); `backward_route` FB ("fused"), F2H + F3H ("split_h") or F2 + F3
+("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel or
@@ -39,13 +41,20 @@ HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 # The one operand type and head dim FF and FB take.
 FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
-# The one head dim F2H and F3H take, in FUSED_DTYPE.
+# The one head dim FFH, F2H and F3H take, in FUSED_DTYPE, and FFH's query
+# tile: T must be a multiple of it.
 SPLIT_H_HEAD_DIM = 128
+FFH_QUERY_TILE = 128
 
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
-    """"pipelined" (FF) for bf16 at D 64, else "generic" (F1)."""
-    return "pipelined" if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM else "generic"
+    """"pipelined" (FF) for bf16 at D 64, "pipelined_h" (FFH) for bf16 at D
+    128, else "generic" (F1)."""
+    if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
+        return "pipelined"
+    if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
+        return "pipelined_h"
+    return "generic"
 
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -172,30 +181,51 @@ def flash_forward(q, k, v, segment_ids, sm_scale: float):
     return o, l, m
 
 
-def flash_forward_pipelined(q, k, v, segment_ids, sm_scale: float):
-    """FF: returns (O, l, m) like F1; CUDA operands must be bf16 at D 64
-    (`forward_route` "pipelined"), T a multiple of 64 (FF's query tile)."""
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
-    if forward_route(q.dtype, q.shape[-1]) != "pipelined":
-        raise ValueError(f"the pipelined flash forward takes {FUSED_DTYPE} at D {FUSED_HEAD_DIM}; "
-                         f"got {q.dtype}, D {q.shape[-1]}: use F1 (flash_forward).")
+def _launch_pipelined(entry: str, name: str, route: str, q, k, v, segment_ids, sm_scale):
+    """FF's or FFH's launch: checks the route, the operands and the segment
+    ids' alignment (copied with 16-byte cp.async), then (O, l, m)."""
+    if forward_route(q.dtype, q.shape[-1]) != route:
+        raise ValueError(f"{name} takes the forward route {route!r}; got {q.dtype}, "
+                         f"D {q.shape[-1]}: use the route `forward_route` gives.")
     b, h, t, d = _check_cuda((q, k, v), segment_ids)
-    # FF copies the segment ids with 16-byte cp.async.
     if segment_ids.data_ptr() % 16:
-        raise ValueError("FF takes 16-byte aligned segment ids.")
+        raise ValueError(f"{name} takes 16-byte aligned segment ids.")
     with torch.cuda.device(q.device):
         lib = load_library()
         o = torch.empty_like(q)
         l = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
         m = torch.empty_like(l)
-        err = lib.kf_flash_fwd_pipelined(
+        err = getattr(lib, entry)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), o.data_ptr(),
             l.data_ptr(), m.data_ptr(), b, h, t, d, float(sm_scale), _stream(q.device),
         )
-        check_launch(err, "pipelined flash forward (FF)")
-    flash_forward_pipelined.launches += 1
+        check_launch(err, f"pipelined flash forward ({name})")
     return o, l, m
+
+
+def flash_forward_pipelined(q, k, v, segment_ids, sm_scale: float):
+    """FF: returns (O, l, m) like F1; CUDA operands must be bf16 at D 64
+    (`forward_route` "pipelined"), T a multiple of 64 (FF's query tile)."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
+    out = _launch_pipelined("kf_flash_fwd_pipelined", "FF", "pipelined",
+                            q, k, v, segment_ids, sm_scale)
+    flash_forward_pipelined.launches += 1
+    return out
+
+
+def flash_forward_d128(q, k, v, segment_ids, sm_scale: float):
+    """FFH: returns (O, l, m) like F1; CUDA operands must be bf16 at D 128
+    (`forward_route` "pipelined_h"), T a multiple of 128 (FFH's query tile).
+    Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
+    if q.dim() == 4 and q.shape[2] % FFH_QUERY_TILE:
+        raise ValueError(f"FFH takes T a multiple of {FFH_QUERY_TILE}; got T {q.shape[2]}.")
+    out = _launch_pipelined("kf_flash_fwd_d128", "FFH", "pipelined_h",
+                            q, k, v, segment_ids, sm_scale)
+    flash_forward_d128.launches += 1
+    return out
 
 
 def flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
@@ -312,6 +342,7 @@ def flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
 
 flash_forward.launches = 0
 flash_forward_pipelined.launches = 0
+flash_forward_d128.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
 flash_backward.launches = 0
