@@ -13,7 +13,10 @@ each of which raises on failure:
      and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
      HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
      (cuobjdump; their registers, spills and CTAs an SM printed beside);
-     FFH must show no local loads or stores (no spills);
+     FFH must show no local loads or stores (no spills); F2S's and F3S's
+     SASS must hold FFMA and 128-bit shared loads and no HMMA (their FFMA,
+     shared loads by width, local loads and stores, barriers, registers,
+     spills and CTAs an SM printed);
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
@@ -82,21 +85,31 @@ each of which raises on failure:
      mask left off a tile) at Llama's shape; FFH timed in turns against F1
      and SDPA's forward at both bf16 D 128 route cases (it must beat F1 by
      device time), and the Function's forward split by device time into the
-     operands' .contiguous() copies and FFH;
+     operands' .contiguous() copies and FFH. F2S and F3S (the fp32 D 64
+     backward, `backward_route` "split_f32") against F2's and F3's plain
+     versions at every position at the fp32 D 64 case (1e-5 of max), two
+     calls bitwise equal, the dropped-block fault planted there (it must
+     read above 1e-5); F2S + F3S timed in turns against F2 + F3 and SDPA's
+     backward alone at phase 10's fp32 shape (B 16, H 12, T 512, D 64,
+     padded; it must beat F2 + F3 by device time), the Function's backward
+     split into di and the kernels, and SDPA's kernel names logged; F1 and
+     F2 + F3 also timed in turns against SDPA at bf16 D 256 and fp32 D 128
+     (where SDPA raises, logged and timed without it);
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3, FFH, F2H, F3H and
-     the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     FB 12 times per forward+backward pass, F1, F2, F3, FFH, F2H, F3H, F2S,
+     F3S and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
- 11. reference, flash: phase 6 again with attention="flash" (head_dim 64,
-     T 128, padded data), in fp32: F1, F2 and F3 (the generic forward and
-     the split backward) on the card, FF, FB, FFH, F2H and F3H never, their
-     plain versions on the CPU; the kernels line reads F1's, F2's and F3's
-     launches here.
+ 11. reference, flash: phase 6 again with attention="flash" (T 128, padded
+     data), in fp32, twice: at head_dim 64 (8 heads) exactly F1, F2S and F3S
+     (the generic forward and the split_f32 backward) launch on the card, at
+     head_dim 128 (4 heads) exactly F1, F2 and F3 (the split backward); the
+     plain versions on the CPU; the kernels line reads F1's, F2S's and
+     F3S's launches from the first run, F2's and F3's from the second.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -158,8 +171,8 @@ each of which raises on failure:
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
-     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, K2 and
-     the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, F2S,
+     F3S, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -334,14 +347,19 @@ FLASH_CASES = (
     (16, 12, 128, 64, torch.bfloat16, False),
     (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, True),
 )
-# The shapes F1, F2 and F3 serve since FF and FB took bf16 at D 64 (B, H, T,
-# D, dtype, padded): Llama's, phase 15's path, unpadded as its data are;
-# fp32 at GPT-2 small's width, phase 11's route, at phase 10's batch and
-# length; bf16 at D 128 over the same 768 model width.
+# The shapes F1, F2 and F3 serve or served since FF and FB took bf16 at D 64
+# (B, H, T, D, dtype, padded), each timed with the kernels that took it over:
+# Llama's, phase 15's path, unpadded as its data are (FFH, F2H, F3H); fp32 at
+# GPT-2 small's width, the route of phase 11's first run, at phase 10's batch
+# and length (F1, F2S, F3S); bf16 at D 128 over the same 768 model width
+# (FFH, F2H, F3H); bf16 at D 256, FLASH_CASES' (F1, F2, F3); fp32 at D 128
+# over the 768 width, the route of phase 11's second run (F1, F2, F3).
 GENERIC_ROUTE_CASES = {
     "Llama bf16 D 128": (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, False),
     "fp32 D 64": (16, 12, 512, 64, torch.float32, True),
     "bf16 D 128": (16, 6, 512, 128, torch.bfloat16, True),
+    "bf16 D 256": (4, 8, 512, 256, torch.bfloat16, True),
+    "fp32 D 128": (16, 6, 512, 128, torch.float32, True),
 }
 # The flash path against phase 5's naive path, same bf16 weights and data. The
 # two forms round differently in bf16 (fp32 softmax and P rounded before P V,
@@ -564,6 +582,13 @@ def phase_build() -> None:
             raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
         if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
             raise RuntimeError(f"FFH spills: {counts}, {occ}")
+    for which, kernel in enumerate(F32_KERNELS):
+        counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
+        log(f"SASS of {kernel}: {counts}; {occupancy(lib, F32_OCCUPANCY, which)}")
+        # Every product an fp32 FMA fed by 128-bit shared loads; no tensor-core
+        # (TF32) instruction.
+        if not (counts["FFMA"] and counts["LDS.128"]) or counts["HMMA"]:
+            raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
 
 
 # F2H and F3H (csrc/flash_backward_d128.cu), and FF and FFH
@@ -575,6 +600,12 @@ D128_OCCUPANCY = "kf_flash_bwd_d128_occupancy"
 FWD_KERNELS = ("flash_fwd_pipelined_kernel", "flash_fwd_d128_kernel")
 FWD_OCCUPANCY = "kf_flash_fwd_occupancy"
 D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
+# F2S and F3S (csrc/flash_backward_f32.cu), in the order of their occupancy
+# entry's `which`, and the SASS opcodes counted for them ("LDS" counts the
+# shared loads of every width).
+F32_KERNELS = ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
+F32_OCCUPANCY = "kf_flash_bwd_f32_occupancy"
+F32_OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDL", "STL", "BAR", "instructions")
 
 
 def occupancy(lib, entry: str, which: int) -> dict:
@@ -935,8 +966,10 @@ def flash_kernels():
         flash_backward,
         flash_backward_dkv,
         flash_backward_dkv_d128,
+        flash_backward_dkv_f32,
         flash_backward_dq,
         flash_backward_dq_d128,
+        flash_backward_dq_f32,
         flash_forward,
         flash_forward_d128,
         flash_forward_pipelined,
@@ -944,7 +977,8 @@ def flash_kernels():
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
-            "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128}
+            "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
+            "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32}
 
 
 def phase_main_path(card: str) -> dict:
@@ -1235,9 +1269,11 @@ def phase_flash_kernels(card: str) -> dict:
         flash_backward,
         flash_backward_dkv,
         flash_backward_dkv_d128,
+        flash_backward_dkv_f32,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
+        flash_backward_dq_f32,
         flash_backward_dq_reference,
         flash_backward_reference,
         flash_forward,
@@ -1248,10 +1284,11 @@ def phase_flash_kernels(card: str) -> dict:
     )
 
     abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "F2H": 0.0,
-                "F3H": 0.0}
+                "F3H": 0.0, "F2S": 0.0, "F3S": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
-             "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H"}
+             "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H",
+             "F2S dK": "F2S", "F2S dV": "F2S", "F3S dQ": "F3S"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
         gen = torch.Generator("cuda").manual_seed(b * t + d)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1288,19 +1325,22 @@ def phase_flash_kernels(card: str) -> dict:
                                   flash_backward_reference(q, k, v, seg, l, m, do, di, scale)):
                 got[f"FB {name}"], want[f"FB {name}"] = x, y
         split_h = backward_route(dtype, d) == "split_h"
-        if split_h:
-            # F2H and F3H against F2's and F3's plain versions (the same
-            # inputs); a second call must give the same bits.
-            hdk, hdv = flash_backward_dkv_d128(q, k, v, seg, l, m, do, di, scale)
-            hdq = flash_backward_dq_d128(q, k, v, seg, l, m, do, di, scale)
-            again = (*flash_backward_dkv_d128(q, k, v, seg, l, m, do, di, scale),
-                     flash_backward_dq_d128(q, k, v, seg, l, m, do, di, scale))
-            bitwise = [torch.equal(x, y) for x, y in zip((hdk, hdv, hdq), again)]
-            log(f"flash F2H, F3H at {(b, h, t, d)}: two calls bitwise equal (dK, dV, dQ) {bitwise}")
+        split_f32 = backward_route(dtype, d) == "split_f32"
+        if split_h or split_f32:
+            # F2H and F3H (bf16 D 128) or F2S and F3S (fp32 D 64) against F2's
+            # and F3's plain versions (the same inputs); a second call must
+            # give the same bits.
+            n2, n3, dkv_fn, dq_fn = (
+                ("F2H", "F3H", flash_backward_dkv_d128, flash_backward_dq_d128) if split_h
+                else ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32))
+            pair = (*dkv_fn(q, k, v, seg, l, m, do, di, scale), dq_fn(q, k, v, seg, l, m, do, di, scale))
+            again = (*dkv_fn(q, k, v, seg, l, m, do, di, scale), dq_fn(q, k, v, seg, l, m, do, di, scale))
+            bitwise = [torch.equal(x, y) for x, y in zip(pair, again)]
+            log(f"flash {n2}, {n3} at {(b, h, t, d)}: two calls bitwise equal (dK, dV, dQ) {bitwise}")
             if not all(bitwise):
-                raise RuntimeError(f"F2H/F3H are not bitwise reproducible at {(b, h, t, d)}")
+                raise RuntimeError(f"{n2}/{n3} are not bitwise reproducible at {(b, h, t, d)}")
             del again
-            for name, x, y in (("F2H dK", hdk, rdk), ("F2H dV", hdv, rdv), ("F3H dQ", hdq, rdq)):
+            for name, x, y in zip((f"{n2} dK", f"{n2} dV", f"{n3} dQ"), pair, (rdk, rdv, rdq)):
                 got[name], want[name] = x, y
         torch.cuda.synchronize()
         bf16 = dtype == torch.bfloat16
@@ -1351,6 +1391,20 @@ def phase_flash_kernels(card: str) -> dict:
             if not min(fault_units.values()) > tol:
                 raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile of F2H "
                                    f"or F3H: {fault_units}")
+            del fault
+        if split_f32:
+            # The fp32 limit must catch a skipped tile of F2S and F3S: the
+            # plain version without one block of P.
+            fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
+            names = ("F2S dK", "F2S dV", "F3S dQ")
+            fault_rel = {n: relative_to_max(fault[n.split()[-1]], want[n]) for n in names}
+            log(f"flash {label}: planted fault (one 64 x 64 block of P left out, rows 384-447, "
+                f"keys 192-255) against F2S's and F3S's plain versions, max |fault - plain| / "
+                f"max |plain|: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in fault_rel.items())
+                + f"; the kernels here {max(errs[n] for n in names):.3g}; limit {tol:g}")
+            if not min(fault_rel.values()) > tol:
+                raise RuntimeError(f"the fp32 limit {tol:g} does not catch a skipped tile of F2S "
+                                   f"or F3S: {fault_rel}")
             del fault
         if (b, h, t, d, dtype) != (16, 12, 512, 64, torch.bfloat16):
             continue
@@ -1518,51 +1572,80 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # FFH, F2H and F3H report phase 15's shape (Llama), F1-F3 fp32 at D 64
-    # (phase 11's routes); the bf16 D 64 times of F1-F3 (the turns against FF
-    # and FB above) stay beside.
+    # FFH, F2H and F3H report phase 15's shape (Llama); F1, F2S and F3S fp32
+    # at D 64 (phase 11's first run); F2 and F3 fp32 at D 128 (the route of
+    # phase 11's second run: F2S and F3S took fp32 at D 64). Their other
+    # shapes, and the bf16 D 64 times of F1-F3 (the turns against FF and FB
+    # above), stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
+    fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
+    fp32_d128 = "B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: F1, F2, F3)"
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
-    for name in ("F1", "F2", "F3"):
-        timing[name] = dict(routes[name]["fp32 D 64"],
-                            shape="B 16 H 12 T 512 D 64 fp32 padded (phase 11's routes)",
-                            at_llama_bf16_d128=routes[name]["Llama bf16 D 128"],
-                            at_bf16_d128_h6=routes[name]["bf16 D 128"], at_bf16_d64=at_d64[name])
+    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("fp32 D 128", fp32_d128),
+                 "F3": ("fp32 D 128", fp32_d128)}
+    for name, (case, shape) in main_case.items():
+        timing[name] = dict(routes[name][case], shape=shape, at_bf16_d64=at_d64[name], **{
+            f"at {other}": routes[name][other] for other in GENERIC_ROUTE_CASES if other != case})
+    timing["F2"]["pair (F2+F3)"] = routes["F2+F3"]
     for name in ("FFH", "F2H", "F3H"):
         timing[name] = dict(routes[name]["Llama bf16 D 128"], shape=llama_shape,
                             at_bf16_d128_h6=routes[name]["bf16 D 128"])
     timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
     timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
     timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
+    for name in ("F2S", "F3S"):
+        timing[name] = dict(routes[name]["fp32 D 64"], shape=fp32_d64)
+    timing["F2S"]["pair_at_fp32_d64"] = routes["F2S+F3S"]["fp32 D 64"]
+    timing["F2S"]["f2_f3_at_fp32_d64"] = routes["F2+F3"]["fp32 D 64"]
     out = {name: dict(timing[name], max_abs_err=abs_errs[name])
-           for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H")}
+           for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H", "F2S", "F3S")}
     out["extra"] = timing["extra"]
-    out["extra"]["F2+F3 at their routes"] = routes["F2+F3"]
     return out
 
 
+def kernel_names(fn) -> list:
+    """The names of the CUDA kernels one call of `fn` launches (torch.profiler;
+    the window opens with uncounted spin kernels, as in `device_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(PRIMER_KERNELS):
+            torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.key for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key})
+
+
 def time_generic_routes(card: str) -> dict:
-    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and at the bf16 D 128 cases,
-    where `forward_route` gives "pipelined_h" and `backward_route` "split_h",
-    FFH and F2H + F3H too, in turns against SDPA's forward and its backward
-    alone with the same boolean mask: CUDA events around one call (median),
-    torch.profiler device time, the plain version and the bound. There FFH,
-    F2H and F3H are first held against their plain versions (FFH twice,
-    bitwise), FFH must beat F1 and F2H + F3H must beat F2 + F3 by device time,
-    the Function's forward (the operands' .contiguous() copies, then FFH) is
-    split by device time into the copies and FFH, and its backward (di, then
-    F2H and F3H) into di and the kernels. {kernel: {case: numbers}}, kernel
-    in F1, FFH, F2, F3, F2+F3, F2H, F3H, F2H+F3H."""
+    """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
+    "pipelined_h" and `backward_route` "split_h" (bf16 D 128) or "split_f32"
+    (fp32 D 64), FFH, F2H + F3H and F2S + F3S too, in turns against SDPA's
+    forward and its backward alone with the same boolean mask: CUDA events
+    around one call (median), torch.profiler device time, the plain version
+    and the bound; SDPA's kernel names are logged, and where SDPA raises the
+    case is logged and timed without it. There FFH, F2H, F3H, F2S and F3S
+    are first held against their plain versions (FFH, F2S and F3S twice,
+    bitwise); FFH must beat F1, and F2H + F3H and F2S + F3S must beat F2 + F3
+    by device time; the Function's forward (the operands' .contiguous()
+    copies, then FFH) is split by device time into the copies and FFH, and
+    its backward (di, then F2H and F3H, or F2S and F3S) into di and the
+    kernels. {kernel: {case: numbers}}, kernel in F1, FFH, F2, F3, F2+F3,
+    F2H, F3H, F2H+F3H, F2S, F3S, F2S+F3S."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
         flash_backward_dkv,
         flash_backward_dkv_d128,
+        flash_backward_dkv_f32,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
+        flash_backward_dq_f32,
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_d128,
@@ -1571,9 +1654,10 @@ def time_generic_routes(card: str) -> dict:
     )
 
     dkv_h, dq_h = ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)
+    dkv_s, dq_s = (F32_KERNELS[0],), (F32_KERNELS[1],)
     ffh_k = (FWD_KERNELS[1],)
     out = {"F1": {}, "FFH": {}, "F2": {}, "F3": {}, "F2+F3": {}, "F2H": {}, "F3H": {},
-           "F2H+F3H": {}}
+           "F2H+F3H": {}, "F2S": {}, "F3S": {}, "F2S+F3S": {}}
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
         gen = torch.Generator("cuda").manual_seed(b * t + d + h + 1)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1583,7 +1667,8 @@ def time_generic_routes(card: str) -> dict:
         o, l, m = flash_forward(q, k, v, seg, scale)
         di = output_dot(o, do)
         args = (q, k, v, seg, l, m, do, di, scale)
-        split_h = backward_route(dtype, d) == "split_h"
+        route = backward_route(dtype, d)
+        split_h, split_f32 = route == "split_h", route == "split_f32"
         pipelined_h = forward_route(dtype, d) == "pipelined_h"
         if pipelined_h:
             got = ffh_checked(q, k, v, seg, scale, case)
@@ -1605,30 +1690,60 @@ def time_generic_routes(card: str) -> dict:
             if not max(units) <= FLASH_BF16_UNITS:
                 raise RuntimeError(f"F2H/F3H off their plain versions at {case}: {units}")
             del got, want
+        if split_f32:
+            got = (*flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args))
+            again = (*flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args))
+            want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
+            rel = [relative_to_max(x, y) for x, y in zip(got, want)]
+            bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
+            log(f"flash F2S, F3S at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ max |kernel - "
+                f"plain| / max |plain| {[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); "
+                f"two calls bitwise equal {bitwise}")
+            if not (max(rel) <= FLASH_FP32_TOL and all(bitwise)):
+                raise RuntimeError(f"F2S/F3S off their plain versions at {case}: {rel}, {bitwise}")
+            del got, again, want
         keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
             t, t, dtype=torch.bool, device="cuda").tril()
         mask4 = keep[:, None]
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
-        sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
         fns = {
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
             **({"FFH": (lambda: flash_forward_d128(q, k, v, seg, scale), ffh_k)}
                if pipelined_h else {}),
-            "SDPA fwd": (lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask4,
-                                                                 scale=scale), None),
             "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
             "F3": (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",)),
             "F2+F3": (lambda: (flash_backward_dkv(*args), flash_backward_dq(*args)),
                       ("flash_bwd_dkv_kernel", "flash_bwd_dq_kernel")),
-            "SDPA bwd alone": (lambda: torch.autograd.grad(sdpa_out, leaves, do,
-                                                           retain_graph=True), None),
         }
+        sdpa_names, sdpa_out = {}, None
+        try:
+            def sdpa_fwd():
+                return F.scaled_dot_product_attention(q, k, v, attn_mask=mask4, scale=scale)
+
+            sdpa_out = F.scaled_dot_product_attention(*leaves, attn_mask=mask4, scale=scale)
+
+            def sdpa_bwd():  # SDPA's backward alone, on one retained forward
+                return torch.autograd.grad(sdpa_out, leaves, do, retain_graph=True)
+
+            sdpa_bwd()
+            sdpa_names = {"SDPA fwd": kernel_names(sdpa_fwd), "SDPA bwd alone": kernel_names(sdpa_bwd)}
+            fns.update({"SDPA fwd": (sdpa_fwd, None), "SDPA bwd alone": (sdpa_bwd, None)})
+        except RuntimeError as err:
+            log(f"flash generic routes, {case}: SDPA with the boolean mask raised, so this case "
+                f"has no library time: {str(err)[:300]}")
         if split_h:
             fns.update({
                 "F2H": (lambda: flash_backward_dkv_d128(*args), dkv_h),
                 "F3H": (lambda: flash_backward_dq_d128(*args), dq_h),
                 "F2H+F3H": (lambda: (flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args)),
                             dkv_h + dq_h),
+            })
+        if split_f32:
+            fns.update({
+                "F2S": (lambda: flash_backward_dkv_f32(*args), dkv_s),
+                "F3S": (lambda: flash_backward_dq_f32(*args), dq_s),
+                "F2S+F3S": (lambda: (flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args)),
+                            dkv_s + dq_s),
             })
         times = turns_ms(fns)
         plain = {
@@ -1637,26 +1752,30 @@ def time_generic_routes(card: str) -> dict:
             "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
-        # FFH's plain version is F1's, F2H's and F3H's are F2's and F3's.
+        # FFH's plain version is F1's; F2H's, F3H's, F2S's and F3S's are F2's and F3's.
         plain.update({"FFH": plain["F1"], "F2H": plain["F2"], "F3H": plain["F3"],
-                      "F2H+F3H": plain["F2+F3"]})
+                      "F2H+F3H": plain["F2+F3"], "F2S": plain["F2"], "F3S": plain["F3"],
+                      "F2S+F3S": plain["F2+F3"]})
         pairs, work = flash_work(seg, h, d, q.element_size())
-        work["F2+F3"] = work["F2H+F3H"] = work["FB"]  # dQ, dK and dV, each written once
+        work["F2+F3"] = work["F2H+F3H"] = work["F2S+F3S"] = work["FB"]  # dQ, dK, dV written once
         work["FFH"], work["F2H"], work["F3H"] = work["F1"], work["F2"], work["F3"]
+        work["F2S"], work["F3S"] = work["F2"], work["F3"]
         peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
         library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "F2+F3": "SDPA bwd alone",
-                   "F2H+F3H": "SDPA bwd alone"}
+                   "F2H+F3H": "SDPA bwd alone", "F2S+F3S": "SDPA bwd alone"}
         for name in out:
             if name not in times:
                 continue
             bound, bound_by = roofline(*work[name], peak)
-            lib = library.get(name)
+            lib = library.get(name) if library.get(name) in times else None
             out[name][case] = dict(
                 ms=float(np.mean([e for e, _ in times[name]])),
                 device_ms=float(np.mean([dv for _, dv in times[name]])),
+                runs=[list(x) for x in times[name]],
                 plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
                 library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
-                library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None)
+                library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None,
+                **({"library_kernels": sdpa_names[lib]} if lib else {}))
         extra = ""
         if pipelined_h:
             # The Function's forward at this shape (FlashAttention.forward):
@@ -1671,22 +1790,27 @@ def time_generic_routes(card: str) -> dict:
                                     copies_device_ms=whole - kernel)
             extra += (f"; the Function's forward {whole:.4f} ms by device time: the "
                       f".contiguous() copies {whole - kernel:.4f}, FFH {kernel:.4f}")
-        if split_h:
+        if split_h or split_f32:
             # The Function's backward at this shape (FlashAttention.backward):
-            # di = rowsum(O * dO) in torch ops, then F2H and F3H.
+            # di = rowsum(O * dO) in torch ops, then F2H and F3H (F2S and F3S).
+            dkv, dq = ((flash_backward_dkv_d128, flash_backward_dq_d128) if split_h
+                       else (flash_backward_dkv_f32, flash_backward_dq_f32))
+            names = dkv_h + dq_h if split_h else dkv_s + dq_s
+            pair_name = "F2H+F3H" if split_h else "F2S+F3S"
+
             def function_backward():
                 d_i = output_dot(o, do)
-                flash_backward_dkv_d128(q, k, v, seg, l, m, do, d_i, scale)
-                flash_backward_dq_d128(q, k, v, seg, l, m, do, d_i, scale)
+                dkv(q, k, v, seg, l, m, do, d_i, scale)
+                dq(q, k, v, seg, l, m, do, d_i, scale)
 
-            whole, kernels = device_ms(function_backward), device_ms(function_backward, dkv_h + dq_h)
-            pair = out["F2H+F3H"][case]
+            whole, kernels = device_ms(function_backward), device_ms(function_backward, names)
+            pair = out[pair_name][case]
             pair.update(function_backward_device_ms=whole, kernels_device_ms=kernels,
                         di_device_ms=whole - kernels,
                         split_floor_ms=(work["F2"][0] + work["F3"][0]) / HBM_BYTES_PER_S * 1e3)
-            extra += (f"; the Function's backward {whole:.4f} ms by device time: di {whole - kernels:.4f}, "
-                     f"F2H + F3H {kernels:.4f}; the split pair's byte floor "
-                     f"{pair['split_floor_ms']:.4f} ms")
+            extra += (f"; the Function's backward {whole:.4f} ms by device time: di "
+                      f"{whole - kernels:.4f}, {pair_name} {kernels:.4f}; the split pair's byte "
+                      f"floor {pair['split_floor_ms']:.4f} ms")
         del sdpa_out
         log(f"flash generic routes, {case}, at B {b} H {h} T {t} D {d}"
             f"{' padded' if padded else ''} ({pairs:,} "
@@ -1697,15 +1821,17 @@ def time_generic_routes(card: str) -> dict:
                 f"{name} {out[name][case]['bound_ms']:.4f} ({out[name][case]['bound_by']})"
                 for name in out if case in out[name]) + "; plain " + ", ".join(
                 f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
-            + f" [{card}]")
+            + f"; SDPA's kernels {sdpa_names or 'none (it raised)'} [{card}]")
         if pipelined_h and not out["FFH"][case]["device_ms"] < out["F1"][case]["device_ms"]:
             raise RuntimeError(f"FFH is not faster than F1 at {case}: "
                                f"{out['FFH'][case]['device_ms']:.4f} against "
                                f"{out['F1'][case]['device_ms']:.4f} ms by device time")
-        if split_h and not out["F2H+F3H"][case]["device_ms"] < out["F2+F3"][case]["device_ms"]:
-            raise RuntimeError(f"F2H + F3H are not faster than F2 + F3 at {case}: "
-                               f"{out['F2H+F3H'][case]['device_ms']:.4f} against "
-                               f"{out['F2+F3'][case]['device_ms']:.4f} ms by device time")
+        for pair_name in ("F2H+F3H", "F2S+F3S"):
+            if case in out[pair_name] and not (out[pair_name][case]["device_ms"]
+                                               < out["F2+F3"][case]["device_ms"]):
+                raise RuntimeError(f"{pair_name} are not faster than F2 + F3 at {case}: "
+                                   f"{out[pair_name][case]['device_ms']:.4f} against "
+                                   f"{out['F2+F3'][case]['device_ms']:.4f} ms by device time")
     return out
 
 
@@ -1950,9 +2076,9 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, F2H and F3H never.
+    # FFH, F2H, F3H, F2S and F3S never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0}
+            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -1961,7 +2087,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want FF {want['FF']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = FFH = F2H = F3H = 0; naive attention calls {naive_calls}; syrk on "
+        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = FFH = F2H = F3H = F2S = F3S = 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -2959,11 +3085,11 @@ def score_features_lowrank(card: str, ctx: dict, analyzer) -> dict:
         f"{pearson(flash_scores, dense):.6f}, against the naive rank-32 call "
         f"{pearson(flash_scores, results['rank 32'][0]):.6f}; launches " + ", ".join(
             f"{k} {v}" for k, v in launches.items()) + f" (want FB {passes}, FF a multiple of "
-        f"{config.num_layers} above it, F1-F3, FFH, F2H, F3H 0) [{card}]")
+        f"{config.num_layers} above it, F1-F3, FFH, F2H, F3H, F2S, F3S 0) [{card}]")
     if (launches["FB"] != passes or launches["FF"] <= launches["FB"]
             or launches["FF"] % config.num_layers):
         raise RuntimeError(f"the flash low-rank call launched {launches}")
-    if any(launches[k] for k in ("F1", "F2", "F3", "FFH", "F2H", "F3H")):
+    if any(launches[k] for k in ("F1", "F2", "F3", "FFH", "F2H", "F3H", "F2S", "F3S")):
         raise RuntimeError(f"the flash low-rank call took the generic or D 128 routes: {launches}")
     if not pearson(flash_scores, dense) >= FLASH_PEARSON_MIN:
         raise RuntimeError("the flash low-rank scores do not follow the dense ones")
@@ -3231,13 +3357,13 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, K2 and the naive form never; in a covariance
+    one); F1, F2, F3, FF, FB, F2S, F3S, K2 and the naive form never; in a covariance
     stage K1 on every gram (two per projection, 6 a layer and batch), all
     wgmma, and K3 once per covariance fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "jacobi": 0, "naive": 0}
+            "F2S": 0, "F3S": 0, "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -4307,11 +4433,13 @@ def _max_rel(got: dict, want: dict) -> float:
     return worst
 
 
-def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False) -> dict:
-    """A small fp32 GPT-2 through the four stages on the card and on the CPU;
-    returns the card side's flash launches (every count zeroed just before
-    the card side runs). fp32 takes the generic forward, F1, and the split
-    backward, F2 + F3."""
+def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = False,
+                    num_heads: int = 8) -> dict:
+    """A small fp32 GPT-2 (d_model 512) through the four stages on the card
+    and on the CPU; returns the card side's flash launches (every count
+    zeroed just before the card side runs). fp32 takes the generic forward,
+    F1, and at head_dim 64 (8 heads) the split_f32 backward, F2S + F3S, at
+    head_dim 128 (4 heads) the split backward, F2 + F3."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -4334,9 +4462,10 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
 
     # d_model 512: the c_fc gradient (2048) and mlp/c_proj activation (2048)
     # grams pass the K1 shape rule, so the card runs the fp32 kernel. 8 heads
-    # of 64: a head_dim the flash kernels take.
+    # of 64 or 4 of 128: head dims the flash kernels take.
+    head_dim = 512 // num_heads
     config = tiny_config(
-        vocab_size=512, max_seq_len=seq, num_layers=2, num_heads=8, d_model=512,
+        vocab_size=512, max_seq_len=seq, num_layers=2, num_heads=num_heads, d_model=512,
         dtype=torch.float32, attention=attention,
     )
     task = wikitext_style_task(config.num_layers)
@@ -4394,7 +4523,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
         "scores": _max_rel(sc_g, sc_c),
     }
     log(
-        f"reference ({attention} attention, T {seq}{', padded' if padded else ''}): small fp32 "
+        f"reference ({attention} attention, T {seq}, head_dim {head_dim}"
+        f"{', padded' if padded else ''}): small fp32 "
         "GPT-2, card vs CPU, max |diff| / max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
         + f" (limit {REFERENCE_RTOL:g}); K1 launches on the card side {k1_launches}; "
@@ -4403,12 +4533,12 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
-    split = {"F1", "F2", "F3"} if attention == "flash" else set()
+    # fp32 takes F1 and, at head_dim 64, the split_f32 route, else the split one.
+    split = ({"F1", "F2S", "F3S"} if head_dim == 64 else {"F1", "F2", "F3"}) if (
+        attention == "flash") else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
-        raise RuntimeError(f"flash launches off: card {card_flash} (want F1, F2, F3 with flash, "
-                           f"FF, FB, FFH, F2H and F3H never: fp32 takes F1 and the split "
-                           f"route), "
-                           f"CPU {cpu_flash}")
+        raise RuntimeError(f"flash launches off: card {card_flash} (want exactly "
+                           f"{sorted(split)} launched), CPU {cpu_flash}")
     bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
     if bad:
         raise RuntimeError(f"card disagrees with the CPU reference: {bad}")
@@ -4442,7 +4572,8 @@ def main() -> None:
     jacobi_by_route, jacobi_generic_launches = phase_jacobi_path(card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
-    # phase 10 (bf16, head_dim 64), F1, F2 and F3 from phase 11 (fp32).
+    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2 and F3 from phase 11
+    # (fp32), below.
     flash_path = phase_flash_path(card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     # Phase 12's artifacts stay on disk for phase 14, which reads them through
@@ -4457,25 +4588,28 @@ def main() -> None:
     del ctx
     phase_reference()
     split_path = phase_reference(attention="flash", seq=128, padded=True)
+    split_path_d128 = phase_reference(attention="flash", seq=128, padded=True, num_heads=4)
     llama = phase_llama(card)
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
                       for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
-    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128), F1, F2 and F3 from
-    # phase 11 (fp32: the generic forward and the split route).
+    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F1, F2S and F3S
+    # from phase 11's first run (fp32 D 64: the generic forward and the
+    # split_f32 route), F2 and F3 from its second (fp32 D 128: the split
+    # route).
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
-                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path["F2"],
-                    F3=split_path["F3"])
+                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d128["F2"],
+                    F3=split_path_d128["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 11 (reference, fp32: generic forward)"),
+               "phase 11's first run (reference, fp32 D 64: generic forward)"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "phase 11 (reference, fp32: split route)"),
+               "phase 11's second run (reference, fp32 D 128: split route)"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "phase 11 (reference, fp32: split route)"),
+               "phase 11's second run (reference, fp32 D 128: split route)"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
@@ -4486,6 +4620,10 @@ def main() -> None:
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
         "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
+        "F2S": ("flash_backward_dkv_f32", ["flash_attention.py:941"], "flash_backward_f32.cu",
+                "phase 11's first run (reference, fp32 D 64: split_f32 route)"),
+        "F3S": ("flash_backward_dq_f32", ["flash_attention.py:1287"], "flash_backward_f32.cu",
+                "phase 11's first run (reference, fp32 D 64: split_f32 route)"),
     }
     kernels = [
         {
@@ -4546,7 +4684,9 @@ def main() -> None:
             **({"stage_options_launches": options_launches[fid]} if fid in options_launches else {}),
             **({"score_features_launches": features_launches[fid]}
                if fid in features_launches else {}),
-            **({"fp32_reference_launches": split_path[fid]} if fid in ("F1", "F2", "F3") else {}),
+            **({"fp32_reference_launches": {"head_dim 64": split_path[fid],
+                                            "head_dim 128": split_path_d128[fid]}}
+               if fid in ("F1", "F2", "F3", "F2S", "F3S") else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
             **flash_result[fid],

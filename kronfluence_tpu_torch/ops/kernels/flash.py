@@ -1,5 +1,5 @@
-"""F1-F3, FF, FFH, FB, F2H and F3H: causal, segment-masked flash attention,
-hand-written for Hopper.
+"""F1-F3, FF, FFH, FB, F2H, F3H, F2S and F3S: causal, segment-masked flash
+attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
@@ -11,10 +11,12 @@ multiple of 64), and FB, in `csrc/flash_backward.cu`, F2's and F3's work in
 one launch. In bf16 at D 128 (Llama's heads) FFH, the same pipelined body as
 FF instanced at D 128 (both in `csrc/flash_forward.cu`), takes F1's work,
 and F2H and F3H, in `csrc/flash_backward_d128.cu`, take F2's and F3's: two
-deterministic kernels with ldmatrix fragments and cp.async rings.
-`forward_route` picks FF ("pipelined"), FFH ("pipelined_h") or F1
-("generic"); `backward_route` FB ("fused"), F2H + F3H ("split_h") or F2 + F3
-("split").
+deterministic kernels with ldmatrix fragments and cp.async rings. In fp32 at
+D 64 F2S and F3S, in `csrc/flash_backward_f32.cu`, take F2's and F3's: two
+deterministic kernels of register-tiled fp32 FMAs fed by 128-bit shared loads
+and cp.async rings. `forward_route` picks FF ("pipelined"), FFH
+("pipelined_h") or F1 ("generic"); `backward_route` FB ("fused"), F2H + F3H
+("split_h"), F2S + F3S ("split_f32") or F2 + F3 ("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel or
@@ -45,6 +47,8 @@ FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
 # tile: T must be a multiple of it.
 SPLIT_H_HEAD_DIM = 128
 FFH_QUERY_TILE = 128
+# The one operand type and head dim F2S and F3S take.
+SPLIT_F32_DTYPE, SPLIT_F32_HEAD_DIM = torch.float32, 64
 
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -59,11 +63,14 @@ def forward_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
     """"fused" (FB, one launch) for bf16 at D 64, "split_h" (F2H + F3H) for
-    bf16 at D 128, else "split" (F2 + F3)."""
+    bf16 at D 128, "split_f32" (F2S + F3S) for fp32 at D 64, else "split"
+    (F2 + F3)."""
     if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
         return "fused"
     if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
         return "split_h"
+    if dtype == SPLIT_F32_DTYPE and head_dim == SPLIT_F32_HEAD_DIM:
+        return "split_f32"
     return "split"
 
 
@@ -291,13 +298,29 @@ def flash_backward(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     return dq.to(q.dtype), dk, dv
 
 
-def _check_split_h(q, segment_ids, l, m, di, name: str) -> None:
-    if backward_route(q.dtype, q.shape[-1]) != "split_h":
-        raise ValueError(f"{name} takes {FUSED_DTYPE} at D {SPLIT_H_HEAD_DIM}; got {q.dtype}, "
-                         f"D {q.shape[-1]}: use the route `backward_route` gives.")
-    # F2H and F3H copy the segment ids (F2H also l, m and di) with 16-byte cp.async.
+def _launch_split(entry: str, name: str, route: str, outputs: int,
+                  q, k, v, segment_ids, l, m, do, di, sm_scale) -> list:
+    """F2H's, F3H's, F2S's or F3S's launch through the C entry `entry`: checks
+    the operands and the route, then returns the `outputs` tensors it writes
+    (dK and dV, or dQ)."""
+    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
+    if backward_route(q.dtype, d) != route:
+        raise ValueError(f"{name} takes the backward route {route!r}; got {q.dtype}, D {d}: "
+                         f"use the route `backward_route` gives.")
+    # The kernels copy the segment ids (F2H and F2S also l, m and di) with
+    # 16-byte cp.async.
     if any(x.data_ptr() % 16 for x in (segment_ids, l, m, di)):
         raise ValueError(f"{name} takes 16-byte aligned segment ids, l, m and di.")
+    with torch.cuda.device(q.device):
+        lib = load_library()
+        outs = [torch.empty_like(q) for _ in range(outputs)]
+        err = getattr(lib, entry)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
+            m.data_ptr(), do.data_ptr(), di.data_ptr(), *(x.data_ptr() for x in outs),
+            b, h, t, d, float(sm_scale), _stream(q.device),
+        )
+        check_launch(err, f"flash backward ({name})")
+    return outs
 
 
 def flash_backward_dkv_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
@@ -305,17 +328,8 @@ def flash_backward_dkv_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float)
     (`backward_route` "split_h"). Deterministic: two calls give the same bits."""
     if q.device.type == "cpu":
         return flash_backward_dkv_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
-    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
-    _check_split_h(q, segment_ids, l, m, di, "F2H")
-    with torch.cuda.device(q.device):
-        lib = load_library()
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
-        err = lib.kf_flash_bwd_dkv_d128(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
-            m.data_ptr(), do.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b, h, t, d, float(sm_scale), _stream(q.device),
-        )
-        check_launch(err, "flash backward dK/dV at D 128 (F2H)")
+    dk, dv = _launch_split("kf_flash_bwd_dkv_d128", "F2H", "split_h", 2,
+                           q, k, v, segment_ids, l, m, do, di, sm_scale)
     flash_backward_dkv_d128.launches += 1
     return dk, dv
 
@@ -325,18 +339,31 @@ def flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     (`backward_route` "split_h"). Deterministic: two calls give the same bits."""
     if q.device.type == "cpu":
         return flash_backward_dq_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
-    b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
-    _check_split_h(q, segment_ids, l, m, di, "F3H")
-    with torch.cuda.device(q.device):
-        lib = load_library()
-        dq = torch.empty_like(q)
-        err = lib.kf_flash_bwd_dq_d128(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), segment_ids.data_ptr(), l.data_ptr(),
-            m.data_ptr(), do.data_ptr(), di.data_ptr(), dq.data_ptr(),
-            b, h, t, d, float(sm_scale), _stream(q.device),
-        )
-        check_launch(err, "flash backward dQ at D 128 (F3H)")
+    (dq,) = _launch_split("kf_flash_bwd_dq_d128", "F3H", "split_h", 1,
+                          q, k, v, segment_ids, l, m, do, di, sm_scale)
     flash_backward_dq_d128.launches += 1
+    return dq
+
+
+def flash_backward_dkv_f32(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F2S: returns (dK, dV) like F2; CUDA operands must be fp32 at D 64
+    (`backward_route` "split_f32"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dkv_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    dk, dv = _launch_split("kf_flash_bwd_dkv_f32", "F2S", "split_f32", 2,
+                           q, k, v, segment_ids, l, m, do, di, sm_scale)
+    flash_backward_dkv_f32.launches += 1
+    return dk, dv
+
+
+def flash_backward_dq_f32(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F3S: returns dQ like F3; CUDA operands must be fp32 at D 64
+    (`backward_route` "split_f32"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dq_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    (dq,) = _launch_split("kf_flash_bwd_dq_f32", "F3S", "split_f32", 1,
+                          q, k, v, segment_ids, l, m, do, di, sm_scale)
+    flash_backward_dq_f32.launches += 1
     return dq
 
 
@@ -348,3 +375,5 @@ flash_backward_dq.launches = 0
 flash_backward.launches = 0
 flash_backward_dkv_d128.launches = 0
 flash_backward_dq_d128.launches = 0
+flash_backward_dkv_f32.launches = 0
+flash_backward_dq_f32.launches = 0
