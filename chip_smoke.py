@@ -13,8 +13,9 @@ each of which raises on failure:
      and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
      HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
      (cuobjdump; their registers, spills and CTAs an SM printed beside);
-     FFH must show no local loads or stores (no spills); F2S's and F3S's
-     SASS must hold FFMA and 128-bit shared loads and no HMMA (their FFMA,
+     FFH must show no local loads or stores (no spills); F2S's, F3S's,
+     F2SH's and F3SH's SASS must hold FFMA and 128-bit shared loads and no
+     HMMA, local loads or stores (their FFMA,
      shared loads by width, local loads and stores, barriers, registers,
      spills and CTAs an SM printed);
   3. K3 probe: the build-and-launch check against its plain version, timed
@@ -59,7 +60,7 @@ each of which raises on failure:
   9. flash kernels: F1 (forward), F2 (dK, dV) and F3 (dQ) against their
      plain versions at every position of O, dQ, dK, dV: at the flash path's
      shape (B 16, H 12, T 512, D 64, bf16, padded mask), at D 128 and 256 in
-     bf16, in fp32 at D 64, and at T 128 without padding; FF (the pipelined
+     bf16, in fp32 at D 64 and 256, and at T 128 without padding; FF (the pipelined
      forward: O, l, m) and FB (the fused backward, dQ, dK and dV in one
      launch) against their plain versions at the bf16 D 64 cases, where
      `forward_route` and `backward_route` take them; two planted faults (a
@@ -92,24 +93,32 @@ each of which raises on failure:
      read above 1e-5); F2S + F3S timed in turns against F2 + F3 and SDPA's
      backward alone at phase 10's fp32 shape (B 16, H 12, T 512, D 64,
      padded; it must beat F2 + F3 by device time), the Function's backward
-     split into di and the kernels, and SDPA's kernel names logged; F1 and
-     F2 + F3 also timed in turns against SDPA at bf16 D 256 and fp32 D 128
-     (where SDPA raises, logged and timed without it);
+     split into di and the kernels, and SDPA's kernel names logged. F2SH
+     and F3SH (the fp32 D 128 backward, `backward_route` "split_f32_h") the
+     same at the fp32 D 128 case (B 16, H 6, T 512, padded): against F2's
+     and F3's plain versions within 1e-5 of max, two calls bitwise equal,
+     the dropped-block fault planted there; timed in turns against F2 + F3
+     and SDPA's backward alone (they must beat F2 + F3 by device time), the
+     Function's backward split into di and the kernels. F1 and F2 + F3
+     also timed in turns against SDPA at bf16 and fp32 D 256 (where SDPA
+     raises, logged and timed without it);
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
      FB 12 times per forward+backward pass, F1, F2, F3, FFH, F2H, F3H, F2S,
-     F3S and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     F3S, F2SH, F3SH and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (T 128, padded
-     data), in fp32, twice: at head_dim 64 (8 heads) exactly F1, F2S and F3S
-     (the generic forward and the split_f32 backward) launch on the card, at
-     head_dim 128 (4 heads) exactly F1, F2 and F3 (the split backward); the
-     plain versions on the CPU; the kernels line reads F1's, F2S's and
-     F3S's launches from the first run, F2's and F3's from the second.
+     data), in fp32, three times: at head_dim 64 (8 heads) exactly F1, F2S
+     and F3S (the generic forward and the split_f32 backward) launch on the
+     card, at head_dim 128 (4 heads) exactly F1, F2SH and F3SH (the
+     split_f32_h backward), at head_dim 256 (2 heads) exactly F1, F2 and F3
+     (the split backward); the plain versions on the CPU; the kernels line
+     reads F1's, F2S's and F3S's launches from the first run, F2SH's and
+     F3SH's from the second, F2's and F3's from the third.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -172,7 +181,7 @@ each of which raises on failure:
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
      (counted by hooks on the attention layers), F1, F2, F3, FF, FB, F2S,
-     F3S, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     F3S, F2SH, F3SH, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -184,8 +193,9 @@ each of which raises on failure:
      smart-low-precision recipe (K1 12 a batch); and the covariance against
      the same weights with attention="naive" (phase 10's limit).
 
-It prints one JSON line with the kernels' results before the last line, and
-ends with `{"ok": true, "device": {...}}`. Without a CUDA card, or when the
+It prints each phase's seconds and the total, then one JSON line with the
+kernels' results before the last line, and ends with
+`{"ok": true, "device": {...}}`. Without a CUDA card, or when the
 package is not beside this file, it exits non-zero without a result line.
 
 `python3 chip_smoke.py --profile-eigh` instead fits phase 5's covariance and
@@ -226,12 +236,18 @@ steps, a 2-stage ring) against copies of csrc/flash_backward_d128.cu with the
 other register layout (8 warps, two a 16-key group, P^T and dS^T through
 shared memory), a 3-stage query ring and 64-query steps, each held to the bf16 limit
 first, with each kernel's SASS counts (HMMA, LDSM, local LDL/STL), registers
-a thread and CTAs an SM, and against F2 and F3.
+a thread and CTAs an SM, and against F2 and F3; then F2SH and F3SH at the
+fp32 D 128 case (B 16, H 6, T 512, padded) as built (every product loop
+unrolled whole) against a copy of csrc/flash_backward_f32_d128.cu whose
+product loops unroll 8 steps at a time (the same sums in the same order:
+held to the built kernels' bits first), with each kernel's SASS counts,
+registers, spills and CTAs an SM.
 """
 
 import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -346,6 +362,7 @@ FLASH_CASES = (
     (8, 12, 512, 64, torch.float32, True),
     (16, 12, 128, 64, torch.bfloat16, False),
     (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, True),
+    (4, 4, 512, 256, torch.float32, True),
 )
 # The shapes F1, F2 and F3 serve or served since FF and FB took bf16 at D 64
 # (B, H, T, D, dtype, padded), each timed with the kernels that took it over:
@@ -353,13 +370,16 @@ FLASH_CASES = (
 # GPT-2 small's width, the route of phase 11's first run, at phase 10's batch
 # and length (F1, F2S, F3S); bf16 at D 128 over the same 768 model width
 # (FFH, F2H, F3H); bf16 at D 256, FLASH_CASES' (F1, F2, F3); fp32 at D 128
-# over the 768 width, the route of phase 11's second run (F1, F2, F3).
+# over the 768 width, the route of phase 11's second run (F1, F2SH, F3SH);
+# fp32 at D 256 over the 768 width, the route of phase 11's third run (F1,
+# F2, F3).
 GENERIC_ROUTE_CASES = {
     "Llama bf16 D 128": (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, False),
     "fp32 D 64": (16, 12, 512, 64, torch.float32, True),
     "bf16 D 128": (16, 6, 512, 128, torch.bfloat16, True),
     "bf16 D 256": (4, 8, 512, 256, torch.bfloat16, True),
     "fp32 D 128": (16, 6, 512, 128, torch.float32, True),
+    "fp32 D 256": (16, 3, 512, 256, torch.float32, True),
 }
 # The flash path against phase 5's naive path, same bf16 weights and data. The
 # two forms round differently in bf16 (fp32 softmax and P rounded before P V,
@@ -582,13 +602,17 @@ def phase_build() -> None:
             raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
         if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
             raise RuntimeError(f"FFH spills: {counts}, {occ}")
-    for which, kernel in enumerate(F32_KERNELS):
-        counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
-        log(f"SASS of {kernel}: {counts}; {occupancy(lib, F32_OCCUPANCY, which)}")
-        # Every product an fp32 FMA fed by 128-bit shared loads; no tensor-core
-        # (TF32) instruction.
-        if not (counts["FFMA"] and counts["LDS.128"]) or counts["HMMA"]:
-            raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
+    for kernels, entry in ((F32_KERNELS, F32_OCCUPANCY), (F32_D128_KERNELS, F32_D128_OCCUPANCY)):
+        for which, kernel in enumerate(kernels):
+            counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
+            occ = occupancy(lib, entry, which)
+            log(f"SASS of {kernel}: {counts}; {occ}")
+            # Every product an fp32 FMA fed by 128-bit shared loads; no
+            # tensor-core (TF32) instruction.
+            if not (counts["FFMA"] and counts["LDS.128"]) or counts["HMMA"]:
+                raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
+            if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
+                raise RuntimeError(f"{kernel} spills: {counts}, {occ}")
 
 
 # F2H and F3H (csrc/flash_backward_d128.cu), and FF and FFH
@@ -605,6 +629,9 @@ D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
 # shared loads of every width).
 F32_KERNELS = ("flash_bwd_dkv_f32_kernel", "flash_bwd_dq_f32_kernel")
 F32_OCCUPANCY = "kf_flash_bwd_f32_occupancy"
+# F2SH and F3SH (csrc/flash_backward_f32_d128.cu), likewise.
+F32_D128_KERNELS = ("flash_bwd_dkv_f32_d128_kernel", "flash_bwd_dq_f32_d128_kernel")
+F32_D128_OCCUPANCY = "kf_flash_bwd_f32_d128_occupancy"
 F32_OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDL", "STL", "BAR", "instructions")
 
 
@@ -619,14 +646,20 @@ def occupancy(lib, entry: str, which: int) -> dict:
     return {"registers": regs.value, "local_bytes": local.value, "ctas_per_sm": ctas.value}
 
 
-def sass_counts(library: Path, kernel: str, opcodes) -> dict:
-    """How often each opcode appears in `kernel`'s SASS in the library;
-    "instructions" counts them all."""
+@functools.lru_cache(maxsize=None)
+def library_sass(library: Path) -> str:
+    """The SASS of every kernel in the library (cuobjdump), read once a library."""
     from kronfluence_tpu_torch.ops.kernels import build
 
     cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
+    return subprocess.run([str(cuobjdump), "-sass", str(library)], capture_output=True,
                           text=True, check=True, timeout=300).stdout
+
+
+def sass_counts(library: Path, kernel: str, opcodes) -> dict:
+    """How often each opcode appears in `kernel`'s SASS in the library;
+    "instructions" counts them all."""
+    sass = library_sass(Path(library))
     body = "".join(part for part in re.split(r"\n\s*Function : ", sass)
                    if kernel in part.split("\n", 1)[0])
     return {op: len(re.findall(r"/\*[0-9a-f]{4,}\*/" if op == "instructions"
@@ -967,9 +1000,11 @@ def flash_kernels():
         flash_backward_dkv,
         flash_backward_dkv_d128,
         flash_backward_dkv_f32,
+        flash_backward_dkv_f32_d128,
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_backward_dq_f32,
+        flash_backward_dq_f32_d128,
         flash_forward,
         flash_forward_d128,
         flash_forward_pipelined,
@@ -978,7 +1013,8 @@ def flash_kernels():
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
-            "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32}
+            "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
+            "F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d128}
 
 
 def phase_main_path(card: str) -> dict:
@@ -1573,18 +1609,20 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("split_runs", None)
         timing["extra"] = extra
     # FFH, F2H and F3H report phase 15's shape (Llama); F1, F2S and F3S fp32
-    # at D 64 (phase 11's first run); F2 and F3 fp32 at D 128 (the route of
-    # phase 11's second run: F2S and F3S took fp32 at D 64). Their other
+    # at D 64 (phase 11's first run); F2SH and F3SH fp32 at D 128 (the route
+    # of its second run); F2 and F3 fp32 at D 256 (the route of its third
+    # run: F2S, F2SH, F3S and F3SH took fp32 at D 64 and 128). Their other
     # shapes, and the bf16 D 64 times of F1-F3 (the turns against FF and FB
     # above), stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
     fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
-    fp32_d128 = "B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: F1, F2, F3)"
+    fp32_d128 = "B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: F1, F2SH, F3SH)"
+    fp32_d256 = "B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: F1, F2, F3)"
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
-    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("fp32 D 128", fp32_d128),
-                 "F3": ("fp32 D 128", fp32_d128)}
+    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("fp32 D 256", fp32_d256),
+                 "F3": ("fp32 D 256", fp32_d256)}
     for name, (case, shape) in main_case.items():
         timing[name] = dict(routes[name][case], shape=shape, at_bf16_d64=at_d64[name], **{
             f"at {other}": routes[name][other] for other in GENERIC_ROUTE_CASES if other != case})
@@ -1595,12 +1633,18 @@ def phase_flash_kernels(card: str) -> dict:
     timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
     timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
     timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
-    for name in ("F2S", "F3S"):
-        timing[name] = dict(routes[name]["fp32 D 64"], shape=fp32_d64)
-    timing["F2S"]["pair_at_fp32_d64"] = routes["F2S+F3S"]["fp32 D 64"]
-    timing["F2S"]["f2_f3_at_fp32_d64"] = routes["F2+F3"]["fp32 D 64"]
-    out = {name: dict(timing[name], max_abs_err=abs_errs[name])
-           for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H", "F2S", "F3S")}
+    for n2, n3, case, shape in (("F2S", "F3S", "fp32 D 64", fp32_d64),
+                                ("F2SH", "F3SH", "fp32 D 128", fp32_d128)):
+        for name in (n2, n3):
+            timing[name] = dict(routes[name][case], shape=shape)
+        timing[n2]["pair"] = routes[f"{n2}+{n3}"][case]
+        timing[n2]["f2_f3_in_the_same_turns"] = routes["F2+F3"][case]
+    # F2S and F3S are also held at their route's case in time_generic_routes,
+    # F2SH and F3SH there alone.
+    out = {}
+    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H", "F2S", "F3S", "F2SH", "F3SH"):
+        err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
+        out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
     return out
 
@@ -1623,29 +1667,34 @@ def kernel_names(fn) -> list:
 
 def time_generic_routes(card: str) -> dict:
     """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
-    "pipelined_h" and `backward_route` "split_h" (bf16 D 128) or "split_f32"
-    (fp32 D 64), FFH, F2H + F3H and F2S + F3S too, in turns against SDPA's
-    forward and its backward alone with the same boolean mask: CUDA events
-    around one call (median), torch.profiler device time, the plain version
-    and the bound; SDPA's kernel names are logged, and where SDPA raises the
-    case is logged and timed without it. There FFH, F2H, F3H, F2S and F3S
-    are first held against their plain versions (FFH, F2S and F3S twice,
-    bitwise); FFH must beat F1, and F2H + F3H and F2S + F3S must beat F2 + F3
-    by device time; the Function's forward (the operands' .contiguous()
-    copies, then FFH) is split by device time into the copies and FFH, and
-    its backward (di, then F2H and F3H, or F2S and F3S) into di and the
-    kernels. {kernel: {case: numbers}}, kernel in F1, FFH, F2, F3, F2+F3,
-    F2H, F3H, F2H+F3H, F2S, F3S, F2S+F3S."""
+    "pipelined_h" and `backward_route` "split_h" (bf16 D 128), "split_f32"
+    (fp32 D 64) or "split_f32_h" (fp32 D 128), FFH, F2H + F3H, F2S + F3S and
+    F2SH + F3SH too, in turns against SDPA's forward and its backward alone
+    with the same boolean mask: CUDA events around one call (median),
+    torch.profiler device time, the plain version and the bound; SDPA's
+    kernel names are logged, and where SDPA raises the case is logged and
+    timed without it. There FFH and the split pair are first held against
+    their plain versions (FFH and the fp32 pairs twice, bitwise; the fp32
+    pairs within 1e-5 of max, with a dropped block of P that the limit must
+    catch); FFH must beat F1, and each split pair F2 + F3, by device time;
+    the Function's forward (the operands' .contiguous() copies, then FFH) is
+    split by device time into the copies and FFH, and its backward (di,
+    then the split pair) into di and the kernels. {kernel: {case:
+    numbers}}, kernel in F1, FFH, F2, F3, F2+F3, F2H, F3H, F2H+F3H, F2S,
+    F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH; the fp32 pairs' kernels also carry
+    `max_abs_err` against their plain versions."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
         flash_backward_dkv,
         flash_backward_dkv_d128,
         flash_backward_dkv_f32,
+        flash_backward_dkv_f32_d128,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_backward_dq_f32,
+        flash_backward_dq_f32_d128,
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_d128,
@@ -1653,11 +1702,20 @@ def time_generic_routes(card: str) -> dict:
         forward_route,
     )
 
-    dkv_h, dq_h = ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)
-    dkv_s, dq_s = (F32_KERNELS[0],), (F32_KERNELS[1],)
+    # Each split backward route: its two kernels' names, wrappers and CUDA
+    # kernel names.
+    split_routes = {
+        "split_h": ("F2H", "F3H", flash_backward_dkv_d128, flash_backward_dq_d128,
+                    ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)),
+        "split_f32": ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32,
+                      (F32_KERNELS[0],), (F32_KERNELS[1],)),
+        "split_f32_h": ("F2SH", "F3SH", flash_backward_dkv_f32_d128, flash_backward_dq_f32_d128,
+                        (F32_D128_KERNELS[0],), (F32_D128_KERNELS[1],)),
+    }
     ffh_k = (FWD_KERNELS[1],)
-    out = {"F1": {}, "FFH": {}, "F2": {}, "F3": {}, "F2+F3": {}, "F2H": {}, "F3H": {},
-           "F2H+F3H": {}, "F2S": {}, "F3S": {}, "F2S+F3S": {}}
+    out = {"F1": {}, "FFH": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    for n2, n3, *_ in split_routes.values():
+        out.update({n2: {}, n3: {}, f"{n2}+{n3}": {}})
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
         gen = torch.Generator("cuda").manual_seed(b * t + d + h + 1)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1668,7 +1726,7 @@ def time_generic_routes(card: str) -> dict:
         di = output_dot(o, do)
         args = (q, k, v, seg, l, m, do, di, scale)
         route = backward_route(dtype, d)
-        split_h, split_f32 = route == "split_h", route == "split_f32"
+        split = split_routes.get(route)
         pipelined_h = forward_route(dtype, d) == "pipelined_h"
         if pipelined_h:
             got = ffh_checked(q, k, v, seg, scale, case)
@@ -1681,7 +1739,8 @@ def time_generic_routes(card: str) -> dict:
             if not (errs[0] <= FLASH_BF16_UNITS and max(errs[1:]) <= FLASH_STATS_TOL):
                 raise RuntimeError(f"FFH off its plain version at {case}: {errs}")
             del got, want
-        if split_h:
+        abs_err = {}
+        if route == "split_h":
             got = (*flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args))
             want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
             units = [bf16_units(x, y) for x, y in zip(got, want)]
@@ -1690,17 +1749,34 @@ def time_generic_routes(card: str) -> dict:
             if not max(units) <= FLASH_BF16_UNITS:
                 raise RuntimeError(f"F2H/F3H off their plain versions at {case}: {units}")
             del got, want
-        if split_f32:
-            got = (*flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args))
-            again = (*flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args))
+        if route in ("split_f32", "split_f32_h"):
+            n2, n3, dkv_fn, dq_fn = split[:4]
+            got = (*dkv_fn(*args), dq_fn(*args))
+            again = (*dkv_fn(*args), dq_fn(*args))
             want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
             rel = [relative_to_max(x, y) for x, y in zip(got, want)]
             bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
-            log(f"flash F2S, F3S at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ max |kernel - "
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+            abs_err = {n2: max(errs[:2]), n3: errs[2]}
+            log(f"flash {n2}, {n3} at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ max |kernel - "
                 f"plain| / max |plain| {[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); "
-                f"two calls bitwise equal {bitwise}")
-            if not (max(rel) <= FLASH_FP32_TOL and all(bitwise)):
-                raise RuntimeError(f"F2S/F3S off their plain versions at {case}: {rel}, {bitwise}")
+                f"two calls bitwise equal {bitwise}; finite {finite}")
+            if not (max(rel) <= FLASH_FP32_TOL and all(bitwise) and finite):
+                raise RuntimeError(f"{n2}/{n3} off their plain versions at {case}: {rel}, {bitwise}")
+            if route == "split_f32_h":
+                # The fp32 limit must catch a skipped tile of F2SH and F3SH:
+                # the plain version without one block of P.
+                fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
+                fault_rel = [relative_to_max(fault[n], y) for n, y in zip(("dK", "dV", "dQ"), want)]
+                log(f"flash {case}: planted fault (one 64 x 64 block of P left out, rows 384-447, "
+                    f"keys 192-255) against {n2}'s and {n3}'s plain versions, dK, dV, dQ max "
+                    f"|fault - plain| / max |plain|: {[f'{e:.3g}' for e in fault_rel]}; the "
+                    f"kernels here {max(rel):.3g}; limit {FLASH_FP32_TOL:g}")
+                if not min(fault_rel) > FLASH_FP32_TOL:
+                    raise RuntimeError(f"the fp32 limit {FLASH_FP32_TOL:g} does not catch a "
+                                       f"skipped tile of {n2} or {n3}: {fault_rel}")
+                del fault
             del got, again, want
         keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
             t, t, dtype=torch.bool, device="cuda").tril()
@@ -1731,19 +1807,13 @@ def time_generic_routes(card: str) -> dict:
         except RuntimeError as err:
             log(f"flash generic routes, {case}: SDPA with the boolean mask raised, so this case "
                 f"has no library time: {str(err)[:300]}")
-        if split_h:
+        if split:
+            n2, n3, dkv_fn, dq_fn, dkv_k, dq_k = split
+            pair_name = f"{n2}+{n3}"
             fns.update({
-                "F2H": (lambda: flash_backward_dkv_d128(*args), dkv_h),
-                "F3H": (lambda: flash_backward_dq_d128(*args), dq_h),
-                "F2H+F3H": (lambda: (flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args)),
-                            dkv_h + dq_h),
-            })
-        if split_f32:
-            fns.update({
-                "F2S": (lambda: flash_backward_dkv_f32(*args), dkv_s),
-                "F3S": (lambda: flash_backward_dq_f32(*args), dq_s),
-                "F2S+F3S": (lambda: (flash_backward_dkv_f32(*args), flash_backward_dq_f32(*args)),
-                            dkv_s + dq_s),
+                n2: (lambda: dkv_fn(*args), dkv_k),
+                n3: (lambda: dq_fn(*args), dq_k),
+                pair_name: (lambda: (dkv_fn(*args), dq_fn(*args)), dkv_k + dq_k),
             })
         times = turns_ms(fns)
         plain = {
@@ -1752,17 +1822,16 @@ def time_generic_routes(card: str) -> dict:
             "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
-        # FFH's plain version is F1's; F2H's, F3H's, F2S's and F3S's are F2's and F3's.
-        plain.update({"FFH": plain["F1"], "F2H": plain["F2"], "F3H": plain["F3"],
-                      "F2H+F3H": plain["F2+F3"], "F2S": plain["F2"], "F3S": plain["F3"],
-                      "F2S+F3S": plain["F2+F3"]})
+        # FFH's plain version is F1's; each split pair's are F2's and F3's.
         pairs, work = flash_work(seg, h, d, q.element_size())
-        work["F2+F3"] = work["F2H+F3H"] = work["F2S+F3S"] = work["FB"]  # dQ, dK, dV written once
-        work["FFH"], work["F2H"], work["F3H"] = work["F1"], work["F2"], work["F3"]
-        work["F2S"], work["F3S"] = work["F2"], work["F3"]
+        work["F2+F3"] = work["FB"]  # dQ, dK, dV written once
+        plain["FFH"], work["FFH"] = plain["F1"], work["F1"]
+        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "F2+F3": "SDPA bwd alone"}
+        for n2, n3, *_ in split_routes.values():
+            for name, like in ((n2, "F2"), (n3, "F3"), (f"{n2}+{n3}", "F2+F3")):
+                plain[name], work[name] = plain[like], work[like]
+            library[f"{n2}+{n3}"] = "SDPA bwd alone"
         peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "F2+F3": "SDPA bwd alone",
-                   "F2H+F3H": "SDPA bwd alone", "F2S+F3S": "SDPA bwd alone"}
         for name in out:
             if name not in times:
                 continue
@@ -1775,7 +1844,8 @@ def time_generic_routes(card: str) -> dict:
                 plain_ms=plain[name], bound_ms=bound, bound_by=bound_by,
                 library_ms=float(np.mean([e for e, _ in times[lib]])) if lib else None,
                 library_device_ms=float(np.mean([dv for _, dv in times[lib]])) if lib else None,
-                **({"library_kernels": sdpa_names[lib]} if lib else {}))
+                **({"library_kernels": sdpa_names[lib]} if lib else {}),
+                **({"max_abs_err": abs_err[name]} if name in abs_err else {}))
         extra = ""
         if pipelined_h:
             # The Function's forward at this shape (FlashAttention.forward):
@@ -1790,20 +1860,18 @@ def time_generic_routes(card: str) -> dict:
                                     copies_device_ms=whole - kernel)
             extra += (f"; the Function's forward {whole:.4f} ms by device time: the "
                       f".contiguous() copies {whole - kernel:.4f}, FFH {kernel:.4f}")
-        if split_h or split_f32:
+        if split:
             # The Function's backward at this shape (FlashAttention.backward):
-            # di = rowsum(O * dO) in torch ops, then F2H and F3H (F2S and F3S).
-            dkv, dq = ((flash_backward_dkv_d128, flash_backward_dq_d128) if split_h
-                       else (flash_backward_dkv_f32, flash_backward_dq_f32))
-            names = dkv_h + dq_h if split_h else dkv_s + dq_s
-            pair_name = "F2H+F3H" if split_h else "F2S+F3S"
+            # di = rowsum(O * dO) in torch ops, then the route's split pair.
+            n2, n3, dkv, dq, dkv_k, dq_k = split
+            pair_name = f"{n2}+{n3}"
 
             def function_backward():
                 d_i = output_dot(o, do)
                 dkv(q, k, v, seg, l, m, do, d_i, scale)
                 dq(q, k, v, seg, l, m, do, d_i, scale)
 
-            whole, kernels = device_ms(function_backward), device_ms(function_backward, names)
+            whole, kernels = device_ms(function_backward), device_ms(function_backward, dkv_k + dq_k)
             pair = out[pair_name][case]
             pair.update(function_backward_device_ms=whole, kernels_device_ms=kernels,
                         di_device_ms=whole - kernels,
@@ -1826,7 +1894,7 @@ def time_generic_routes(card: str) -> dict:
             raise RuntimeError(f"FFH is not faster than F1 at {case}: "
                                f"{out['FFH'][case]['device_ms']:.4f} against "
                                f"{out['F1'][case]['device_ms']:.4f} ms by device time")
-        for pair_name in ("F2H+F3H", "F2S+F3S"):
+        for pair_name in (f"{n2}+{n3}" for n2, n3, *_ in split_routes.values()):
             if case in out[pair_name] and not (out[pair_name][case]["device_ms"]
                                                < out["F2+F3"][case]["device_ms"]):
                 raise RuntimeError(f"{pair_name} are not faster than F2 + F3 at {case}: "
@@ -2076,9 +2144,10 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, F2H, F3H, F2S and F3S never.
+    # FFH, F2H, F3H, F2S, F3S, F2SH and F3SH never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0}
+            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0,
+            "F2SH": 0, "F3SH": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -2087,7 +2156,7 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
         f"({run['blocks']} block(s) of {QUERY_N} queries); block formats {run['formats']}")
     log(f"flash path kernel launches: " + ", ".join(f"{k} {v}" for k, v in launches.items())
         + f"; want FF {want['FF']} (12 x ({passes} forward+backward passes + {forwards_only} "
-        f"forwards)), FB {want['FB']}, F1 = F2 = F3 = FFH = F2H = F3H = F2S = F3S = 0; naive attention calls {naive_calls}; syrk on "
+        f"forwards)), FB {want['FB']}, the other flash kernels 0; naive attention calls {naive_calls}; syrk on "
         f"the wgmma kernel {wgmma_launches} (want {36 * cov_b})")
     for name in kernels:
         if launches[name] != want[name]:
@@ -3085,11 +3154,11 @@ def score_features_lowrank(card: str, ctx: dict, analyzer) -> dict:
         f"{pearson(flash_scores, dense):.6f}, against the naive rank-32 call "
         f"{pearson(flash_scores, results['rank 32'][0]):.6f}; launches " + ", ".join(
             f"{k} {v}" for k, v in launches.items()) + f" (want FB {passes}, FF a multiple of "
-        f"{config.num_layers} above it, F1-F3, FFH, F2H, F3H, F2S, F3S 0) [{card}]")
+        f"{config.num_layers} above it, the other flash kernels 0) [{card}]")
     if (launches["FB"] != passes or launches["FF"] <= launches["FB"]
             or launches["FF"] % config.num_layers):
         raise RuntimeError(f"the flash low-rank call launched {launches}")
-    if any(launches[k] for k in ("F1", "F2", "F3", "FFH", "F2H", "F3H", "F2S", "F3S")):
+    if any(n for k, n in launches.items() if k not in ("FF", "FB")):
         raise RuntimeError(f"the flash low-rank call took the generic or D 128 routes: {launches}")
     if not pearson(flash_scores, dense) >= FLASH_PEARSON_MIN:
         raise RuntimeError("the flash low-rank scores do not follow the dense ones")
@@ -3357,13 +3426,13 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, F2S, F3S, K2 and the naive form never; in a covariance
+    one); F1, F2, F3, FF, FB, F2S, F3S, F2SH, F3SH, K2 and the naive form never; in a covariance
     stage K1 on every gram (two per projection, 6 a layer and batch), all
     wgmma, and K3 once per covariance fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "F2S": 0, "F3S": 0, "jacobi": 0, "naive": 0}
+            "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -3707,7 +3776,11 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
         limit = resident + cov_bytes + result_bytes + matrix_bytes + solve_bytes
         groups_s = sum(t for _, _, t in record["groups"])
         rest = sec - sum(record["solves"]) - record["copy_s"] - record["result_s"] - groups_s
-        log(f"Llama eigendecomposition: {sec:.3f} s, peak {peak / 2**30:.3f} GiB against the "
+        # The stage a user waits for leaves out this script's host copies of
+        # each large solve's eigenpairs (for the residual check below).
+        stage_sec = sec - record["copy_s"]
+        log(f"Llama eigendecomposition: {stage_sec:.3f} s without the residual check's host "
+            f"copies ({sec:.3f} s watched), peak {peak / 2**30:.3f} GiB against the "
             f"per-matrix limit {limit / 2**30:.3f} GiB = resident {resident / 2**30:.3f} + "
             f"covariance {cov_bytes / 2**30:.3f} + results {result_bytes / 2**30:.3f} + one "
             f"matrix {matrix_bytes / 2**30:.3f} + its solve {solve_bytes / 2**30:.3f} (one "
@@ -3731,7 +3804,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
                 f"{r['orthogonality']:.3e} (limits n u = {limit_res:.3e}) [{card}]")
             if not (r["residual"] <= limit_res and r["orthogonality"] <= limit_res):
                 raise RuntimeError(f"Llama eigenpairs off: {r}")
-        out["seconds"]["eigendecomposition"] = sec
+        out["seconds"]["eigendecomposition"] = stage_sec
         out["eigen"] = dict(solves=record["solves"], peak_bytes=peak, limit_bytes=limit,
                             solve_bytes=solve_bytes, residuals=residuals,
                             checkpoint_s=record["result_s"], groups=record["groups"],
@@ -4183,6 +4256,18 @@ D128_VARIANTS = {
 }
 
 
+# Copies of csrc/flash_backward_f32_d128.cu for `--profile-flash`: name ->
+# text replacements. Unrolled whole, F3SH's code is 8,272 instructions (132
+# KB), F2SH's 5,592.
+_NT_LOOP = "#pragma unroll\n  for (int d = 0; d < kD; d += 4) {"
+_NN_LOOP = "#pragma unroll\n  for (int k = 0; k < kK; ++k) {"
+F32_D128_VARIANTS = {
+    "product loops unrolled 8 steps at a time": (
+        (_NT_LOOP, _NT_LOOP.replace("unroll", "unroll 8")),
+        (_NN_LOOP, _NN_LOOP.replace("unroll", "unroll 8"))),
+}
+
+
 def turns_ms(fns: dict) -> dict:
     """{name: [(event ms, device ms) there, (...) back]} for {name: (fn,
     kernel names)}, timed in turns, there and back."""
@@ -4293,6 +4378,7 @@ def profile_flash(card: str) -> None:
             for name, ts in times.items()) + f" [{card}]")
     profile_ffh(card)
     profile_d128(card)
+    profile_f32_d128(card)
 
 
 def profile_ffh(card: str) -> None:
@@ -4423,6 +4509,73 @@ def profile_d128(card: str) -> None:
             for name, ts in times.items()) + f" [{card}]")
 
 
+def profile_f32_d128(card: str) -> None:
+    """F2SH and F3SH as built against copies of csrc/flash_backward_f32_d128.cu
+    (F32_D128_VARIANTS), each held to the built kernels' bits first, with each
+    kernel's SASS counts, registers, spills and CTAs an SM; then each
+    kernel's builds in turns at the fp32 D 128 case."""
+    from kronfluence_tpu_torch.ops.attention import output_dot
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv_f32_d128,
+        flash_backward_dq_f32_d128,
+        flash_forward,
+    )
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {"kf_flash_bwd_dkv_f32_d128": [*[p] * 10, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_dq_f32_d128": [*[p] * 9, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_f32_d128_occupancy": [i32, p, p, p]}
+    libs = {"as built": (load_library(), library_path())}
+    for i, (name, repl) in enumerate(F32_D128_VARIANTS.items()):
+        lib = build_variant("flash_backward_f32_d128.cu", i, repl, argtypes)
+        libs[name] = (lib, Path(lib._name))
+    for name, (lib, path) in libs.items():
+        for which, kernel in enumerate(F32_D128_KERNELS):
+            log(f"F2SH/F3SH '{name}', {kernel}: SASS {sass_counts(path, kernel, F32_OPCODES)}; "
+                f"{occupancy(lib, F32_D128_OCCUPANCY, which)}")
+    b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["fp32 D 128"]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    seg = padded_segments(b, t, padded, "cuda")
+    scale = d ** -0.5
+    o, l, m = flash_forward(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    ptrs = [x.data_ptr() for x in (q, k, v, seg, l, m, do, di)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dkv(lib):
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        check_launch(lib.kf_flash_bwd_dkv_f32_d128(*ptrs, dk.data_ptr(), dv.data_ptr(), b, h, t,
+                                                   d, float(scale), stream), "F2SH copy")
+        return dk, dv
+
+    def dq(lib):
+        out = torch.empty_like(q)
+        check_launch(lib.kf_flash_bwd_dq_f32_d128(*ptrs, out.data_ptr(), b, h, t, d, float(scale),
+                                                  stream), "F3SH copy")
+        return out
+
+    built = (*flash_backward_dkv_f32_d128(q, k, v, seg, l, m, do, di, scale),
+             flash_backward_dq_f32_d128(q, k, v, seg, l, m, do, di, scale))
+    for name, (lib, _) in libs.items():
+        same = [torch.equal(x, y) for x, y in zip((*dkv(lib), dq(lib)), built)]
+        log(f"F2SH/F3SH '{name}': dK, dV, dQ bitwise the built kernels' {same}")
+        if not all(same):
+            raise RuntimeError(f"the F2SH/F3SH copy '{name}' changed the sums")
+    del built
+    dkv_k, dq_k = (F32_D128_KERNELS[0],), (F32_D128_KERNELS[1],)
+    fns = {f"F2SH {name}": (lambda lib=lib: dkv(lib), dkv_k) for name, (lib, _) in libs.items()}
+    fns.update({f"F3SH {name}": (lambda lib=lib: dq(lib), dq_k) for name, (lib, _) in libs.items()})
+    times = turns_ms(fns)
+    log(f"F2SH and F3SH at B {b} H {h} T {t} D {d} fp32 padded, in turns (there and back); ms "
+        f"per call: one call between CUDA events (median), and the device time of the kernels "
+        f"named (torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+
 def _max_rel(got: dict, want: dict) -> float:
     """max over modules of max|got - want| / max|want| (per-module scale)."""
     worst = 0.0
@@ -4439,7 +4592,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     and on the CPU; returns the card side's flash launches (every count
     zeroed just before the card side runs). fp32 takes the generic forward,
     F1, and at head_dim 64 (8 heads) the split_f32 backward, F2S + F3S, at
-    head_dim 128 (4 heads) the split backward, F2 + F3."""
+    head_dim 128 (4 heads) the split_f32_h backward, F2SH + F3SH, at
+    head_dim 256 (2 heads) the split backward, F2 + F3."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -4462,7 +4616,7 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
 
     # d_model 512: the c_fc gradient (2048) and mlp/c_proj activation (2048)
     # grams pass the K1 shape rule, so the card runs the fp32 kernel. 8 heads
-    # of 64 or 4 of 128: head dims the flash kernels take.
+    # of 64, 4 of 128 or 2 of 256: head dims the flash kernels take.
     head_dim = 512 // num_heads
     config = tiny_config(
         vocab_size=512, max_seq_len=seq, num_layers=2, num_heads=num_heads, d_model=512,
@@ -4533,9 +4687,9 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
-    # fp32 takes F1 and, at head_dim 64, the split_f32 route, else the split one.
-    split = ({"F1", "F2S", "F3S"} if head_dim == 64 else {"F1", "F2", "F3"}) if (
-        attention == "flash") else set()
+    # fp32 takes F1 and, by head_dim, the split_f32, split_f32_h or split route.
+    backward = {64: {"F2S", "F3S"}, 128: {"F2SH", "F3SH"}, 256: {"F2", "F3"}}[head_dim]
+    split = {"F1", *backward} if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want exactly "
                            f"{sorted(split)} launched), CPU {cpu_flash}")
@@ -4550,8 +4704,16 @@ def main() -> None:
     if not (REPO / "kronfluence_tpu_torch" / "__init__.py").exists():
         raise SystemExit("chip_smoke.py runs from a checkout: kronfluence_tpu_torch/ is missing.")
     sys.path.insert(0, str(REPO))
-    card = phase_device()
-    phase_build()
+    seconds = {}
+
+    def phase(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        result = fn(*args, **kwargs)
+        seconds[name] = time.perf_counter() - t
+        return result
+
+    card = phase("1 device", phase_device)
+    phase("2 build", phase_build)
     if sys.argv[1:] == ["--profile-eigh"]:
         profile_eigh(card)
         return
@@ -4564,41 +4726,47 @@ def main() -> None:
     if sys.argv[1:]:
         raise SystemExit(f"usage: python3 chip_smoke.py [--profile-eigh | --profile-k1 | "
                          f"--profile-flash]; got {sys.argv[1:]}")
-    probe_result = phase_probe()
-    syrk_result = phase_syrk(card)
-    jacobi_result, jacobi_generic_result = phase_jacobi_kernel(card)
-    flash_result = phase_flash_kernels(card)
-    ctx = phase_main_path(card)
-    jacobi_by_route, jacobi_generic_launches = phase_jacobi_path(card, ctx)
+    probe_result = phase("3 probe", phase_probe)
+    syrk_result = phase("4 syrk", phase_syrk, card)
+    jacobi_result, jacobi_generic_result = phase("7 jacobi kernels", phase_jacobi_kernel, card)
+    flash_result = phase("9 flash kernels", phase_flash_kernels, card)
+    ctx = phase("5 main path", phase_main_path, card)
+    jacobi_by_route, jacobi_generic_launches = phase("8 jacobi path", phase_jacobi_path, card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
-    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2 and F3 from phase 11
-    # (fp32), below.
-    flash_path = phase_flash_path(card, ctx)
+    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2SH, F3SH, F2 and F3 from
+    # phase 11 (fp32), below.
+    flash_path = phase("10 flash path", phase_flash_path, card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     # Phase 12's artifacts stay on disk for phase 14, which reads them through
     # an Analyzer of its own: phase 13 starts with nothing of phase 12's on the card.
     root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_"))
     try:
-        analyzer_launches, analyzer_wgmma = phase_analyzer(card, ctx, root)
-        options_launches = phase_stage_options(card, ctx)
-        features_launches = phase_score_features(card, ctx, root)
+        analyzer_launches, analyzer_wgmma = phase("12 analyzer", phase_analyzer, card, ctx, root)
+        options_launches = phase("13 stage options", phase_stage_options, card, ctx)
+        features_launches = phase("14 score features", phase_score_features, card, ctx, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     del ctx
-    phase_reference()
-    split_path = phase_reference(attention="flash", seq=128, padded=True)
-    split_path_d128 = phase_reference(attention="flash", seq=128, padded=True, num_heads=4)
-    llama = phase_llama(card)
+    phase("6 reference", phase_reference)
+    split_path = phase("11 reference flash, head_dim 64", phase_reference,
+                       attention="flash", seq=128, padded=True)
+    split_path_d128 = phase("11 reference flash, head_dim 128", phase_reference,
+                            attention="flash", seq=128, padded=True, num_heads=4)
+    split_path_d256 = phase("11 reference flash, head_dim 256", phase_reference,
+                            attention="flash", seq=128, padded=True, num_heads=2)
+    llama = phase("15 llama", phase_llama, card)
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
                       for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F1, F2S and F3S
     # from phase 11's first run (fp32 D 64: the generic forward and the
-    # split_f32 route), F2 and F3 from its second (fp32 D 128: the split
+    # split_f32 route), F2SH and F3SH from its second (fp32 D 128: the
+    # split_f32_h route), F2 and F3 from its third (fp32 D 256: the split
     # route).
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
-                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d128["F2"],
-                    F3=split_path_d128["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"])
+                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d256["F2"],
+                    F3=split_path_d256["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"],
+                    F2SH=split_path_d128["F2SH"], F3SH=split_path_d128["F3SH"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
@@ -4607,9 +4775,9 @@ def main() -> None:
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
                "phase 11's first run (reference, fp32 D 64: generic forward)"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "phase 11's second run (reference, fp32 D 128: split route)"),
+               "phase 11's third run (reference, fp32 D 256: split route)"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "phase 11's second run (reference, fp32 D 128: split route)"),
+               "phase 11's third run (reference, fp32 D 256: split route)"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
@@ -4624,6 +4792,12 @@ def main() -> None:
                 "phase 11's first run (reference, fp32 D 64: split_f32 route)"),
         "F3S": ("flash_backward_dq_f32", ["flash_attention.py:1287"], "flash_backward_f32.cu",
                 "phase 11's first run (reference, fp32 D 64: split_f32 route)"),
+        "F2SH": ("flash_backward_dkv_f32_d128", ["flash_attention.py:941"],
+                 "flash_backward_f32_d128.cu",
+                 "phase 11's second run (reference, fp32 D 128: split_f32_h route)"),
+        "F3SH": ("flash_backward_dq_f32_d128", ["flash_attention.py:1287"],
+                 "flash_backward_f32_d128.cu",
+                 "phase 11's second run (reference, fp32 D 128: split_f32_h route)"),
     }
     kernels = [
         {
@@ -4685,14 +4859,17 @@ def main() -> None:
             **({"score_features_launches": features_launches[fid]}
                if fid in features_launches else {}),
             **({"fp32_reference_launches": {"head_dim 64": split_path[fid],
-                                            "head_dim 128": split_path_d128[fid]}}
-               if fid in ("F1", "F2", "F3", "F2S", "F3S") else {}),
+                                            "head_dim 128": split_path_d128[fid],
+                                            "head_dim 256": split_path_d256[fid]}}
+               if fid in ("F1", "F2", "F3", "F2S", "F3S", "F2SH", "F3SH") else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()
     ]
+    log("chip_smoke.py: phase seconds, in the order they ran: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in seconds.items()))
     log(f"chip_smoke.py: all phases passed in {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

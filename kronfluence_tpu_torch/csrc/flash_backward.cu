@@ -7,7 +7,7 @@
 // reaches (jax/experimental/pallas/ops/tpu/flash_attention.py):
 // `_flash_attention_bwd_dkv` (:941) and `_flash_attention_bwd_dq` (:1287).
 // The port's split kernels of those two, F2 and F3 in flash_attention.cu,
-// stay for fp32 and for D 128 and 256 (ops/kernels/flash.py:backward_route).
+// stay for D 256 (ops/kernels/flash.py:backward_route).
 // Semantics are F2's and F3's: logits = (Q K^T) * scale, plus -0.7 * FLT_MAX
 // where the key is above the diagonal or in another segment (such a pair's P
 // is exactly 0, here as in the plain version); P = exp(logit - m) / l with

@@ -7,7 +7,7 @@
 // both called from the custom VJP :254): `_flash_attention_bwd_dkv` (:941,
 // its pallas_call :1121) and `_flash_attention_bwd_dq` (:1287, its pallas_call
 // :1456). The port's first split pair, F2 and F3 in flash_attention.cu, stays
-// for fp32 and D 256; FB (flash_backward.cu) for bf16 at D 64
+// for D 256; FB (flash_backward.cu) for bf16 at D 64
 // (ops/kernels/flash.py:backward_route). Semantics are F2's and F3's: logits
 // = (Q K^T) * scale, plus -0.7 * FLT_MAX where the key is above the diagonal or
 // in another segment (such a pair's P is exactly 0, here as in the plain

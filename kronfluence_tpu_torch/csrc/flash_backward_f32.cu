@@ -7,10 +7,10 @@
 // reaches (jax/experimental/pallas/ops/tpu/flash_attention.py, both called
 // from the custom VJP :254): `_flash_attention_bwd_dkv` (:941, its
 // pallas_call :1121) and `_flash_attention_bwd_dq` (:1287, its pallas_call
-// :1456). F2 and F3 (flash_attention.cu) keep fp32 at D 128 and 256 and bf16
-// at D 256; FB (flash_backward.cu) bf16 at D 64; F2H and F3H
-// (flash_backward_d128.cu) bf16 at D 128 (ops/kernels/flash.py:
-// backward_route). Semantics are F2's and F3's: logits = (Q K^T) * scale,
+// :1456). F2SH and F3SH (flash_backward_f32_d128.cu) take fp32 at D 128; F2
+// and F3 (flash_attention.cu) fp32 and bf16 at D 256; FB (flash_backward.cu)
+// bf16 at D 64; F2H and F3H (flash_backward_d128.cu) bf16 at D 128
+// (ops/kernels/flash.py:backward_route). Semantics are F2's and F3's: logits = (Q K^T) * scale,
 // plus -0.7 * FLT_MAX where the key is above the diagonal or in another
 // segment (such a pair's P is exactly 0, here as in the plain version); P =
 // exp(logit - m) / l with F1's row max m and row sum l; dS = P * (dP - di) *
