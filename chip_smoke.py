@@ -14,8 +14,8 @@ each of which raises on failure:
      HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
      (cuobjdump; their registers, spills and CTAs an SM printed beside);
      FFH must show no local loads or stores (no spills); F2S's, F3S's,
-     F2SH's and F3SH's SASS must hold FFMA and 128-bit shared loads and no
-     HMMA, local loads or stores (their FFMA,
+     F2SH's, F3SH's and FFS's (at D 128 and D 256) SASS must hold FFMA and
+     128-bit shared loads and no HMMA, local loads or stores (their FFMA,
      shared loads by width, local loads and stores, barriers, registers,
      spills and CTAs an SM printed);
   3. K3 probe: the build-and-launch check against its plain version, timed
@@ -99,26 +99,34 @@ each of which raises on failure:
      and F3's plain versions within 1e-5 of max, two calls bitwise equal,
      the dropped-block fault planted there; timed in turns against F2 + F3
      and SDPA's backward alone (they must beat F2 + F3 by device time), the
-     Function's backward split into di and the kernels. F1 and F2 + F3
-     also timed in turns against SDPA at bf16 and fp32 D 256 (where SDPA
-     raises, logged and timed without it);
+     Function's backward split into di and the kernels. FFS (the fp32
+     forward at D 128 and 256, `forward_route` "tiled_f32") against F1's
+     plain version at FLASH_CASES' fp32 D 256 case and at the fp32 D 128
+     and D 256 route cases (B 16, H 6 and 3, T 512, padded): O within 1e-5
+     of max, l and m within 1e-5, two calls bitwise equal and finite, both
+     planted faults (the dropped block; the mask left off a tile) above the
+     limit; timed in turns against F1 and SDPA's forward at both route
+     cases (it must beat F1 by device time). F1 and F2 + F3 also timed in
+     turns against SDPA at bf16 and fp32 D 256 (where SDPA raises, logged
+     and timed without it);
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3, FFH, F2H, F3H, F2S,
-     F3S, F2SH, F3SH and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFS, F2H, F3H,
+     F2S, F3S, F2SH, F3SH and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (T 128, padded
      data), in fp32, three times: at head_dim 64 (8 heads) exactly F1, F2S
      and F3S (the generic forward and the split_f32 backward) launch on the
-     card, at head_dim 128 (4 heads) exactly F1, F2SH and F3SH (the
-     split_f32_h backward), at head_dim 256 (2 heads) exactly F1, F2 and F3
-     (the split backward); the plain versions on the CPU; the kernels line
-     reads F1's, F2S's and F3S's launches from the first run, F2SH's and
-     F3SH's from the second, F2's and F3's from the third.
+     card, at head_dim 128 (4 heads) exactly FFS, F2SH and F3SH (the
+     tiled_f32 forward and the split_f32_h backward), at head_dim 256 (2
+     heads) exactly FFS, F2 and F3 (the split backward); the plain versions
+     on the CPU; the kernels line reads F1's, F2S's and F3S's launches from
+     the first run, F2SH's and F3SH's from the second, F2's and F3's from
+     the third, FFS's from the second and third.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -180,8 +188,8 @@ each of which raises on failure:
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
-     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, F2S,
-     F3S, F2SH, F3SH, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFS,
+     F2S, F3S, F2SH, F3SH, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -241,7 +249,12 @@ fp32 D 128 case (B 16, H 6, T 512, padded) as built (every product loop
 unrolled whole) against a copy of csrc/flash_backward_f32_d128.cu whose
 product loops unroll 8 steps at a time (the same sums in the same order:
 held to the built kernels' bits first), with each kernel's SASS counts,
-registers, spills and CTAs an SM.
+registers, spills and CTAs an SM; then FFS at the same case as built (64-key
+steps at D 128, one CTA an SM) against a copy of csrc/flash_forward_f32.cu
+with 32-key steps at two CTAs an SM (each held to the plain version within
+1e-5 of max and to its own bits; the key step moves the rescales, so the
+copy's bits differ from the built kernel's), with each kernel's SASS counts,
+registers, spills and CTAs an SM, and against F1.
 """
 
 import copy
@@ -370,8 +383,8 @@ FLASH_CASES = (
 # GPT-2 small's width, the route of phase 11's first run, at phase 10's batch
 # and length (F1, F2S, F3S); bf16 at D 128 over the same 768 model width
 # (FFH, F2H, F3H); bf16 at D 256, FLASH_CASES' (F1, F2, F3); fp32 at D 128
-# over the 768 width, the route of phase 11's second run (F1, F2SH, F3SH);
-# fp32 at D 256 over the 768 width, the route of phase 11's third run (F1,
+# over the 768 width, the route of phase 11's second run (FFS, F2SH, F3SH);
+# fp32 at D 256 over the 768 width, the route of phase 11's third run (FFS,
 # F2, F3).
 GENERIC_ROUTE_CASES = {
     "Llama bf16 D 128": (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, False),
@@ -602,7 +615,8 @@ def phase_build() -> None:
             raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
         if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
             raise RuntimeError(f"FFH spills: {counts}, {occ}")
-    for kernels, entry in ((F32_KERNELS, F32_OCCUPANCY), (F32_D128_KERNELS, F32_D128_OCCUPANCY)):
+    for kernels, entry in ((F32_KERNELS, F32_OCCUPANCY), (F32_D128_KERNELS, F32_D128_OCCUPANCY),
+                           (FFS_KERNELS, FFS_OCCUPANCY)):
         for which, kernel in enumerate(kernels):
             counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
             occ = occupancy(lib, entry, which)
@@ -632,6 +646,12 @@ F32_OCCUPANCY = "kf_flash_bwd_f32_occupancy"
 # F2SH and F3SH (csrc/flash_backward_f32_d128.cu), likewise.
 F32_D128_KERNELS = ("flash_bwd_dkv_f32_d128_kernel", "flash_bwd_dq_f32_d128_kernel")
 F32_D128_OCCUPANCY = "kf_flash_bwd_f32_d128_occupancy"
+# FFS (csrc/flash_forward_f32.cu) at D 128 and D 256, likewise: the
+# templated kernel's names hold its head dim.
+FFS_KERNELS = ("flash_fwd_f32_kernelILi128", "flash_fwd_f32_kernelILi256")
+FFS_OCCUPANCY = "kf_flash_fwd_f32_occupancy"
+# FFS's kernel as torch.profiler names it (both head dims).
+FFS_PROFILED = ("flash_fwd_f32_kernel",)
 F32_OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDL", "STL", "BAR", "instructions")
 
 
@@ -1007,11 +1027,13 @@ def flash_kernels():
         flash_backward_dq_f32_d128,
         flash_forward,
         flash_forward_d128,
+        flash_forward_f32,
         flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
+            "FFS": flash_forward_f32,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
             "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
             "F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d128}
@@ -1285,17 +1307,36 @@ def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
     return (torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
-def ffh_checked(q, k, v, seg, scale, shape) -> tuple:
-    """FFH's (O, l, m), after a second call has given the same bits."""
-    from kronfluence_tpu_torch.ops.kernels.flash import flash_forward_d128
-
-    out = flash_forward_d128(q, k, v, seg, scale)
-    again = flash_forward_d128(q, k, v, seg, scale)
+def forward_checked(name: str, fn, q, k, v, seg, scale, shape) -> tuple:
+    """A forward kernel's (O, l, m) through its wrapper `fn` (FFH or FFS),
+    after a second call has given the same bits and every value has been
+    found finite."""
+    out = fn(q, k, v, seg, scale)
+    again = fn(q, k, v, seg, scale)
     bitwise = [torch.equal(x, y) for x, y in zip(out, again)]
-    log(f"flash FFH at {shape}: two calls bitwise equal (O, l, m) {bitwise}")
-    if not all(bitwise):
-        raise RuntimeError(f"FFH is not bitwise reproducible at {shape}")
+    finite = all(bool(torch.isfinite(x).all()) for x in out)
+    log(f"flash {name} at {shape}: two calls bitwise equal (O, l, m) {bitwise}; finite {finite}")
+    if not (all(bitwise) and finite):
+        raise RuntimeError(f"{name} is not bitwise reproducible or not finite at {shape}")
     return out
+
+
+def ffs_faults(q, k, v, seg, l, m, do, di, scale, plain_o, err: float, label: str) -> None:
+    """The fp32 limit must catch both planted faults against FFS's plain
+    version: one 64 x 64 block of P left out, and the segment mask left off
+    one tile whose query rows cross a padding boundary."""
+    fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)["O"]
+    mask_fault = unmasked_tile(q, k, v, seg, scale, FLASH_MASK_FAULT_BLOCK)
+    rel = {"dropped block": relative_to_max(fault, plain_o),
+           "unmasked tile": relative_to_max(mask_fault, plain_o)}
+    log(f"flash {label}: planted faults against FFS's plain version (one 64 x 64 block of P "
+        f"left out, rows 384-447, keys 192-255; the segment mask left off rows 448-511, keys "
+        f"384-447), max |fault - plain| / max |plain| of O: " + ", ".join(
+            f"{k_} {v_:.3g}" for k_, v_ in rel.items())
+        + f"; FFS here {err:.3g}; limit {FLASH_FP32_TOL:g}")
+    if not min(rel.values()) > FLASH_FP32_TOL:
+        raise RuntimeError(f"the fp32 limit {FLASH_FP32_TOL:g} does not catch FFS's planted "
+                           f"faults: {rel}")
 
 
 def phase_flash_kernels(card: str) -> dict:
@@ -1314,14 +1355,16 @@ def phase_flash_kernels(card: str) -> dict:
         flash_backward_reference,
         flash_forward,
         flash_forward_d128,
+        flash_forward_f32,
         flash_forward_pipelined,
         flash_forward_reference,
         forward_route,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "F2H": 0.0,
-                "F3H": 0.0, "F2S": 0.0, "F3S": 0.0}
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFS": 0.0,
+                "F2H": 0.0, "F3H": 0.0, "F2S": 0.0, "F3S": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
+             "FFS O": "FFS",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
              "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H",
              "F2S dK": "F2S", "F2S dV": "F2S", "F3S dQ": "F3S"}
@@ -1350,9 +1393,17 @@ def phase_flash_kernels(card: str) -> dict:
         pipelined_h = forward_route(dtype, d) == "pipelined_h"
         if pipelined_h:
             # FFH against the plain forward; a second call must give the same bits.
-            fo, fl, fm = ffh_checked(q, k, v, seg, scale, (b, h, t, d))
+            fo, fl, fm = forward_checked("FFH", flash_forward_d128, q, k, v, seg, scale,
+                                         (b, h, t, d))
             got["FFH O"], want["FFH O"] = fo, ro
             stats += [("FFH l", fl, rl), ("FFH m", fm, rm)]
+        tiled_f32 = forward_route(dtype, d) == "tiled_f32"
+        if tiled_f32:
+            # FFS against the plain forward; a second call must give the same bits.
+            fo, fl, fm = forward_checked("FFS", flash_forward_f32, q, k, v, seg, scale,
+                                         (b, h, t, d))
+            got["FFS O"], want["FFS O"] = fo, ro
+            stats += [("FFS l", fl, rl), ("FFS m", fm, rm)]
         fused = backward_route(dtype, d) == "fused"
         if fused:
             # FB against its own plain version (computed on the same inputs).
@@ -1428,6 +1479,8 @@ def phase_flash_kernels(card: str) -> dict:
                 raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile of F2H "
                                    f"or F3H: {fault_units}")
             del fault
+        if tiled_f32:
+            ffs_faults(q, k, v, seg, l, m, do, di, scale, want["FFS O"], errs["FFS O"], label)
         if split_f32:
             # The fp32 limit must catch a skipped tile of F2S and F3S: the
             # plain version without one block of P.
@@ -1609,16 +1662,17 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("split_runs", None)
         timing["extra"] = extra
     # FFH, F2H and F3H report phase 15's shape (Llama); F1, F2S and F3S fp32
-    # at D 64 (phase 11's first run); F2SH and F3SH fp32 at D 128 (the route
-    # of its second run); F2 and F3 fp32 at D 256 (the route of its third
-    # run: F2S, F2SH, F3S and F3SH took fp32 at D 64 and 128). Their other
-    # shapes, and the bf16 D 64 times of F1-F3 (the turns against FF and FB
-    # above), stay beside.
+    # at D 64 (phase 11's first run); FFS, F2SH and F3SH fp32 at D 128 (the
+    # route of its second run), FFS also at D 256 beside; F2 and F3 fp32 at
+    # D 256 (the route of its third run: F2S, F2SH, F3S and F3SH took fp32 at
+    # D 64 and 128). Their other shapes, and the bf16 D 64 times of F1-F3
+    # (the turns against FF and FB above), stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
     fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
-    fp32_d128 = "B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: F1, F2SH, F3SH)"
-    fp32_d256 = "B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: F1, F2, F3)"
+    fp32_d128 = ("B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: FFS, F2SH, "
+                 "F3SH)")
+    fp32_d256 = "B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: FFS, F2, F3)"
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
     main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("fp32 D 256", fp32_d256),
@@ -1633,6 +1687,11 @@ def phase_flash_kernels(card: str) -> dict:
     timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
     timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
     timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
+    ffs_cases = ("fp32 D 128", "fp32 D 256")
+    timing["FFS"] = dict(routes["FFS"]["fp32 D 128"], shape=fp32_d128,
+                         at_fp32_d256=dict(routes["FFS"]["fp32 D 256"], shape=fp32_d256),
+                         f1_in_the_same_turns={c: routes["F1"][c] for c in ffs_cases})
+    abs_errs["FFS"] = max(abs_errs["FFS"], routes["FFS"]["fp32 D 256"]["max_abs_err"])
     for n2, n3, case, shape in (("F2S", "F3S", "fp32 D 64", fp32_d64),
                                 ("F2SH", "F3SH", "fp32 D 128", fp32_d128)):
         for name in (n2, n3):
@@ -1642,7 +1701,8 @@ def phase_flash_kernels(card: str) -> dict:
     # F2S and F3S are also held at their route's case in time_generic_routes,
     # F2SH and F3SH there alone.
     out = {}
-    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "F2H", "F3H", "F2S", "F3S", "F2SH", "F3SH"):
+    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2S", "F3S", "F2SH",
+                 "F3SH"):
         err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
         out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
@@ -1667,22 +1727,25 @@ def kernel_names(fn) -> list:
 
 def time_generic_routes(card: str) -> dict:
     """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
-    "pipelined_h" and `backward_route` "split_h" (bf16 D 128), "split_f32"
-    (fp32 D 64) or "split_f32_h" (fp32 D 128), FFH, F2H + F3H, F2S + F3S and
-    F2SH + F3SH too, in turns against SDPA's forward and its backward alone
-    with the same boolean mask: CUDA events around one call (median),
+    "pipelined_h" (bf16 D 128) or "tiled_f32" (fp32 D 128 and 256) and
+    `backward_route` "split_h" (bf16 D 128), "split_f32" (fp32 D 64) or
+    "split_f32_h" (fp32 D 128), FFH, FFS, F2H + F3H, F2S + F3S and F2SH +
+    F3SH too, in turns against SDPA's forward and its backward alone with
+    the same boolean mask: CUDA events around one call (median),
     torch.profiler device time, the plain version and the bound; SDPA's
     kernel names are logged, and where SDPA raises the case is logged and
-    timed without it. There FFH and the split pair are first held against
-    their plain versions (FFH and the fp32 pairs twice, bitwise; the fp32
-    pairs within 1e-5 of max, with a dropped block of P that the limit must
-    catch); FFH must beat F1, and each split pair F2 + F3, by device time;
+    timed without it. There FFH, FFS and the split pair are first held
+    against their plain versions (FFH, FFS and the fp32 pairs twice,
+    bitwise; FFS and the fp32 pairs within 1e-5 of max, with a dropped block
+    of P that the limit must catch, and for FFS the segment mask left off a
+    tile); FFH and FFS must beat F1, and each split pair F2 + F3, by device
+    time;
     the Function's forward (the operands' .contiguous() copies, then FFH) is
     split by device time into the copies and FFH, and its backward (di,
     then the split pair) into di and the kernels. {kernel: {case:
-    numbers}}, kernel in F1, FFH, F2, F3, F2+F3, F2H, F3H, F2H+F3H, F2S,
-    F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH; the fp32 pairs' kernels also carry
-    `max_abs_err` against their plain versions."""
+    numbers}}, kernel in F1, FFH, FFS, F2, F3, F2+F3, F2H, F3H, F2H+F3H,
+    F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH; FFS and the fp32 pairs'
+    kernels also carry `max_abs_err` against their plain versions."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
@@ -1698,6 +1761,7 @@ def time_generic_routes(card: str) -> dict:
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_d128,
+        flash_forward_f32,
         flash_forward_reference,
         forward_route,
     )
@@ -1713,7 +1777,7 @@ def time_generic_routes(card: str) -> dict:
                         (F32_D128_KERNELS[0],), (F32_D128_KERNELS[1],)),
     }
     ffh_k = (FWD_KERNELS[1],)
-    out = {"F1": {}, "FFH": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    out = {"F1": {}, "FFH": {}, "FFS": {}, "F2": {}, "F3": {}, "F2+F3": {}}
     for n2, n3, *_ in split_routes.values():
         out.update({n2: {}, n3: {}, f"{n2}+{n3}": {}})
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
@@ -1729,7 +1793,7 @@ def time_generic_routes(card: str) -> dict:
         split = split_routes.get(route)
         pipelined_h = forward_route(dtype, d) == "pipelined_h"
         if pipelined_h:
-            got = ffh_checked(q, k, v, seg, scale, case)
+            got = forward_checked("FFH", flash_forward_d128, q, k, v, seg, scale, case)
             want = flash_forward_reference(q, k, v, seg, scale)
             errs = [bf16_units(got[0], want[0])] + [relative_to_max(x, y)
                                                     for x, y in zip(got[1:], want[1:])]
@@ -1740,6 +1804,19 @@ def time_generic_routes(card: str) -> dict:
                 raise RuntimeError(f"FFH off its plain version at {case}: {errs}")
             del got, want
         abs_err = {}
+        tiled_f32 = forward_route(dtype, d) == "tiled_f32"
+        if tiled_f32:
+            got = forward_checked("FFS", flash_forward_f32, q, k, v, seg, scale, case)
+            want = flash_forward_reference(q, k, v, seg, scale)
+            errs = [relative_to_max(x, y) for x, y in zip(got, want)]
+            abs_err["FFS"] = float((got[0] - want[0]).abs().max())
+            log(f"flash FFS at {case} (B {b} H {h} T {t} D {d}): O, l, m max |kernel - plain| / "
+                f"max |plain| {[f'{e:.3g}' for e in errs]} (limits {FLASH_FP32_TOL:g}; "
+                f"{FLASH_STATS_TOL:g})")
+            if not (errs[0] <= FLASH_FP32_TOL and max(errs[1:]) <= FLASH_STATS_TOL):
+                raise RuntimeError(f"FFS off its plain version at {case}: {errs}")
+            ffs_faults(q, k, v, seg, l, m, do, di, scale, want[0], errs[0], case)
+            del got, want
         if route == "split_h":
             got = (*flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args))
             want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
@@ -1786,6 +1863,8 @@ def time_generic_routes(card: str) -> dict:
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
             **({"FFH": (lambda: flash_forward_d128(q, k, v, seg, scale), ffh_k)}
                if pipelined_h else {}),
+            **({"FFS": (lambda: flash_forward_f32(q, k, v, seg, scale), FFS_PROFILED)}
+               if tiled_f32 else {}),
             "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
             "F3": (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",)),
             "F2+F3": (lambda: (flash_backward_dkv(*args), flash_backward_dq(*args)),
@@ -1822,11 +1901,14 @@ def time_generic_routes(card: str) -> dict:
             "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
-        # FFH's plain version is F1's; each split pair's are F2's and F3's.
+        # FFH's and FFS's plain version is F1's; each split pair's are F2's
+        # and F3's.
         pairs, work = flash_work(seg, h, d, q.element_size())
         work["F2+F3"] = work["FB"]  # dQ, dK, dV written once
-        plain["FFH"], work["FFH"] = plain["F1"], work["F1"]
-        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "F2+F3": "SDPA bwd alone"}
+        for name in ("FFH", "FFS"):
+            plain[name], work[name] = plain["F1"], work["F1"]
+        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "FFS": "SDPA fwd",
+                   "F2+F3": "SDPA bwd alone"}
         for n2, n3, *_ in split_routes.values():
             for name, like in ((n2, "F2"), (n3, "F3"), (f"{n2}+{n3}", "F2+F3")):
                 plain[name], work[name] = plain[like], work[like]
@@ -1890,10 +1972,12 @@ def time_generic_routes(card: str) -> dict:
                 for name in out if case in out[name]) + "; plain " + ", ".join(
                 f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
             + f"; SDPA's kernels {sdpa_names or 'none (it raised)'} [{card}]")
-        if pipelined_h and not out["FFH"][case]["device_ms"] < out["F1"][case]["device_ms"]:
-            raise RuntimeError(f"FFH is not faster than F1 at {case}: "
-                               f"{out['FFH'][case]['device_ms']:.4f} against "
-                               f"{out['F1'][case]['device_ms']:.4f} ms by device time")
+        for name in ("FFH", "FFS"):
+            if case in out[name] and not (out[name][case]["device_ms"]
+                                          < out["F1"][case]["device_ms"]):
+                raise RuntimeError(f"{name} is not faster than F1 at {case}: "
+                                   f"{out[name][case]['device_ms']:.4f} against "
+                                   f"{out['F1'][case]['device_ms']:.4f} ms by device time")
         for pair_name in (f"{n2}+{n3}" for n2, n3, *_ in split_routes.values()):
             if case in out[pair_name] and not (out[pair_name][case]["device_ms"]
                                                < out["F2+F3"][case]["device_ms"]):
@@ -2144,9 +2228,9 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, F2H, F3H, F2S, F3S, F2SH and F3SH never.
+    # FFH, FFS, F2H, F3H, F2S, F3S, F2SH and F3SH never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0,
+            "FB": layers * passes, "FFH": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0,
             "F2SH": 0, "F3SH": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
@@ -3426,13 +3510,14 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, F2S, F3S, F2SH, F3SH, K2 and the naive form never; in a covariance
+    one); F1, F2, F3, FF, FB, FFS, F2S, F3S, F2SH, F3SH, K2 and the naive form never; in a
+    covariance
     stage K1 on every gram (two per projection, 6 a layer and batch), all
     wgmma, and K3 once per covariance fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "jacobi": 0, "naive": 0}
+            "FFS": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -4268,6 +4353,15 @@ F32_D128_VARIANTS = {
 }
 
 
+# A copy of csrc/flash_forward_f32.cu for `--profile-flash`: FFS at D 128 with
+# the other key step, 32 keys a step at two CTAs an SM (registers capped at
+# 128), against 64 keys at one CTA as built.
+FFS_VARIANTS = {
+    "32-key steps, two CTAs an SM": (("constexpr int kD128Keys = 64;",
+                                      "constexpr int kD128Keys = 32;"),),
+}
+
+
 def turns_ms(fns: dict) -> dict:
     """{name: [(event ms, device ms) there, (...) back]} for {name: (fn,
     kernel names)}, timed in turns, there and back."""
@@ -4283,7 +4377,8 @@ def profile_flash(card: str) -> None:
     """FB as built (64-key tile) against FB_VARIANTS and F2+F3, then FF as
     built (64-query tile) against FF_VARIANTS and F1, at the flash path's
     shape, in turns, after holding each variant to the bf16 limit; then FFH
-    and F2H + F3H at Llama's (profile_ffh, profile_d128)."""
+    and F2H + F3H at Llama's (profile_ffh, profile_d128), F2SH and F3SH
+    (profile_f32_d128) and FFS (profile_ffs) at the fp32 D 128 case."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.build import check_launch
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -4379,6 +4474,7 @@ def profile_flash(card: str) -> None:
     profile_ffh(card)
     profile_d128(card)
     profile_f32_d128(card)
+    profile_ffs(card)
 
 
 def profile_ffh(card: str) -> None:
@@ -4576,6 +4672,72 @@ def profile_f32_d128(card: str) -> None:
             for name, ts in times.items()) + f" [{card}]")
 
 
+def profile_ffs(card: str) -> None:
+    """FFS as built (64-key steps at D 128, one CTA an SM) against
+    FFS_VARIANTS at the fp32 D 128 case, with each kernel's SASS counts,
+    registers, spills and CTAs an SM. Each build is held to the plain
+    version within 1e-5 of max and to its own bits on a second call; the key
+    step moves the rescales of the running sums, so a copy's bits differ
+    from the built kernel's, and their largest difference is logged. Then
+    the builds and F1 in turns."""
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_forward,
+        flash_forward_f32,
+        flash_forward_reference,
+    )
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {"kf_flash_fwd_f32": [*[p] * 7, i32, i32, i32, i32, f32, p],
+                "kf_flash_fwd_f32_occupancy": [i32, p, p, p]}
+    libs = {"as built": (load_library(), library_path())}
+    for i, (name, repl) in enumerate(FFS_VARIANTS.items()):
+        lib = build_variant("flash_forward_f32.cu", i, repl, argtypes)
+        libs[name] = (lib, Path(lib._name))
+    for name, (lib, path) in libs.items():
+        log(f"FFS '{name}', D 128: SASS {sass_counts(path, FFS_KERNELS[0], F32_OPCODES)}; "
+            f"{occupancy(lib, FFS_OCCUPANCY, 0)}")
+    b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["fp32 D 128"]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    seg = padded_segments(b, t, padded, "cuda")
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib):
+        o = torch.empty_like(q)
+        l = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+        m = torch.empty_like(l)
+        check_launch(lib.kf_flash_fwd_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+                                          o.data_ptr(), l.data_ptr(), m.data_ptr(), b, h, t, d,
+                                          float(scale), stream), "FFS copy")
+        return o, l, m
+
+    want = flash_forward_reference(q, k, v, seg, scale)
+    built = flash_forward_f32(q, k, v, seg, scale)
+    for name, (lib, _) in libs.items():
+        got, again = launch(lib), launch(lib)
+        rel = [relative_to_max(x, y) for x, y in zip(got, want)]
+        bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
+        same = [torch.equal(x, y) for x, y in zip(got, built)]
+        log(f"FFS '{name}': O, l, m max |copy - plain| / max |plain| "
+            f"{[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); two calls bitwise equal "
+            f"{bitwise}; bitwise the built kernel's {same}, O off it by at most "
+            f"{float((got[0] - built[0]).abs().max()):.3g}")
+        if not (max(rel) <= FLASH_FP32_TOL and all(bitwise)):
+            raise RuntimeError(f"the FFS copy '{name}' is off its plain version: {rel}, {bitwise}")
+    del built, want
+    fns = {f"FFS {name}": (lambda lib=lib: launch(lib), FFS_PROFILED)
+           for name, (lib, _) in libs.items()}
+    fns["F1"] = (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",))
+    times = turns_ms(fns)
+    log(f"FFS at B {b} H {h} T {t} D {d} fp32 padded, in turns (there and back); ms per call: "
+        f"one call between CUDA events (median), and the device time of the kernels named "
+        f"(torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+
 def _max_rel(got: dict, want: dict) -> float:
     """max over modules of max|got - want| / max|want| (per-module scale)."""
     worst = 0.0
@@ -4590,10 +4752,11 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
                     num_heads: int = 8) -> dict:
     """A small fp32 GPT-2 (d_model 512) through the four stages on the card
     and on the CPU; returns the card side's flash launches (every count
-    zeroed just before the card side runs). fp32 takes the generic forward,
-    F1, and at head_dim 64 (8 heads) the split_f32 backward, F2S + F3S, at
-    head_dim 128 (4 heads) the split_f32_h backward, F2SH + F3SH, at
-    head_dim 256 (2 heads) the split backward, F2 + F3."""
+    zeroed just before the card side runs). fp32 takes at head_dim 64 (8
+    heads) the generic forward, F1, and the split_f32 backward, F2S + F3S; at
+    head_dim 128 (4 heads) the tiled_f32 forward, FFS, and the split_f32_h
+    backward, F2SH + F3SH; at head_dim 256 (2 heads) FFS and the split
+    backward, F2 + F3."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -4687,9 +4850,11 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
-    # fp32 takes F1 and, by head_dim, the split_f32, split_f32_h or split route.
-    backward = {64: {"F2S", "F3S"}, 128: {"F2SH", "F3SH"}, 256: {"F2", "F3"}}[head_dim]
-    split = {"F1", *backward} if attention == "flash" else set()
+    # fp32 takes, by head_dim, F1 and the split_f32 route, FFS and the
+    # split_f32_h route, or FFS and the split route.
+    kernels = {64: {"F1", "F2S", "F3S"}, 128: {"FFS", "F2SH", "F3SH"},
+               256: {"FFS", "F2", "F3"}}[head_dim]
+    split = kernels if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want exactly "
                            f"{sorted(split)} launched), CPU {cpu_flash}")
@@ -4762,11 +4927,12 @@ def main() -> None:
     # from phase 11's first run (fp32 D 64: the generic forward and the
     # split_f32 route), F2SH and F3SH from its second (fp32 D 128: the
     # split_f32_h route), F2 and F3 from its third (fp32 D 256: the split
-    # route).
+    # route), FFS from its second and third (the tiled_f32 forward).
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
                     F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d256["F2"],
                     F3=split_path_d256["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"],
-                    F2SH=split_path_d128["F2SH"], F3SH=split_path_d128["F3SH"])
+                    F2SH=split_path_d128["F2SH"], F3SH=split_path_d128["F3SH"],
+                    FFS=split_path_d128["FFS"] + split_path_d256["FFS"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
     # JAX's own package (jax/experimental/pallas/ops/tpu/flash_attention.py),
@@ -4784,6 +4950,9 @@ def main() -> None:
                "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
         "FFH": ("flash_forward_d128", ["flash_attention.py:589"], "flash_forward.cu",
                 "phase 15 (Llama, bf16 D 128: pipelined_h forward), all stages"),
+        "FFS": ("flash_forward_f32", ["flash_attention.py:589"], "flash_forward_f32.cu",
+                "phase 11's second and third runs (reference, fp32 D 128 and D 256: tiled_f32 "
+                "forward)"),
         "F2H": ("flash_backward_dkv_d128", ["flash_attention.py:941"], "flash_backward_d128.cu",
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
         "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
@@ -4861,7 +5030,7 @@ def main() -> None:
             **({"fp32_reference_launches": {"head_dim 64": split_path[fid],
                                             "head_dim 128": split_path_d128[fid],
                                             "head_dim 256": split_path_d256[fid]}}
-               if fid in ("F1", "F2", "F3", "F2S", "F3S", "F2SH", "F3SH") else {}),
+               if fid in ("F1", "F2", "F3", "FFS", "F2S", "F3S", "F2SH", "F3SH") else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
             **flash_result[fid],

@@ -1,9 +1,10 @@
 // Causal, segment-masked flash attention: forward (F1) and backward (F2 dK/dV,
 // F3 dQ) for (B, H, T, D) operands in bf16 (tensor cores, fp32 accumulation)
 // or fp32 (FMA), D in {64, 128, 256}, T a multiple of 64. The routes
-// (ops/kernels/flash.py) send F1 fp32 at every D and bf16 at D 256, F2 and F3
-// D 256 alone in both types; the other cases went to FF, FFH, FB, F2H + F3H,
-// F2S + F3S and F2SH + F3SH.
+// (ops/kernels/flash.py) send F1 fp32 at D 64 and bf16 at D 256, F2 and F3
+// D 256 alone in both types; the other cases went to FF, FFH, FFS
+// (flash_forward_f32.cu: fp32 at D 128 and 256), FB, F2H + F3H, F2S + F3S
+// and F2SH + F3SH.
 //
 // Replaces the TPU kernels of JAX's Pallas flash attention that
 // kronfluence_tpu/ops/attention.py:_flash_attention reaches

@@ -10,17 +10,18 @@ no switch, probe or fallback:
   * "flash" runs the `FlashAttention` autograd Function. For bf16 at
     head_dim 64 the forward is FF and the backward FB, one launch each; for
     bf16 at head_dim 128 (Llama) the forward is FFH and the backward F2H +
-    F3H, all three deterministic; for fp32 the forward is F1 and the
-    backward F2S + F3S at head_dim 64 (route "split_f32") and F2SH + F3SH at
-    head_dim 128 ("split_f32_h"), both deterministic; at head_dim 256 the
-    forward is F1 and the backward F2 + F3 (`flash.forward_route`,
-    `flash.backward_route`; `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
+    F3H, all three deterministic; for fp32 the forward is F1 at head_dim 64
+    and FFS at head_dim 128 and 256 (route "tiled_f32"), and the backward
+    F2S + F3S at head_dim 64 (route "split_f32") and F2SH + F3SH at
+    head_dim 128 ("split_f32_h"), all deterministic; at head_dim 256 the
+    backward is F2 + F3 in both types, and the bf16 forward F1
+    (`flash.forward_route`, `flash.backward_route`; `ops/kernels/flash.py`,
+    `csrc/flash_forward.cu`, `csrc/flash_forward_f32.cu`,
     `csrc/flash_backward.cu`, `csrc/flash_backward_d128.cu`,
     `csrc/flash_backward_f32.cu`, `csrc/flash_backward_f32_d128.cu`,
-    `csrc/flash_attention.cu`) for CUDA
-    tensors, their plain versions for CPU tensors. A shape the kernels do
-    not take raises; it never falls back to another kernel or to the naive
-    form.
+    `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
+    CPU tensors. A shape the kernels do not take raises; it never falls
+    back to another kernel or to the naive form.
 
 Mask semantics of the flash form are those of JAX's flash kernel: the
 attention mask becomes segment ids (q = kv = mask) under the causal bound,
@@ -50,6 +51,7 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_reference,
     flash_forward,
     flash_forward_d128,
+    flash_forward_f32,
     flash_forward_pipelined,
     flash_forward_reference,
     forward_route,
@@ -114,7 +116,7 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: FF, FFH or F1 forward as
+    """Causal, segment-masked attention: FF, FFH, FFS or F1 forward as
     `forward_route` says; backward di, then FB, F2H + F3H, F2S + F3S,
     F2SH + F3SH or F2 + F3 as `backward_route` says."""
 
@@ -126,6 +128,8 @@ class FlashAttention(torch.autograd.Function):
             o, l, m = flash_forward_pipelined(q, k, v, segment_ids, sm_scale)
         elif route == "pipelined_h":
             o, l, m = flash_forward_d128(q, k, v, segment_ids, sm_scale)
+        elif route == "tiled_f32":
+            o, l, m = flash_forward_f32(q, k, v, segment_ids, sm_scale)
         else:
             o, l, m = flash_forward(q, k, v, segment_ids, sm_scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, l, m)

@@ -1,25 +1,27 @@
-"""F1-F3, FF, FFH, FB, F2H, F3H, F2S, F3S, F2SH and F3SH: causal,
+"""F1-F3, FF, FFH, FFS, FB, F2H, F3H, F2S, F3S, F2SH and F3SH: causal,
 segment-masked flash attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
 The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
-{64, 128, 256}, T a multiple of 64); F1 is the forward of fp32 and of bf16 at
-D 256, and F2 and F3 the backward of D 256 alone, in both types. In bf16 at D
-64 (GPT-2's heads) two kernels of their own take over: FF, F1's work with a
-cp.async K/V ring (T a multiple of 64), and FB, in `csrc/flash_backward.cu`,
-F2's and F3's work in one launch. In bf16 at D 128 (Llama's heads) FFH, the
-same pipelined body as FF instanced at D 128 (both in `csrc/flash_forward.cu`),
-takes F1's work, and F2H and F3H, in `csrc/flash_backward_d128.cu`, take F2's
-and F3's: two deterministic kernels with ldmatrix fragments and cp.async
-rings. In fp32 F2's and F3's work goes to two deterministic kernels of
-register-tiled fp32 FMAs fed by 128-bit shared loads and cp.async rings:
-F2S and F3S at D 64 (`csrc/flash_backward_f32.cu`), F2SH and F3SH at D 128
+{64, 128, 256}, T a multiple of 64); F1 is the forward of fp32 at D 64 and of
+bf16 at D 256, and F2 and F3 the backward of D 256 alone, in both types. In
+bf16 at D 64 (GPT-2's heads) two kernels of their own take over: FF, F1's
+work with a cp.async K/V ring (T a multiple of 64), and FB, in
+`csrc/flash_backward.cu`, F2's and F3's work in one launch. In bf16 at D 128
+(Llama's heads) FFH, the same pipelined body as FF instanced at D 128 (both in
+`csrc/flash_forward.cu`), takes F1's work, and F2H and F3H, in
+`csrc/flash_backward_d128.cu`, take F2's and F3's: two deterministic kernels
+with ldmatrix fragments and cp.async rings. In fp32 the work goes to
+deterministic kernels of register-tiled fp32 FMAs fed by 128-bit shared loads
+and cp.async rings: FFS takes F1's at D 128 and D 256 (`csrc/flash_forward_f32.cu`,
+one body templated over D), F2S and F3S take F2's and F3's at D 64
+(`csrc/flash_backward_f32.cu`), F2SH and F3SH at D 128
 (`csrc/flash_backward_f32_d128.cu`). `forward_route` picks FF ("pipelined"),
-FFH ("pipelined_h") or F1 ("generic"); `backward_route` FB ("fused"), F2H +
-F3H ("split_h"), F2S + F3S ("split_f32"), F2SH + F3SH ("split_f32_h") or
-F2 + F3 ("split").
+FFH ("pipelined_h"), FFS ("tiled_f32") or F1 ("generic"); `backward_route` FB
+("fused"), F2H + F3H ("split_h"), F2S + F3S ("split_f32"), F2SH + F3SH
+("split_f32_h") or F2 + F3 ("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
 version only for CPU tensors; for a CUDA tensor it launches the kernel or
@@ -52,15 +54,21 @@ SPLIT_H_HEAD_DIM = 128
 FFH_QUERY_TILE = 128
 # The one operand type and head dim F2S and F3S take.
 SPLIT_F32_DTYPE, SPLIT_F32_HEAD_DIM = torch.float32, 64
+# The head dims FFS takes, in SPLIT_F32_DTYPE, and its query tile: T must be
+# a multiple of it.
+TILED_F32_HEAD_DIMS = (128, 256)
+FFS_QUERY_TILE = 64
 
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
     """"pipelined" (FF) for bf16 at D 64, "pipelined_h" (FFH) for bf16 at D
-    128, else "generic" (F1)."""
+    128, "tiled_f32" (FFS) for fp32 at D 128 and 256, else "generic" (F1)."""
     if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
         return "pipelined"
     if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
         return "pipelined_h"
+    if dtype == SPLIT_F32_DTYPE and head_dim in TILED_F32_HEAD_DIMS:
+        return "tiled_f32"
     return "generic"
 
 
@@ -194,8 +202,8 @@ def flash_forward(q, k, v, segment_ids, sm_scale: float):
 
 
 def _launch_pipelined(entry: str, name: str, route: str, q, k, v, segment_ids, sm_scale):
-    """FF's or FFH's launch: checks the route, the operands and the segment
-    ids' alignment (copied with 16-byte cp.async), then (O, l, m)."""
+    """FF's, FFH's or FFS's launch: checks the route, the operands and the
+    segment ids' alignment (copied with 16-byte cp.async), then (O, l, m)."""
     if forward_route(q.dtype, q.shape[-1]) != route:
         raise ValueError(f"{name} takes the forward route {route!r}; got {q.dtype}, "
                          f"D {q.shape[-1]}: use the route `forward_route` gives.")
@@ -237,6 +245,20 @@ def flash_forward_d128(q, k, v, segment_ids, sm_scale: float):
     out = _launch_pipelined("kf_flash_fwd_d128", "FFH", "pipelined_h",
                             q, k, v, segment_ids, sm_scale)
     flash_forward_d128.launches += 1
+    return out
+
+
+def flash_forward_f32(q, k, v, segment_ids, sm_scale: float):
+    """FFS: returns (O, l, m) like F1; CUDA operands must be fp32 at D 128 or
+    256 (`forward_route` "tiled_f32"), T a multiple of 64. Deterministic: two
+    calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
+    if q.dim() == 4 and q.shape[2] % FFS_QUERY_TILE:
+        raise ValueError(f"FFS takes T a multiple of {FFS_QUERY_TILE}; got T {q.shape[2]}.")
+    out = _launch_pipelined("kf_flash_fwd_f32", "FFS", "tiled_f32",
+                            q, k, v, segment_ids, sm_scale)
+    flash_forward_f32.launches += 1
     return out
 
 
@@ -397,6 +419,7 @@ def flash_backward_dq_f32_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: flo
 flash_forward.launches = 0
 flash_forward_pipelined.launches = 0
 flash_forward_d128.launches = 0
+flash_forward_f32.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
 flash_backward.launches = 0
