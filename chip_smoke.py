@@ -14,7 +14,8 @@ each of which raises on failure:
      HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
      (cuobjdump; their registers, spills and CTAs an SM printed beside);
      FFH must show no local loads or stores (no spills); F2S's, F3S's,
-     F2SH's, F3SH's and FFS's (at D 128 and D 256) SASS must hold FFMA and
+     F2SH's, F3SH's, F2SW's, F3SW's and FFS's (at D 128 and D 256) SASS must
+     hold FFMA and
      128-bit shared loads and no HMMA, local loads or stores (their FFMA,
      shared loads by width, local loads and stores, barriers, registers,
      spills and CTAs an SM printed);
@@ -99,7 +100,12 @@ each of which raises on failure:
      and F3's plain versions within 1e-5 of max, two calls bitwise equal,
      the dropped-block fault planted there; timed in turns against F2 + F3
      and SDPA's backward alone (they must beat F2 + F3 by device time), the
-     Function's backward split into di and the kernels. FFS (the fp32
+     Function's backward split into di and the kernels. F2SW and F3SW (the
+     fp32 D 256 backward, `backward_route` "split_f32_w") the same at
+     FLASH_CASES' fp32 D 256 case and at the fp32 D 256 route case (B 16, H
+     3, T 512, padded), with a second planted fault there (the segment mask
+     left off a tile); F2 and F3 are timed at bf16 D 256, the one case left
+     on their route. FFS (the fp32
      forward at D 128 and 256, `forward_route` "tiled_f32") against F1's
      plain version at FLASH_CASES' fp32 D 256 case and at the fp32 D 128
      and D 256 route cases (B 16, H 6 and 3, T 512, padded): O within 1e-5
@@ -114,7 +120,7 @@ each of which raises on failure:
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
      FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFS, F2H, F3H,
-     F2S, F3S, F2SH, F3SH and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
@@ -123,10 +129,11 @@ each of which raises on failure:
      and F3S (the generic forward and the split_f32 backward) launch on the
      card, at head_dim 128 (4 heads) exactly FFS, F2SH and F3SH (the
      tiled_f32 forward and the split_f32_h backward), at head_dim 256 (2
-     heads) exactly FFS, F2 and F3 (the split backward); the plain versions
-     on the CPU; the kernels line reads F1's, F2S's and F3S's launches from
-     the first run, F2SH's and F3SH's from the second, F2's and F3's from
-     the third, FFS's from the second and third.
+     heads) exactly FFS, F2SW and F3SW (the split_f32_w backward); the plain
+     versions on the CPU; the kernels line reads F1's, F2S's and F3S's
+     launches from the first run, F2SH's and F3SH's from the second, F2SW's
+     and F3SW's from the third (F2's and F3's, 0, too), FFS's from the
+     second and third.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -189,7 +196,7 @@ each of which raises on failure:
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
      (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFS,
-     F2S, F3S, F2SH, F3SH, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -254,7 +261,13 @@ steps at D 128, one CTA an SM) against a copy of csrc/flash_forward_f32.cu
 with 32-key steps at two CTAs an SM (each held to the plain version within
 1e-5 of max and to its own bits; the key step moves the rescales, so the
 copy's bits differ from the built kernel's), with each kernel's SASS counts,
-registers, spills and CTAs an SM, and against F1.
+registers, spills and CTAs an SM, and against F1; then F3SW at the fp32 D 256
+case (B 16, H 3, T 512, padded) as built (head_dim split between the two
+warp groups for S and dP, 4 x 4 thread tiles) against a copy of
+csrc/flash_backward_f32_d256.cu without the split (group 0 sums S and group
+1 dP over all of head_dim on 2 x 4 tiles; held to the plain version within
+1e-5 of max and to its own bits), with each kernel's SASS counts, registers,
+spills and CTAs an SM, and against F2SW and F3.
 """
 
 import copy
@@ -616,7 +629,7 @@ def phase_build() -> None:
         if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
             raise RuntimeError(f"FFH spills: {counts}, {occ}")
     for kernels, entry in ((F32_KERNELS, F32_OCCUPANCY), (F32_D128_KERNELS, F32_D128_OCCUPANCY),
-                           (FFS_KERNELS, FFS_OCCUPANCY)):
+                           (F32_D256_KERNELS, F32_D256_OCCUPANCY), (FFS_KERNELS, FFS_OCCUPANCY)):
         for which, kernel in enumerate(kernels):
             counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
             occ = occupancy(lib, entry, which)
@@ -646,6 +659,9 @@ F32_OCCUPANCY = "kf_flash_bwd_f32_occupancy"
 # F2SH and F3SH (csrc/flash_backward_f32_d128.cu), likewise.
 F32_D128_KERNELS = ("flash_bwd_dkv_f32_d128_kernel", "flash_bwd_dq_f32_d128_kernel")
 F32_D128_OCCUPANCY = "kf_flash_bwd_f32_d128_occupancy"
+# F2SW and F3SW (csrc/flash_backward_f32_d256.cu), likewise.
+F32_D256_KERNELS = ("flash_bwd_dkv_f32_d256_kernel", "flash_bwd_dq_f32_d256_kernel")
+F32_D256_OCCUPANCY = "kf_flash_bwd_f32_d256_occupancy"
 # FFS (csrc/flash_forward_f32.cu) at D 128 and D 256, likewise: the
 # templated kernel's names hold its head dim.
 FFS_KERNELS = ("flash_fwd_f32_kernelILi128", "flash_fwd_f32_kernelILi256")
@@ -1021,10 +1037,12 @@ def flash_kernels():
         flash_backward_dkv_d128,
         flash_backward_dkv_f32,
         flash_backward_dkv_f32_d128,
+        flash_backward_dkv_f32_d256,
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_backward_dq_f32,
         flash_backward_dq_f32_d128,
+        flash_backward_dq_f32_d256,
         flash_forward,
         flash_forward_d128,
         flash_forward_f32,
@@ -1036,7 +1054,8 @@ def flash_kernels():
             "FFS": flash_forward_f32,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
             "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
-            "F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d128}
+            "F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d128,
+            "F2SW": flash_backward_dkv_f32_d256, "F3SW": flash_backward_dq_f32_d256}
 
 
 def phase_main_path(card: str) -> dict:
@@ -1307,6 +1326,25 @@ def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
     return (torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
+def unmasked_tile_backward(q, k, v, seg, l, m, do, di, scale, block) -> dict:
+    """The plain dQ, dK and dV with the segment mask left off one block
+    (query rows, key columns) below the diagonal, the causal mask and the
+    sound run's l and m kept: what a backward kernel that took that tile for
+    one segment would return."""
+    from kronfluence_tpu_torch.ops.kernels.flash import MASK_VALUE
+
+    f, t = torch.float32, q.shape[2]
+    causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    keep = (causal & (seg[:, :, None] == seg[:, None, :]))[:, None].clone()
+    keep[:, :, block[0], block[1]] = causal[block[0], block[1]]
+    s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
+    p = torch.exp(torch.where(keep, s, s + MASK_VALUE) - m[..., None]) / l[..., None]
+    dv = torch.matmul(p.transpose(-1, -2), do.to(f))
+    ds = p * (torch.matmul(do.to(f), v.to(f).transpose(-1, -2)) - di[..., None]) * scale
+    return {"dQ": torch.matmul(ds, k.to(f)), "dK": torch.matmul(ds.transpose(-1, -2), q.to(f)),
+            "dV": dv}
+
+
 def forward_checked(name: str, fn, q, k, v, seg, scale, shape) -> tuple:
     """A forward kernel's (O, l, m) through its wrapper `fn` (FFH or FFS),
     after a second call has given the same bits and every value has been
@@ -1347,10 +1385,12 @@ def phase_flash_kernels(card: str) -> dict:
         flash_backward_dkv,
         flash_backward_dkv_d128,
         flash_backward_dkv_f32,
+        flash_backward_dkv_f32_d256,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_backward_dq_f32,
+        flash_backward_dq_f32_d256,
         flash_backward_dq_reference,
         flash_backward_reference,
         flash_forward,
@@ -1362,12 +1402,13 @@ def phase_flash_kernels(card: str) -> dict:
     )
 
     abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFS": 0.0,
-                "F2H": 0.0, "F3H": 0.0, "F2S": 0.0, "F3S": 0.0}
+                "F2H": 0.0, "F3H": 0.0, "F2S": 0.0, "F3S": 0.0, "F2SW": 0.0, "F3SW": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
              "FFS O": "FFS",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
              "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H",
-             "F2S dK": "F2S", "F2S dV": "F2S", "F3S dQ": "F3S"}
+             "F2S dK": "F2S", "F2S dV": "F2S", "F3S dQ": "F3S",
+             "F2SW dK": "F2SW", "F2SW dV": "F2SW", "F3SW dQ": "F3SW"}
     for b, h, t, d, dtype, padded in FLASH_CASES:
         gen = torch.Generator("cuda").manual_seed(b * t + d)
         q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
@@ -1413,13 +1454,15 @@ def phase_flash_kernels(card: str) -> dict:
                 got[f"FB {name}"], want[f"FB {name}"] = x, y
         split_h = backward_route(dtype, d) == "split_h"
         split_f32 = backward_route(dtype, d) == "split_f32"
-        if split_h or split_f32:
-            # F2H and F3H (bf16 D 128) or F2S and F3S (fp32 D 64) against F2's
-            # and F3's plain versions (the same inputs); a second call must
-            # give the same bits.
+        split_f32_w = backward_route(dtype, d) == "split_f32_w"
+        if split_h or split_f32 or split_f32_w:
+            # F2H and F3H (bf16 D 128), F2S and F3S (fp32 D 64) or F2SW and
+            # F3SW (fp32 D 256) against F2's and F3's plain versions (the
+            # same inputs); a second call must give the same bits.
             n2, n3, dkv_fn, dq_fn = (
                 ("F2H", "F3H", flash_backward_dkv_d128, flash_backward_dq_d128) if split_h
-                else ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32))
+                else ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32) if split_f32
+                else ("F2SW", "F3SW", flash_backward_dkv_f32_d256, flash_backward_dq_f32_d256))
             pair = (*dkv_fn(q, k, v, seg, l, m, do, di, scale), dq_fn(q, k, v, seg, l, m, do, di, scale))
             again = (*dkv_fn(q, k, v, seg, l, m, do, di, scale), dq_fn(q, k, v, seg, l, m, do, di, scale))
             bitwise = [torch.equal(x, y) for x, y in zip(pair, again)]
@@ -1663,20 +1706,23 @@ def phase_flash_kernels(card: str) -> dict:
         timing["extra"] = extra
     # FFH, F2H and F3H report phase 15's shape (Llama); F1, F2S and F3S fp32
     # at D 64 (phase 11's first run); FFS, F2SH and F3SH fp32 at D 128 (the
-    # route of its second run), FFS also at D 256 beside; F2 and F3 fp32 at
-    # D 256 (the route of its third run: F2S, F2SH, F3S and F3SH took fp32 at
-    # D 64 and 128). Their other shapes, and the bf16 D 64 times of F1-F3
-    # (the turns against FF and FB above), stay beside.
+    # route of its second run), FFS also at D 256 beside; F2SW and F3SW fp32
+    # at D 256 (the route of its third run); F2 and F3 bf16 at D 256, the one
+    # case left on their route, which no path runs. Their other shapes, and
+    # the bf16 D 64 times of F1-F3 (the turns against FF and FB above), stay
+    # beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
     fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
     fp32_d128 = ("B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: FFS, F2SH, "
                  "F3SH)")
-    fp32_d256 = "B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: FFS, F2, F3)"
+    fp32_d256 = ("B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: FFS, F2SW, "
+                 "F3SW)")
+    bf16_d256 = "B 4 H 8 T 512 D 256 bf16 padded (F2's and F3's route; no path runs it)"
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
-    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("fp32 D 256", fp32_d256),
-                 "F3": ("fp32 D 256", fp32_d256)}
+    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("bf16 D 256", bf16_d256),
+                 "F3": ("bf16 D 256", bf16_d256)}
     for name, (case, shape) in main_case.items():
         timing[name] = dict(routes[name][case], shape=shape, at_bf16_d64=at_d64[name], **{
             f"at {other}": routes[name][other] for other in GENERIC_ROUTE_CASES if other != case})
@@ -1693,16 +1739,17 @@ def phase_flash_kernels(card: str) -> dict:
                          f1_in_the_same_turns={c: routes["F1"][c] for c in ffs_cases})
     abs_errs["FFS"] = max(abs_errs["FFS"], routes["FFS"]["fp32 D 256"]["max_abs_err"])
     for n2, n3, case, shape in (("F2S", "F3S", "fp32 D 64", fp32_d64),
-                                ("F2SH", "F3SH", "fp32 D 128", fp32_d128)):
+                                ("F2SH", "F3SH", "fp32 D 128", fp32_d128),
+                                ("F2SW", "F3SW", "fp32 D 256", fp32_d256)):
         for name in (n2, n3):
             timing[name] = dict(routes[name][case], shape=shape)
         timing[n2]["pair"] = routes[f"{n2}+{n3}"][case]
         timing[n2]["f2_f3_in_the_same_turns"] = routes["F2+F3"][case]
-    # F2S and F3S are also held at their route's case in time_generic_routes,
-    # F2SH and F3SH there alone.
+    # F2S, F3S, F2SW and F3SW are also held at their route's case in
+    # time_generic_routes, F2SH and F3SH there alone.
     out = {}
     for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2S", "F3S", "F2SH",
-                 "F3SH"):
+                 "F3SH", "F2SW", "F3SW"):
         err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
         out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
@@ -1728,24 +1775,25 @@ def kernel_names(fn) -> list:
 def time_generic_routes(card: str) -> dict:
     """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
     "pipelined_h" (bf16 D 128) or "tiled_f32" (fp32 D 128 and 256) and
-    `backward_route` "split_h" (bf16 D 128), "split_f32" (fp32 D 64) or
-    "split_f32_h" (fp32 D 128), FFH, FFS, F2H + F3H, F2S + F3S and F2SH +
-    F3SH too, in turns against SDPA's forward and its backward alone with
-    the same boolean mask: CUDA events around one call (median),
-    torch.profiler device time, the plain version and the bound; SDPA's
-    kernel names are logged, and where SDPA raises the case is logged and
-    timed without it. There FFH, FFS and the split pair are first held
-    against their plain versions (FFH, FFS and the fp32 pairs twice,
-    bitwise; FFS and the fp32 pairs within 1e-5 of max, with a dropped block
-    of P that the limit must catch, and for FFS the segment mask left off a
-    tile); FFH and FFS must beat F1, and each split pair F2 + F3, by device
-    time;
+    `backward_route` "split_h" (bf16 D 128), "split_f32" (fp32 D 64),
+    "split_f32_h" (fp32 D 128) or "split_f32_w" (fp32 D 256), FFH, FFS, F2H +
+    F3H, F2S + F3S, F2SH + F3SH and F2SW + F3SW too, in turns against SDPA's
+    forward and its backward alone with the same boolean mask: CUDA events
+    around one call (median), torch.profiler device time, the plain version
+    and the bound; SDPA's kernel names are logged, and where SDPA raises the
+    case is logged and timed without it. There FFH, FFS and the split pair
+    are first held against their plain versions (FFH, FFS and the fp32 pairs
+    twice, bitwise; FFS and the fp32 pairs within 1e-5 of max, with a
+    dropped block of P that the limit must catch at fp32 D 128 and 256, and
+    for FFS, F2SW and F3SW the segment mask left off a tile); FFH and FFS
+    must beat F1, and each split pair F2 + F3, by device time;
     the Function's forward (the operands' .contiguous() copies, then FFH) is
     split by device time into the copies and FFH, and its backward (di,
     then the split pair) into di and the kernels. {kernel: {case:
     numbers}}, kernel in F1, FFH, FFS, F2, F3, F2+F3, F2H, F3H, F2H+F3H,
-    F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH; FFS and the fp32 pairs'
-    kernels also carry `max_abs_err` against their plain versions."""
+    F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH, F2SW, F3SW, F2SW+F3SW; FFS and
+    the fp32 pairs' kernels also carry `max_abs_err` against their plain
+    versions."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
@@ -1753,11 +1801,13 @@ def time_generic_routes(card: str) -> dict:
         flash_backward_dkv_d128,
         flash_backward_dkv_f32,
         flash_backward_dkv_f32_d128,
+        flash_backward_dkv_f32_d256,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
         flash_backward_dq_f32,
         flash_backward_dq_f32_d128,
+        flash_backward_dq_f32_d256,
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_d128,
@@ -1775,6 +1825,8 @@ def time_generic_routes(card: str) -> dict:
                       (F32_KERNELS[0],), (F32_KERNELS[1],)),
         "split_f32_h": ("F2SH", "F3SH", flash_backward_dkv_f32_d128, flash_backward_dq_f32_d128,
                         (F32_D128_KERNELS[0],), (F32_D128_KERNELS[1],)),
+        "split_f32_w": ("F2SW", "F3SW", flash_backward_dkv_f32_d256, flash_backward_dq_f32_d256,
+                        (F32_D256_KERNELS[0],), (F32_D256_KERNELS[1],)),
     }
     ffh_k = (FWD_KERNELS[1],)
     out = {"F1": {}, "FFH": {}, "FFS": {}, "F2": {}, "F3": {}, "F2+F3": {}}
@@ -1826,7 +1878,7 @@ def time_generic_routes(card: str) -> dict:
             if not max(units) <= FLASH_BF16_UNITS:
                 raise RuntimeError(f"F2H/F3H off their plain versions at {case}: {units}")
             del got, want
-        if route in ("split_f32", "split_f32_h"):
+        if route in ("split_f32", "split_f32_h", "split_f32_w"):
             n2, n3, dkv_fn, dq_fn = split[:4]
             got = (*dkv_fn(*args), dq_fn(*args))
             again = (*dkv_fn(*args), dq_fn(*args))
@@ -1835,25 +1887,34 @@ def time_generic_routes(card: str) -> dict:
             bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
             finite = all(bool(torch.isfinite(x).all()) for x in got)
             errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
-            abs_err = {n2: max(errs[:2]), n3: errs[2]}
+            abs_err.update({n2: max(errs[:2]), n3: errs[2]})
             log(f"flash {n2}, {n3} at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ max |kernel - "
                 f"plain| / max |plain| {[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); "
                 f"two calls bitwise equal {bitwise}; finite {finite}")
             if not (max(rel) <= FLASH_FP32_TOL and all(bitwise) and finite):
                 raise RuntimeError(f"{n2}/{n3} off their plain versions at {case}: {rel}, {bitwise}")
-            if route == "split_f32_h":
-                # The fp32 limit must catch a skipped tile of F2SH and F3SH:
-                # the plain version without one block of P.
-                fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)
-                fault_rel = [relative_to_max(fault[n], y) for n, y in zip(("dK", "dV", "dQ"), want)]
-                log(f"flash {case}: planted fault (one 64 x 64 block of P left out, rows 384-447, "
-                    f"keys 192-255) against {n2}'s and {n3}'s plain versions, dK, dV, dQ max "
-                    f"|fault - plain| / max |plain|: {[f'{e:.3g}' for e in fault_rel]}; the "
-                    f"kernels here {max(rel):.3g}; limit {FLASH_FP32_TOL:g}")
-                if not min(fault_rel) > FLASH_FP32_TOL:
+            if route in ("split_f32_h", "split_f32_w"):
+                # The fp32 limit must catch a skipped tile of F2SH and F3SH
+                # (F2SW and F3SW): the plain version without one block of P;
+                # at D 256 also a wrong masking decision, one tile whose query
+                # rows cross a padding boundary taken for one segment.
+                faults = {"dropped block": dropped_block(q, k, v, seg, l, m, do, di, scale,
+                                                         FLASH_FAULT_BLOCK)}
+                if route == "split_f32_w":
+                    faults["unmasked tile"] = unmasked_tile_backward(
+                        q, k, v, seg, l, m, do, di, scale, FLASH_MASK_FAULT_BLOCK)
+                fault_rel = {f"{what} {n}": relative_to_max(fault[n], y)
+                             for what, fault in faults.items()
+                             for n, y in zip(("dK", "dV", "dQ"), want)}
+                log(f"flash {case}: planted faults (one 64 x 64 block of P left out, rows "
+                    f"384-447, keys 192-255; the segment mask left off rows 448-511, keys 384-447) "
+                    f"against {n2}'s and {n3}'s plain versions, max |fault - plain| / max |plain|: "
+                    + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in fault_rel.items())
+                    + f"; the kernels here {max(rel):.3g}; limit {FLASH_FP32_TOL:g}")
+                if not min(fault_rel.values()) > FLASH_FP32_TOL:
                     raise RuntimeError(f"the fp32 limit {FLASH_FP32_TOL:g} does not catch a "
-                                       f"skipped tile of {n2} or {n3}: {fault_rel}")
-                del fault
+                                       f"planted fault of {n2} or {n3}: {fault_rel}")
+                del faults
             del got, again, want
         keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
             t, t, dtype=torch.bool, device="cuda").tril()
@@ -2228,10 +2289,10 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, FFS, F2H, F3H, F2S, F3S, F2SH and F3SH never.
+    # FFH, FFS, F2H, F3H, F2S, F3S, F2SH, F3SH, F2SW and F3SW never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
             "FB": layers * passes, "FFH": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0,
-            "F2SH": 0, "F3SH": 0}
+            "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -3510,14 +3571,15 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, FFS, F2S, F3S, F2SH, F3SH, K2 and the naive form never; in a
-    covariance
-    stage K1 on every gram (two per projection, 6 a layer and batch), all
-    wgmma, and K3 once per covariance fit (one per module partition)."""
+    one); F1, F2, F3, FF, FB, FFS, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the
+    naive form never; in a covariance stage K1 on every gram (two per
+    projection, 6 a layer and batch), all wgmma, and K3 once per covariance
+    fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "FFS": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "jacobi": 0, "naive": 0}
+            "FFS": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0,
+            "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -4204,12 +4266,16 @@ K1_VARIANTS = {
 
 
 def build_variant(source: str, index: int, replacements, argtypes: dict) -> ctypes.CDLL:
-    """csrc/<source> with `replacements` applied, built alone into
-    _build/variants/ and loaded with `argtypes` ({C function: argtypes})."""
+    """csrc/<source> with `replacements` applied ((old, new) text pairs, or
+    (None, a function of the whole text)), built alone into _build/variants/
+    and loaded with `argtypes` ({C function: argtypes})."""
     from kronfluence_tpu_torch.ops.kernels import build
 
     src = (build.CSRC_DIR / source).read_text()
     for old, new in replacements:
+        if old is None:  # `new` rewrites the whole text
+            src = new(src)
+            continue
         if old not in src:
             raise RuntimeError(f"csrc/{source} no longer holds {old!r}")
         src = src.replace(old, new)
@@ -4361,6 +4427,94 @@ FFS_VARIANTS = {
                                       "constexpr int kD128Keys = 32;"),),
 }
 
+# A copy of csrc/flash_backward_f32_d256.cu for `--profile-flash`: F3SW with
+# no D split. Warp group 0 sums S and group 1 dP over all 256 columns on 2 x 4
+# thread tiles (rows r + 16 i, r < 16), with no partial sums to trade; group 0
+# writes P^T, and after a CTA-wide barrier group 1 writes dS^T over it (F3SH's
+# order). As built, each pair of warps sums one product over one half of D on
+# 4 x 4 tiles, and group 1 adds group 0's partials.
+_F3SW_NO_SPLIT_LOOP = """    float sp[2][4];  // S (group 0) or dP (group 1) over all of D
+    zero(sp);
+    nt_full(sp, a_nt, r, g ? vs : ks, c);
+    if (g == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r + 16 * i;
+        const float m_r = rows[row], rl = rows[kTile + row];
+        const int seg_r = reinterpret_cast<const int*>(rows)[3 * kTile + row];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int col = c + 8 * j;
+          const bool keep = k0 + col <= q0 + row && seg_k[col] == seg_r;
+          pt[col * kLdP + row] = keep ? expf(sp[i][j] * scale - m_r) * rl : 0.f;
+        }
+      }
+    }
+    __syncthreads();
+    if (g == 1) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = r + 16 * i;
+        const float di_r = rows[2 * kTile + row];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float* x = pt + (c + 8 * j) * kLdP + row;
+          *x = *x * (sp[i][j] - di_r) * scale;
+        }
+      }
+    }
+    __syncthreads();
+    nn_product<1>(dq_acc, pt, 4 * rq, ks, 4 * cq);
+"""
+_NT_FULL = """// NT form over all of D on a 2 x 4 tile: acc[i][j] += sum over d < 256 of
+// A[ra + 16 i][d] * B[rb + 8 j][d].
+__device__ __forceinline__ void nt_full(float (&acc)[2][4], const float* a, int ra, const float* b,
+                                        int rb) {
+#pragma unroll
+  for (int d = 0; d < kD; d += 4) {
+    float4 x[2], y[4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) x[i] = ld4(a + (ra + 16 * i) * kLd + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) y[j] = ld4(b + (rb + 8 * j) * kLd + d);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        acc[i][j] = fmaf(x[i].x, y[j].x, acc[i][j]);
+        acc[i][j] = fmaf(x[i].y, y[j].y, acc[i][j]);
+        acc[i][j] = fmaf(x[i].z, y[j].z, acc[i][j]);
+        acc[i][j] = fmaf(x[i].w, y[j].w, acc[i][j]);
+      }
+  }
+}
+
+// NN form:"""
+
+
+def f3sw_no_split(src: str) -> str:
+    """csrc/flash_backward_f32_d256.cu with F3SW's D split taken out."""
+    start = src.index("    float sp[4][4];  // this half's S or dP")
+    end = src.index("    nn_product<1>(dq_acc, pt, 4 * rq, ks, 4 * cq);\n")
+    end += len("    nn_product<1>(dq_acc, pt, 4 * rq, ks, 4 * cq);\n")
+    return src[:start] + _F3SW_NO_SPLIT_LOOP + src[end:]
+
+
+F32_D256_VARIANTS = {
+    "F3SW without the D split (2 x 4 S and dP tiles)": (
+        ("// NN form:", _NT_FULL),
+        ("  const int g = warp >> 2, pr = (warp >> 1) & 1;\n"
+         "  const int r = 4 * (warp & 1) + (lane >> 3), c = lane & 7;\n"
+         "  const int rq = tid >> 5, cq = tid & 31;",
+         "  const int g = warp >> 2;\n"
+         "  const int r = 4 * (warp & 3) + (lane >> 3), c = lane & 7;\n"
+         "  const int rq = tid >> 5, cq = tid & 31;"),
+        ("  const float* a_nt = fsm + (pr ? kDqSmemDo : kDqSmemQ) / 4 + kHalf * g;\n"
+         "  float* xs = reinterpret_cast<float*>(smem + kDqSmemX + pr * kXBytes);\n",
+         "  const float* a_nt = fsm + (g ? kDqSmemDo : kDqSmemQ) / 4;\n"),
+        (None, f3sw_no_split)),
+}
+
 
 def turns_ms(fns: dict) -> dict:
     """{name: [(event ms, device ms) there, (...) back]} for {name: (fn,
@@ -4378,7 +4532,8 @@ def profile_flash(card: str) -> None:
     built (64-query tile) against FF_VARIANTS and F1, at the flash path's
     shape, in turns, after holding each variant to the bf16 limit; then FFH
     and F2H + F3H at Llama's (profile_ffh, profile_d128), F2SH and F3SH
-    (profile_f32_d128) and FFS (profile_ffs) at the fp32 D 128 case."""
+    (profile_f32_d128) and FFS (profile_ffs) at the fp32 D 128 case, and
+    F3SW (profile_f32_d256) at the fp32 D 256 case."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.build import check_launch
     from kronfluence_tpu_torch.ops.kernels.flash import (
@@ -4475,6 +4630,7 @@ def profile_flash(card: str) -> None:
     profile_d128(card)
     profile_f32_d128(card)
     profile_ffs(card)
+    profile_f32_d256(card)
 
 
 def profile_ffh(card: str) -> None:
@@ -4738,6 +4894,77 @@ def profile_ffs(card: str) -> None:
             for name, ts in times.items()) + f" [{card}]")
 
 
+def profile_f32_d256(card: str) -> None:
+    """F2SW and F3SW as built against F32_D256_VARIANTS at the fp32 D 256
+    case, with each kernel's SASS counts, registers, spills and CTAs an SM.
+    Each build's F3SW is held to the plain version within 1e-5 of max and to
+    its own bits on a second call; a copy that sums S and dP in another order
+    has other bits than the built kernel's, and their largest difference is
+    logged. Then the builds' F3SW, the built F2SW and F3 in turns."""
+    from kronfluence_tpu_torch.ops.attention import output_dot
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv_f32_d256,
+        flash_backward_dq,
+        flash_backward_dq_f32_d256,
+        flash_backward_dq_reference,
+        flash_forward_f32,
+    )
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    argtypes = {"kf_flash_bwd_dkv_f32_d256": [*[p] * 10, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_dq_f32_d256": [*[p] * 9, i32, i32, i32, i32, f32, p],
+                "kf_flash_bwd_f32_d256_occupancy": [i32, p, p, p]}
+    libs = {"as built": (load_library(), library_path())}
+    for i, (name, repl) in enumerate(F32_D256_VARIANTS.items()):
+        lib = build_variant("flash_backward_f32_d256.cu", i, repl, argtypes)
+        libs[name] = (lib, Path(lib._name))
+    for name, (lib, path) in libs.items():
+        for which, kernel in enumerate(F32_D256_KERNELS):
+            log(f"F2SW/F3SW '{name}', {kernel}: SASS {sass_counts(path, kernel, F32_OPCODES)}; "
+                f"{occupancy(lib, F32_D256_OCCUPANCY, which)}")
+    b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["fp32 D 256"]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype)
+                   for _ in range(4))
+    seg = padded_segments(b, t, padded, "cuda")
+    scale = d ** -0.5
+    o, l, m = flash_forward_f32(q, k, v, seg, scale)
+    di = output_dot(o, do)
+    args = (q, k, v, seg, l, m, do, di, scale)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def dq(lib):
+        out = torch.empty_like(q)
+        check_launch(lib.kf_flash_bwd_dq_f32_d256(*(x.data_ptr() for x in args[:8]),
+                                                  out.data_ptr(), b, h, t, d, float(scale),
+                                                  stream), "F3SW copy")
+        return out
+
+    want = flash_backward_dq_reference(*args)
+    built = flash_backward_dq_f32_d256(*args)
+    for name, (lib, _) in libs.items():
+        got, again = dq(lib), dq(lib)
+        rel = relative_to_max(got, want)
+        log(f"F3SW '{name}': dQ max |copy - plain| / max |plain| {rel:.3g} (limit "
+            f"{FLASH_FP32_TOL:g}); two calls bitwise equal {torch.equal(got, again)}; bitwise the "
+            f"built kernel's {torch.equal(got, built)}, off it by at most "
+            f"{float((got - built).abs().max()):.3g}")
+        if not (rel <= FLASH_FP32_TOL and torch.equal(got, again)):
+            raise RuntimeError(f"the F3SW copy '{name}' is off its plain version: {rel}")
+    del built, want
+    dq_k = (F32_D256_KERNELS[1],)
+    fns = {f"F3SW {name}": (lambda lib=lib: dq(lib), dq_k) for name, (lib, _) in libs.items()}
+    fns["F2SW as built"] = (lambda: flash_backward_dkv_f32_d256(*args), (F32_D256_KERNELS[0],))
+    fns["F3"] = (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",))
+    times = turns_ms(fns)
+    log(f"F2SW and F3SW at B {b} H {h} T {t} D {d} fp32 padded, in turns (there and back); ms "
+        f"per call: one call between CUDA events (median), and the device time of the kernels "
+        f"named (torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+
 def _max_rel(got: dict, want: dict) -> float:
     """max over modules of max|got - want| / max|want| (per-module scale)."""
     worst = 0.0
@@ -4755,8 +4982,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     zeroed just before the card side runs). fp32 takes at head_dim 64 (8
     heads) the generic forward, F1, and the split_f32 backward, F2S + F3S; at
     head_dim 128 (4 heads) the tiled_f32 forward, FFS, and the split_f32_h
-    backward, F2SH + F3SH; at head_dim 256 (2 heads) FFS and the split
-    backward, F2 + F3."""
+    backward, F2SH + F3SH; at head_dim 256 (2 heads) FFS and the split_f32_w
+    backward, F2SW + F3SW."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -4851,9 +5078,9 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
     # fp32 takes, by head_dim, F1 and the split_f32 route, FFS and the
-    # split_f32_h route, or FFS and the split route.
+    # split_f32_h route, or FFS and the split_f32_w route.
     kernels = {64: {"F1", "F2S", "F3S"}, 128: {"FFS", "F2SH", "F3SH"},
-               256: {"FFS", "F2", "F3"}}[head_dim]
+               256: {"FFS", "F2SW", "F3SW"}}[head_dim]
     split = kernels if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
         raise RuntimeError(f"flash launches off: card {card_flash} (want exactly "
@@ -4899,8 +5126,8 @@ def main() -> None:
     jacobi_by_route, jacobi_generic_launches = phase("8 jacobi path", phase_jacobi_path, card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
-    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2SH, F3SH, F2 and F3 from
-    # phase 11 (fp32), below.
+    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2SH, F3SH, FFS, F2SW and
+    # F3SW from phase 11 (fp32), below.
     flash_path = phase("10 flash path", phase_flash_path, card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     # Phase 12's artifacts stay on disk for phase 14, which reads them through
@@ -4926,12 +5153,16 @@ def main() -> None:
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F1, F2S and F3S
     # from phase 11's first run (fp32 D 64: the generic forward and the
     # split_f32 route), F2SH and F3SH from its second (fp32 D 128: the
-    # split_f32_h route), F2 and F3 from its third (fp32 D 256: the split
-    # route), FFS from its second and third (the tiled_f32 forward).
+    # split_f32_h route), F2SW and F3SW from its third (fp32 D 256: the
+    # split_f32_w route), FFS from its second and third (the tiled_f32
+    # forward). F2 and F3 serve bf16 at D 256 alone, which no path runs: the
+    # third run, where they ran until the split_f32_w route, must leave them
+    # at 0, and phase 9 alone holds them.
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
                     F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d256["F2"],
                     F3=split_path_d256["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"],
                     F2SH=split_path_d128["F2SH"], F3SH=split_path_d128["F3SH"],
+                    F2SW=split_path_d256["F2SW"], F3SW=split_path_d256["F3SW"],
                     FFS=split_path_d128["FFS"] + split_path_d256["FFS"])
     flash_result["FF"]["timings_ms"] = flash_result.pop("extra")
     # The repo's function that reaches the TPU kernels, each Pallas kernel in
@@ -4941,9 +5172,13 @@ def main() -> None:
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
                "phase 11's first run (reference, fp32 D 64: generic forward)"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "phase 11's third run (reference, fp32 D 256: split route)"),
+               "no path: the split route is bf16 at D 256 alone, which no workload runs; phase "
+               "11's third run (fp32 D 256) takes F2SW and F3SW and must leave F2 at 0; phase 9 "
+               "alone holds F2 against its plain version"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "phase 11's third run (reference, fp32 D 256: split route)"),
+               "no path: the split route is bf16 at D 256 alone, which no workload runs; phase "
+               "11's third run (fp32 D 256) takes F2SW and F3SW and must leave F3 at 0; phase 9 "
+               "alone holds F3 against its plain version"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
@@ -4967,6 +5202,12 @@ def main() -> None:
         "F3SH": ("flash_backward_dq_f32_d128", ["flash_attention.py:1287"],
                  "flash_backward_f32_d128.cu",
                  "phase 11's second run (reference, fp32 D 128: split_f32_h route)"),
+        "F2SW": ("flash_backward_dkv_f32_d256", ["flash_attention.py:941"],
+                 "flash_backward_f32_d256.cu",
+                 "phase 11's third run (reference, fp32 D 256: split_f32_w route)"),
+        "F3SW": ("flash_backward_dq_f32_d256", ["flash_attention.py:1287"],
+                 "flash_backward_f32_d256.cu",
+                 "phase 11's third run (reference, fp32 D 256: split_f32_w route)"),
     }
     kernels = [
         {
@@ -5030,7 +5271,8 @@ def main() -> None:
             **({"fp32_reference_launches": {"head_dim 64": split_path[fid],
                                             "head_dim 128": split_path_d128[fid],
                                             "head_dim 256": split_path_d256[fid]}}
-               if fid in ("F1", "F2", "F3", "FFS", "F2S", "F3S", "F2SH", "F3SH") else {}),
+               if fid in ("F1", "F2", "F3", "FFS", "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW")
+               else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
             **flash_result[fid],

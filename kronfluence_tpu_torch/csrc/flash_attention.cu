@@ -2,9 +2,9 @@
 // F3 dQ) for (B, H, T, D) operands in bf16 (tensor cores, fp32 accumulation)
 // or fp32 (FMA), D in {64, 128, 256}, T a multiple of 64. The routes
 // (ops/kernels/flash.py) send F1 fp32 at D 64 and bf16 at D 256, F2 and F3
-// D 256 alone in both types; the other cases went to FF, FFH, FFS
-// (flash_forward_f32.cu: fp32 at D 128 and 256), FB, F2H + F3H, F2S + F3S
-// and F2SH + F3SH.
+// bf16 at D 256 alone; the other cases went to FF, FFH, FFS
+// (flash_forward_f32.cu: fp32 at D 128 and 256), FB, F2H + F3H, F2S + F3S,
+// F2SH + F3SH and F2SW + F3SW (flash_backward_f32_d256.cu: fp32 at D 256).
 //
 // Replaces the TPU kernels of JAX's Pallas flash attention that
 // kronfluence_tpu/ops/attention.py:_flash_attention reaches

@@ -12,13 +12,14 @@ no switch, probe or fallback:
     bf16 at head_dim 128 (Llama) the forward is FFH and the backward F2H +
     F3H, all three deterministic; for fp32 the forward is F1 at head_dim 64
     and FFS at head_dim 128 and 256 (route "tiled_f32"), and the backward
-    F2S + F3S at head_dim 64 (route "split_f32") and F2SH + F3SH at
-    head_dim 128 ("split_f32_h"), all deterministic; at head_dim 256 the
-    backward is F2 + F3 in both types, and the bf16 forward F1
-    (`flash.forward_route`, `flash.backward_route`; `ops/kernels/flash.py`,
-    `csrc/flash_forward.cu`, `csrc/flash_forward_f32.cu`,
-    `csrc/flash_backward.cu`, `csrc/flash_backward_d128.cu`,
-    `csrc/flash_backward_f32.cu`, `csrc/flash_backward_f32_d128.cu`,
+    F2S + F3S at head_dim 64 (route "split_f32"), F2SH + F3SH at head_dim
+    128 ("split_f32_h") and F2SW + F3SW at head_dim 256 ("split_f32_w"), all
+    deterministic; bf16 at head_dim 256 takes F1 forward and F2 + F3
+    backward (`flash.forward_route`, `flash.backward_route`;
+    `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
+    `csrc/flash_forward_f32.cu`, `csrc/flash_backward.cu`,
+    `csrc/flash_backward_d128.cu`, `csrc/flash_backward_f32.cu`,
+    `csrc/flash_backward_f32_d128.cu`, `csrc/flash_backward_f32_d256.cu`,
     `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
     CPU tensors. A shape the kernels do not take raises; it never falls
     back to another kernel or to the naive form.
@@ -44,10 +45,12 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_dkv_d128,
     flash_backward_dkv_f32,
     flash_backward_dkv_f32_d128,
+    flash_backward_dkv_f32_d256,
     flash_backward_dq,
     flash_backward_dq_d128,
     flash_backward_dq_f32,
     flash_backward_dq_f32_d128,
+    flash_backward_dq_f32_d256,
     flash_backward_reference,
     flash_forward,
     flash_forward_d128,
@@ -118,7 +121,7 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 class FlashAttention(torch.autograd.Function):
     """Causal, segment-masked attention: FF, FFH, FFS or F1 forward as
     `forward_route` says; backward di, then FB, F2H + F3H, F2S + F3S,
-    F2SH + F3SH or F2 + F3 as `backward_route` says."""
+    F2SH + F3SH, F2SW + F3SW or F2 + F3 as `backward_route` says."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
@@ -153,6 +156,9 @@ class FlashAttention(torch.autograd.Function):
         elif route == "split_f32_h":
             dk, dv = flash_backward_dkv_f32_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
             dq = flash_backward_dq_f32_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+        elif route == "split_f32_w":
+            dk, dv = flash_backward_dkv_f32_d256(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+            dq = flash_backward_dq_f32_d256(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
         else:
             dk, dv = flash_backward_dkv(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
             dq = flash_backward_dq(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)

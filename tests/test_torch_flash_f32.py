@@ -139,8 +139,8 @@ def _forward(q, k, v, mask, scale):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
 def test_backward_route_takes_split_f32_at_fp32_d64_only(dtype, d):
     want = {(torch.float32, 64): "split_f32", (torch.bfloat16, 64): "fused",
-            (torch.bfloat16, 128): "split_h", (torch.float32, 128): "split_f32_h"}.get(
-        (dtype, d), "split")
+            (torch.bfloat16, 128): "split_h", (torch.float32, 128): "split_f32_h",
+            (torch.float32, 256): "split_f32_w"}.get((dtype, d), "split")
     assert backward_route(dtype, d) == want
 
 

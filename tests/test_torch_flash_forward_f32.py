@@ -164,19 +164,20 @@ def test_ffs_wrapper_rejects_off_route_operands(monkeypatch, dtype, d, t, match)
 
 @pytest.mark.parametrize("d,backward", [
     (128, ("flash_backward_dkv_f32_d128", "flash_backward_dq_f32_d128")),
-    (256, ("flash_backward_dkv", "flash_backward_dq")),
+    (256, ("flash_backward_dkv_f32_d256", "flash_backward_dq_f32_d256")),
 ])
 def test_function_fp32_forward_goes_through_ffs_and_matches_jax(monkeypatch, d, backward):
     """FlashAttention in fp32 at D 128 and D 256 on CPU tensors: the forward
     calls FFS's wrapper (F1's never) and the backward the route's split pair
-    (F2SH + F3SH at D 128, F2 + F3 at D 256), each taking its plain version;
+    (F2SH + F3SH at D 128, F2SW + F3SW at D 256), each taking its plain version;
     O is JAX's and the gradient JAX's VJP."""
     q, k, v, do, mask = _inputs(128, d, np.float32, seed=d + 9)
     want_o = _jax_reference(q, k, v, mask)[0]
     want = _jax_vjp(q, k, v, do, mask)
     tq, tk, tv, tdo, tmask = map(torch.from_numpy, (q, k, v, do, mask))
     names = ("flash_forward_f32", "flash_forward", "flash_backward_dkv_f32_d128",
-             "flash_backward_dq_f32_d128", "flash_backward_dkv", "flash_backward_dq")
+             "flash_backward_dq_f32_d128", "flash_backward_dkv_f32_d256",
+             "flash_backward_dq_f32_d256", "flash_backward_dkv", "flash_backward_dq")
     called = []
     for name in names:
         wrapper = getattr(attention, name)
