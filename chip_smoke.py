@@ -11,9 +11,10 @@ each of which raises on failure:
      with nvcc (sm_90a; one object per source, each source whose object is
      missing compiled in its own process, all started together; one link)
      and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
-     HGMMA and UTMALDG, and FF's, FFH's, F2H's and F3H's HMMA and LDSM
-     (cuobjdump; their registers, spills and CTAs an SM printed beside);
-     FFH must show no local loads or stores (no spills); F2S's, F3S's,
+     HGMMA and UTMALDG, and FF's, FFH's, F2H's, F3H's, F2W's and F3W's HMMA
+     and LDSM (cuobjdump; their registers, spills and CTAs an SM printed
+     beside); FFH, F2W and F3W must show no local loads or stores (no
+     spills); F2S's, F3S's,
      F2SH's, F3SH's, F2SW's, F3SW's and FFS's (at D 128 and D 256) SASS must
      hold FFMA and
      128-bit shared loads and no HMMA, local loads or stores (their FFMA,
@@ -104,8 +105,19 @@ each of which raises on failure:
      fp32 D 256 backward, `backward_route` "split_f32_w") the same at
      FLASH_CASES' fp32 D 256 case and at the fp32 D 256 route case (B 16, H
      3, T 512, padded), with a second planted fault there (the segment mask
-     left off a tile); F2 and F3 are timed at bf16 D 256, the one case left
-     on their route. FFS (the fp32
+     left off a tile). F2W and F3W (the bf16 D 256 backward,
+     `backward_route` "split_w") against F2's and F3's plain versions at
+     every position at the bf16 D 256 route case (B 4, H 8, T 512,
+     padded) and at phase 16's attention shape (GEMMA_BATCH, H 8, T 512,
+     unpadded). Every split pair is held at each of its route cases by
+     one check (`split_pair_checks`): its limit (bf16 units, or 1e-5 of
+     max in fp32), two calls bitwise equal, finite, and two planted
+     faults (the dropped block; the segment mask left off a tile where
+     padded, the causal mask left off a diagonal tile where not). F2W and
+     F3W are timed in turns against F2 + F3, which run on no route now and
+     stay the yardstick, and SDPA's backward alone at both (they must beat F2 + F3 by
+     device time), the Function's backward split into di and the kernels;
+     F1 timed against SDPA's forward at both. FFS (the fp32
      forward at D 128 and 256, `forward_route` "tiled_f32") against F1's
      plain version at FLASH_CASES' fp32 D 256 case and at the fp32 D 128
      and D 256 route cases (B 16, H 6 and 3, T 512, padded): O within 1e-5
@@ -120,7 +132,7 @@ each of which raises on failure:
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
      FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFS, F2H, F3H,
-     F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
@@ -196,7 +208,7 @@ each of which raises on failure:
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
      (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFS,
-     F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -207,6 +219,19 @@ each of which raises on failure:
      bf16 scores on the same factors (Pearson r); one covariance with the
      smart-low-precision recipe (K1 12 a batch); and the covariance against
      the same weights with attention="naive" (phase 10's limit).
+ 16. Llama at Gemma-2B's widths (d_model 2048, d_mlp 16384, 8 heads, 1 KV
+     head, head_dim 256, vocab 256,000, RoPE theta 10,000, RMS eps 1e-6, T
+     512, bf16, attention="flash"; reduced: 2 of 18 layers, attention-only
+     tracking, Llama's architecture for Gemma's) with seeded random weights,
+     through the Analyzer: the four attention projections of both layers
+     tracked, phase 15's covariance recipe (one module partition), fp32
+     "auto" eigendecomposition, lambda and dense pairwise scores on 32 train
+     and 8 query examples, every batch from the memory model (each stage's
+     plan, budget and peak). F2W and F3W once per attention backward, and
+     every backward reaches both layers; F1 once per attention forward and
+     per recomputed one; F2, F3, every other flash kernel, K2 and the naive
+     form never; the scores finite; the flash form's covariance against the
+     naive form's on the same weights and batches (phase 10's limit).
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -274,6 +299,7 @@ import copy
 import ctypes
 import dataclasses
 import functools
+import gc
 import json
 import re
 import shutil
@@ -281,6 +307,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
+import weakref
 from pathlib import Path
 
 import numpy as np
@@ -380,6 +408,18 @@ FLASH_FAULT_BLOCK = (slice(384, 448), slice(192, 256))
 # rows cross a padding boundary (example 1 keeps 475 tokens): its padded
 # rows then attend to valid keys.
 FLASH_MASK_FAULT_BLOCK = (slice(448, 512), slice(384, 448))
+# The third planted fault, for an unpadded shape, where no tile crosses a
+# padding boundary: the causal mask left off one 64 x 64 tile on the
+# diagonal, what a backward kernel that took its diagonal tile for one
+# below it would return.
+FLASH_DIAG_FAULT_BLOCK = (slice(448, 512), slice(448, 512))
+# Phase 16 (Llama at Gemma-2B's widths, 2 of 18 layers): its covariance
+# stage's estimated batch on an H100 80GB (22 of 32), at which phase 9 holds
+# F2W and F3W at phase 16's attention shape.
+GEMMA_BATCH = 22
+# The device bytes the collector may free as phase 16 starts: more means an
+# earlier phase left a reference cycle holding tensors on the card.
+GC_SLACK_BYTES = 64 * 2**20
 # (B, H, T, D, dtype, padded): the flash path's shape first.
 FLASH_CASES = (
     (16, 12, 512, 64, torch.bfloat16, True),
@@ -395,12 +435,15 @@ FLASH_CASES = (
 # Llama's, phase 15's path, unpadded as its data are (FFH, F2H, F3H); fp32 at
 # GPT-2 small's width, the route of phase 11's first run, at phase 10's batch
 # and length (F1, F2S, F3S); bf16 at D 128 over the same 768 model width
-# (FFH, F2H, F3H); bf16 at D 256, FLASH_CASES' (F1, F2, F3); fp32 at D 128
+# (FFH, F2H, F3H); bf16 at D 256, FLASH_CASES' (F1, F2W, F3W; F2 and F3 the
+# yardstick); fp32 at D 128
 # over the 768 width, the route of phase 11's second run (FFS, F2SH, F3SH);
 # fp32 at D 256 over the 768 width, the route of phase 11's third run (FFS,
-# F2, F3).
+# F2, F3); bf16 at D 256 at phase 16's attention shape (Gemma-2B's heads after
+# the MQA repeat, unpadded: F1, F2W, F3W).
 GENERIC_ROUTE_CASES = {
     "Llama bf16 D 128": (LLAMA_BATCH, 32, 512, 128, torch.bfloat16, False),
+    "Gemma bf16 D 256": (GEMMA_BATCH, 8, 512, 256, torch.bfloat16, False),
     "fp32 D 64": (16, 12, 512, 64, torch.float32, True),
     "bf16 D 128": (16, 6, 512, 128, torch.bfloat16, True),
     "bf16 D 256": (4, 8, 512, 256, torch.bfloat16, True),
@@ -489,6 +532,10 @@ LLAMA_SCORE_VARIANTS = (
     ("lowrank fp32", LLAMA_RANK, {"precondition_dtype": "float32", "score_dtype": "float32"}),
     ("dense fp32", None, {"precondition_dtype": "float32", "score_dtype": "float32"}),
 )
+# Phase 16 (Llama at Gemma-2B's widths): 2 of 18 layers, the attention
+# projections tracked; the data, the task and the recipe are phase 15's
+# (LLAMA_TRAIN_N train and LLAMA_QUERY_N query examples, dense scores).
+GEMMA_LAYERS = 2
 # The low-rank path held at Llama's shapes on the first queries' blocks: the
 # randomized SVD within phase 14's 1.5x of the optimal rank-64 tail, and the
 # low-rank contraction against the dense form on the rebuilt block in fp32
@@ -620,6 +667,14 @@ def phase_build() -> None:
         log(f"SASS of {kernel}: {counts}; {occupancy(lib, D128_OCCUPANCY, which)}")
         if not (counts["HMMA"] and counts["LDSM"]):
             raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
+    for which, kernel in enumerate(D256_KERNELS):
+        counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
+        occ = occupancy(lib, D256_OCCUPANCY, which)
+        log(f"SASS of {kernel}: {counts}; {occ}")
+        if not (counts["HMMA"] and counts["LDSM"]):
+            raise RuntimeError(f"{kernel} lacks mma.sync or ldmatrix instructions: {counts}")
+        if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
+            raise RuntimeError(f"{kernel} spills: {counts}, {occ}")
     for which, kernel in enumerate(FWD_KERNELS):
         counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
         occ = occupancy(lib, FWD_OCCUPANCY, which)
@@ -648,6 +703,9 @@ def phase_build() -> None:
 # stores: spills).
 D128_KERNELS = ("flash_bwd_dkv_d128_kernel", "flash_bwd_dq_d128_kernel")
 D128_OCCUPANCY = "kf_flash_bwd_d128_occupancy"
+# F2W and F3W (csrc/flash_backward_d256.cu), likewise.
+D256_KERNELS = ("flash_bwd_dkv_d256_kernel", "flash_bwd_dq_d256_kernel")
+D256_OCCUPANCY = "kf_flash_bwd_d256_occupancy"
 FWD_KERNELS = ("flash_fwd_pipelined_kernel", "flash_fwd_d128_kernel")
 FWD_OCCUPANCY = "kf_flash_fwd_occupancy"
 D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
@@ -1035,11 +1093,13 @@ def flash_kernels():
         flash_backward,
         flash_backward_dkv,
         flash_backward_dkv_d128,
+        flash_backward_dkv_d256,
         flash_backward_dkv_f32,
         flash_backward_dkv_f32_d128,
         flash_backward_dkv_f32_d256,
         flash_backward_dq,
         flash_backward_dq_d128,
+        flash_backward_dq_d256,
         flash_backward_dq_f32,
         flash_backward_dq_f32_d128,
         flash_backward_dq_f32_d256,
@@ -1053,6 +1113,7 @@ def flash_kernels():
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
             "FFS": flash_forward_f32,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
+            "F2W": flash_backward_dkv_d256, "F3W": flash_backward_dq_d256,
             "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
             "F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d128,
             "F2SW": flash_backward_dkv_f32_d256, "F3SW": flash_backward_dq_f32_d256}
@@ -1326,17 +1387,18 @@ def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
     return (torch.matmul(p.to(v.dtype).to(f), v.to(f)) / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
-def unmasked_tile_backward(q, k, v, seg, l, m, do, di, scale, block) -> dict:
+def unmasked_tile_backward(q, k, v, seg, l, m, do, di, scale, block, causal_too=False) -> dict:
     """The plain dQ, dK and dV with the segment mask left off one block
     (query rows, key columns) below the diagonal, the causal mask and the
     sound run's l and m kept: what a backward kernel that took that tile for
-    one segment would return."""
+    one segment would return. With `causal_too` the causal mask is left off
+    the block as well (a diagonal tile taken for one below it)."""
     from kronfluence_tpu_torch.ops.kernels.flash import MASK_VALUE
 
     f, t = torch.float32, q.shape[2]
     causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     keep = (causal & (seg[:, :, None] == seg[:, None, :]))[:, None].clone()
-    keep[:, :, block[0], block[1]] = causal[block[0], block[1]]
+    keep[:, :, block[0], block[1]] = True if causal_too else causal[block[0], block[1]]
     s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
     p = torch.exp(torch.where(keep, s, s + MASK_VALUE) - m[..., None]) / l[..., None]
     dv = torch.matmul(p.transpose(-1, -2), do.to(f))
@@ -1402,7 +1464,8 @@ def phase_flash_kernels(card: str) -> dict:
     )
 
     abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFS": 0.0,
-                "F2H": 0.0, "F3H": 0.0, "F2S": 0.0, "F3S": 0.0, "F2SW": 0.0, "F3SW": 0.0}
+                "F2H": 0.0, "F3H": 0.0, "F2W": 0.0, "F3W": 0.0, "F2S": 0.0, "F3S": 0.0,
+                "F2SW": 0.0, "F3SW": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
              "FFS O": "FFS",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
@@ -1458,7 +1521,8 @@ def phase_flash_kernels(card: str) -> dict:
         if split_h or split_f32 or split_f32_w:
             # F2H and F3H (bf16 D 128), F2S and F3S (fp32 D 64) or F2SW and
             # F3SW (fp32 D 256) against F2's and F3's plain versions (the
-            # same inputs); a second call must give the same bits.
+            # same inputs); a second call must give the same bits. F2W and
+            # F3W are held at this bf16 D 256 shape in time_generic_routes.
             n2, n3, dkv_fn, dq_fn = (
                 ("F2H", "F3H", flash_backward_dkv_d128, flash_backward_dq_d128) if split_h
                 else ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32) if split_f32
@@ -1704,13 +1768,14 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # FFH, F2H and F3H report phase 15's shape (Llama); F1, F2S and F3S fp32
-    # at D 64 (phase 11's first run); FFS, F2SH and F3SH fp32 at D 128 (the
-    # route of its second run), FFS also at D 256 beside; F2SW and F3SW fp32
-    # at D 256 (the route of its third run); F2 and F3 bf16 at D 256, the one
-    # case left on their route, which no path runs. Their other shapes, and
-    # the bf16 D 64 times of F1-F3 (the turns against FF and FB above), stay
-    # beside.
+    # FFH, F2H and F3H report phase 15's shape (Llama); F2W and F3W phase
+    # 16's (Gemma-2B's heads), with FLASH_CASES' bf16 D 256 case beside; F1,
+    # F2S and F3S fp32 at D 64 (phase 11's first run); FFS, F2SH and F3SH fp32
+    # at D 128 (the route of its second run), FFS also at D 256 beside; F2SW
+    # and F3SW fp32 at D 256 (the route of its third run); F2 and F3 bf16 at
+    # D 256, where F2W and F3W took their place and they are timed as the
+    # yardstick. Their other shapes, and the bf16 D 64 times of F1-F3 (the
+    # turns against FF and FB above), stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
     fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
@@ -1718,7 +1783,10 @@ def phase_flash_kernels(card: str) -> dict:
                  "F3SH)")
     fp32_d256 = ("B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: FFS, F2SW, "
                  "F3SW)")
-    bf16_d256 = "B 4 H 8 T 512 D 256 bf16 padded (F2's and F3's route; no path runs it)"
+    bf16_d256 = ("B 4 H 8 T 512 D 256 bf16 padded (F2's and F3's route until F2W and F3W took it; "
+                 "they run on no route, timed as the yardstick)")
+    gemma_shape = (f"B {GEMMA_BATCH} H 8 T 512 D 256 bf16 (phase 16's heads after the MQA repeat, "
+                   f"unpadded)")
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
     main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("bf16 D 256", bf16_d256),
@@ -1733,6 +1801,13 @@ def phase_flash_kernels(card: str) -> dict:
     timing["F2H"]["pair_at_llama"] = routes["F2H+F3H"]["Llama bf16 D 128"]
     timing["F2H"]["pair_at_bf16_d128_h6"] = routes["F2H+F3H"]["bf16 D 128"]
     timing["F2H"]["f2_f3_at_llama"] = routes["F2+F3"]["Llama bf16 D 128"]
+    for name in ("F2W", "F3W"):
+        timing[name] = dict(routes[name]["Gemma bf16 D 256"], shape=gemma_shape,
+                            at_bf16_d256=routes[name]["bf16 D 256"])
+        abs_errs[name] = max(abs_errs[name], routes[name]["bf16 D 256"]["max_abs_err"])
+    for case, key in (("Gemma bf16 D 256", "at_gemma"), ("bf16 D 256", "at_bf16_d256")):
+        timing["F2W"][f"pair_{key}"] = routes["F2W+F3W"][case]
+        timing["F2W"][f"f2_f3_{key}"] = routes["F2+F3"][case]
     ffs_cases = ("fp32 D 128", "fp32 D 256")
     timing["FFS"] = dict(routes["FFS"]["fp32 D 128"], shape=fp32_d128,
                          at_fp32_d256=dict(routes["FFS"]["fp32 D 256"], shape=fp32_d256),
@@ -1748,8 +1823,8 @@ def phase_flash_kernels(card: str) -> dict:
     # F2S, F3S, F2SW and F3SW are also held at their route's case in
     # time_generic_routes, F2SH and F3SH there alone.
     out = {}
-    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2S", "F3S", "F2SH",
-                 "F3SH", "F2SW", "F3SW"):
+    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2W", "F3W", "F2S",
+                 "F3S", "F2SH", "F3SH", "F2SW", "F3SW"):
         err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
         out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
@@ -1772,39 +1847,92 @@ def kernel_names(fn) -> list:
                    if e.device_type == torch.autograd.DeviceType.CUDA and "spin_kernel" not in e.key})
 
 
+def split_pair_checks(case: str, split, args, padded: bool, abs_err: dict) -> None:
+    """A split backward pair (F2H + F3H, F2W + F3W or an fp32 pair) at a
+    GENERIC_ROUTE_CASES case: within the limit of their plain versions (bf16
+    units in bf16, max |kernel - plain| / max |plain| in fp32), finite, two
+    calls bitwise equal, and the limit must catch two planted faults against
+    the plain versions: one 64 x 64 block of P left out, and a wrong masking
+    decision (padded: the segment mask left off a tile whose rows cross a
+    padding boundary; unpadded: the causal mask left off a diagonal tile).
+    Records the largest absolute errors."""
+    from kronfluence_tpu_torch.ops.kernels.flash import (
+        flash_backward_dkv_reference,
+        flash_backward_dq_reference,
+    )
+
+    if args[0].dtype == torch.bfloat16:
+        measure, limit, how = bf16_units, FLASH_BF16_UNITS, "bf16 units"
+    else:
+        measure, limit, how = relative_to_max, FLASH_FP32_TOL, "max |kernel - plain| / max |plain|"
+    n2, n3, dkv_fn, dq_fn = split[:4]
+    got = (*dkv_fn(*args), dq_fn(*args))
+    again = (*dkv_fn(*args), dq_fn(*args))
+    want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
+    errs = [measure(x, y) for x, y in zip(got, want)]
+    bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+    abs_errs = [float((x.float() - y.float()).abs().max()) for x, y in zip(got, want)]
+    abs_err.update({n2: max(abs_errs[:2]), n3: abs_errs[2]})
+    log(f"flash {n2}, {n3} at {case} ({tuple(args[0].shape)}): dK, dV, dQ in {how} "
+        f"{[f'{e:.3g}' for e in errs]} (limit {limit:g}); two calls bitwise equal {bitwise}; "
+        f"finite {finite}")
+    if not (max(errs) <= limit and all(bitwise) and finite):
+        raise RuntimeError(f"{n2}/{n3} off their plain versions at {case}: {errs}, {bitwise}")
+    del got, again
+    faults = {"dropped block": dropped_block(*args, FLASH_FAULT_BLOCK)}
+    if padded:
+        faults["unmasked tile"] = unmasked_tile_backward(*args, FLASH_MASK_FAULT_BLOCK)
+        where = "the segment mask left off rows 448-511, keys 384-447"
+    else:
+        faults["unmasked diagonal tile"] = unmasked_tile_backward(*args, FLASH_DIAG_FAULT_BLOCK,
+                                                                  causal_too=True)
+        where = "the causal mask left off the diagonal tile of rows and keys 448-511"
+    fault_errs = {f"{what} {n}": measure(fault[n], y) for what, fault in faults.items()
+                  for n, y in zip(("dK", "dV", "dQ"), want)}
+    log(f"flash {case}: planted faults (one 64 x 64 block of P left out, rows 384-447, keys "
+        f"192-255; {where}) against {n2}'s and {n3}'s plain versions, {how}: "
+        + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in fault_errs.items())
+        + f"; the kernels here {max(errs):.3g}; limit {limit:g}")
+    if not min(fault_errs.values()) > limit:
+        raise RuntimeError(f"the limit {limit:g} does not catch a planted fault of {n2} or {n3}: "
+                           f"{fault_errs}")
+
+
 def time_generic_routes(card: str) -> dict:
     """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
     "pipelined_h" (bf16 D 128) or "tiled_f32" (fp32 D 128 and 256) and
-    `backward_route` "split_h" (bf16 D 128), "split_f32" (fp32 D 64),
+    `backward_route` "split_h" (bf16 D 128), "split_w" (bf16 D 256), "split_f32" (fp32 D 64),
     "split_f32_h" (fp32 D 128) or "split_f32_w" (fp32 D 256), FFH, FFS, F2H +
-    F3H, F2S + F3S, F2SH + F3SH and F2SW + F3SW too, in turns against SDPA's
+    F3H, F2W + F3W, F2S + F3S, F2SH + F3SH and F2SW + F3SW too, in turns against SDPA's
     forward and its backward alone with the same boolean mask: CUDA events
     around one call (median), torch.profiler device time, the plain version
     and the bound; SDPA's kernel names are logged, and where SDPA raises the
     case is logged and timed without it. There FFH, FFS and the split pair
-    are first held against their plain versions (FFH, FFS and the fp32 pairs
-    twice, bitwise; FFS and the fp32 pairs within 1e-5 of max, with a
-    dropped block of P that the limit must catch at fp32 D 128 and 256, and
-    for FFS, F2SW and F3SW the segment mask left off a tile); FFH and FFS
-    must beat F1, and each split pair F2 + F3, by device time;
+    are first held against their plain versions (FFH and FFS twice,
+    bitwise; FFS within 1e-5 of max with two planted faults, `ffs_faults`;
+    each split pair by `split_pair_checks`); FFH and FFS must beat F1, and
+    each split pair F2 + F3, by device time;
     the Function's forward (the operands' .contiguous() copies, then FFH) is
     split by device time into the copies and FFH, and its backward (di,
     then the split pair) into di and the kernels. {kernel: {case:
     numbers}}, kernel in F1, FFH, FFS, F2, F3, F2+F3, F2H, F3H, F2H+F3H,
-    F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH, F2SW, F3SW, F2SW+F3SW; FFS and
-    the fp32 pairs' kernels also carry `max_abs_err` against their plain
-    versions."""
+    F2W, F3W, F2W+F3W, F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH, F2SW, F3SW,
+    F2SW+F3SW; FFS's and each split pair's kernels also carry
+    `max_abs_err` against their plain versions."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
         flash_backward_dkv,
         flash_backward_dkv_d128,
+        flash_backward_dkv_d256,
         flash_backward_dkv_f32,
         flash_backward_dkv_f32_d128,
         flash_backward_dkv_f32_d256,
         flash_backward_dkv_reference,
         flash_backward_dq,
         flash_backward_dq_d128,
+        flash_backward_dq_d256,
         flash_backward_dq_f32,
         flash_backward_dq_f32_d128,
         flash_backward_dq_f32_d256,
@@ -1821,6 +1949,8 @@ def time_generic_routes(card: str) -> dict:
     split_routes = {
         "split_h": ("F2H", "F3H", flash_backward_dkv_d128, flash_backward_dq_d128,
                     ("flash_bwd_dkv_d128_kernel",), ("flash_bwd_dq_d128_kernel",)),
+        "split_w": ("F2W", "F3W", flash_backward_dkv_d256, flash_backward_dq_d256,
+                    (D256_KERNELS[0],), (D256_KERNELS[1],)),
         "split_f32": ("F2S", "F3S", flash_backward_dkv_f32, flash_backward_dq_f32,
                       (F32_KERNELS[0],), (F32_KERNELS[1],)),
         "split_f32_h": ("F2SH", "F3SH", flash_backward_dkv_f32_d128, flash_backward_dq_f32_d128,
@@ -1869,53 +1999,8 @@ def time_generic_routes(card: str) -> dict:
                 raise RuntimeError(f"FFS off its plain version at {case}: {errs}")
             ffs_faults(q, k, v, seg, l, m, do, di, scale, want[0], errs[0], case)
             del got, want
-        if route == "split_h":
-            got = (*flash_backward_dkv_d128(*args), flash_backward_dq_d128(*args))
-            want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
-            units = [bf16_units(x, y) for x, y in zip(got, want)]
-            log(f"flash F2H, F3H at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ in bf16 units "
-                f"{[round(u_, 3) for u_ in units]} (limit {FLASH_BF16_UNITS:g})")
-            if not max(units) <= FLASH_BF16_UNITS:
-                raise RuntimeError(f"F2H/F3H off their plain versions at {case}: {units}")
-            del got, want
-        if route in ("split_f32", "split_f32_h", "split_f32_w"):
-            n2, n3, dkv_fn, dq_fn = split[:4]
-            got = (*dkv_fn(*args), dq_fn(*args))
-            again = (*dkv_fn(*args), dq_fn(*args))
-            want = (*flash_backward_dkv_reference(*args), flash_backward_dq_reference(*args))
-            rel = [relative_to_max(x, y) for x, y in zip(got, want)]
-            bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
-            finite = all(bool(torch.isfinite(x).all()) for x in got)
-            errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
-            abs_err.update({n2: max(errs[:2]), n3: errs[2]})
-            log(f"flash {n2}, {n3} at {case} (B {b} H {h} T {t} D {d}): dK, dV, dQ max |kernel - "
-                f"plain| / max |plain| {[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); "
-                f"two calls bitwise equal {bitwise}; finite {finite}")
-            if not (max(rel) <= FLASH_FP32_TOL and all(bitwise) and finite):
-                raise RuntimeError(f"{n2}/{n3} off their plain versions at {case}: {rel}, {bitwise}")
-            if route in ("split_f32_h", "split_f32_w"):
-                # The fp32 limit must catch a skipped tile of F2SH and F3SH
-                # (F2SW and F3SW): the plain version without one block of P;
-                # at D 256 also a wrong masking decision, one tile whose query
-                # rows cross a padding boundary taken for one segment.
-                faults = {"dropped block": dropped_block(q, k, v, seg, l, m, do, di, scale,
-                                                         FLASH_FAULT_BLOCK)}
-                if route == "split_f32_w":
-                    faults["unmasked tile"] = unmasked_tile_backward(
-                        q, k, v, seg, l, m, do, di, scale, FLASH_MASK_FAULT_BLOCK)
-                fault_rel = {f"{what} {n}": relative_to_max(fault[n], y)
-                             for what, fault in faults.items()
-                             for n, y in zip(("dK", "dV", "dQ"), want)}
-                log(f"flash {case}: planted faults (one 64 x 64 block of P left out, rows "
-                    f"384-447, keys 192-255; the segment mask left off rows 448-511, keys 384-447) "
-                    f"against {n2}'s and {n3}'s plain versions, max |fault - plain| / max |plain|: "
-                    + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in fault_rel.items())
-                    + f"; the kernels here {max(rel):.3g}; limit {FLASH_FP32_TOL:g}")
-                if not min(fault_rel.values()) > FLASH_FP32_TOL:
-                    raise RuntimeError(f"the fp32 limit {FLASH_FP32_TOL:g} does not catch a "
-                                       f"planted fault of {n2} or {n3}: {fault_rel}")
-                del faults
-            del got, again, want
+        if split:
+            split_pair_checks(case, split, args, padded, abs_err)
         keep = (seg[:, :, None] == seg[:, None, :]) & torch.ones(
             t, t, dtype=torch.bool, device="cuda").tril()
         mask4 = keep[:, None]
@@ -2167,8 +2252,8 @@ def phase_jacobi_path(card: str, ctx: dict) -> tuple:
     if not (worst["eigenvalues"] <= JACOBI_EIG_RTOL and worst["reconstruction"] <= JACOBI_RECON_RTOL
             and worst["orthogonality"] <= JACOBI_ORTH_ATOL):
         raise RuntimeError(f"the Jacobi path's eigenpairs are off cuSOLVER's: {worst}")
-    generic = ground_truth(card, cov32, jacobi32, cusolver32)
-    return by_route, generic
+    generic, generic_m32 = ground_truth(card, cov32, jacobi32, cusolver32)
+    return by_route, generic, generic_m32
 
 
 def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> int:
@@ -2178,7 +2263,10 @@ def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> in
     solved here, by the Jacobi solver at its default block_size 32 and at 16
     (K2's generic route). The Jacobi solver is held to 5e-5, the JAX package's
     bound against LAPACK (tests/test_eigh.py); cuSOLVER's error is printed.
-    Returns the generic route's launches."""
+    Returns the generic route's launches, and its time at their most common
+    launch shape (m 32): CUDA events and device time of one launch on seeded
+    symmetric blocks of that shape, the plain version's time and the bound."""
+    from kronfluence_tpu_torch.ops import eigh as eigh_mod
     from kronfluence_tpu_torch.ops.eigh import eigh_batched
     from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
     from kronfluence_tpu_torch.utils.constants import (
@@ -2211,7 +2299,18 @@ def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> in
     # block_size 16: 32 x 32 pivot blocks, K2's generic route.
     jacobi_pivot_rotations.registers_launches = jacobi_pivot_rotations.generic_launches = 0
     eigh_batched.chunks.clear()
-    jac16 = eigh_batched(wishart, block_size=16)[0]
+    shapes = {}
+
+    def recording(s, sweeps, *rest):
+        key = (*s.shape, sweeps)
+        shapes[key] = shapes.get(key, 0) + 1
+        return jacobi_pivot_rotations(s, sweeps, *rest)
+
+    eigh_mod.jacobi_pivot_rotations = recording
+    try:
+        jac16 = eigh_batched(wishart, block_size=16)[0]
+    finally:
+        eigh_mod.jacobi_pivot_rotations = jacobi_pivot_rotations
     torch.cuda.synchronize()
     generic = jacobi_pivot_rotations.generic_launches
     want = sum(c["sweeps"] * c["rounds_per_sweep"] for c in eigh_batched.chunks)
@@ -2227,7 +2326,23 @@ def ground_truth(card: str, cov32: dict, jacobi32: dict, cusolver32: dict) -> in
         raise RuntimeError(f"the Jacobi solver is off fp64 LAPACK by more than 5e-5 on {bad}")
     if generic != want or generic == 0 or jacobi_pivot_rotations.registers_launches:
         raise RuntimeError("block_size 16 did not run every K2 launch on the generic route")
-    return generic
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations_reference
+
+    (y, m, _, sweeps), count = max(shapes.items(), key=lambda kv: kv[1])
+    blocks = sym_blocks(y, m, seed=y * m + sweeps)
+    rounds = sweeps * (m - 1)
+    bound, bound_by = roofline(2 * y * m * m * 4, 9.0 * m * m * rounds * y, FP32_FLOPS)
+    timing = dict(shape=f"Y{y} m{m} sweeps{sweeps}", launches_at_shape=count,
+                  launch_shapes={f"Y{a} m{b} sweeps{c}": n for (a, b, _, c), n in shapes.items()},
+                  ms=median_ms(lambda: jacobi_pivot_rotations(blocks, sweeps)),
+                  device_ms=device_ms(lambda: jacobi_pivot_rotations(blocks, sweeps), ["jacobi_kernel"]),
+                  plain_ms=median_ms(lambda: jacobi_pivot_rotations_reference(blocks, sweeps), 5, 1),
+                  bound_ms=bound, bound_by=bound_by)
+    log(f"K2 generic route at phase 8's launch shape {timing['shape']} ({count} of its {generic} "
+        f"launches; shapes {timing['launch_shapes']}): {timing['ms']:.4f} ms by CUDA events, device "
+        f"{timing['device_ms']:.4f} ms, plain {timing['plain_ms']:.3f} ms, bound "
+        f"{bound:.4f} ms ({bound_by}) [{card}]")
+    return generic, timing
 
 
 def phase_flash_path(card: str, ctx: dict) -> dict:
@@ -2289,10 +2404,10 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, FFS, F2H, F3H, F2S, F3S, F2SH, F3SH, F2SW and F3SW never.
+    # FFH, FFS, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW and F3SW never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2S": 0, "F3S": 0,
-            "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0}
+            "FB": layers * passes, "FFH": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2W": 0, "F3W": 0,
+            "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
         f"{QUERY_ACC} accumulation steps): " + ", ".join(
@@ -3462,13 +3577,14 @@ def phase_score_features(card: str, ctx: dict, root: Path) -> dict:
     return launches
 
 
-def openwebtext_task(num_layers: int):
+def openwebtext_task(num_layers: int, tracked=None):
     """The openwebtext workload's task (examples/openwebtext/task.py,
     LlamaMLPOnlyTask): the summed token cross-entropy on fp32 logits over the
     shifted mask, labels sampled from the explicit generator by Gumbel-max
     (as `jax.random.categorical` draws them; one fp32 noise tensor the size
     of the logits), the margin measurement (the label's logit against the
-    logsumexp of the others), tracking the MLP projections of every layer."""
+    logsumexp of the others), tracking the MLP projections of every layer
+    (or the modules `tracked` names)."""
     from kronfluence_tpu_torch.models.llama import mlp_tracked_modules
     from kronfluence_tpu_torch.task import Task
 
@@ -3496,7 +3612,7 @@ def openwebtext_task(num_layers: int):
             return -torch.sum((correct - torch.logsumexp(others, dim=-1)) * mask)
 
         def get_influence_tracked_modules(self):
-            return mlp_tracked_modules(num_layers)
+            return list(tracked) if tracked is not None else mlp_tracked_modules(num_layers)
 
         def get_attention_mask(self, batch):
             return batch["attention_mask"]
@@ -3571,14 +3687,15 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, FFS, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the
+    one); F1, F2, F3, FF, FB, FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the
     naive form never; in a covariance stage K1 on every gram (two per
     projection, 6 a layer and batch), all wgmma, and K3 once per covariance
     fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "FFS": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0,
+            "FFS": 0, "F2W": 0, "F3W": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0,
+            "F3SW": 0,
             "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
@@ -3596,16 +3713,21 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
 
 def watch_estimates(analyzer) -> list:
     """Records each batch estimate the Analyzer makes, with the peak device
-    memory of what ran after it until the next (its partition's stage)."""
+    memory of what ran after it until the next (its partition's stage). The
+    wrapper reaches the Analyzer by a weak reference: a strong one from the
+    Analyzer's own attribute would be a reference cycle, which keeps the
+    Analyzer and its model on the card after the caller drops them, until the
+    collector next runs."""
     records = []
-    real = analyzer._find_executable_batch_size
+    ref = weakref.ref(analyzer)
+    real = type(analyzer)._find_executable_batch_size
 
     def estimate(*args, **kwargs):
         close_estimate(records)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        fit = real(*args, **kwargs)
-        est = dict(analyzer.last_batch_estimate)
+        fit = real(ref(), *args, **kwargs)
+        est = dict(ref().last_batch_estimate)
         est["planned_bytes"] = est["static_bytes"] + est["reserved_bytes"] + est["batch_size"] * (
             est["per_example_bytes"] + est["untracked_bytes"])
         records.append(est)
@@ -4144,6 +4266,207 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
         e["peak_bytes"] for records in out["estimates"].values() for e in records])
     log(f"Llama: phase 15 took {time.perf_counter() - start:.1f} s; peak device memory "
         f"{out['peak_bytes'] / 2**30:.3f} GiB (the largest stage peak) [{card}]")
+    return out
+
+
+def gemma2b_config():
+    """Gemma-2B's widths in the Llama class (the Gemma report, arXiv 2403.08295,
+    Table 1, and the published google/gemma-2b config): d_model 2048, 8 heads
+    and 1 KV head (head_dim 256), d_mlp 16384, vocabulary 256,000, RoPE theta
+    10,000, RMS eps 1e-6; bf16 with flash attention; cut to GEMMA_LAYERS of 18
+    layers. Llama's architecture, not Gemma's: SwiGLU for GeGLU, RMSNorm
+    without the +1 offset, no sqrt(d) embedding scale, an untied head."""
+    from kronfluence_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(d_model=2048, d_mlp=16384, num_heads=8, num_kv_heads=1,
+                       vocab_size=256000, rope_theta=10000.0, rms_eps=1e-6,
+                       num_layers=GEMMA_LAYERS, max_seq_len=SEQ, dtype=torch.bfloat16,
+                       attention="flash")
+
+
+def check_gemma_launches(stage: str, counts: dict, layers: int) -> None:
+    """F1 (bf16 at D 256: the generic forward) once per attention layer and
+    model forward, and at most once more per attention backward, where the
+    recipe's rematerialisation recomputes an attention module (each holds
+    tracked projections; the recomputation runs no forward hook); F2W and F3W (the
+    "split_w" route) once per attention backward, and with attention
+    tracking every backward pass reaches both layers; F2, F3 and every other
+    flash kernel, K2 and the naive form never."""
+    fwd = sum(counts["attention forwards"].values())
+    bwd = sum(counts["attention backwards"].values())
+    want = {name: 0 for name in ("F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2S",
+                                 "F3S", "F2SH", "F3SH", "F2SW", "F3SW", "jacobi", "naive")}
+    want.update(F2W=bwd, F3W=bwd)
+    off = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if not fwd <= counts["F1"] <= fwd + bwd:
+        off["F1"] = (counts["F1"], (fwd, fwd + bwd))
+    if fwd != layers * counts["forwards"] or bwd != layers * counts["backwards"]:
+        off["attention passes"] = (fwd, bwd, counts["forwards"], counts["backwards"])
+    if counts["backwards"] and not bwd:
+        off["no attention backward"] = counts["attention backwards"]
+    if off:
+        raise RuntimeError(f"Gemma {stage}: launches off (got, want): {off}")
+
+
+def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 16: Llama at Gemma-2B's widths, GEMMA_LAYERS of 18 layers,
+    through the Analyzer: the four attention projections of every layer
+    tracked, the openwebtext recipe's covariance (its batch estimated),
+    fp32 "auto" eigendecomposition, lambda and dense pairwise scores (one
+    module partition, so that every backward reaches layer 0) for
+    LLAMA_QUERY_N x LLAMA_TRAIN_N examples of synthetic tokens, every batch
+    from the memory model. Every stage's backward runs F2W and F3W in both
+    layers (the lowest tracked projection is in layer 0); F2 and F3 never.
+    The flash form's covariance is held against the naive form's on the
+    same weights and batches. Returns the launches for the kernels line."""
+    from kronfluence_tpu_torch import Analyzer, prepare_model
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.models import llama as llama_mod
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        extreme_reduce_memory_factor_arguments,
+    )
+    from kronfluence_tpu_torch.utils.common.score_arguments import (
+        extreme_reduce_memory_score_arguments,
+    )
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME, COVARIANCE_FACTOR_NAMES
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    start = time.perf_counter()
+    # What earlier phases left on the card counts in every stage's measured
+    # peak but in no plan. Reference counting frees what a phase drops; only
+    # a reference cycle waits for the collector, and none may hold device
+    # memory: the collector's garbage is listed, and more than
+    # GC_SLACK_BYTES freed by it fails the phase.
+    before = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        garbage = list(gc.garbage)
+        gc.garbage.clear()
+    finally:
+        gc.set_debug(0)
+    with warnings.catch_warnings():  # isinstance on deprecated module attributes warns
+        warnings.simplefilter("ignore")
+        held = sorted(((x.nbytes, tuple(x.shape), str(x.dtype)) for x in garbage
+                       if isinstance(x, torch.Tensor) and x.is_cuda), reverse=True)
+        kinds = {}
+        for x in garbage:
+            if not isinstance(x, (dict, list, tuple, set, type(gc), torch.Tensor)):
+                kinds[type(x).__qualname__] = kinds.get(type(x).__qualname__, 0) + 1
+    del garbage
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated()
+    common = sorted(kinds.items(), key=lambda kv: -kv[1])[:12]
+    log(f"Gemma: {before / 2**30:.3f} GiB allocated on the card as phase 16 starts, "
+        f"{resident / 2**30:.3f} GiB after gc.collect(); the collector's garbage held "
+        f"{len(held)} device tensors {held[:8]}, most common objects {common} [{card}]")
+    if before - resident > GC_SLACK_BYTES:
+        raise RuntimeError(f"Gemma: earlier phases left {(before - resident) / 2**30:.3f} GiB on "
+                           f"the card in reference cycles: tensors {held[:8]}, objects {common}")
+    config = gemma2b_config()
+    layers = config.num_layers
+    tracked = [f"layers_{i}/attn/{proj}" for i in range(layers)
+               for proj in ("q_proj", "k_proj", "v_proj", "o_proj")]
+    task = openwebtext_task(layers, tracked)
+    module = llama_mod.init_llama(config, seed=0, device=device)
+    torch.cuda.synchronize()
+    params = sum(p.numel() for p in module.parameters())
+    log(f"Gemma: Gemma-2B widths (d_model {config.d_model}, d_mlp {config.d_mlp}, "
+        f"{config.num_heads} heads, {config.num_kv_heads} KV head, head_dim {config.head_dim}, "
+        f"vocab {config.vocab_size:,}, T {SEQ}, RoPE theta {config.rope_theta:g}, RMS eps "
+        f"{config.rms_eps:g}) in the Llama class, bf16, flash attention (forward route "
+        f"generic: F1; backward route split_w: F2W + F3W); reduced: {layers} of 18 layers, the "
+        f"{len(tracked)} attention projections tracked, SwiGLU, RMSNorm without +1, no embedding "
+        f"scale, untied head; {params:,} parameters from seed 0; {LLAMA_TRAIN_N} train and "
+        f"{LLAMA_QUERY_N} query examples of synthetic tokens [{card}]")
+    train = make_tokens(LLAMA_TRAIN_N, SEQ, config.vocab_size, 31, device)
+    query = make_tokens(LLAMA_QUERY_N, SEQ, config.vocab_size, 32, device)
+    recipe = extreme_reduce_memory_factor_arguments(strategy="ekfac")
+    recipe.eigendecomposition_dtype = "float32"
+    recipe.eigendecomposition_solver = "auto"
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_gemma_"))
+    out = {"seconds": {}, "launches": {}}
+    try:
+        analyzer = Analyzer("gemma", prepare_model(module, task), task, profile=True,
+                            output_dir=str(root), cpu=device.type == "cpu")
+        estimates = watch_estimates(analyzer)
+        stages = (
+            ("covariance", lambda: analyzer.fit_covariance_matrices("ekfac", train,
+                                                                    factor_args=recipe)),
+            ("eigendecomposition", lambda: analyzer.perform_eigendecomposition(
+                "ekfac", factor_args=recipe)),
+            ("lambda", lambda: analyzer.fit_lambda_matrices("ekfac", train, factor_args=recipe)),
+            ("pairwise", lambda: analyzer.compute_pairwise_scores(
+                "dense", "ekfac", query, train, per_device_query_batch_size=LLAMA_QUERY_N,
+                score_args=extreme_reduce_memory_score_arguments(module_partitions=1))),
+        )
+        for stage, run in stages:
+            estimates.clear()
+            with PassCounter(module, kernels) as counter:
+                _, _, sec = peak_of(run)
+            close_estimate(estimates)
+            log_estimates(card, f"(Gemma) {stage}", estimates)
+            if stage == "eigendecomposition":
+                if counter.counts["forwards"] or any(counter.counts[k] for k in kernels):
+                    raise RuntimeError(f"Gemma eigendecomposition launched {counter.counts}")
+            else:
+                check_gemma_launches(stage, counter.counts, layers)
+            if stage == "covariance":
+                out["batch"] = estimates[0]["batch_size"]
+                if out["batch"] != GEMMA_BATCH:
+                    raise RuntimeError(f"Gemma covariance: the memory model's batch "
+                                       f"{out['batch']} is not GEMMA_BATCH ({GEMMA_BATCH}), at "
+                                       f"which phase 9 holds and times F2W and F3W")
+            out["seconds"][stage] = sec
+            out["launches"][stage] = dict(counter.counts)
+            log(f"Gemma {stage}: {sec:.3f} s, batch "
+                f"{[e['batch_size'] for e in estimates] or '-'}, launches {counter.counts} [{card}]")
+        scores = analyzer.load_pairwise_scores("dense")[ALL_MODULE_NAME].float()
+        if (tuple(scores.shape) != (LLAMA_QUERY_N, LLAMA_TRAIN_N)
+                or not bool(torch.isfinite(scores).all())):
+            raise RuntimeError(f"Gemma scores: shape {tuple(scores.shape)} or not finite")
+        log(f"Gemma pairwise scores {tuple(scores.shape)}, all finite; max |score| "
+            f"{float(scores.abs().max()):.4g} [{card}]")
+        model = analyzer.model
+        del analyzer, scores
+
+        # Flash against naive: the same weights with attention="naive", the
+        # dataset's labels on both sides (phase 15's comparison).
+        empirical = copy.deepcopy(recipe)
+        empirical.use_empirical_fisher = True
+        empirical.covariance_module_partitions = 1
+        batch = out["batch"]
+        flash_cov = fit_covariance_matrices_with_loader(
+            model, task, BatchLoader(train, batch, device=device), empirical)
+        naive_module = llama_mod.init_llama(dataclasses.replace(config, attention="naive"),
+                                            seed=0, device=device)
+        naive_cov = fit_covariance_matrices_with_loader(
+            prepare_model(naive_module, task), task, BatchLoader(train, batch, device=device),
+            empirical)
+        worst = {f"{factor_name} {name}": relative_to_max(naive_cov[factor_name][name], want)
+                 for factor_name in COVARIANCE_FACTOR_NAMES[:2]
+                 for name, want in flash_cov[factor_name].items()}
+        gap = max(worst.values())
+        log(f"Gemma covariance, flash against naive attention on the same weights and batches: "
+            f"max |diff| / max |C| {gap:.3e} over {len(worst)} factors (limit "
+            f"{FLASH_FACTOR_RTOL:g}) [{card}]")
+        if not gap <= FLASH_FACTOR_RTOL:
+            raise RuntimeError(f"Gemma flash against naive: {worst}")
+        out["flash_vs_naive"] = gap
+        del naive_module, naive_cov, flash_cov, model
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del module
+    torch.cuda.empty_cache()
+    out["total"] = {key: sum(c[key] for c in out["launches"].values())
+                    for key in ("F1", "F2", "F3", "F2W", "F3W")}
+    log(f"Gemma: phase 16 took {time.perf_counter() - start:.1f} s; launches over its stages "
+        f"{out['total']} [{card}]")
     return out
 
 
@@ -5123,7 +5446,8 @@ def main() -> None:
     jacobi_result, jacobi_generic_result = phase("7 jacobi kernels", phase_jacobi_kernel, card)
     flash_result = phase("9 flash kernels", phase_flash_kernels, card)
     ctx = phase("5 main path", phase_main_path, card)
-    jacobi_by_route, jacobi_generic_launches = phase("8 jacobi path", phase_jacobi_path, card, ctx)
+    jacobi_by_route, jacobi_generic_launches, jacobi_generic_m32 = phase(
+        "8 jacobi path", phase_jacobi_path, card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
     # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2SH, F3SH, FFS, F2SW and
@@ -5150,17 +5474,22 @@ def main() -> None:
     llama = phase("15 llama", phase_llama, card)
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
                       for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
-    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F1, F2S and F3S
-    # from phase 11's first run (fp32 D 64: the generic forward and the
-    # split_f32 route), F2SH and F3SH from its second (fp32 D 128: the
-    # split_f32_h route), F2SW and F3SW from its third (fp32 D 256: the
-    # split_f32_w route), FFS from its second and third (the tiled_f32
-    # forward). F2 and F3 serve bf16 at D 256 alone, which no path runs: the
-    # third run, where they ran until the split_f32_w route, must leave them
-    # at 0, and phase 9 alone holds them.
+    gemma = phase("16 gemma", phase_gemma, card)
+    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F2W and F3W from
+    # phase 16 (Gemma-2B's widths, bf16 D 256); F1, F2S and F3S from phase
+    # 11's first run (fp32 D 64: the generic forward and the split_f32
+    # route), F2SH and F3SH from its second (fp32 D 128: the split_f32_h
+    # route), F2SW and F3SW from its third (fp32 D 256: the split_f32_w
+    # route), FFS from its second and third (the tiled_f32 forward). F2 and F3
+    # serve no route: phase 11's third run and phase 16, where they ran until
+    # the split_f32_w and split_w routes, must leave them at 0, and phase 9
+    # alone holds them.
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
-                    F3H=llama_launches["F3H"], F1=split_path["F1"], F2=split_path_d256["F2"],
-                    F3=split_path_d256["F3"], F2S=split_path["F2S"], F3S=split_path["F3S"],
+                    F3H=llama_launches["F3H"], F2W=gemma["total"]["F2W"],
+                    F3W=gemma["total"]["F3W"], F1=split_path["F1"],
+                    F2=split_path_d256["F2"] + gemma["total"]["F2"],
+                    F3=split_path_d256["F3"] + gemma["total"]["F3"],
+                    F2S=split_path["F2S"], F3S=split_path["F3S"],
                     F2SH=split_path_d128["F2SH"], F3SH=split_path_d128["F3SH"],
                     F2SW=split_path_d256["F2SW"], F3SW=split_path_d256["F3SW"],
                     FFS=split_path_d128["FFS"] + split_path_d256["FFS"])
@@ -5170,15 +5499,16 @@ def main() -> None:
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 11's first run (reference, fp32 D 64: generic forward)"),
+               "phase 11's first run (reference, fp32 D 64: generic forward); phase 16 (Gemma, "
+               "bf16 D 256) in gemma_launches_by_stage"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
-               "no path: the split route is bf16 at D 256 alone, which no workload runs; phase "
-               "11's third run (fp32 D 256) takes F2SW and F3SW and must leave F2 at 0; phase 9 "
-               "alone holds F2 against its plain version"),
+               "no route: phase 11's third run (fp32 D 256) and phase 16 (bf16 D 256) take "
+               "F2SW and F2W and must leave F2 at 0; phase 9 alone holds F2 against its plain "
+               "version and times it as the yardstick"),
         "F3": ("flash_backward_dq", ["flash_attention.py:1287"], "flash_attention.cu",
-               "no path: the split route is bf16 at D 256 alone, which no workload runs; phase "
-               "11's third run (fp32 D 256) takes F2SW and F3SW and must leave F3 at 0; phase 9 "
-               "alone holds F3 against its plain version"),
+               "no route: phase 11's third run (fp32 D 256) and phase 16 (bf16 D 256) take "
+               "F3SW and F3W and must leave F3 at 0; phase 9 alone holds F3 against its plain "
+               "version and times it as the yardstick"),
         "FF": ("flash_forward_pipelined", ["flash_attention.py:589"], "flash_forward.cu",
                "phase 10 (flash path, bf16: pipelined forward)"),
         "FB": ("flash_backward", ["flash_attention.py:941", "flash_attention.py:1287"],
@@ -5192,6 +5522,10 @@ def main() -> None:
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
         "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
+        "F2W": ("flash_backward_dkv_d256", ["flash_attention.py:941"], "flash_backward_d256.cu",
+                "phase 16 (Llama at Gemma-2B's widths, bf16 D 256: split_w route), all stages"),
+        "F3W": ("flash_backward_dq_d256", ["flash_attention.py:1287"], "flash_backward_d256.cu",
+                "phase 16 (Llama at Gemma-2B's widths, bf16 D 256: split_w route), all stages"),
         "F2S": ("flash_backward_dkv_f32", ["flash_attention.py:941"], "flash_backward_f32.cu",
                 "phase 11's first run (reference, fp32 D 64: split_f32 route)"),
         "F3S": ("flash_backward_dq_f32", ["flash_attention.py:1287"], "flash_backward_f32.cu",
@@ -5255,6 +5589,7 @@ def main() -> None:
             "launches_from": "phase 8 (eigh_batched block_size 16 on the Wishart matrices, m 32: "
                              "generic route)",
             **jacobi_generic_result,
+            "at_phase8_launch_shape": jacobi_generic_m32,
         },
     ] + [
         {
@@ -5275,6 +5610,8 @@ def main() -> None:
                else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
+            **({"gemma_launches_by_stage": {stage: c[fid] for stage, c in gemma["launches"].items()}}
+               if fid in ("F1", "F2", "F3", "F2W", "F3W") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

@@ -1,7 +1,7 @@
 // Warp-level building blocks of the flash kernels for sm_90a that stage
 // bf16 tiles in shared memory and multiply them with mma.sync: FB
 // (flash_backward.cu), FF and FFH (flash_forward.cu), F2H and F3H
-// (flash_backward_d128.cu). cp.async copies with
+// (flash_backward_d128.cu), F2W and F3W (flash_backward_d256.cu). cp.async copies with
 // commit/wait groups, ldmatrix fragment loads, the m16n8k16 bf16 product with
 // fp32 accumulation, exp2 on the MUFU unit, and bf16 packing.
 

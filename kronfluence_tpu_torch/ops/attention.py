@@ -14,11 +14,12 @@ no switch, probe or fallback:
     and FFS at head_dim 128 and 256 (route "tiled_f32"), and the backward
     F2S + F3S at head_dim 64 (route "split_f32"), F2SH + F3SH at head_dim
     128 ("split_f32_h") and F2SW + F3SW at head_dim 256 ("split_f32_w"), all
-    deterministic; bf16 at head_dim 256 takes F1 forward and F2 + F3
-    backward (`flash.forward_route`, `flash.backward_route`;
-    `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
+    deterministic; bf16 at head_dim 256 (Gemma) takes F1 forward and F2W +
+    F3W backward ("split_w", deterministic) (`flash.forward_route`,
+    `flash.backward_route`; `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
     `csrc/flash_forward_f32.cu`, `csrc/flash_backward.cu`,
-    `csrc/flash_backward_d128.cu`, `csrc/flash_backward_f32.cu`,
+    `csrc/flash_backward_d128.cu`, `csrc/flash_backward_d256.cu`,
+    `csrc/flash_backward_f32.cu`,
     `csrc/flash_backward_f32_d128.cu`, `csrc/flash_backward_f32_d256.cu`,
     `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
     CPU tensors. A shape the kernels do not take raises; it never falls
@@ -43,11 +44,13 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_d128,
+    flash_backward_dkv_d256,
     flash_backward_dkv_f32,
     flash_backward_dkv_f32_d128,
     flash_backward_dkv_f32_d256,
     flash_backward_dq,
     flash_backward_dq_d128,
+    flash_backward_dq_d256,
     flash_backward_dq_f32,
     flash_backward_dq_f32_d128,
     flash_backward_dq_f32_d256,
@@ -120,8 +123,9 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 class FlashAttention(torch.autograd.Function):
     """Causal, segment-masked attention: FF, FFH, FFS or F1 forward as
-    `forward_route` says; backward di, then FB, F2H + F3H, F2S + F3S,
-    F2SH + F3SH, F2SW + F3SW or F2 + F3 as `backward_route` says."""
+    `forward_route` says; backward di, then FB, F2H + F3H, F2W + F3W,
+    F2S + F3S, F2SH + F3SH or F2SW + F3SW as `backward_route` says (F2 + F3
+    on no route a supported type and head dim reaches)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
@@ -150,6 +154,9 @@ class FlashAttention(torch.autograd.Function):
         elif route == "split_h":
             dk, dv = flash_backward_dkv_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
             dq = flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+        elif route == "split_w":
+            dk, dv = flash_backward_dkv_d256(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
+            dq = flash_backward_dq_d256(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
         elif route == "split_f32":
             dk, dv = flash_backward_dkv_f32(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)
             dq = flash_backward_dq_f32(q, k, v, segment_ids, l, m, do, di, ctx.sm_scale)

@@ -23,9 +23,9 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
-    "flash_attention.cu", "flash_backward.cu", "flash_backward_d128.cu", "flash_backward_f32.cu",
-    "flash_backward_f32_d128.cu", "flash_backward_f32_d256.cu", "flash_forward.cu",
-    "flash_forward_f32.cu", "jacobi.cu", "jacobi_m64.cu", "probe.cu", "syrk.cu",
+    "flash_attention.cu", "flash_backward.cu", "flash_backward_d128.cu", "flash_backward_d256.cu",
+    "flash_backward_f32.cu", "flash_backward_f32_d128.cu", "flash_backward_f32_d256.cu",
+    "flash_forward.cu", "flash_forward_f32.cu", "jacobi.cu", "jacobi_m64.cu", "probe.cu", "syrk.cu",
 )
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -177,6 +177,9 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_bwd_dkv_d128.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dq_d128.argtypes = [*[ptr] * 9, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_d128_occupancy.argtypes = [i32, ptr, ptr, ptr]
+    lib.kf_flash_bwd_dkv_d256.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_bwd_dq_d256.argtypes = [*[ptr] * 9, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_bwd_d256_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_bwd_dkv_f32.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dq_f32.argtypes = [*[ptr] * 9, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_f32_occupancy.argtypes = [i32, ptr, ptr, ptr]
@@ -190,6 +193,7 @@ def load_library() -> ctypes.CDLL:
                  "kf_flash_fwd_pipelined", "kf_flash_fwd_d128", "kf_flash_fwd_occupancy",
                  "kf_flash_fwd_f32", "kf_flash_fwd_f32_occupancy",
                  "kf_flash_bwd_dkv_d128", "kf_flash_bwd_dq_d128", "kf_flash_bwd_d128_occupancy",
+                 "kf_flash_bwd_dkv_d256", "kf_flash_bwd_dq_d256", "kf_flash_bwd_d256_occupancy",
                  "kf_flash_bwd_dkv_f32", "kf_flash_bwd_dq_f32", "kf_flash_bwd_f32_occupancy",
                  "kf_flash_bwd_dkv_f32_d128", "kf_flash_bwd_dq_f32_d128",
                  "kf_flash_bwd_f32_d128_occupancy", "kf_flash_bwd_dkv_f32_d256",

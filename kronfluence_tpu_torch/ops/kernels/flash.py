@@ -1,4 +1,5 @@
-"""F1-F3, FF, FFH, FFS, FB, F2H, F3H, F2S, F3S, F2SH, F3SH, F2SW and F3SW:
+"""F1-F3, FF, FFH, FFS, FB, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW
+and F3SW:
 causal, segment-masked flash attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
@@ -6,14 +7,18 @@ reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
 The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
 {64, 128, 256}, T a multiple of 64); F1 is the forward of fp32 at D 64 and of
-bf16 at D 256, and F2 and F3 the backward of bf16 at D 256 alone. In
-bf16 at D 64 (GPT-2's heads) two kernels of their own take over: FF, F1's
+bf16 at D 256, and F2 and F3 the backward of no route: they stay callable as
+the yardstick of the kernels that took their place. In bf16 at D 64 (GPT-2's heads) two kernels of their own take over: FF, F1's
 work with a cp.async K/V ring (T a multiple of 64), and FB, in
 `csrc/flash_backward.cu`, F2's and F3's work in one launch. In bf16 at D 128
 (Llama's heads) FFH, the same pipelined body as FF instanced at D 128 (both in
 `csrc/flash_forward.cu`), takes F1's work, and F2H and F3H, in
 `csrc/flash_backward_d128.cu`, take F2's and F3's: two deterministic kernels
-with ldmatrix fragments and cp.async rings. In fp32 the work goes to
+with ldmatrix fragments and cp.async rings. In bf16 at D 256 (the Gemma
+family's heads) F2W and F3W, in `csrc/flash_backward_d256.cu`, take F2's and
+F3's: the same design with dK and dV split over two warps a 16-key group
+(each half of D), P^T and dS^T traded between them through shared memory,
+and 32-key steps for dQ. In fp32 the work goes to
 deterministic kernels of register-tiled fp32 FMAs fed by 128-bit shared loads
 and cp.async rings: FFS takes F1's at D 128 and D 256 (`csrc/flash_forward_f32.cu`,
 one body templated over D), F2S and F3S take F2's and F3's at D 64
@@ -22,7 +27,7 @@ one body templated over D), F2S and F3S take F2's and F3's at D 64
 (`csrc/flash_backward_f32_d256.cu`, D split between two warp groups for S
 and dP). `forward_route` picks FF ("pipelined"), FFH ("pipelined_h"), FFS
 ("tiled_f32") or F1 ("generic"); `backward_route` FB ("fused"), F2H + F3H
-("split_h"), F2S + F3S ("split_f32"), F2SH + F3SH ("split_f32_h"), F2SW +
+("split_h"), F2W + F3W ("split_w"), F2S + F3S ("split_f32"), F2SH + F3SH ("split_f32_h"), F2SW +
 F3SW ("split_f32_w") or F2 + F3 ("split").
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain PyTorch
@@ -53,11 +58,12 @@ FUSED_DTYPE, FUSED_HEAD_DIM = torch.bfloat16, 64
 # The one head dim FFH, F2H and F3H take, in FUSED_DTYPE, and F2SH and F3SH
 # in SPLIT_F32_DTYPE; FFH's query tile: T must be a multiple of it.
 SPLIT_H_HEAD_DIM = 128
+# The one head dim F2W and F3W take, in FUSED_DTYPE, and F2SW and F3SW in
+# SPLIT_F32_DTYPE.
+SPLIT_W_HEAD_DIM = 256
 FFH_QUERY_TILE = 128
 # The one operand type and head dim F2S and F3S take.
 SPLIT_F32_DTYPE, SPLIT_F32_HEAD_DIM = torch.float32, 64
-# The one head dim F2SW and F3SW take, in SPLIT_F32_DTYPE.
-SPLIT_F32_W_HEAD_DIM = 256
 # The head dims FFS takes, in SPLIT_F32_DTYPE, and its query tile: T must be
 # a multiple of it.
 TILED_F32_HEAD_DIMS = (128, 256)
@@ -78,18 +84,20 @@ def forward_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def backward_route(dtype: torch.dtype, head_dim: int) -> str:
     """"fused" (FB, one launch) for bf16 at D 64, "split_h" (F2H + F3H) for
-    bf16 at D 128, "split_f32" (F2S + F3S) for fp32 at D 64, "split_f32_h"
-    (F2SH + F3SH) for fp32 at D 128, "split_f32_w" (F2SW + F3SW) for fp32 at
-    D 256, else "split" (F2 + F3)."""
+    bf16 at D 128, "split_w" (F2W + F3W) for bf16 at D 256, "split_f32" (F2S
+    + F3S) for fp32 at D 64, "split_f32_h" (F2SH + F3SH) for fp32 at D 128,
+    "split_f32_w" (F2SW + F3SW) for fp32 at D 256, else "split" (F2 + F3)."""
     if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
         return "fused"
     if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
         return "split_h"
+    if dtype == FUSED_DTYPE and head_dim == SPLIT_W_HEAD_DIM:
+        return "split_w"
     if dtype == SPLIT_F32_DTYPE and head_dim == SPLIT_F32_HEAD_DIM:
         return "split_f32"
     if dtype == SPLIT_F32_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
         return "split_f32_h"
-    if dtype == SPLIT_F32_DTYPE and head_dim == SPLIT_F32_W_HEAD_DIM:
+    if dtype == SPLIT_F32_DTYPE and head_dim == SPLIT_W_HEAD_DIM:
         return "split_f32_w"
     return "split"
 
@@ -334,14 +342,14 @@ def flash_backward(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
 
 def _launch_split(entry: str, name: str, route: str, outputs: int,
                   q, k, v, segment_ids, l, m, do, di, sm_scale) -> list:
-    """F2H's, F3H's, F2S's, F3S's, F2SH's, F3SH's, F2SW's or F3SW's launch
+    """F2H's, F3H's, F2W's, F3W's, F2S's, F3S's, F2SH's, F3SH's, F2SW's or F3SW's launch
     through the C entry `entry`: checks the operands and the route, then
     returns the `outputs` tensors it writes (dK and dV, or dQ)."""
     b, h, t, d = _check_cuda((q, k, v, do), segment_ids, (l, m, di))
     if backward_route(q.dtype, d) != route:
         raise ValueError(f"{name} takes the backward route {route!r}; got {q.dtype}, D {d}: "
                          f"use the route `backward_route` gives.")
-    # The kernels copy the segment ids (F2H, F2S, F2SH and F2SW also l, m and di)
+    # The kernels copy the segment ids (F2H, F2W, F2S, F2SH and F2SW also l, m and di)
     # with 16-byte cp.async.
     if any(x.data_ptr() % 16 for x in (segment_ids, l, m, di)):
         raise ValueError(f"{name} takes 16-byte aligned segment ids, l, m and di.")
@@ -376,6 +384,28 @@ def flash_backward_dq_d128(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
     (dq,) = _launch_split("kf_flash_bwd_dq_d128", "F3H", "split_h", 1,
                           q, k, v, segment_ids, l, m, do, di, sm_scale)
     flash_backward_dq_d128.launches += 1
+    return dq
+
+
+def flash_backward_dkv_d256(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F2W: returns (dK, dV) like F2; CUDA operands must be bf16 at D 256
+    (`backward_route` "split_w"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dkv_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    dk, dv = _launch_split("kf_flash_bwd_dkv_d256", "F2W", "split_w", 2,
+                           q, k, v, segment_ids, l, m, do, di, sm_scale)
+    flash_backward_dkv_d256.launches += 1
+    return dk, dv
+
+
+def flash_backward_dq_d256(q, k, v, segment_ids, l, m, do, di, sm_scale: float):
+    """F3W: returns dQ like F3; CUDA operands must be bf16 at D 256
+    (`backward_route` "split_w"). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_backward_dq_reference(q, k, v, segment_ids, l, m, do, di, sm_scale)
+    (dq,) = _launch_split("kf_flash_bwd_dq_d256", "F3W", "split_w", 1,
+                          q, k, v, segment_ids, l, m, do, di, sm_scale)
+    flash_backward_dq_d256.launches += 1
     return dq
 
 
@@ -454,6 +484,8 @@ flash_backward_dq.launches = 0
 flash_backward.launches = 0
 flash_backward_dkv_d128.launches = 0
 flash_backward_dq_d128.launches = 0
+flash_backward_dkv_d256.launches = 0
+flash_backward_dq_d256.launches = 0
 flash_backward_dkv_f32.launches = 0
 flash_backward_dq_f32.launches = 0
 flash_backward_dkv_f32_d128.launches = 0

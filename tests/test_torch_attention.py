@@ -40,12 +40,14 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward,
     flash_backward_dkv,
     flash_backward_dkv_d128,
+    flash_backward_dkv_d256,
     flash_backward_dkv_f32,
     flash_backward_dkv_f32_d128,
     flash_backward_dkv_f32_d256,
     flash_backward_dkv_reference,
     flash_backward_dq,
     flash_backward_dq_d128,
+    flash_backward_dq_d256,
     flash_backward_dq_f32,
     flash_backward_dq_f32_d128,
     flash_backward_dq_f32_d256,
@@ -293,6 +295,7 @@ def test_fused_wrapper_matches_jax_vjp(t, d, dtype):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float16, torch.float64])
 def test_backward_route_is_fused_at_bf16_d64_and_split_h_at_bf16_d128(dtype, d):
     want = {(torch.bfloat16, 64): "fused", (torch.bfloat16, 128): "split_h",
+            (torch.bfloat16, 256): "split_w",
             (torch.float32, 64): "split_f32", (torch.float32, 128): "split_f32_h",
             (torch.float32, 256): "split_f32_w"}.get((dtype, d), "split")
     assert backward_route(dtype, d) == want
@@ -301,6 +304,7 @@ def test_backward_route_is_fused_at_bf16_d64_and_split_h_at_bf16_d128(dtype, d):
 # The wrappers `FlashAttention.backward` calls on each route.
 BACKWARD_WRAPPERS = {"fused": ["flash_backward"],
                      "split_h": ["flash_backward_dkv_d128", "flash_backward_dq_d128"],
+                     "split_w": ["flash_backward_dkv_d256", "flash_backward_dq_d256"],
                      "split_f32": ["flash_backward_dkv_f32", "flash_backward_dq_f32"],
                      "split_f32_h": ["flash_backward_dkv_f32_d128", "flash_backward_dq_f32_d128"],
                      "split_f32_w": ["flash_backward_dkv_f32_d256", "flash_backward_dq_f32_d256"],
@@ -312,7 +316,8 @@ BACKWARD_WRAPPERS = {"fused": ["flash_backward"],
                                      (256, torch.bfloat16), (256, torch.float32)])
 def test_function_backward_follows_the_route(monkeypatch, d, dtype):
     """The Function's backward on CPU tensors calls FB's wrapper on the fused
-    route, F2H's and F3H's on the split_h route, F2S's and F3S's on the
+    route, F2H's and F3H's on the split_h route, F2W's and F3W's on the
+    split_w route, F2S's and F3S's on the
     split_f32 route, F2SH's and F3SH's on the split_f32_h route, F2SW's and
     F3SW's on the split_f32_w route and F2's and F3's on the split one, each
     taking its plain version: the same gradients either way."""
@@ -322,7 +327,8 @@ def test_function_backward_follows_the_route(monkeypatch, d, dtype):
     scale = d ** -0.5
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     wrappers = (flash_backward, flash_backward_dkv, flash_backward_dq, flash_backward_dkv_d128,
-                flash_backward_dq_d128, flash_backward_dkv_f32, flash_backward_dq_f32,
+                flash_backward_dq_d128, flash_backward_dkv_d256, flash_backward_dq_d256,
+                flash_backward_dkv_f32, flash_backward_dq_f32,
                 flash_backward_dkv_f32_d128, flash_backward_dq_f32_d128,
                 flash_backward_dkv_f32_d256, flash_backward_dq_f32_d256)
     counts = [fn.launches for fn in wrappers]

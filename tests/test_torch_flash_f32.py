@@ -140,6 +140,7 @@ def _forward(q, k, v, mask, scale):
 def test_backward_route_takes_split_f32_at_fp32_d64_only(dtype, d):
     want = {(torch.float32, 64): "split_f32", (torch.bfloat16, 64): "fused",
             (torch.bfloat16, 128): "split_h", (torch.float32, 128): "split_f32_h",
+            (torch.bfloat16, 256): "split_w",
             (torch.float32, 256): "split_f32_w"}.get((dtype, d), "split")
     assert backward_route(dtype, d) == want
 

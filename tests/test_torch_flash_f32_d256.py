@@ -34,7 +34,8 @@ TILE, HALF = 32, D // 2
 WRAPPERS = {"F2SW": flash_backward_dkv_f32_d256, "F3SW": flash_backward_dq_f32_d256}
 # Every flash backward wrapper `FlashAttention.backward` may call.
 BACKWARD_NAMES = ("flash_backward", "flash_backward_dkv", "flash_backward_dq",
-                  "flash_backward_dkv_d128", "flash_backward_dq_d128", "flash_backward_dkv_f32",
+                  "flash_backward_dkv_d128", "flash_backward_dq_d128", "flash_backward_dkv_d256",
+                  "flash_backward_dq_d256", "flash_backward_dkv_f32",
                   "flash_backward_dq_f32", "flash_backward_dkv_f32_d128",
                   "flash_backward_dq_f32_d128", "flash_backward_dkv_f32_d256",
                   "flash_backward_dq_f32_d256")
