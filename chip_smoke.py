@@ -10,10 +10,11 @@ each of which raises on failure:
   2. build: compiles the hand-written kernels in kronfluence_tpu_torch/csrc/
      with nvcc (sm_90a; one object per source, each source whose object is
      missing compiled in its own process, all started together; one link)
-     and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) must hold
-     HGMMA and UTMALDG, and FF's, FFH's, F2H's, F3H's, F2W's and F3W's HMMA
+     and loads them; the wgmma syrk kernels' SASS (bf16 and fp16) and FFW's
+     must hold HGMMA and UTMALDG (FFW's registers, spills and CTAs an SM
+     printed beside), and FF's, FFH's, F2H's, F3H's, F2W's and F3W's HMMA
      and LDSM (cuobjdump; their registers, spills and CTAs an SM printed
-     beside); FFH, F2W and F3W must show no local loads or stores (no
+     beside); FFH, FFW, F2W and F3W must show no local loads or stores (no
      spills); F2S's, F3S's,
      F2SH's, F3SH's, F2SW's, F3SW's and FFS's (at D 128 and D 256) SASS must
      hold FFMA and
@@ -116,8 +117,16 @@ each of which raises on failure:
      padded, the causal mask left off a diagonal tile where not). F2W and
      F3W are timed in turns against F2 + F3, which run on no route now and
      stay the yardstick, and SDPA's backward alone at both (they must beat F2 + F3 by
-     device time), the Function's backward split into di and the kernels;
-     F1 timed against SDPA's forward at both. FFS (the fp32
+     device time), the Function's backward split into di and the kernels.
+     FFW (the bf16 D 256 forward, `forward_route` "wgmma_w") at the same
+     two cases: O within 8 bf16 units of F1's plain version, l and m within
+     1e-5, two calls bitwise equal and finite, three planted faults (the
+     dropped block; the segment mask left off a tile where padded; the
+     causal mask left off a diagonal tile) above the limit; timed in turns
+     against F1, which runs on no route at bf16 D 256 now and stays the
+     yardstick, and SDPA's forward (it must beat F1 by device time), and the
+     Function's forward split into the operands' .contiguous() copies and
+     FFW. FFS (the fp32
      forward at D 128 and 256, `forward_route` "tiled_f32") against F1's
      plain version at FLASH_CASES' fp32 D 256 case and at the fp32 D 128
      and D 256 route cases (B 16, H 6 and 3, T 512, padded): O within 1e-5
@@ -131,8 +140,8 @@ each of which raises on failure:
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFS, F2H, F3H,
-     F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
+     FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFW, FFS, F2H,
+     F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
@@ -207,8 +216,8 @@ each of which raises on failure:
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
-     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFS,
-     F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFW,
+     FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -228,8 +237,8 @@ each of which raises on failure:
      "auto" eigendecomposition, lambda and dense pairwise scores on 32 train
      and 8 query examples, every batch from the memory model (each stage's
      plan, budget and peak). F2W and F3W once per attention backward, and
-     every backward reaches both layers; F1 once per attention forward and
-     per recomputed one; F2, F3, every other flash kernel, K2 and the naive
+     every backward reaches both layers; FFW once per attention forward and
+     per recomputed one; F1, F2, F3, every other flash kernel, K2 and the naive
      form never; the scores finite; the flash form's covariance against the
      naive form's on the same weights and batches (phase 10's limit).
 
@@ -662,6 +671,13 @@ def phase_build() -> None:
         if not all(counts.values()):
             raise RuntimeError(f"{kernel} lacks wgmma or TMA instructions: {counts}")
     lib = build.load_library()
+    counts = sass_counts(build.library_path(), FFW_KERNEL, FFW_OPCODES)
+    occ = occupancy(lib, FFW_OCCUPANCY, 0)
+    log(f"SASS of {FFW_KERNEL}: {counts}; {occ}")
+    if not (counts["HGMMA"] and counts["UTMALDG"]):
+        raise RuntimeError(f"{FFW_KERNEL} lacks wgmma or TMA instructions: {counts}")
+    if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
+        raise RuntimeError(f"FFW spills: {counts}, {occ}")
     for which, kernel in enumerate(D128_KERNELS):
         counts = sass_counts(build.library_path(), kernel, D128_OPCODES)
         log(f"SASS of {kernel}: {counts}; {occupancy(lib, D128_OCCUPANCY, which)}")
@@ -708,6 +724,11 @@ D256_KERNELS = ("flash_bwd_dkv_d256_kernel", "flash_bwd_dq_d256_kernel")
 D256_OCCUPANCY = "kf_flash_bwd_d256_occupancy"
 FWD_KERNELS = ("flash_fwd_pipelined_kernel", "flash_fwd_d128_kernel")
 FWD_OCCUPANCY = "kf_flash_fwd_occupancy"
+# FFW (csrc/flash_forward_d256.cu), its occupancy entry, and its SASS
+# opcodes: wgmma (HGMMA), TMA loads (UTMALDG), local loads and stores.
+FFW_KERNEL = "flash_fwd_d256_kernel"
+FFW_OCCUPANCY = "kf_flash_fwd_d256_occupancy"
+FFW_OPCODES = ("HGMMA", "UTMALDG", "LDL", "STL", "MUFU.EX2", "BAR", "instructions")
 D128_OPCODES = ("HMMA", "LDSM", "LDL", "STL", "MUFU.EX2", "instructions")
 # F2S and F3S (csrc/flash_backward_f32.cu), in the order of their occupancy
 # entry's `which`, and the SASS opcodes counted for them ("LDS" counts the
@@ -1105,13 +1126,14 @@ def flash_kernels():
         flash_backward_dq_f32_d256,
         flash_forward,
         flash_forward_d128,
+        flash_forward_d256,
         flash_forward_f32,
         flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
-            "FFS": flash_forward_f32,
+            "FFW": flash_forward_d256, "FFS": flash_forward_f32,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
             "F2W": flash_backward_dkv_d256, "F3W": flash_backward_dq_d256,
             "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
@@ -1371,16 +1393,18 @@ def dropped_block(q, k, v, seg, l, m, do, di, scale, block) -> dict:
     return {name: x.to(q.dtype) for name, x in (("O", o), ("dQ", dq), ("dK", dk), ("dV", dv))}
 
 
-def unmasked_tile(q, k, v, seg, scale, block) -> torch.Tensor:
+def unmasked_tile(q, k, v, seg, scale, block, causal_too=False) -> torch.Tensor:
     """The plain O with the segment mask left off one block (query rows, key
     columns) below the diagonal, the causal mask kept: what a kernel that
-    took that tile for one segment would return."""
+    took that tile for one segment would return. With `causal_too` the causal
+    mask is left off the block as well (a diagonal tile taken for one below
+    it)."""
     from kronfluence_tpu_torch.ops.kernels.flash import MASK_VALUE
 
     f, t = torch.float32, q.shape[2]
     causal = torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
     keep = (causal & (seg[:, :, None] == seg[:, None, :]))[:, None].clone()
-    keep[:, :, block[0], block[1]] = causal[block[0], block[1]]
+    keep[:, :, block[0], block[1]] = True if causal_too else causal[block[0], block[1]]
     s = torch.matmul(q.to(f), k.to(f).transpose(-1, -2)) * scale
     s = torch.where(keep, s, s + MASK_VALUE)
     p = torch.exp(s - s.amax(-1, keepdim=True))
@@ -1421,22 +1445,34 @@ def forward_checked(name: str, fn, q, k, v, seg, scale, shape) -> tuple:
     return out
 
 
-def ffs_faults(q, k, v, seg, l, m, do, di, scale, plain_o, err: float, label: str) -> None:
-    """The fp32 limit must catch both planted faults against FFS's plain
-    version: one 64 x 64 block of P left out, and the segment mask left off
-    one tile whose query rows cross a padding boundary."""
-    fault = dropped_block(q, k, v, seg, l, m, do, di, scale, FLASH_FAULT_BLOCK)["O"]
-    mask_fault = unmasked_tile(q, k, v, seg, scale, FLASH_MASK_FAULT_BLOCK)
-    rel = {"dropped block": relative_to_max(fault, plain_o),
-           "unmasked tile": relative_to_max(mask_fault, plain_o)}
-    log(f"flash {label}: planted faults against FFS's plain version (one 64 x 64 block of P "
-        f"left out, rows 384-447, keys 192-255; the segment mask left off rows 448-511, keys "
-        f"384-447), max |fault - plain| / max |plain| of O: " + ", ".join(
-            f"{k_} {v_:.3g}" for k_, v_ in rel.items())
-        + f"; FFS here {err:.3g}; limit {FLASH_FP32_TOL:g}")
-    if not min(rel.values()) > FLASH_FP32_TOL:
-        raise RuntimeError(f"the fp32 limit {FLASH_FP32_TOL:g} does not catch FFS's planted "
-                           f"faults: {rel}")
+def forward_faults(name: str, args, plain_o, err: float, label: str, padded: bool = True,
+                   diagonal: bool = False) -> None:
+    """The limit of the forward kernel `name` (8 bf16 units in bf16, 1e-5 of
+    max in fp32) must catch planted faults against its plain version, O from
+    the backward's operands `args`: one 64 x 64 block of P left out; where
+    padded, the segment mask left off one tile whose query rows cross a
+    padding boundary; with `diagonal`, the causal mask left off one diagonal
+    tile."""
+    q, k, v, seg, scale = args[0], args[1], args[2], args[3], args[-1]
+    if q.dtype == torch.bfloat16:
+        measure, limit, how = bf16_units, FLASH_BF16_UNITS, "bf16 units"
+    else:
+        measure, limit, how = relative_to_max, FLASH_FP32_TOL, "max |fault - plain| / max |plain|"
+    faults = {"dropped block": dropped_block(*args, FLASH_FAULT_BLOCK)["O"]}
+    where = ["one 64 x 64 block of P left out, rows 384-447, keys 192-255"]
+    if padded:
+        faults["unmasked tile"] = unmasked_tile(q, k, v, seg, scale, FLASH_MASK_FAULT_BLOCK)
+        where.append("the segment mask left off rows 448-511, keys 384-447")
+    if diagonal:
+        faults["unmasked diagonal tile"] = unmasked_tile(q, k, v, seg, scale,
+                                                         FLASH_DIAG_FAULT_BLOCK, causal_too=True)
+        where.append("the causal mask left off the diagonal tile of rows and keys 448-511")
+    errs = {what: measure(fault, plain_o) for what, fault in faults.items()}
+    log(f"flash {label}: planted faults against {name}'s plain version ({'; '.join(where)}), "
+        f"{how} of O: " + ", ".join(f"{k_} {v_:.3g}" for k_, v_ in errs.items())
+        + f"; {name} here {err:.3g}; limit {limit:g}")
+    if not min(errs.values()) > limit:
+        raise RuntimeError(f"the limit {limit:g} does not catch {name}'s planted faults: {errs}")
 
 
 def phase_flash_kernels(card: str) -> dict:
@@ -1463,7 +1499,8 @@ def phase_flash_kernels(card: str) -> dict:
         forward_route,
     )
 
-    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFS": 0.0,
+    abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFW": 0.0,
+                "FFS": 0.0,
                 "F2H": 0.0, "F3H": 0.0, "F2W": 0.0, "F3W": 0.0, "F2S": 0.0, "F3S": 0.0,
                 "F2SW": 0.0, "F3SW": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
@@ -1587,7 +1624,8 @@ def phase_flash_kernels(card: str) -> dict:
                                    f"or F3H: {fault_units}")
             del fault
         if tiled_f32:
-            ffs_faults(q, k, v, seg, l, m, do, di, scale, want["FFS O"], errs["FFS O"], label)
+            forward_faults("FFS", (q, k, v, seg, l, m, do, di, scale), want["FFS O"],
+                           errs["FFS O"], label)
         if split_f32:
             # The fp32 limit must catch a skipped tile of F2S and F3S: the
             # plain version without one block of P.
@@ -1768,8 +1806,8 @@ def phase_flash_kernels(card: str) -> dict:
             tm.pop("runs")
             tm.pop("split_runs", None)
         timing["extra"] = extra
-    # FFH, F2H and F3H report phase 15's shape (Llama); F2W and F3W phase
-    # 16's (Gemma-2B's heads), with FLASH_CASES' bf16 D 256 case beside; F1,
+    # FFH, F2H and F3H report phase 15's shape (Llama); FFW, F2W and F3W
+    # phase 16's (Gemma-2B's heads), with the bf16 D 256 route case beside; F1,
     # F2S and F3S fp32 at D 64 (phase 11's first run); FFS, F2SH and F3SH fp32
     # at D 128 (the route of its second run), FFS also at D 256 beside; F2SW
     # and F3SW fp32 at D 256 (the route of its third run); F2 and F3 bf16 at
@@ -1785,6 +1823,7 @@ def phase_flash_kernels(card: str) -> dict:
                  "F3SW)")
     bf16_d256 = ("B 4 H 8 T 512 D 256 bf16 padded (F2's and F3's route until F2W and F3W took it; "
                  "they run on no route, timed as the yardstick)")
+    f1_bf16_d256 = {c: routes["F1"][c] for c in ("Gemma bf16 D 256", "bf16 D 256")}
     gemma_shape = (f"B {GEMMA_BATCH} H 8 T 512 D 256 bf16 (phase 16's heads after the MQA repeat, "
                    f"unpadded)")
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
@@ -1808,6 +1847,11 @@ def phase_flash_kernels(card: str) -> dict:
     for case, key in (("Gemma bf16 D 256", "at_gemma"), ("bf16 D 256", "at_bf16_d256")):
         timing["F2W"][f"pair_{key}"] = routes["F2W+F3W"][case]
         timing["F2W"][f"f2_f3_{key}"] = routes["F2+F3"][case]
+    # F1 at bf16 D 256 runs on no route since FFW took it: timed as its yardstick.
+    timing["FFW"] = dict(routes["FFW"]["Gemma bf16 D 256"], shape=gemma_shape,
+                         at_bf16_d256=routes["FFW"]["bf16 D 256"],
+                         f1_in_the_same_turns=f1_bf16_d256)
+    abs_errs["FFW"] = max(abs_errs["FFW"], routes["FFW"]["bf16 D 256"]["max_abs_err"])
     ffs_cases = ("fp32 D 128", "fp32 D 256")
     timing["FFS"] = dict(routes["FFS"]["fp32 D 128"], shape=fp32_d128,
                          at_fp32_d256=dict(routes["FFS"]["fp32 D 256"], shape=fp32_d256),
@@ -1823,8 +1867,8 @@ def phase_flash_kernels(card: str) -> dict:
     # F2S, F3S, F2SW and F3SW are also held at their route's case in
     # time_generic_routes, F2SH and F3SH there alone.
     out = {}
-    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2W", "F3W", "F2S",
-                 "F3S", "F2SH", "F3SH", "F2SW", "F3SW"):
+    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFW", "FFS", "F2H", "F3H", "F2W", "F3W",
+                 "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW"):
         err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
         out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
@@ -1901,25 +1945,26 @@ def split_pair_checks(case: str, split, args, padded: bool, abs_err: dict) -> No
 
 def time_generic_routes(card: str) -> dict:
     """F1 and F2 + F3 at GENERIC_ROUTE_CASES, and where `forward_route` gives
-    "pipelined_h" (bf16 D 128) or "tiled_f32" (fp32 D 128 and 256) and
-    `backward_route` "split_h" (bf16 D 128), "split_w" (bf16 D 256), "split_f32" (fp32 D 64),
-    "split_f32_h" (fp32 D 128) or "split_f32_w" (fp32 D 256), FFH, FFS, F2H +
-    F3H, F2W + F3W, F2S + F3S, F2SH + F3SH and F2SW + F3SW too, in turns against SDPA's
-    forward and its backward alone with the same boolean mask: CUDA events
-    around one call (median), torch.profiler device time, the plain version
-    and the bound; SDPA's kernel names are logged, and where SDPA raises the
-    case is logged and timed without it. There FFH, FFS and the split pair
-    are first held against their plain versions (FFH and FFS twice,
-    bitwise; FFS within 1e-5 of max with two planted faults, `ffs_faults`;
-    each split pair by `split_pair_checks`); FFH and FFS must beat F1, and
-    each split pair F2 + F3, by device time;
-    the Function's forward (the operands' .contiguous() copies, then FFH) is
-    split by device time into the copies and FFH, and its backward (di,
-    then the split pair) into di and the kernels. {kernel: {case:
-    numbers}}, kernel in F1, FFH, FFS, F2, F3, F2+F3, F2H, F3H, F2H+F3H,
-    F2W, F3W, F2W+F3W, F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH, F2SW, F3SW,
-    F2SW+F3SW; FFS's and each split pair's kernels also carry
-    `max_abs_err` against their plain versions."""
+    "pipelined_h" (bf16 D 128), "wgmma_w" (bf16 D 256) or "tiled_f32" (fp32
+    D 128 and 256) and `backward_route` "split_h" (bf16 D 128), "split_w"
+    (bf16 D 256), "split_f32" (fp32 D 64), "split_f32_h" (fp32 D 128) or
+    "split_f32_w" (fp32 D 256), FFH, FFW, FFS, F2H + F3H, F2W + F3W, F2S +
+    F3S, F2SH + F3SH and F2SW + F3SW too, in turns against SDPA's forward and
+    its backward alone with the same boolean mask: CUDA events around one
+    call (median), torch.profiler device time, the plain version and the
+    bound; SDPA's kernel names are logged, and where SDPA raises the case is
+    logged and timed without it. There FFH, FFW, FFS and the split pair are
+    first held against their plain versions (each forward twice, bitwise;
+    FFW with three planted faults and FFS, within 1e-5 of max, with two,
+    `forward_faults`; each split pair by `split_pair_checks`); FFH, FFW and
+    FFS must beat F1, and each split pair F2 + F3, by device time; the
+    Function's forward (the operands' .contiguous() copies, then FFH or FFW)
+    is split by device time into the copies and the kernel, and its backward
+    (di, then the split pair) into di and the kernels. {kernel: {case:
+    numbers}}, kernel in F1, FFH, FFW, FFS, F2, F3, F2+F3, F2H, F3H,
+    F2H+F3H, F2W, F3W, F2W+F3W, F2S, F3S, F2S+F3S, F2SH, F3SH, F2SH+F3SH,
+    F2SW, F3SW, F2SW+F3SW; FFW's, FFS's and each split pair's kernels also
+    carry `max_abs_err` against their plain versions."""
     from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot
     from kronfluence_tpu_torch.ops.kernels.flash import (
         backward_route,
@@ -1939,11 +1984,16 @@ def time_generic_routes(card: str) -> dict:
         flash_backward_dq_reference,
         flash_forward,
         flash_forward_d128,
+        flash_forward_d256,
         flash_forward_f32,
         flash_forward_reference,
         forward_route,
     )
 
+    # Each bf16 forward route of its own: its kernel's name, wrapper and CUDA
+    # kernel names.
+    bf16_forwards = {"pipelined_h": ("FFH", flash_forward_d128, (FWD_KERNELS[1],)),
+                     "wgmma_w": ("FFW", flash_forward_d256, (FFW_KERNEL,))}
     # Each split backward route: its two kernels' names, wrappers and CUDA
     # kernel names.
     split_routes = {
@@ -1958,8 +2008,7 @@ def time_generic_routes(card: str) -> dict:
         "split_f32_w": ("F2SW", "F3SW", flash_backward_dkv_f32_d256, flash_backward_dq_f32_d256,
                         (F32_D256_KERNELS[0],), (F32_D256_KERNELS[1],)),
     }
-    ffh_k = (FWD_KERNELS[1],)
-    out = {"F1": {}, "FFH": {}, "FFS": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    out = {"F1": {}, "FFH": {}, "FFW": {}, "FFS": {}, "F2": {}, "F3": {}, "F2+F3": {}}
     for n2, n3, *_ in split_routes.values():
         out.update({n2: {}, n3: {}, f"{n2}+{n3}": {}})
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
@@ -1973,19 +2022,23 @@ def time_generic_routes(card: str) -> dict:
         args = (q, k, v, seg, l, m, do, di, scale)
         route = backward_route(dtype, d)
         split = split_routes.get(route)
-        pipelined_h = forward_route(dtype, d) == "pipelined_h"
-        if pipelined_h:
-            got = forward_checked("FFH", flash_forward_d128, q, k, v, seg, scale, case)
+        bf16_forward = bf16_forwards.get(forward_route(dtype, d))
+        abs_err = {}
+        if bf16_forward:
+            fname, ffn, _ = bf16_forward
+            got = forward_checked(fname, ffn, q, k, v, seg, scale, case)
             want = flash_forward_reference(q, k, v, seg, scale)
             errs = [bf16_units(got[0], want[0])] + [relative_to_max(x, y)
                                                     for x, y in zip(got[1:], want[1:])]
-            log(f"flash FFH at {case} (B {b} H {h} T {t} D {d}): O in bf16 units, l, m relative "
-                f"to max {[f'{e:.3g}' for e in errs]} (limits {FLASH_BF16_UNITS:g}; "
+            log(f"flash {fname} at {case} (B {b} H {h} T {t} D {d}): O in bf16 units, l, m "
+                f"relative to max {[f'{e:.3g}' for e in errs]} (limits {FLASH_BF16_UNITS:g}; "
                 f"{FLASH_STATS_TOL:g})")
             if not (errs[0] <= FLASH_BF16_UNITS and max(errs[1:]) <= FLASH_STATS_TOL):
-                raise RuntimeError(f"FFH off its plain version at {case}: {errs}")
+                raise RuntimeError(f"{fname} off its plain version at {case}: {errs}")
+            if fname == "FFW":
+                abs_err["FFW"] = float((got[0].float() - want[0].float()).abs().max())
+                forward_faults("FFW", args, want[0], errs[0], case, padded=padded, diagonal=True)
             del got, want
-        abs_err = {}
         tiled_f32 = forward_route(dtype, d) == "tiled_f32"
         if tiled_f32:
             got = forward_checked("FFS", flash_forward_f32, q, k, v, seg, scale, case)
@@ -1997,7 +2050,7 @@ def time_generic_routes(card: str) -> dict:
                 f"{FLASH_STATS_TOL:g})")
             if not (errs[0] <= FLASH_FP32_TOL and max(errs[1:]) <= FLASH_STATS_TOL):
                 raise RuntimeError(f"FFS off its plain version at {case}: {errs}")
-            ffs_faults(q, k, v, seg, l, m, do, di, scale, want[0], errs[0], case)
+            forward_faults("FFS", args, want[0], errs[0], case)
             del got, want
         if split:
             split_pair_checks(case, split, args, padded, abs_err)
@@ -2007,8 +2060,8 @@ def time_generic_routes(card: str) -> dict:
         leaves = [x.detach().requires_grad_() for x in (q, k, v)]
         fns = {
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
-            **({"FFH": (lambda: flash_forward_d128(q, k, v, seg, scale), ffh_k)}
-               if pipelined_h else {}),
+            **({bf16_forward[0]: (lambda: bf16_forward[1](q, k, v, seg, scale), bf16_forward[2])}
+               if bf16_forward else {}),
             **({"FFS": (lambda: flash_forward_f32(q, k, v, seg, scale), FFS_PROFILED)}
                if tiled_f32 else {}),
             "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
@@ -2051,9 +2104,9 @@ def time_generic_routes(card: str) -> dict:
         # and F3's.
         pairs, work = flash_work(seg, h, d, q.element_size())
         work["F2+F3"] = work["FB"]  # dQ, dK, dV written once
-        for name in ("FFH", "FFS"):
+        for name in ("FFH", "FFW", "FFS"):
             plain[name], work[name] = plain["F1"], work["F1"]
-        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "FFS": "SDPA fwd",
+        library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "FFW": "SDPA fwd", "FFS": "SDPA fwd",
                    "F2+F3": "SDPA bwd alone"}
         for n2, n3, *_ in split_routes.values():
             for name, like in ((n2, "F2"), (n3, "F3"), (f"{n2}+{n3}", "F2+F3")):
@@ -2075,19 +2128,21 @@ def time_generic_routes(card: str) -> dict:
                 **({"library_kernels": sdpa_names[lib]} if lib else {}),
                 **({"max_abs_err": abs_err[name]} if name in abs_err else {}))
         extra = ""
-        if pipelined_h:
+        if bf16_forward:
             # The Function's forward at this shape (FlashAttention.forward):
-            # .contiguous() on the operands, then FFH. Llama's attention hands
-            # it contiguous operands (RoPE's stack, repeat_interleave), as here.
+            # .contiguous() on the operands, then FFH or FFW. Llama's
+            # attention hands it contiguous operands (RoPE's stack,
+            # repeat_interleave), as here.
             def function_forward():
                 with torch.no_grad():
                     FlashAttention.apply(q, k, v, seg, scale)
 
-            whole, kernel = device_ms(function_forward), device_ms(function_forward, ffh_k)
-            out["FFH"][case].update(function_forward_device_ms=whole, kernel_device_ms=kernel,
+            fname, _, fkernels = bf16_forward
+            whole, kernel = device_ms(function_forward), device_ms(function_forward, fkernels)
+            out[fname][case].update(function_forward_device_ms=whole, kernel_device_ms=kernel,
                                     copies_device_ms=whole - kernel)
             extra += (f"; the Function's forward {whole:.4f} ms by device time: the "
-                      f".contiguous() copies {whole - kernel:.4f}, FFH {kernel:.4f}")
+                      f".contiguous() copies {whole - kernel:.4f}, {fname} {kernel:.4f}")
         if split:
             # The Function's backward at this shape (FlashAttention.backward):
             # di = rowsum(O * dO) in torch ops, then the route's split pair.
@@ -2118,7 +2173,7 @@ def time_generic_routes(card: str) -> dict:
                 for name in out if case in out[name]) + "; plain " + ", ".join(
                 f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
             + f"; SDPA's kernels {sdpa_names or 'none (it raised)'} [{card}]")
-        for name in ("FFH", "FFS"):
+        for name in ("FFH", "FFW", "FFS"):
             if case in out[name] and not (out[name][case]["device_ms"]
                                           < out["F1"][case]["device_ms"]):
                 raise RuntimeError(f"{name} is not faster than F1 at {case}: "
@@ -2404,9 +2459,11 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, FFS, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW and F3SW never.
+    # FFH, FFW, FFS, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW and F3SW
+    # never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2W": 0, "F3W": 0,
+            "FB": layers * passes, "FFH": 0, "FFW": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2W": 0,
+            "F3W": 0,
             "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
         + f"; peak device memory {peak:.2f} GiB; phase 5 (naive, bf16 dense blocks, "
@@ -3687,16 +3744,15 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the
-    naive form never; in a covariance stage K1 on every gram (two per
+    one); F1, F2, F3, FF, FB, FFW, FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2
+    and the naive form never; in a covariance stage K1 on every gram (two per
     projection, 6 a layer and batch), all wgmma, and K3 once per covariance
     fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "FFS": 0, "F2W": 0, "F3W": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0,
-            "F3SW": 0,
-            "jacobi": 0, "naive": 0}
+            "FFW": 0, "FFS": 0, "F2W": 0, "F3W": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0,
+            "F2SW": 0, "F3SW": 0, "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
                     probe=covariance_fits)
@@ -4285,21 +4341,22 @@ def gemma2b_config():
 
 
 def check_gemma_launches(stage: str, counts: dict, layers: int) -> None:
-    """F1 (bf16 at D 256: the generic forward) once per attention layer and
-    model forward, and at most once more per attention backward, where the
-    recipe's rematerialisation recomputes an attention module (each holds
+    """FFW (bf16 at D 256: the "wgmma_w" forward) once per attention layer
+    and model forward, and at most once more per attention backward, where
+    the recipe's rematerialisation recomputes an attention module (each holds
     tracked projections; the recomputation runs no forward hook); F2W and F3W (the
     "split_w" route) once per attention backward, and with attention
-    tracking every backward pass reaches both layers; F2, F3 and every other
-    flash kernel, K2 and the naive form never."""
+    tracking every backward pass reaches both layers; F1, F2, F3 and every
+    other flash kernel, K2 and the naive form never."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
-    want = {name: 0 for name in ("F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H", "F2S",
-                                 "F3S", "F2SH", "F3SH", "F2SW", "F3SW", "jacobi", "naive")}
+    want = {name: 0 for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H",
+                                 "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW", "jacobi",
+                                 "naive")}
     want.update(F2W=bwd, F3W=bwd)
     off = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
-    if not fwd <= counts["F1"] <= fwd + bwd:
-        off["F1"] = (counts["F1"], (fwd, fwd + bwd))
+    if not fwd <= counts["FFW"] <= fwd + bwd:
+        off["FFW"] = (counts["FFW"], (fwd, fwd + bwd))
     if fwd != layers * counts["forwards"] or bwd != layers * counts["backwards"]:
         off["attention passes"] = (fwd, bwd, counts["forwards"], counts["backwards"])
     if counts["backwards"] and not bwd:
@@ -4316,7 +4373,8 @@ def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
     module partition, so that every backward reaches layer 0) for
     LLAMA_QUERY_N x LLAMA_TRAIN_N examples of synthetic tokens, every batch
     from the memory model. Every stage's backward runs F2W and F3W in both
-    layers (the lowest tracked projection is in layer 0); F2 and F3 never.
+    layers (the lowest tracked projection is in layer 0), and FFW every
+    forward; F1, F2 and F3 never.
     The flash form's covariance is held against the naive form's on the
     same weights and batches. Returns the launches for the kernels line."""
     from kronfluence_tpu_torch import Analyzer, prepare_model
@@ -4379,7 +4437,7 @@ def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
         f"{config.num_heads} heads, {config.num_kv_heads} KV head, head_dim {config.head_dim}, "
         f"vocab {config.vocab_size:,}, T {SEQ}, RoPE theta {config.rope_theta:g}, RMS eps "
         f"{config.rms_eps:g}) in the Llama class, bf16, flash attention (forward route "
-        f"generic: F1; backward route split_w: F2W + F3W); reduced: {layers} of 18 layers, the "
+        f"wgmma_w: FFW; backward route split_w: F2W + F3W); reduced: {layers} of 18 layers, the "
         f"{len(tracked)} attention projections tracked, SwiGLU, RMSNorm without +1, no embedding "
         f"scale, untied head; {params:,} parameters from seed 0; {LLAMA_TRAIN_N} train and "
         f"{LLAMA_QUERY_N} query examples of synthetic tokens [{card}]")
@@ -4464,7 +4522,7 @@ def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
     del module
     torch.cuda.empty_cache()
     out["total"] = {key: sum(c[key] for c in out["launches"].values())
-                    for key in ("F1", "F2", "F3", "F2W", "F3W")}
+                    for key in ("F1", "F2", "F3", "FFW", "F2W", "F3W")}
     log(f"Gemma: phase 16 took {time.perf_counter() - start:.1f} s; launches over its stages "
         f"{out['total']} [{card}]")
     return out
@@ -5475,17 +5533,19 @@ def main() -> None:
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
                       for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
     gemma = phase("16 gemma", phase_gemma, card)
-    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); F2W and F3W from
-    # phase 16 (Gemma-2B's widths, bf16 D 256); F1, F2S and F3S from phase
+    # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
+    # from phase 16 (Gemma-2B's widths, bf16 D 256); F1, F2S and F3S from phase
     # 11's first run (fp32 D 64: the generic forward and the split_f32
     # route), F2SH and F3SH from its second (fp32 D 128: the split_f32_h
     # route), F2SW and F3SW from its third (fp32 D 256: the split_f32_w
     # route), FFS from its second and third (the tiled_f32 forward). F2 and F3
     # serve no route: phase 11's third run and phase 16, where they ran until
     # the split_f32_w and split_w routes, must leave them at 0, and phase 9
-    # alone holds them.
+    # alone holds them; phase 16 must leave F1 at 0 too, since FFW took its
+    # bf16 D 256 forwards.
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
-                    F3H=llama_launches["F3H"], F2W=gemma["total"]["F2W"],
+                    F3H=llama_launches["F3H"], FFW=gemma["total"]["FFW"],
+                    F2W=gemma["total"]["F2W"],
                     F3W=gemma["total"]["F3W"], F1=split_path["F1"],
                     F2=split_path_d256["F2"] + gemma["total"]["F2"],
                     F3=split_path_d256["F3"] + gemma["total"]["F3"],
@@ -5499,8 +5559,9 @@ def main() -> None:
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 11's first run (reference, fp32 D 64: generic forward); phase 16 (Gemma, "
-               "bf16 D 256) in gemma_launches_by_stage"),
+               "phase 11's first run (reference, fp32 D 64: generic forward); phase 16 (bf16 D "
+               "256) takes FFW and must leave F1 at 0 (gemma_launches_by_stage); phase 9 times "
+               "F1 there as FFW's yardstick"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
                "no route: phase 11's third run (fp32 D 256) and phase 16 (bf16 D 256) take "
                "F2SW and F2W and must leave F2 at 0; phase 9 alone holds F2 against its plain "
@@ -5515,6 +5576,9 @@ def main() -> None:
                "flash_backward.cu", "phase 10 (flash path, bf16: fused route)"),
         "FFH": ("flash_forward_d128", ["flash_attention.py:589"], "flash_forward.cu",
                 "phase 15 (Llama, bf16 D 128: pipelined_h forward), all stages"),
+        "FFW": ("flash_forward_d256", ["flash_attention.py:589"], "flash_forward_d256.cu",
+                "phase 16 (Llama at Gemma-2B's widths, bf16 D 256: wgmma_w forward), all "
+                "stages"),
         "FFS": ("flash_forward_f32", ["flash_attention.py:589"], "flash_forward_f32.cu",
                 "phase 11's second and third runs (reference, fp32 D 128 and D 256: tiled_f32 "
                 "forward)"),
@@ -5611,7 +5675,7 @@ def main() -> None:
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
             **({"gemma_launches_by_stage": {stage: c[fid] for stage, c in gemma["launches"].items()}}
-               if fid in ("F1", "F2", "F3", "F2W", "F3W") else {}),
+               if fid in ("F1", "F2", "F3", "FFW", "F2W", "F3W") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

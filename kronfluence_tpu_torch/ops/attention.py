@@ -10,16 +10,17 @@ no switch, probe or fallback:
   * "flash" runs the `FlashAttention` autograd Function. For bf16 at
     head_dim 64 the forward is FF and the backward FB, one launch each; for
     bf16 at head_dim 128 (Llama) the forward is FFH and the backward F2H +
-    F3H, all three deterministic; for fp32 the forward is F1 at head_dim 64
-    and FFS at head_dim 128 and 256 (route "tiled_f32"), and the backward
-    F2S + F3S at head_dim 64 (route "split_f32"), F2SH + F3SH at head_dim
-    128 ("split_f32_h") and F2SW + F3SW at head_dim 256 ("split_f32_w"), all
-    deterministic; bf16 at head_dim 256 (Gemma) takes F1 forward and F2W +
-    F3W backward ("split_w", deterministic) (`flash.forward_route`,
+    F3H; for bf16 at head_dim 256 (Gemma) the forward is FFW (route
+    "wgmma_w": wgmma fed by a TMA ring) and the backward F2W + F3W
+    ("split_w"); for fp32 the forward is F1 at head_dim 64 and FFS at
+    head_dim 128 and 256 (route "tiled_f32"), and the backward F2S + F3S at
+    head_dim 64 (route "split_f32"), F2SH + F3SH at head_dim 128
+    ("split_f32_h") and F2SW + F3SW at head_dim 256 ("split_f32_w"); every
+    route but FB is deterministic (`flash.forward_route`,
     `flash.backward_route`; `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
-    `csrc/flash_forward_f32.cu`, `csrc/flash_backward.cu`,
-    `csrc/flash_backward_d128.cu`, `csrc/flash_backward_d256.cu`,
-    `csrc/flash_backward_f32.cu`,
+    `csrc/flash_forward_d256.cu`, `csrc/flash_forward_f32.cu`,
+    `csrc/flash_backward.cu`, `csrc/flash_backward_d128.cu`,
+    `csrc/flash_backward_d256.cu`, `csrc/flash_backward_f32.cu`,
     `csrc/flash_backward_f32_d128.cu`, `csrc/flash_backward_f32_d256.cu`,
     `csrc/flash_attention.cu`) for CUDA tensors, their plain versions for
     CPU tensors. A shape the kernels do not take raises; it never falls
@@ -57,6 +58,7 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_backward_reference,
     flash_forward,
     flash_forward_d128,
+    flash_forward_d256,
     flash_forward_f32,
     flash_forward_pipelined,
     flash_forward_reference,
@@ -122,7 +124,7 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: FF, FFH, FFS or F1 forward as
+    """Causal, segment-masked attention: FF, FFH, FFW, FFS or F1 forward as
     `forward_route` says; backward di, then FB, F2H + F3H, F2W + F3W,
     F2S + F3S, F2SH + F3SH or F2SW + F3SW as `backward_route` says (F2 + F3
     on no route a supported type and head dim reaches)."""
@@ -135,6 +137,8 @@ class FlashAttention(torch.autograd.Function):
             o, l, m = flash_forward_pipelined(q, k, v, segment_ids, sm_scale)
         elif route == "pipelined_h":
             o, l, m = flash_forward_d128(q, k, v, segment_ids, sm_scale)
+        elif route == "wgmma_w":
+            o, l, m = flash_forward_d256(q, k, v, segment_ids, sm_scale)
         elif route == "tiled_f32":
             o, l, m = flash_forward_f32(q, k, v, segment_ids, sm_scale)
         else:

@@ -25,7 +25,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
     "flash_attention.cu", "flash_backward.cu", "flash_backward_d128.cu", "flash_backward_d256.cu",
     "flash_backward_f32.cu", "flash_backward_f32_d128.cu", "flash_backward_f32_d256.cu",
-    "flash_forward.cu", "flash_forward_f32.cu", "jacobi.cu", "jacobi_m64.cu", "probe.cu", "syrk.cu",
+    "flash_forward.cu", "flash_forward_d256.cu", "flash_forward_f32.cu", "jacobi.cu",
+    "jacobi_m64.cu", "probe.cu", "syrk.cu",
 )
 COMPILE_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -172,6 +173,8 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_fwd_pipelined.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_fwd_d128.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_fwd_occupancy.argtypes = [i32, ptr, ptr, ptr]
+    lib.kf_flash_fwd_d256.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_fwd_d256_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_fwd_f32.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_fwd_f32_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_bwd_dkv_d128.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
@@ -191,6 +194,7 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_bwd_f32_d256_occupancy.argtypes = [i32, ptr, ptr, ptr]
     for name in ("kf_flash_fwd", "kf_flash_bwd_dkv", "kf_flash_bwd_dq", "kf_flash_bwd_fused",
                  "kf_flash_fwd_pipelined", "kf_flash_fwd_d128", "kf_flash_fwd_occupancy",
+                 "kf_flash_fwd_d256", "kf_flash_fwd_d256_occupancy",
                  "kf_flash_fwd_f32", "kf_flash_fwd_f32_occupancy",
                  "kf_flash_bwd_dkv_d128", "kf_flash_bwd_dq_d128", "kf_flash_bwd_d128_occupancy",
                  "kf_flash_bwd_dkv_d256", "kf_flash_bwd_dq_d256", "kf_flash_bwd_d256_occupancy",
@@ -210,6 +214,6 @@ def load_library() -> ctypes.CDLL:
 
 def check_launch(err: int, kernel: str) -> None:
     """Raises if a C launcher reported an error: a CUDA error code, or for the
-    wgmma syrk a negative `cuTensorMapEncodeTiled` result."""
+    wgmma syrk and FFW a negative `cuTensorMapEncodeTiled` result."""
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed with CUDA error {err}.")
