@@ -241,6 +241,31 @@ each of which raises on failure:
      per recomputed one; F1, F2, F3, every other flash kernel, K2 and the naive
      form never; the scores finite; the flash form's covariance against the
      naive form's on the same weights and batches (phase 10's limit).
+ 17. CIFAR (the conv path): first a small fp32 SmallCNN (bias, stride 2, a
+     grouped conv, 32x32), and fp32 ResNet-9 on four tracked layers (stem,
+     res1/block_0/conv, layer3/conv, classifier), through the four stages
+     and pairwise and self scores on the card and on the CPU, within phase
+     6's limit (K1 4 times each, fp32); then bench_cifar.py's workload at
+     full width through the Analyzer: ResNet-9 (10 classes, 32x32x3) in bf16
+     with seeded random weights and BatchNorm statistics, the
+     smart-low-precision EK-FAC recipe (empirical Fisher, fp32
+     eigendecomposition), 2048 self scores and 16 x 64 pairwise scores on
+     synthetic images, every batch from the memory model (the self stage in
+     several), each stage's peak within its plan and its budget; factors and
+     scores finite, self scores within 2^-5 of the pairwise diagonal (with a
+     planted fault), K1 3 times a covariance batch (the im2col grams of
+     layer3 and res2, bf16), K3 once a covariance fit.
+ 18. ImageNet (the conv path): ResNet-50 at full width and depth (1000
+     classes, 224x224x3, fp32) with seeded random weights and BatchNorm
+     statistics, through the Analyzer with examples/imagenet's recipe (EK-FAC,
+     true Fisher; the eigendecomposition in fp32), dense and rank-32 pairwise
+     scores, every batch from the memory model: K1 16 times a covariance
+     batch (the count the shapes give), all on its fp32 route, K3 once a
+     fit, every eigendecomposition by cuSOLVER (largest 4608), factors and
+     scores finite, peaks within plan and budget, rank 32 against dense by
+     Pearson r and each module's share of the dense scores (printed); then
+     K1's fp32 kernel at stage 3's grams (rows batch x 49, widths 2048 and
+     4608) against torch.mm and its bound, device time.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -550,6 +575,37 @@ GEMMA_LAYERS = 2
 # low-rank contraction against the dense form on the rebuilt block in fp32
 # (phase 14's 1e-3 of max|score|), over train batches of 8.
 LLAMA_CHECK_QUERIES, LLAMA_CHECK_BATCH = 2, 8
+# Phase 17 (CIFAR): bench_cifar.py's ResNet-9 workload (its counts 6144 /
+# 4096 / 4096) cut to CIFAR_COV_N covariance, CIFAR_LAMBDA_N lambda and
+# CIFAR_SELF_N self-score examples and CIFAR_QUERY_N x CIFAR_TRAIN_N pairs.
+# CIFAR_SELF_N is large enough that the memory model splits the self stage
+# into batches, so its plan binds. K1 a covariance batch, from the shapes
+# (`k1_grams_per_batch`): the im2col activation grams of layer3/conv (2304
+# wide) and res2's two convs (4608), on the bf16 route.
+CIFAR_SIZE = 32
+CIFAR_COV_N, CIFAR_LAMBDA_N, CIFAR_SELF_N = 512, 512, 2048
+CIFAR_QUERY_N, CIFAR_TRAIN_N = 16, 64
+CIFAR_K1_PER_BATCH = 3
+# Phase 17's card-against-CPU checks: a small SmallCNN whole, and ResNet-9 at
+# full width on a tracked subset with convs of 128 channels (res1/block_0,
+# im2col 1152 wide) and 256 (layer3, 2304 wide: K1's fp32 route once a
+# covariance batch), CIFAR_REFERENCE_N examples a factor stage.
+CIFAR_REFERENCE_TRACKED = ("stem/conv", "res1/block_0/conv", "layer3/conv", "classifier")
+CIFAR_REFERENCE_N = 64
+# Phase 18 (ImageNet): ResNet-50 at full width and depth on IMAGENET_N examples
+# a factor stage and IMAGENET_QUERY_N x IMAGENET_TRAIN_N pairs, dense and at
+# rank IMAGENET_RANK (examples/imagenet/analyze.py's default). K1 a covariance
+# batch, from the shapes (`k1_grams_per_batch`): the im2col activation grams
+# of stage 2's six conv2 (2304 wide) and stage 3's three conv2 (4608), the
+# activation grams of stage 3's blocks 1 and 2 conv1 (C_in 2048) and of the
+# classifier (2048), the gradient grams of stage 3's three conv3 and its proj
+# (C_out 2048). K1's fp32 route is timed at stage 3's two widths.
+IMAGENET_SIZE = 224
+IMAGENET_N = 48
+IMAGENET_QUERY_N, IMAGENET_TRAIN_N = 8, 32
+IMAGENET_RANK = 32
+IMAGENET_K1_PER_BATCH = 16
+IMAGENET_K1_WIDTHS = (2048, 4608)
 
 
 def log(msg: str) -> None:
@@ -2812,7 +2868,7 @@ def stage_options_estimates(card: str, ctx: dict, analyzer, kernels: dict) -> di
         est = dict(analyzer.last_batch_estimate, peak_bytes=peak, seconds=sec,
                    syrk=syrk.launches, probe=kernels["probe"].launches)
         planned = est["static_bytes"] + est["reserved_bytes"] + est["batch_size"] * (
-            est["per_example_bytes"] + est["untracked_bytes"])
+            est["per_example_bytes"] + est["untracked_bytes"] + est["precondition_bytes"])
         jax_only = max(1, min(est["attempt"], int(
             (est["budget_bytes"] - est["static_bytes"]) // est["per_example_bytes"])))
         est.update(planned_bytes=planned, jax_model_batch=jax_only)
@@ -2821,7 +2877,8 @@ def stage_options_estimates(card: str, ctx: dict, analyzer, kernels: dict) -> di
                     f"planned {planned / 2**30:.3f} GiB = static {est['static_bytes'] / 2**30:.3f}"
                     f" + reserved {est['reserved_bytes'] / 2**30:.3f} + {est['batch_size']} x "
                     f"({est['per_example_bytes'] / 2**20:.1f} + autograd "
-                    f"{est['untracked_bytes'] / 2**20:.1f} MiB), budget "
+                    f"{est['untracked_bytes'] / 2**20:.1f} + precondition "
+                    f"{est['precondition_bytes'] / 2**20:.1f} MiB), budget "
                     f"{est['budget_bytes'] / 2**30:.3f} GiB, measured peak {peak / 2**30:.3f} GiB, "
                     f"{sec:.3f} s")
         return est
@@ -3785,7 +3842,7 @@ def watch_estimates(analyzer) -> list:
         fit = real(ref(), *args, **kwargs)
         est = dict(ref().last_batch_estimate)
         est["planned_bytes"] = est["static_bytes"] + est["reserved_bytes"] + est["batch_size"] * (
-            est["per_example_bytes"] + est["untracked_bytes"])
+            est["per_example_bytes"] + est["untracked_bytes"] + est["precondition_bytes"])
         records.append(est)
         return fit
 
@@ -3799,17 +3856,24 @@ def close_estimate(records: list) -> None:
         records[-1]["peak_bytes"] = torch.cuda.max_memory_allocated()
 
 
-def log_estimates(card: str, stage: str, records: list) -> None:
+def log_estimates(card: str, stage: str, records: list, within_plan: bool = False) -> None:
+    """Prints each estimate's plan beside its measured peak; raises where the
+    peak is over the budget or, with `within_plan`, over the plan."""
     for i, est in enumerate(records):
-        log(f"Llama {stage} estimate {i + 1}/{len(records)}: batch {est['batch_size']} of "
+        log(f"{stage} estimate {i + 1}/{len(records)}: batch {est['batch_size']} of "
             f"{est['attempt']}, planned {est['planned_bytes'] / 2**30:.3f} GiB = static "
             f"{est['static_bytes'] / 2**30:.3f} + reserved {est['reserved_bytes'] / 2**30:.3f} + "
             f"{est['batch_size']} x ({est['per_example_bytes'] / 2**20:.1f} + autograd "
-            f"{est['untracked_bytes'] / 2**20:.1f} MiB), budget {est['budget_bytes'] / 2**30:.3f} "
-            f"GiB, measured peak {est['peak_bytes'] / 2**30:.3f} GiB [{card}]")
+            f"{est['untracked_bytes'] / 2**20:.1f} + precondition "
+            f"{est['precondition_bytes'] / 2**20:.1f} MiB), budget "
+            f"{est['budget_bytes'] / 2**30:.3f} GiB, measured peak "
+            f"{est['peak_bytes'] / 2**30:.3f} GiB [{card}]")
         if not est["peak_bytes"] <= est["budget_bytes"]:
-            raise RuntimeError(f"Llama {stage}: measured peak {est['peak_bytes']:,} B over the "
+            raise RuntimeError(f"{stage}: measured peak {est['peak_bytes']:,} B over the "
                                f"budget {est['budget_bytes']:,.0f} B")
+        if within_plan and not est["peak_bytes"] <= est["planned_bytes"]:
+            raise RuntimeError(f"{stage}: measured peak {est['peak_bytes']:,} B over the "
+                               f"plan {est['planned_bytes']:,.0f} B")
 
 
 def watch_large_solves(scratch: Path) -> dict:
@@ -4039,7 +4103,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
             raise RuntimeError(f"Llama covariance: estimates {cov_estimates}")
         cov_batch = batches.pop()
         cov_batches = -(-LLAMA_TRAIN_N // cov_batch)
-        log_estimates(card, "covariance", cov_estimates)
+        log_estimates(card, "Llama covariance", cov_estimates)
         check_llama_launches("covariance", counter.counts, layers,
                              covariance_fits=LLAMA_MODULE_PARTITIONS,
                              cov_batches=cov_batches)
@@ -4171,7 +4235,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
             _, _, sec = peak_of(analyzer.fit_lambda_matrices, "ekfac", train, factor_args=recipe)
         close_estimate(estimates)
         lam_estimates = list(estimates)
-        log_estimates(card, "lambda", lam_estimates)
+        log_estimates(card, "Llama lambda", lam_estimates)
         check_llama_launches("lambda", counter.counts, layers)
         lam_batches = {e["batch_size"] for e in lam_estimates}
         if len(lam_batches) != 1:
@@ -4213,7 +4277,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
             parts = {key: after.get(row, 0.0) - before.get(row, 0.0) for key, row in (
                 ("query gradients", "Pairwise: query gradients"),
                 ("train pass", "Pairwise: train pass"))}
-            log_estimates(card, f"pairwise ({name})", estimates)
+            log_estimates(card, f"Llama pairwise ({name})", estimates)
             check_llama_launches(f"pairwise ({name})", counter.counts, layers)
             scores[name] = analyzer.load_pairwise_scores(name)[ALL_MODULE_NAME].float()
             score_estimates[name] = list(estimates)
@@ -4276,7 +4340,7 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
             _, _, sec = peak_of(analyzer.fit_covariance_matrices, "smart", train,
                                 factor_args=smart)
         close_estimate(estimates)
-        log_estimates(card, "covariance (smart low precision)", estimates)
+        log_estimates(card, "Llama covariance (smart low precision)", estimates)
         smart_batches = -(-LLAMA_TRAIN_N // estimates[0]["batch_size"])
         check_llama_launches("covariance (smart low precision)", counter.counts, layers,
                              covariance_fits=1, cov_batches=smart_batches)
@@ -4468,7 +4532,7 @@ def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
             with PassCounter(module, kernels) as counter:
                 _, _, sec = peak_of(run)
             close_estimate(estimates)
-            log_estimates(card, f"(Gemma) {stage}", estimates)
+            log_estimates(card, f"Llama (Gemma) {stage}", estimates)
             if stage == "eigendecomposition":
                 if counter.counts["forwards"] or any(counter.counts[k] for k in kernels):
                     raise RuntimeError(f"Gemma eigendecomposition launched {counter.counts}")
@@ -4525,6 +4589,487 @@ def phase_gemma(card: str, device=torch.device("cuda", 0)) -> dict:
                     for key in ("F1", "F2", "F3", "FFW", "F2W", "F3W")}
     log(f"Gemma: phase 16 took {time.perf_counter() - start:.1f} s; launches over its stages "
         f"{out['total']} [{card}]")
+    return out
+
+
+def classification_task():
+    """bench_cifar.py's task: summed cross-entropy on fp32 logits (images
+    cast to the model's dtype), the model's own labels drawn for the true
+    Fisher; the measurement is the train loss."""
+    from kronfluence_tpu_torch.task import Task
+
+    class ClassificationTask(Task):
+        def compute_train_loss(self, batch, model, sample=False, generator=None):
+            x = batch["x"].to(next(model.parameters()).dtype)
+            logits = model(x).float()
+            if sample:
+                probs = torch.softmax(logits.detach(), dim=-1)
+                labels = torch.multinomial(probs, 1, generator=generator).squeeze(-1)
+            else:
+                labels = batch["y"]
+            return F.cross_entropy(logits, labels, reduction="sum")
+
+        def compute_measurement(self, batch, model):
+            return self.compute_train_loss(batch, model)
+
+    return ClassificationTask()
+
+
+def make_images(n: int, size: int, classes: int, seed: int, device) -> dict:
+    """Synthetic NCHW images (standard normal, fp32) and labels, drawn on
+    `device` from a seeded generator."""
+    gen = torch.Generator(device).manual_seed(seed)
+    return {"x": torch.randn(n, 3, size, size, generator=gen, device=device),
+            "y": torch.randint(0, classes, (n,), generator=gen, device=device)}
+
+
+def k1_grams_per_batch(specs: dict, act_accum, grad_accum) -> int:
+    """K1 launches a covariance batch makes, from the layer shapes: each gram
+    whose width passes `syrk_supported` (a bordered activation gram is taken
+    at its width without the bias column; a conv's activation gram is that
+    of its im2col patches)."""
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk_supported
+
+    return sum(syrk_supported(spec.in_dim, act_accum) + syrk_supported(spec.out_dim, grad_accum)
+               for spec in specs.values())
+
+
+def check_vision_launches(label: str, stage: str, counts: dict, k1: int, k3: int) -> None:
+    """In a vision model's stage: K1 `k1` times (none on a 16-bit kernel
+    where `k1` counts fp32 grams), K3 `k3` times, K2, the flash kernels and
+    the naive attention form never."""
+    want = {name: 0 for name in counts if name not in ("forwards", "backwards",
+                                                      "attention forwards",
+                                                      "attention backwards", "wgmma")}
+    want.update(syrk=k1, probe=k3)
+    off = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
+    if off:
+        raise RuntimeError(f"{label} {stage}: launches off (got, want): {off}")
+
+
+def check_finite_factors(label: str, analyzer, name: str, device) -> int:
+    """Every factor the Analyzer wrote for `name`, read back onto the card,
+    is finite; returns how many tensors were read."""
+    from kronfluence_tpu_torch.factor import io as factor_io
+
+    fdir = analyzer.factors_output_dir(name)
+    tensors = 0
+    for load in (factor_io.load_covariance_matrices, factor_io.load_eigendecomposition,
+                 factor_io.load_lambda_matrices):
+        for factor, per_module in load(fdir, device=device).items():
+            for module, t in per_module.items():
+                tensors += 1
+                if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                    raise RuntimeError(f"{label}: {factor} of {module} is not finite")
+    return tensors
+
+
+def vision_reference(card: str, label: str, module, k1_per_batch: int, tracked=None,
+                     device=torch.device("cuda", 0)) -> dict:
+    """One fp32 vision model (32x32 images, 10 classes; `tracked` names its
+    tracked layers, all by default) through the stage functions on the card
+    and on the CPU, as phase 6 does for GPT-2: covariances, eigenvalues,
+    lambda (on the CPU's eigenvectors), pairwise and self scores within
+    REFERENCE_RTOL of max, with the heuristic damping; K1 `k1_per_batch`
+    times a covariance batch on the card side, on its fp32 route."""
+    from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.factor.eigen import (
+        fit_lambda_matrices_with_loader,
+        perform_eigendecomposition,
+    )
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.prepare import prepare_model
+    from kronfluence_tpu_torch.score.pairwise import compute_pairwise_scores_with_loaders
+    from kronfluence_tpu_torch.score.self_scores import compute_self_scores_with_loaders
+    from kronfluence_tpu_torch.utils.constants import (
+        ACTIVATION_COVARIANCE_MATRIX_NAME,
+        ACTIVATION_EIGENVALUES_NAME,
+        GRADIENT_COVARIANCE_MATRIX_NAME,
+        GRADIENT_EIGENVALUES_NAME,
+        LAMBDA_MATRIX_NAME,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    card_device = device
+    task = classification_task()
+    factor_args = FactorArguments(
+        strategy="ekfac", use_empirical_fisher=True, eigendecomposition_dtype="float32"
+    )
+    score_args = ScoreArguments(damping_factor=None)
+    n, batch = CIFAR_REFERENCE_N, 16
+    host = {k: make_images(count, 32, 10, seed, "cpu")
+            for k, count, seed in (("cov", n, 41), ("lambda", n, 42), ("query", 8, 43),
+                                   ("train", 32, 44))}
+    out, eig_cpu = {}, None
+    for side in ("cpu", "card"):
+        device = torch.device("cpu") if side == "cpu" else card_device
+        model = prepare_model(module.to(device), task)
+        data = {k: {c: v.to(device) for c, v in cols.items()} for k, cols in host.items()}
+        before, f16 = syrk.launches, syrk.f16_launches
+        cov = fit_covariance_matrices_with_loader(
+            model, task, BatchLoader(data["cov"], batch, device=device), factor_args,
+            tracked_names=tracked)
+        eig = perform_eigendecomposition(cov, factor_args)
+        eig_cpu = eig if eig_cpu is None else eig_cpu
+        shared = {k: {m: t.to(device) for m, t in v.items()} for k, v in eig_cpu.items()}
+        lam = fit_lambda_matrices_with_loader(
+            model, task, BatchLoader(data["lambda"], batch, device=device), factor_args,
+            eigen_factors=shared, tracked_names=tracked)
+        factors = {**cov, **shared, **lam}
+        pairwise = compute_pairwise_scores_with_loaders(
+            model, task, BatchLoader(data["query"], 4, device=device),
+            BatchLoader(data["train"], batch, device=device), factors, factor_args, score_args,
+            tracked_names=tracked)
+        self_scores = compute_self_scores_with_loaders(
+            model, task, BatchLoader(data["train"], batch, device=device), factors, factor_args,
+            score_args, tracked_names=tracked)
+        out[side] = (cov, eig, lam, pairwise, self_scores, syrk.launches - before,
+                     syrk.f16_launches - f16)
+    cov_c, eig_c, lam_c, pair_c, self_c, _, _ = out["cpu"]
+    cov_g, eig_g, lam_g, pair_g, self_g, k1_launches, k1_f16 = out["card"]
+    diffs = {
+        "covariance": max(_max_rel(cov_g[k], cov_c[k])
+                          for k in (ACTIVATION_COVARIANCE_MATRIX_NAME,
+                                    GRADIENT_COVARIANCE_MATRIX_NAME)),
+        "eigenvalues": max(_max_rel(eig_g[k], eig_c[k])
+                           for k in (ACTIVATION_EIGENVALUES_NAME, GRADIENT_EIGENVALUES_NAME)),
+        "lambda": _max_rel(lam_g[LAMBDA_MATRIX_NAME], lam_c[LAMBDA_MATRIX_NAME]),
+        "pairwise": _max_rel(pair_g, pair_c),
+        "self": _max_rel(self_g, self_c),
+    }
+    k1_want = k1_per_batch * -(-n // batch)
+    log(f"CIFAR reference, {label}: card vs CPU, max |diff| / max |ref|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+        + f" (limit {REFERENCE_RTOL:g}); {len(cov_g[ACTIVATION_COVARIANCE_MATRIX_NAME])} "
+        f"tracked layers; K1 launches on the card side {k1_launches} (want {k1_want}: {k1_per_batch} in each "
+        f"of {-(-n // batch)} covariance batches), {k1_f16} on a 16-bit route [{card}]")
+    if k1_launches != k1_want or k1_f16:
+        raise RuntimeError(f"CIFAR reference, {label}: K1 launched {k1_launches} times, "
+                           f"{k1_f16} on a 16-bit route")
+    bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
+    if bad:
+        raise RuntimeError(f"CIFAR reference, {label}: card disagrees with the CPU: {bad}")
+    return diffs
+
+
+def cifar_reference(card: str) -> dict:
+    """Phase 17 (a): `vision_reference` on a small SmallCNN (channels 16 and
+    32, bias, stride 2, the second conv in 4 groups; its head's 2048-wide
+    activation gram takes K1), then on ResNet-9 at full width on
+    CIFAR_REFERENCE_TRACKED (layer3/conv's 2304-wide im2col gram takes K1)."""
+    from kronfluence_tpu_torch.models.cnn import SmallCNN
+    from kronfluence_tpu_torch.models.resnet import ResNet9, init_vision
+
+    small = init_vision(
+        SmallCNN(num_classes=10, channels=(16, 32), use_bias=True, strides=(2, 2), groups=4,
+                 image_size=(32, 32)), seed=0, device="cpu")
+    resnet9 = init_vision(ResNet9(num_classes=10), seed=1, device="cpu")
+    return {
+        "smallcnn": vision_reference(
+            card, "small fp32 SmallCNN (channels 16 and 32, bias, stride 2, 4 groups)", small, 1),
+        "resnet9": vision_reference(card, "fp32 ResNet-9 on a tracked subset", resnet9, 1,
+                                    tracked=CIFAR_REFERENCE_TRACKED),
+    }
+
+
+def phase_cifar(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 17: (a) `cifar_reference`; (b) bench_cifar.py's workload at full
+    width through the Analyzer: ResNet-9 (10 classes, 32x32x3) in bf16 with
+    seeded random weights and BatchNorm statistics, the smart-low-precision
+    EK-FAC recipe with the empirical Fisher and an fp32 eigendecomposition,
+    smart-low-precision self scores, and CIFAR_QUERY_N x CIFAR_TRAIN_N
+    pairwise scores whose queries are the first train examples, so that the
+    diagonal is their self-influence; every batch from the memory model, and
+    each stage's measured peak within what its estimate planned. K1 as many
+    times a covariance batch as the shapes give (`k1_grams_per_batch`: 3),
+    K3 once a covariance fit. Returns the stages' launches and the checks'
+    numbers."""
+    from kronfluence_tpu_torch import Analyzer, prepare_model
+    from kronfluence_tpu_torch.factor.covariance import discover_stage_specs
+    from kronfluence_tpu_torch.models.resnet import ResNet9, init_vision
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        smart_low_precision_factor_arguments,
+    )
+    from kronfluence_tpu_torch.utils.common.score_arguments import (
+        smart_low_precision_score_arguments,
+    )
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+
+    start = time.perf_counter()
+    out = {"reference": cifar_reference(card), "seconds": {}, "launches": {}, "batches": {},
+           "peaks": {}}
+    task = classification_task()
+    module = init_vision(ResNet9(num_classes=10), seed=0, device=device).to(torch.bfloat16)
+    sizes = {"covariance": CIFAR_COV_N, "lambda": CIFAR_LAMBDA_N, "self": CIFAR_SELF_N,
+             "pairwise": f"{CIFAR_QUERY_N} x {CIFAR_TRAIN_N}"}
+    log(f"CIFAR: ResNet-9 (10 classes, 32x32x3), bf16, {sum(p.numel() for p in module.parameters()):,} "
+        f"parameters and BatchNorm statistics from seed 0; examples a stage {sizes} (cut from "
+        f"bench_cifar.py's 6144 / 4096 / 4096); synthetic images [{card}]")
+    cov_data = make_images(CIFAR_COV_N, CIFAR_SIZE, 10, 51, device)
+    lambda_data = make_images(CIFAR_LAMBDA_N, CIFAR_SIZE, 10, 52, device)
+    self_data = make_images(CIFAR_SELF_N, CIFAR_SIZE, 10, 53, device)
+    query = {k: v[:CIFAR_QUERY_N] for k, v in self_data.items()}
+    train = {k: v[:CIFAR_TRAIN_N] for k, v in self_data.items()}
+    recipe = smart_low_precision_factor_arguments(strategy="ekfac")
+    recipe.use_empirical_fisher = True
+    recipe.eigendecomposition_dtype = "float32"
+    score_args = smart_low_precision_score_arguments()
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    model = prepare_model(module, task)
+    specs = discover_stage_specs(model, task, {k: v[:2] for k, v in cov_data.items()})
+    k1_per_batch = k1_grams_per_batch(specs, torch.float32, torch.float32)
+    log(f"CIFAR: {len(specs)} tracked layers; K1 grams a covariance batch from the shapes "
+        f"{k1_per_batch} (want {CIFAR_K1_PER_BATCH}) [{card}]")
+    if k1_per_batch != CIFAR_K1_PER_BATCH:
+        raise RuntimeError(f"CIFAR: the shapes give {k1_per_batch} K1 grams a batch, not "
+                           f"{CIFAR_K1_PER_BATCH}")
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_cifar_"))
+    try:
+        analyzer = Analyzer("cifar", model, task, profile=True,
+                            output_dir=str(root), cpu=device.type == "cpu")
+        estimates = watch_estimates(analyzer)
+        stages = (
+            ("covariance", lambda: analyzer.fit_covariance_matrices(
+                "ekfac", cov_data, factor_args=recipe)),
+            ("eigendecomposition", lambda: analyzer.perform_eigendecomposition(
+                "ekfac", factor_args=recipe)),
+            ("lambda", lambda: analyzer.fit_lambda_matrices(
+                "ekfac", lambda_data, factor_args=recipe)),
+            ("self", lambda: analyzer.compute_self_scores(
+                "self", "ekfac", self_data, score_args=score_args)),
+            ("pairwise", lambda: analyzer.compute_pairwise_scores(
+                "pairwise", "ekfac", query, train, per_device_query_batch_size=CIFAR_QUERY_N,
+                score_args=score_args)),
+        )
+        for stage, run in stages:
+            estimates.clear()
+            with PassCounter(module, kernels) as counter:
+                _, peak, sec = peak_of(run)
+            close_estimate(estimates)
+            log_estimates(card, f"CIFAR {stage}", estimates, within_plan=True)
+            batches = [e["batch_size"] for e in estimates]
+            k1 = k1_per_batch * -(-CIFAR_COV_N // batches[0]) if stage == "covariance" else 0
+            check_vision_launches("CIFAR", stage, counter.counts, k1,
+                                  1 if stage == "covariance" else 0)
+            out["seconds"][stage], out["peaks"][stage] = sec, peak
+            out["launches"][stage], out["batches"][stage] = dict(counter.counts), batches
+            if stage == "covariance":
+                out["k1_per_covariance_batch"] = (
+                    counter.counts["syrk"] / -(-CIFAR_COV_N // batches[0]))
+            log(f"CIFAR {stage}: {sec:.3f} s, batch {batches or '-'}, peak "
+                f"{peak / 2**30:.3f} GiB, launches {counter.counts} (K1 want {k1}) [{card}]")
+        if not out["batches"]["self"][0] < CIFAR_SELF_N:
+            raise RuntimeError(f"CIFAR self: the estimate took all {CIFAR_SELF_N} examples in "
+                               f"one batch ({out['batches']['self']}); its plan never bound")
+        tensors = check_finite_factors("CIFAR", analyzer, "ekfac", device)
+        self_scores = analyzer.load_self_scores("self")[ALL_MODULE_NAME].float()
+        pairwise = analyzer.load_pairwise_scores("pairwise")[ALL_MODULE_NAME].float()
+        if (tuple(self_scores.shape) != (CIFAR_SELF_N,)
+                or tuple(pairwise.shape) != (CIFAR_QUERY_N, CIFAR_TRAIN_N)
+                or not bool(torch.isfinite(self_scores).all() & torch.isfinite(pairwise).all())):
+            raise RuntimeError(f"CIFAR scores: shapes {tuple(self_scores.shape)}, "
+                               f"{tuple(pairwise.shape)} or not finite")
+        diagonal = torch.diagonal(pairwise)
+        scale = float(diagonal.abs().max())
+        self_gap = float((self_scores[:CIFAR_QUERY_N] - diagonal).abs().max()) / scale
+        fault = float((self_scores[:CIFAR_QUERY_N] - torch.diagonal(pairwise, 1)).abs().max()
+                      ) / scale
+        log(f"CIFAR: {tensors} factor tensors read back, all finite; self scores against the "
+            f"pairwise diagonal: max |self - diagonal| / max |diagonal| {self_gap:.3e} (limit "
+            f"{SELF_DIAGONAL_RTOL:g}); planted fault (the first superdiagonal) {fault:.3e}; "
+            f"|self| max {float(self_scores.abs().max()):.4e} [{card}]")
+        if not self_gap <= SELF_DIAGONAL_RTOL:
+            raise RuntimeError(f"CIFAR self scores off the pairwise diagonal: {self_gap:.3e}")
+        if not fault > SELF_DIAGONAL_RTOL:
+            raise RuntimeError(f"CIFAR: the self-score check passes a planted fault: {fault:.3e}")
+        out["self_vs_diagonal"] = self_gap
+        del analyzer
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del model, module, cov_data, lambda_data, self_data, query, train
+    torch.cuda.empty_cache()
+    out["total"] = {key: sum(c[key] for c in out["launches"].values())
+                    for key in ("syrk", "probe")}
+    log(f"CIFAR: phase 17 took {time.perf_counter() - start:.1f} s; stage seconds "
+        f"{out['seconds']}; launches over its stages {out['total']} [{card}]")
+    return out
+
+
+def watch_cusolver_groups() -> tuple:
+    """Wraps the eigendecomposition's batched cuSOLVER group: records each
+    group's (dimension, matrices)."""
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+
+    real, groups = eigen_mod._cusolver_group, []
+
+    def recorded(covariance_factors, eigen_factors, entries):
+        groups.append((entries[0][1], len(entries)))
+        return real(covariance_factors, eigen_factors, entries)
+
+    eigen_mod._cusolver_group = recorded
+    return real, groups
+
+
+def time_k1_fp32(card: str, rows: int, n: int) -> dict:
+    """K1's fp32 FMA kernel at (rows, n) against `torch.mm(a.T, a)` (fp32, TF32
+    off; the plain version is that same product), by torch.profiler device
+    time in turns (kernel, library, library, kernel), held to the plain
+    version first (phase 4's limit), beside the bound."""
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    a = torch.randn(rows, n, generator=gen, device="cuda")
+    got, want = syrk(a), syrk_reference(a)
+    units = syrk_units(got, want)
+    if not units <= 1.0:
+        raise RuntimeError(f"K1 fp32 at {rows} x {n}: {units:.3f} units of the limit")
+    k1 = device_ms(lambda: syrk(a))
+    lib1 = device_ms(lambda: torch.mm(a.T, a))
+    lib2 = device_ms(lambda: torch.mm(a.T, a))
+    k2 = device_ms(lambda: syrk(a))
+    flops = float(rows) * n * (n + 1)
+    bound, bound_by = roofline(rows * n * 4 + n * n * 4, flops, FP32_FLOPS)
+    kernel_ms, lib_ms = (k1 + k2) / 2, (lib1 + lib2) / 2
+    log(f"K1 fp32 at a ResNet-50 stage-3 gram, {rows} x {n}: kernel {kernel_ms:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), torch.mm(a.T, a) fp32 {lib_ms:.4f} ms ({lib1:.4f}, {lib2:.4f}); "
+        f"bound {bound:.4f} ms ({bound_by}); {units:.4f} units of the limit; kernel "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the triangle, device time [{card}]")
+    return {"rows": rows, "n": n, "ms": kernel_ms, "plain_ms": lib_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": float((got - want).abs().max())}
+
+
+def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 18: ResNet-50 at full width and depth ((3, 4, 6, 3), 1000
+    classes, 224x224x3, fp32) with seeded random weights and BatchNorm
+    statistics (init's bn3 scale of 0 would zero every residual branch),
+    through the Analyzer with examples/imagenet/analyze.py's recipe:
+    FactorArguments(strategy="ekfac") (true Fisher) with an fp32
+    eigendecomposition, dense pairwise scores and rank-32 ones, on
+    IMAGENET_N examples a factor stage and IMAGENET_QUERY_N x IMAGENET_TRAIN_N
+    pairs, every batch from the memory model. K1 on its fp32 route as many
+    times a covariance batch as the shapes give (`k1_grams_per_batch`: 16),
+    K3 once a covariance fit, every eigendecomposition by cuSOLVER, the
+    factors and scores finite, each stage's peak within its budget and its
+    plan; rank 32 against dense by Pearson r, printed, and the modules that
+    carry the dense scores (per-module scores, summed for the total). Then
+    K1's fp32 time at stage 3's gram widths (`time_k1_fp32`)."""
+    from kronfluence_tpu_torch import Analyzer, FactorArguments, ScoreArguments, prepare_model
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+    from kronfluence_tpu_torch.factor.covariance import discover_stage_specs
+    from kronfluence_tpu_torch.models.resnet import init_vision, resnet50
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+
+    start = time.perf_counter()
+    task = classification_task()
+    module = init_vision(resnet50(num_classes=1000), seed=0, device=device)
+    cov_data = make_images(IMAGENET_N, IMAGENET_SIZE, 1000, 61, device)
+    lambda_data = make_images(IMAGENET_N, IMAGENET_SIZE, 1000, 62, device)
+    train = make_images(IMAGENET_TRAIN_N, IMAGENET_SIZE, 1000, 63, device)
+    query = make_images(IMAGENET_QUERY_N, IMAGENET_SIZE, 1000, 64, device)
+    model = prepare_model(module, task)
+    specs = discover_stage_specs(model, task, {k: v[:2] for k, v in cov_data.items()})
+    k1_per_batch = k1_grams_per_batch(specs, torch.float32, torch.float32)
+    widest = max(max(s.activation_dim, s.gradient_dim) for s in specs.values())
+    log(f"ImageNet: ResNet-50 ((3, 4, 6, 3), 1000 classes, 224x224x3), fp32, "
+        f"{sum(p.numel() for p in module.parameters()):,} parameters, weights and BatchNorm "
+        f"statistics from seed 0; {len(specs)} tracked layers, widest factor {widest}; K1 grams "
+        f"a covariance batch from the shapes {k1_per_batch} (want {IMAGENET_K1_PER_BATCH}); "
+        f"{IMAGENET_N} examples a factor stage, {IMAGENET_QUERY_N} x {IMAGENET_TRAIN_N} pairs; "
+        f"synthetic images [{card}]")
+    if k1_per_batch != IMAGENET_K1_PER_BATCH:
+        raise RuntimeError(f"ImageNet: the shapes give {k1_per_batch} K1 grams a batch, not "
+                           f"{IMAGENET_K1_PER_BATCH}")
+    recipe = FactorArguments(strategy="ekfac")
+    recipe.eigendecomposition_dtype = "float32"
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    out = {"seconds": {}, "launches": {}, "batches": {}, "peaks": {}}
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_imagenet_"))
+    real_group, groups = watch_cusolver_groups()
+    try:
+        analyzer = Analyzer("imagenet", model, task, profile=True, output_dir=str(root),
+                            cpu=device.type == "cpu")
+        estimates = watch_estimates(analyzer)
+        stages = (
+            ("covariance", lambda: analyzer.fit_covariance_matrices(
+                "ekfac", cov_data, factor_args=recipe)),
+            ("eigendecomposition", lambda: analyzer.perform_eigendecomposition(
+                "ekfac", factor_args=recipe)),
+            ("lambda", lambda: analyzer.fit_lambda_matrices(
+                "ekfac", lambda_data, factor_args=recipe)),
+            ("pairwise dense", lambda: analyzer.compute_pairwise_scores(
+                "dense", "ekfac", query, train, per_device_query_batch_size=IMAGENET_QUERY_N,
+                score_args=ScoreArguments(compute_per_module_scores=True))),
+            (f"pairwise rank {IMAGENET_RANK}", lambda: analyzer.compute_pairwise_scores(
+                "lowrank", "ekfac", query, train, per_device_query_batch_size=IMAGENET_QUERY_N,
+                score_args=ScoreArguments(query_gradient_low_rank=IMAGENET_RANK))),
+        )
+        for stage, run in stages:
+            estimates.clear()
+            f16 = syrk.f16_launches
+            with PassCounter(module, kernels) as counter:
+                _, peak, sec = peak_of(run)
+            close_estimate(estimates)
+            log_estimates(card, f"ImageNet {stage}", estimates, within_plan=True)
+            batches = [e["batch_size"] for e in estimates]
+            k1 = k1_per_batch * -(-IMAGENET_N // batches[0]) if stage == "covariance" else 0
+            check_vision_launches("ImageNet", stage, counter.counts, k1,
+                                  1 if stage == "covariance" else 0)
+            if counter.counts["wgmma"] or syrk.f16_launches != f16:
+                raise RuntimeError(f"ImageNet {stage}: K1 left its fp32 route: {counter.counts}")
+            out["seconds"][stage], out["peaks"][stage] = sec, peak
+            out["launches"][stage], out["batches"][stage] = dict(counter.counts), batches
+            if stage == "covariance":
+                out["k1_per_covariance_batch"] = (
+                    counter.counts["syrk"] / -(-IMAGENET_N // batches[0]))
+            log(f"ImageNet {stage}: {sec:.3f} s, batch {batches or '-'}, peak "
+                f"{peak / 2**30:.3f} GiB, launches {counter.counts} (K1 want {k1}) [{card}]")
+        solved = sum(count for _, count in groups)
+        largest = max((dim for dim, _ in groups), default=0)
+        log(f"ImageNet eigendecomposition: cuSOLVER groups (dimension, matrices) "
+            f"{sorted(groups, reverse=True)}; {solved} matrices of {2 * len(specs)}, largest "
+            f"{largest} [{card}]")
+        if solved != 2 * len(specs) or largest != widest:
+            raise RuntimeError(f"ImageNet: cuSOLVER solved {solved} matrices, not every one")
+        tensors = check_finite_factors("ImageNet", analyzer, "ekfac", device)
+        per_module = {name: t.float()
+                      for name, t in analyzer.load_pairwise_scores("dense").items()}
+        dense = sum(per_module.values())
+        lowrank = analyzer.load_pairwise_scores("lowrank")[ALL_MODULE_NAME].float()
+        shape = (IMAGENET_QUERY_N, IMAGENET_TRAIN_N)
+        if (tuple(dense.shape) != shape or tuple(lowrank.shape) != shape
+                or not bool(torch.isfinite(dense).all() & torch.isfinite(lowrank).all())):
+            raise RuntimeError(f"ImageNet scores: shapes {tuple(dense.shape)}, "
+                               f"{tuple(lowrank.shape)} or not finite")
+        out["pearson_rank_vs_dense"] = pearson(lowrank, dense)
+        # Each module's share of the dense scores' squared sum, largest first.
+        total = sum(float(t.square().sum()) for t in per_module.values())
+        shares = sorted(((float(t.square().sum()) / total, name)
+                         for name, t in per_module.items()), reverse=True)
+        out["dense_module_shares"] = {name: share for share, name in shares[:5]}
+        log(f"ImageNet: {tensors} factor tensors read back, all finite; scores {shape} finite; "
+            f"rank {IMAGENET_RANK} against dense: Pearson r {out['pearson_rank_vs_dense']:.6f} "
+            f"(no bar); max |dense| {float(dense.abs().max()):.4e}; {len(per_module)} modules, "
+            f"the largest shares of the dense scores' squared sum: "
+            + ", ".join(f"{name} {share:.4f}" for share, name in shares[:5]) + f" [{card}]")
+        del analyzer, dense, lowrank, per_module
+    finally:
+        eigen_mod._cusolver_group = real_group
+        shutil.rmtree(root, ignore_errors=True)
+    del module, model, cov_data, lambda_data, train, query
+    torch.cuda.empty_cache()
+    out["k1_fp32"] = {f"n{n}": time_k1_fp32(card, out["batches"]["covariance"][0] * 49, n)
+                      for n in IMAGENET_K1_WIDTHS}
+    out["total"] = {key: sum(c[key] for c in out["launches"].values())
+                    for key in ("syrk", "probe")}
+    log(f"ImageNet: phase 18 took {time.perf_counter() - start:.1f} s; stage seconds "
+        f"{out['seconds']}; launches over its stages {out['total']} [{card}]")
     return out
 
 
@@ -5533,6 +6078,8 @@ def main() -> None:
     llama_launches = {key: sum(c[key] for c in llama["launches"].values())
                       for key in ("FFH", "F2H", "F3H", "syrk", "probe")}
     gemma = phase("16 gemma", phase_gemma, card)
+    cifar = phase("17 cifar", phase_cifar, card)
+    imagenet = phase("18 imagenet", phase_imagenet, card)
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
     # from phase 16 (Gemma-2B's widths, bf16 D 256); F1, F2S and F3S from phase
     # 11's first run (fp32 D 64: the generic forward and the split_f32
@@ -5619,6 +6166,11 @@ def main() -> None:
             "stage_options_launches": options_launches["syrk"],
             "score_features_launches": features_launches["syrk"],
             "llama_launches": llama_launches["syrk"],
+            "cifar_launches": cifar["total"]["syrk"],
+            "cifar_launches_per_covariance_batch": cifar["k1_per_covariance_batch"],
+            "imagenet_launches": imagenet["total"]["syrk"],
+            "imagenet_launches_per_covariance_batch": imagenet["k1_per_covariance_batch"],
+            "imagenet_fp32": imagenet["k1_fp32"],
             **syrk_result,
         },
         {
@@ -5631,6 +6183,8 @@ def main() -> None:
             "stage_options_launches": options_launches["probe"],
             "score_features_launches": features_launches["probe"],
             "llama_launches": llama_launches["probe"],
+            "cifar_launches": cifar["total"]["probe"],
+            "imagenet_launches": imagenet["total"]["probe"],
             **probe_result,
         },
         {

@@ -1,8 +1,10 @@
-"""Forward-hook capture context: records tracked `nn.Linear` calls.
+"""Forward-hook capture context: records tracked `nn.Linear` and `nn.Conv2d`
+calls.
 
-Port of `kronfluence_tpu/capture/context.py`. Where the JAX package taps layer
-calls while tracing, the port installs a forward hook on each tracked Linear
-for the duration of one forward pass:
+Port of `kronfluence_tpu/capture/context.py`, with the layer specs of
+`kronfluence_tpu/capture/flax_integration.py`. Where the JAX package taps
+layer calls while tracing, the port installs a forward hook on each tracked
+layer for the duration of one forward pass:
 
   * discover mode records each layer's LayerSpec, in order of first use, and
     the shape of its output at every use;
@@ -18,12 +20,13 @@ record per use. A rematerialisation's recompute re-enters the hooks with
 """
 
 import contextlib
-from typing import Dict, List
+from typing import Dict, List, Union
 
 import torch
 from torch import nn
 
-from kronfluence_tpu_torch.capture.specs import LayerSpec
+from kronfluence_tpu_torch.capture.specs import LayerSpec, normalize_padding
+from kronfluence_tpu_torch.utils.exceptions import UnsupportableModuleError
 
 DISCOVER = "discover"
 CAPTURE = "capture"
@@ -39,14 +42,43 @@ def linear_spec(name: str, module: nn.Linear) -> LayerSpec:
     )
 
 
+def conv_spec(name: str, module: nn.Conv2d) -> LayerSpec:
+    """The LayerSpec of a Conv2d: in_dim is C_in/groups * Kh * Kw; padding,
+    strides, dilation and groups come from the module."""
+    if module.padding_mode != "zeros":
+        raise UnsupportableModuleError(
+            f"{name}: padding_mode {module.padding_mode!r} cannot be tracked; only zero "
+            "padding has a Kronecker-factored form here."
+        )
+    kh, kw = module.kernel_size
+    return LayerSpec(
+        name=name,
+        kind="conv2d",
+        has_bias=module.bias is not None,
+        in_dim=module.in_channels // module.groups * kh * kw,
+        out_dim=module.out_channels,
+        kernel_size=(kh, kw),
+        strides=tuple(module.stride),
+        padding=normalize_padding(module.padding),
+        kernel_dilation=tuple(module.dilation),
+        feature_group_count=module.groups,
+    )
+
+
+def layer_spec(name: str, module: Union[nn.Linear, nn.Conv2d]) -> LayerSpec:
+    if isinstance(module, nn.Conv2d):
+        return conv_spec(name, module)
+    return linear_spec(name, module)
+
+
 class CaptureContext:
     """Hook registry for one instrumented forward pass."""
 
-    def __init__(self, mode: str, linears: Dict[str, nn.Linear]) -> None:
+    def __init__(self, mode: str, modules: Dict[str, Union[nn.Linear, nn.Conv2d]]) -> None:
         if mode not in (DISCOVER, CAPTURE):
             raise ValueError(f"Unknown capture mode {mode!r}.")
         self.mode = mode
-        self.linears = linears
+        self.modules = modules
         self.specs: Dict[str, LayerSpec] = {}
         self.activations: Dict[str, List[torch.Tensor]] = {}
         self.probes: Dict[str, List[torch.Tensor]] = {}
@@ -73,11 +105,11 @@ class CaptureContext:
 
     @contextlib.contextmanager
     def activate(self, record: bool = True):
-        """Hooks on every tracked Linear for the duration of the block;
+        """Hooks on every tracked layer for the duration of the block;
         `record=False` adds the probes and records nothing."""
         handles = [
-            module.register_forward_hook(self._hook(name, linear_spec(name, module), record))
-            for name, module in self.linears.items()
+            module.register_forward_hook(self._hook(name, layer_spec(name, module), record))
+            for name, module in self.modules.items()
         ]
         try:
             yield self

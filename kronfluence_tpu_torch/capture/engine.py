@@ -2,7 +2,7 @@
 (activation, output-gradient) pairs.
 
 Port of `kronfluence_tpu/capture/engine.py`. A forward hook on each tracked
-Linear records its input and adds a zero probe to its output
+layer (Linear or Conv2d) records its input and adds a zero probe to its output
 (capture/context.py); `torch.autograd.grad(loss, probes)` then returns
 dL/d(output) for every use of every tracked layer.
 
@@ -13,8 +13,8 @@ whole forward in one `jax.checkpoint`. torch's non-reentrant checkpoint
 recomputes a region all at once, at the first saved tensor the backward
 unpacks, so one region over the whole forward would bring every residual
 back at the start of the backward and lower no peak. The port therefore
-checkpoints each module that directly holds a tracked Linear (a GPT-2
-block's attention and MLP) as its own region, recomputed when the backward
+checkpoints each module that directly holds a tracked layer (a GPT-2
+block's attention and MLP, a ResNet block) as its own region, recomputed when the backward
 reaches it; what lies between regions (layer norms, the residual stream,
 the loss head) is kept.
 """
@@ -51,7 +51,7 @@ def discover(model, fn: Callable[[], torch.Tensor]) -> CaptureContext:
     `.specs` {name: LayerSpec} in order of first use, and `.output_shapes`
     {name: [output shape of each use]} (the JAX package's discovery avals).
     """
-    ctx = CaptureContext(DISCOVER, model.tracked_linears())
+    ctx = CaptureContext(DISCOVER, model.tracked_modules())
     with ctx.activate(), torch.no_grad():
         fn()
     return ctx
@@ -63,10 +63,10 @@ def discover_specs(model, fn: Callable[[], torch.Tensor]) -> Dict[str, LayerSpec
 
 
 def remat_regions(model) -> List[torch.nn.Module]:
-    """The modules that directly hold a tracked Linear (the root module when
-    it holds one itself), each one rematerialisation region."""
+    """The modules that directly hold a tracked Linear or Conv2d (the root
+    module when it holds one itself), each one rematerialisation region."""
     parents: Dict[str, None] = {}
-    for name in model.tracked_linears():
+    for name in model.tracked_modules():
         parents.setdefault(name.rpartition("/")[0].replace("/", "."), None)
     return [model.module.get_submodule(parent) for parent in parents]
 
@@ -149,7 +149,7 @@ def captured_forward(
     remat regions stay checkpointed until the block ends, so the backward
     pass belongs inside it: a region's recompute runs the regions nested in
     it as checkpoints too."""
-    ctx = CaptureContext(CAPTURE, model.tracked_linears())
+    ctx = CaptureContext(CAPTURE, model.tracked_modules())
     with _rematerialised(model, ctx, generator) if remat else contextlib.nullcontext():
         with ctx.activate(), torch.enable_grad():
             loss = fn()

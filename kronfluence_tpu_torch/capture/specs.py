@@ -2,14 +2,27 @@
 
 Port of `kronfluence_tpu/capture/specs.py`, unchanged: a LayerSpec is what the
 per-layer math needs to flatten activations and output gradients into the
-Kronecker-factored form. The port tracks `nn.Linear` layers (kind 'linear');
-the conv fields are kept so specs compare equal across the two packages.
+Kronecker-factored form. The port tracks `nn.Linear` (kind 'linear') and
+`nn.Conv2d` (kind 'conv2d') layers; a conv spec's geometry is in the JAX
+package's form, so specs compare equal across the two packages.
 """
 
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
 PaddingSpec = Union[str, Tuple[Tuple[int, int], ...]]
+
+
+def normalize_padding(padding) -> PaddingSpec:
+    """A conv padding in the JAX package's form: "SAME" / "VALID", or
+    explicit ((lo, hi), (lo, hi)) pairs (an int p is (p, p) on both dims).
+    torch's 'same' (stride 1 only) pads (total // 2, total - total // 2),
+    as XLA's "SAME" does."""
+    if isinstance(padding, str):
+        return padding.upper()
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    return tuple((p, p) if isinstance(p, int) else tuple(p) for p in padding)
 
 
 @dataclass(frozen=True)

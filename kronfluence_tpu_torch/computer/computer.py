@@ -210,10 +210,11 @@ class Computer:
         On the card the port plans what the JAX model leaves out: per
         example, what torch's autograd keeps (`autograd_bytes`, twice for
         self-influence through the measurement, whose capture runs beside the
-        loss's), and, for a pairwise train pass, the `resident_queries`
-        query gradients held beside it. On the CPU the batch is the JAX
-        package's. An estimation error raises: a guess in its place could
-        exceed the card's memory later in the stage."""
+        loss's), for self-influence the arrays its eager preconditioning
+        holds (`precondition_bytes`), and, for a pairwise train pass, the
+        `resident_queries` query gradients held beside it. On the CPU the
+        batch is the JAX package's. An estimation error raises: a guess in
+        its place could exceed the card's memory later in the stage."""
         stage = stage or "covariance"
         attempt = max(1, min(initial_attempt, total))
         batch, _ = BatchLoader(
@@ -223,22 +224,24 @@ class Computer:
         if not probes:
             raise FactorsNotFoundError("No tracked modules found in the model.")
         args = factor_args if factor_args is not None else score_args
-        untracked = reserved = 0.0
+        untracked = reserved = precondition = 0.0
         if self.device.type == "cuda":
             untracked = memory.autograd_bytes(
                 self.model, self.task, batch, 1,
                 remat=bool(args is not None and args.offload_activations_to_cpu),
                 amp_dtype=args.amp_dtype if args is not None else None,
             )
-            if stage == "self" and score_args.use_measurement_for_self_influence:
-                untracked *= 2
+            if stage == "self":
+                if score_args.use_measurement_for_self_influence:
+                    untracked *= 2
+                precondition = memory.precondition_bytes(probes, score_args)
             if resident_queries:
                 reserved = memory.query_block_bytes(probes, score_args, resident_queries)
         budget = memory.device_memory_budget(self.device)
         fit = memory.estimate_batch_size(
             probes, stage, params=self.model.module, factor_args=factor_args,
             score_args=score_args, budget_bytes=budget - reserved, max_batch_size=attempt,
-            untracked_bytes=untracked,
+            untracked_bytes=untracked + precondition,
         )
         if fit < attempt:
             self.logger.info(
@@ -254,7 +257,7 @@ class Computer:
             per_example_bytes=memory.stage_per_example_bytes(
                 probes, stage, factor_args=factor_args, score_args=score_args
             ),
-            untracked_bytes=untracked,
+            untracked_bytes=untracked, precondition_bytes=precondition,
         )
         return fit
 

@@ -3,7 +3,8 @@
 Port of `kronfluence_tpu/factor/covariance.py` as an eager batch loop: each
 batch runs one forward and one backward with capture, then folds the
 `A^T A` / `G^T G` updates of every tracked layer into running sums, updated
-in place. Wide grams go through the K1 triangle kernel on the GPU
+in place. A conv layer's activation gram is that of its im2col patches.
+Wide grams go through the K1 triangle kernel on the GPU
 (ops/covariance.py); the stage runs the K3 launch check first.
 """
 

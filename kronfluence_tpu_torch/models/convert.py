@@ -1,29 +1,37 @@
-"""Weight conversion from the JAX package's flax language models.
+"""Weight conversion from the JAX package's flax models.
 
 `state_dict_from_flax` turns a flax param tree (leaves as numpy arrays) into
-a `state_dict` for the port's model of the config's type:
-`kronfluence_tpu_torch.models.transformer.TransformerLM` for a
-`TransformerConfig`, `kronfluence_tpu_torch.models.llama.LlamaLM` for a
-`LlamaConfig`:
+a `state_dict` for the port's model: for a `TransformerConfig` the port's
+`TransformerLM`, for a `LlamaConfig` its `LlamaLM`, and for a vision module
+(`SmallCNN`, `ResNet9`, `ResNet`) that module itself:
 
   * a Dense `kernel` (in, out) becomes a Linear `weight` (out, in);
+  * a Conv `kernel` (kh, kw, in, out), flax's HWIO, becomes a Conv2d `weight`
+    (out, in, kh, kw), torch's OIHW;
   * an Embed `embedding` is copied as it is;
-  * a LayerNorm `scale` / `bias` and an RMSNorm `scale` become `weight` / `bias`;
+  * a LayerNorm `scale` / `bias`, an RMSNorm `scale` and a BatchNorm `scale` /
+    `bias` become `weight` / `bias`;
+  * a BatchNorm's `batch_stats` `mean` / `var` become `running_mean` /
+    `running_var` (both sides use eps 1e-5), and its `num_batches_tracked`
+    is 0;
   * `lm_head/kernel` (d, vocab) becomes `lm_head.weight` (vocab, d).
 
 The flax path `h_0/attn/c_attn` is the torch qualified name `h_0.attn.c_attn`
-(`layers_0/mlp/gate_proj` is `layers_0.mlp.gate_proj`).
+(`layers_0/mlp/gate_proj` is `layers_0.mlp.gate_proj`, `res1/block_0/conv`
+is `res1.block_0.conv`).
 """
 
 from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from kronfluence_tpu_torch.models.llama import LlamaConfig, LlamaLM
 from kronfluence_tpu_torch.models.transformer import TransformerConfig, TransformerLM
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
 def _flatten(tree: Mapping[str, Any], prefix=()):
@@ -35,26 +43,48 @@ def _flatten(tree: Mapping[str, Any], prefix=()):
             yield path, value
 
 
+def _leaves(params: Mapping[str, Any]):
+    """(path, leaf, torch leaf name) of a param tree, or of flax variables
+    {"params": ..., "batch_stats": ...}."""
+    if set(params) <= {"params", "batch_stats"}:
+        collections = [(params.get("params", {}), _LEAF_NAMES),
+                       (params.get("batch_stats", {}), _STAT_NAMES)]
+    else:
+        collections = [(params, _LEAF_NAMES)]
+    for tree, names in collections:
+        for path, leaf in _flatten(tree):
+            if path[-1] not in names:
+                raise ValueError(f"Unexpected flax parameter {'/'.join(path)!r}.")
+            yield path, leaf, names[path[-1]]
+
+
 def state_dict_from_flax(
-    params: Mapping[str, Any], config: Union[TransformerConfig, LlamaConfig]
+    params: Mapping[str, Any], config: Union[TransformerConfig, LlamaConfig, nn.Module]
 ) -> Dict[str, torch.Tensor]:
-    """Converts flax TransformerLM or LlamaLM params (numpy leaves) to a torch
-    state_dict in `config.dtype`; raises if the two parameter sets do not
-    line up."""
-    if "params" in params and len(params) == 1:
-        params = params["params"]
+    """Converts flax TransformerLM or LlamaLM params, or a vision model's
+    variables (params and batch_stats), with numpy leaves, to a torch
+    state_dict: in `config.dtype` for a language model's config, in the dtype
+    of its parameters for a vision module. Raises if the two sets do not line
+    up."""
+    if isinstance(config, nn.Module):
+        expected = config.state_dict()
+        dtype = next(config.parameters()).dtype
+    else:
+        model_type = LlamaLM if isinstance(config, LlamaConfig) else TransformerLM
+        expected = model_type(config, device="meta").state_dict()
+        dtype = config.dtype
     state: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(params):
-        if path[-1] not in _LEAF_NAMES:
-            raise ValueError(f"Unexpected flax parameter {'/'.join(path)!r}.")
+    for path, leaf, name in _leaves(params):
         array = np.array(leaf, copy=True)
         if path[-1] == "kernel":
-            array = array.T
-        key = ".".join(path[:-1] + (_LEAF_NAMES[path[-1]],))
-        state[key] = torch.from_numpy(np.ascontiguousarray(array)).to(config.dtype)
+            array = array.transpose(3, 2, 0, 1) if array.ndim == 4 else array.T
+        key = ".".join(path[:-1] + (name,))
+        state[key] = torch.from_numpy(np.ascontiguousarray(array)).to(dtype)
+    for key in expected:
+        prefix, _, leaf = key.rpartition(".")
+        if leaf == "num_batches_tracked" and f"{prefix}.running_mean" in state:
+            state[key] = torch.zeros((), dtype=torch.int64)
 
-    model_type = LlamaLM if isinstance(config, LlamaConfig) else TransformerLM
-    expected = model_type(config, device="meta").state_dict()
     if set(state) != set(expected):
         missing = sorted(set(expected) - set(state))
         extra = sorted(set(state) - set(expected))

@@ -1,17 +1,26 @@
-"""Flatten rules for linear layers: raw (activation, output-gradient) pairs to
-Kronecker form.
+"""Flatten rules: raw (activation, output-gradient) pairs to Kronecker form.
 
-Port of the linear half of `kronfluence_tpu/ops/flatten.py` (the conv rules
-wait for the conv path): leading dims (batch, tokens, ...) collapse into rows,
-attention masks zero padded-token activations, a bias is a ones column, and a
-per-sample `valid` mask zeroes the padding samples of a short last batch out
-of every statistic, with counts taken over valid rows only.
+Port of `kronfluence_tpu/ops/flatten.py`:
+
+  * linear: leading dims (batch, tokens, ...) collapse into rows; attention
+    masks zero padded-token activations; a bias is a ones column.
+  * conv2d: im2col by Kh*Kw strided slices; the output positions (b, oh, ow)
+    become the rows and the features are channel-major (c, kh, kw), the order
+    of `F.unfold`; channel groups are mean-reduced first (the reference's
+    rule). torch's conv input and output are NCHW and the JAX package's rules
+    NHWC: both are moved to channels-last here, before any reshape. Conv
+    layers ignore the attention mask, and their count is rows.
+
+Every rule takes a per-sample `valid` mask that zeroes the padding samples of
+a short last batch out of every statistic, with counts taken over valid rows
+only.
 """
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from kronfluence_tpu_torch.capture.specs import LayerSpec
 
@@ -56,17 +65,96 @@ def _count_from(mask: Optional[torch.Tensor], rows: int, device) -> torch.Tensor
     return mask.to(torch.int64).sum()
 
 
+def same_pads(
+    size: Sequence[int], window: Sequence[int], strides: Sequence[int]
+) -> List[Tuple[int, int]]:
+    """XLA's "SAME" padding (`jax.lax.padtype_to_pads`) per spatial dim: the
+    output is ceil(size / stride), and the total padding it needs is split
+    (total // 2, total - total // 2). At stride 2 on an even input that is
+    (0, 1) for a 3x3 window, where torch's `padding=1` gives (1, 1)."""
+    pads = []
+    for n, k, s in zip(size, window, strides):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return pads
+
+
+def conv_pads(
+    padding, size: Sequence[int], window: Sequence[int], strides: Sequence[int],
+    dilation: Sequence[int],
+) -> List[Tuple[int, int]]:
+    """Explicit (lo, hi) pads per spatial dim of a "SAME" / "VALID" padding
+    or of explicit pairs, for an input of spatial `size`."""
+    if isinstance(padding, str):
+        if padding.upper() == "VALID":
+            return [(0, 0)] * len(size)
+        if padding.upper() == "SAME":
+            eff = [(k - 1) * d + 1 for k, d in zip(window, dilation)]
+            return same_pads(size, eff, strides)
+        raise ValueError(f"Unknown padding {padding!r}.")
+    return [tuple(p) for p in padding]
+
+
+def _resolve_conv_pads(spec: LayerSpec, h: int, w: int) -> List[Tuple[int, int]]:
+    """Resolves spec.padding to explicit ((lo, hi), (lo, hi)) pairs."""
+    return conv_pads(spec.padding, (h, w), spec.kernel_size, spec.strides, spec.kernel_dilation)
+
+
+def conv2d_shift_windows(x: torch.Tensor, spec: LayerSpec):
+    """Kh*Kw strided-slice views of a conv layer's padded input, one per
+    kernel offset, each of shape (batch, out_h, out_w, C_in/groups).
+
+    `x` is the layer's NCHW input; the windows are channels-last. Channel
+    groups are mean-reduced first. Window `dy * kw + dx` holds, at output
+    position p, the input value the kernel tap (dy, dx) reads when producing
+    p: column (c, dy, dx) of the im2col matrix."""
+    x = x.permute(0, 2, 3, 1)
+    b, h, w, c = x.shape
+    groups = spec.feature_group_count
+    if groups > 1:
+        x = x.reshape(b, h, w, groups, c // groups).mean(dim=3)
+        c = c // groups
+    kh, kw = spec.kernel_size
+    sh, sw = spec.strides
+    dh, dw = spec.kernel_dilation
+    (ph_lo, ph_hi), (pw_lo, pw_hi) = _resolve_conv_pads(spec, h, w)
+    xp = F.pad(x, (0, 0, pw_lo, pw_hi, ph_lo, ph_hi))
+    hp, wp = xp.shape[1], xp.shape[2]
+    out_h = (hp - ((kh - 1) * dh + 1)) // sh + 1
+    out_w = (wp - ((kw - 1) * dw + 1)) // sw + 1
+    windows = []
+    for dy in range(kh):
+        for dx in range(kw):
+            y0, x0 = dy * dh, dx * dw
+            windows.append(
+                xp[:, y0 : y0 + (out_h - 1) * sh + 1 : sh, x0 : x0 + (out_w - 1) * sw + 1 : sw]
+            )
+    return windows, (out_h, out_w, c)
+
+
+def extract_conv2d_patches(x: torch.Tensor, spec: LayerSpec) -> torch.Tensor:
+    """im2col of a conv layer's NCHW input -> (batch, out_h * out_w,
+    C_in/groups * Kh * Kw): rows in (b, oh, ow) order, features channel-major
+    (c, kh, kw), as `F.unfold` orders them."""
+    b = x.shape[0]
+    windows, (out_h, out_w, c) = conv2d_shift_windows(x, spec)
+    # Stacking on the minor axis builds (b, oh, ow, c, kh*kw): channel-major.
+    return torch.stack(windows, dim=-1).reshape(b, out_h * out_w, c * len(windows))
+
+
 def _to_tokens(spec: LayerSpec, a: torch.Tensor) -> torch.Tensor:
     """Canonicalizes an activation to (batch, tokens, features)."""
-    if spec.kind != "linear":
-        raise NotImplementedError(
-            f"{spec.name}: only linear layers are ported; the conv path is ROADMAP "
-            "Queue 1, conv path."
-        )
+    if spec.kind == "conv2d":
+        return extract_conv2d_patches(a, spec)
     return a.reshape(a.shape[0], -1, a.shape[-1])
 
 
 def _grad_to_tokens(spec: LayerSpec, dy: torch.Tensor) -> torch.Tensor:
+    """Canonicalizes an output gradient to (batch, tokens, out_dim); a conv
+    layer's NCHW gradient goes channels-last first, so that its rows are the
+    (b, oh, ow) positions of its patches."""
+    if spec.kind == "conv2d":
+        dy = dy.permute(0, 2, 3, 1)
     return dy.reshape(dy.shape[0], -1, dy.shape[-1])
 
 

@@ -2,11 +2,12 @@
 
 `prepare_model(module, task)` freezes the module's parameters, puts it in eval
 mode (as the reference's `prepare_model` does) and wraps it with the tracked
-module names. Every `nn.Linear` is trackable; its name is the torch qualified
-name with '/' for '.', e.g. `h_0/attn/c_attn`.
+module names. Every `nn.Linear` and `nn.Conv2d` is trackable; its name is the
+torch qualified name with '/' for '.', e.g. `h_0/attn/c_attn` or
+`res1/block_0/conv`.
 """
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -25,12 +26,12 @@ class PreparedModel:
     def device(self) -> torch.device:
         return next(self.module.parameters()).device
 
-    def tracked_linears(self) -> Dict[str, nn.Linear]:
-        """{flax-style name: nn.Linear} for every tracked Linear."""
+    def tracked_modules(self) -> Dict[str, Union[nn.Linear, nn.Conv2d]]:
+        """{flax-style name: module} for every tracked Linear and Conv2d."""
         tracked = set(self.tracked_names) if self.tracked_names is not None else None
         out = {}
         for qualified, sub in self.module.named_modules():
-            if isinstance(sub, nn.Linear):
+            if isinstance(sub, (nn.Linear, nn.Conv2d)):
                 name = qualified.replace(".", "/")
                 if tracked is None or name in tracked:
                     out[name] = sub

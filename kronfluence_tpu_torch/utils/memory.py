@@ -17,15 +17,18 @@ default. Two terms are the port's own, used on the card only, so that on the
 CPU the integers are the JAX package's: `autograd_bytes`, what torch's eager
 autograd keeps for the backward pass beyond the captured streams (the JAX
 model's residual multiplier stands for what XLA keeps), which the Computer's
-batch estimate and the pairwise block sizer add per example; and
+batch estimate and the pairwise block sizer add per example;
 `lowrank_transient_bytes`, the temporary of the order the port contracts a
-low-rank query block in, which `pairwise_plan_bytes` holds.
+low-rank query block in, which `pairwise_plan_bytes` holds; and
+`precondition_bytes`, the (B, o, i) arrays the eager preconditioning holds at
+once, which the self stage's batch estimate adds per example and the
+pairwise query step plans.
 """
 
 import dataclasses
 import os
 import sys
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,6 +57,12 @@ PAIRWISE_BUDGET_FRACTION = 0.9
 #: The sizer's cap on one block (the JAX package's `max_queries` default).
 MAX_QUERIES_PER_BLOCK = 4096
 
+#: (B, o, i) arrays in the precondition dtype that the eigenbasis sandwich
+#: (factor/config.py:_EigenbasisSandwich.precondition, the widest strategy)
+#: holds at its peak beside its argument: the rotated gradient and the two
+#: products of the rotation back.
+SANDWICH_COPIES = 3
+
 #: The JAX package's limit when the device reports none (its CPU backend).
 _DEFAULT_LIMIT_BYTES = 15 * 1024**3
 
@@ -67,6 +76,15 @@ class ModuleProbe:
     uses: int
 
 
+def output_rows(spec: Any, shape: Sequence[int]) -> int:
+    """Token rows of one use of a layer from its output shape: every dim but
+    the features, which are last for a linear layer and dim 1 of a conv
+    layer's NCHW output (B * oh * ow rows, as the JAX package counts NHWC)."""
+    if spec.kind == "conv2d":
+        return int(shape[0] * np.prod(shape[2:]))
+    return int(np.prod(shape[:-1]))
+
+
 def probe_modules(model: Any, task: Any, batch: Any, batch_size: int) -> Dict[str, ModuleProbe]:
     """Tracked modules of `model` (a PreparedModel) and their per-example
     token counts, from one forward on `batch` of `batch_size` examples."""
@@ -75,7 +93,7 @@ def probe_modules(model: Any, task: Any, batch: Any, batch_size: int) -> Dict[st
     probes: Dict[str, ModuleProbe] = {}
     for name, spec in ctx.specs.items():
         shapes = ctx.output_shapes[name]
-        rows = sum(int(np.prod(s[:-1])) for s in shapes)
+        rows = sum(output_rows(spec, s) for s in shapes)
         probes[name] = ModuleProbe(
             spec=spec, tokens=max(1, rows // max(1, batch_size)), uses=len(shapes)
         )
@@ -234,6 +252,23 @@ def lowrank_transient_bytes(
     return float(worst * psg_b)
 
 
+def _largest_module_oi(probes: Dict[str, ModuleProbe]) -> int:
+    return max((p.spec.activation_dim * p.spec.gradient_dim for p in probes.values()), default=0)
+
+
+def precondition_bytes(probes: Dict[str, ModuleProbe], score_args: Any) -> float:
+    """Bytes per example of the arrays in the precondition dtype that the
+    port's eager preconditioning of the largest module holds at its peak
+    (score/self_scores.py, score/pairwise.py's query step): the cast of its
+    per-sample gradient (none where the two dtypes agree) and
+    SANDWICH_COPIES more. The per-sample gradients themselves are the JAX
+    model's terms."""
+    psg = resolve_dtype(score_args.per_sample_gradient_dtype)
+    precond = resolve_dtype(score_args.precondition_dtype)
+    arrays = SANDWICH_COPIES + (precond != psg)
+    return float(_largest_module_oi(probes) * arrays * precond.itemsize)
+
+
 def factor_bytes_on(factors: Dict[str, Dict[str, torch.Tensor]], device: Any) -> float:
     """Bytes of the factor tensors ({factor: {module: tensor}}) on `device`."""
     device = torch.device(device)
@@ -363,27 +398,33 @@ def pairwise_plan_bytes(
     streams and per-sample gradients plus `untracked_bytes` an example (the
     port's `autograd_bytes`, 0 for the JAX package's terms), for a quantized
     block two query-batch chunks of the largest module dequantized, on the
-    card the low-rank contraction's temporary (`lowrank_transient_bytes`),
-    and per query its block bytes and its score row."""
+    card the low-rank contraction's temporary (`lowrank_transient_bytes`)
+    and, where it is larger than the train pass, the query step's
+    per-sample gradient and preconditioning arrays (`precondition_bytes`;
+    the two never run together), and per query its block bytes and its
+    score row."""
     amp = score_args.amp_dtype
     capture_b = _dtype_bytes(amp) if amp is not None else 4
     psg_b = _dtype_bytes(score_args.per_sample_gradient_dtype)
     total = static_bytes(probes, "pairwise", params)
-    total += train_batch_size * (per_example_bytes(
+    train_pass = train_batch_size * (per_example_bytes(
         probes, "pairwise", capture_bytes=capture_b, psg_bytes=psg_b,
         remat=bool(score_args.offload_activations_to_cpu),
     ) + untracked_bytes)
     if score_args.query_gradient_storage_dtype is not None:
         # One query-batch chunk of one module is dense at a time (the train
         # pass dequantizes module by module); budget two such chunks.
-        max_module_oi = max(
-            (p.spec.activation_dim * p.spec.gradient_dim for p in probes.values()), default=0
-        )
-        total += 2 * query_batch_size * max_module_oi * psg_b
+        train_pass += 2 * query_batch_size * _largest_module_oi(probes) * psg_b
     if device is not None and torch.device(device).type == "cuda":
-        # The port's own term, on the card only (the CPU keeps the JAX
-        # package's integers): the low-rank contraction's temporary.
-        total += lowrank_transient_bytes(probes, score_args, query_batch_size, train_batch_size)
+        # The port's own terms, on the card only (the CPU keeps the JAX
+        # package's integers): the low-rank contraction's temporary, and
+        # the query step's preconditioning where it outgrows the train pass.
+        train_pass += lowrank_transient_bytes(
+            probes, score_args, query_batch_size, train_batch_size)
+        query_step = query_batch_size * (
+            precondition_bytes(probes, score_args) + _largest_module_oi(probes) * psg_b)
+        train_pass = max(train_pass, query_step)
+    total += train_pass
     score_b = _dtype_bytes(score_args.score_dtype)
     tokens = max((p.tokens for p in probes.values()), default=1)
     per_query_scores = num_train * (tokens if score_args.compute_per_token_scores else 1) * score_b

@@ -396,7 +396,7 @@ def test_converter_rejects_a_mismatched_tree(gqa2):
 
 def test_names_are_flax_paths(gqa2):
     _, params, _, tmodel = gqa2
-    names = set(prepare_model(tmodel).tracked_linears())
+    names = set(prepare_model(tmodel).tracked_modules())
     flax_dense = {
         "/".join(str(k.key) for k in path[:-1])
         for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]

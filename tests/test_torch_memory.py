@@ -269,3 +269,44 @@ def test_probe_batch_of_rows_matches_columns(lm):
     probes = memory.probe_modules(lm["tmodel"], lm["ttask"], batch, BATCH)
     assert _facts(probes) == _facts(lm["tprobes"])
     assert np.array_equal(batch["input_ids"].numpy(), lm["tbatch"]["input_ids"].numpy())
+
+
+# -- The eager preconditioning's arrays, the port's own terms (card only). --
+def _largest_oi(probes):
+    return max(p.spec.activation_dim * p.spec.gradient_dim for p in probes.values())
+
+
+@pytest.mark.parametrize("psg,precond,per_entry", [
+    ("bfloat16", "float32", 4 + 3 * 4),
+    ("float16", "float32", 4 + 3 * 4),
+    ("float32", "float32", 3 * 4),
+    ("bfloat16", "float64", 8 + 3 * 8),
+])
+def test_precondition_bytes_per_entry(lm, psg, precond, per_entry):
+    """The cast of the per-sample gradient to the precondition dtype (none
+    where the dtypes agree) and the sandwich's three arrays, per (o, i)
+    entry of the largest module."""
+    args = ScoreArguments(per_sample_gradient_dtype=psg, precondition_dtype=precond)
+    got = memory.precondition_bytes(lm["tprobes"], args)
+    assert got == _largest_oi(lm["tprobes"]) * per_entry
+
+
+@pytest.mark.parametrize("query_batch", [1, 4096])
+def test_pairwise_plan_holds_the_query_step_on_the_card(lm, query_batch):
+    """On the card the plan holds the larger of the train pass and the
+    query step's preconditioning (they never run together); on the CPU the
+    train pass alone."""
+    args = ScoreArguments(per_sample_gradient_dtype="bfloat16")
+    probes = lm["tprobes"]
+
+    def plan(device, train_batch=2):
+        return memory.pairwise_plan_bytes(probes, args, 4, train_batch_size=train_batch,
+                                          num_train=10, query_batch_size=query_batch,
+                                          device=device)
+
+    cpu = plan("cpu")
+    train_pass = cpu - plan("cpu", train_batch=0)
+    query_step = query_batch * (memory.precondition_bytes(probes, args)
+                                + _largest_oi(probes) * 2)
+    assert plan("cuda") == cpu - train_pass + max(train_pass, query_step)
+    assert (plan("cuda") > cpu) is (query_step > train_pass)

@@ -66,7 +66,7 @@ def test_logits_match_flax_at_valid_positions(lm, jdtype, tdtype, rtol):
 def test_module_names_are_flax_paths(lm):
     params, config = lm
     tmodel, _, _ = make_torch_lm(params, config)
-    names = set(tmodel.tracked_linears())
+    names = set(tmodel.tracked_modules())
     flax_dense = {
         "/".join(str(k.key) for k in path[:-1])
         for path, _ in jax.tree_util.tree_flatten_with_path(params)[0]
