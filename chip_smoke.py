@@ -20,7 +20,8 @@ each of which raises on failure:
      hold FFMA and
      128-bit shared loads and no HMMA, local loads or stores (their FFMA,
      shared loads by width, local loads and stores, barriers, registers,
-     spills and CTAs an SM printed);
+     spills and CTAs an SM printed); so must K1's fp32 ring kernel (16-byte
+     and 4-byte copies), and its reduction must not spill;
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
@@ -32,7 +33,12 @@ each of which raises on failure:
      required; the 16-bit route (wgmma with TMA, or wmma) checked at each
      shape by the rule and the launch counters; a planted fault (the plain version
      with one 64-row slab left out) must read above the limit at each main
-     shape; median times beside the library call and the bound;
+     shape; median times beside the library call and the bound. The fp32
+     route also at (777, 1539): at every fp32 shape the same bits on a second
+     call and one reduction a call exactly where `f32_plan` splits the rows;
+     at the main shapes its device time in turns (kernel, torch.mm(a.T, a),
+     torch.mm, kernel; fp32, TF32 off) with the bound, the share of the fp32
+     peak on the triangle and the plan's split;
   5. main path: GPT-2 small at full width (vocab 50,257, 12 layers, 12
      heads, d 768, seq 512) in bf16 with random weights from a seeded
      generator, through covariance -> eigendecomposition -> lambda ->
@@ -263,9 +269,12 @@ each of which raises on failure:
      batch (the count the shapes give), all on its fp32 route, K3 once a
      fit, every eigendecomposition by cuSOLVER (largest 4608), factors and
      scores finite, peaks within plan and budget, rank 32 against dense by
-     Pearson r and each module's share of the dense scores (printed); then
-     K1's fp32 kernel at stage 3's grams (rows batch x 49, widths 2048 and
-     4608) against torch.mm and its bound, device time.
+     Pearson r and each module's share of the dense scores (printed), K1's
+     fp32 reductions counted by stage (some in the covariance stage, at most
+     one a gram, none elsewhere); then K1's fp32 route at stage 3's grams
+     (rows batch x 49, widths 2048 and 4608) and stage 2's (rows batch x 196,
+     width 2304), each within phase 4's limit, exactly symmetric and the
+     same bits twice, against torch.mm and its bound, device time in turns.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -365,17 +374,17 @@ LLAMA_BATCH = 30
 # c_attn output gradient, 3072 the c_fc output gradient and the mlp/c_proj
 # input activation. The ragged shapes exercise the masked edges.
 SYRK_MAIN_SHAPES = ((8192, 2304), (8192, 3072))
-SYRK_RAGGED_SHAPES = ((1000, 2000), (300, 1001))
+SYRK_RAGGED_SHAPES = ((1000, 2000), (300, 1001), (777, 1539))
 # K1 vs its plain version: both sum exact fp32 products (bf16 x bf16 is exact
 # in fp32) in fp32, in different orders, so the gap is a few fp32 ulps of the
 # partial sums: |kernel - plain| <= 1e-4 * max|C| + 1e-4 * |plain|.
 SYRK_RTOL = 1e-4
 SYRK_ATOL_SCALE = 1e-4
 # The 16-bit kernel (bf16 and fp16) each shape must take: TMA describes
-# n % 8 == 0 (torch's allocations are 16-byte aligned); 1001 columns take
-# the wmma kernel.
+# n % 8 == 0 (torch's allocations are 16-byte aligned); 1001 and 1539
+# columns take the wmma kernel.
 SYRK_BF16_ROUTES = {(8192, 2304): "wgmma", (8192, 3072): "wgmma", (1000, 2000): "wgmma",
-                    (300, 1001): "wmma"}
+                    (300, 1001): "wmma", (777, 1539): "wmma"}
 # Phase 15's grams (bf16 only, as the recipe runs them): the activation of
 # gate and up and the output gradient of down at 4096, the others at 14336.
 SYRK_LLAMA_SHAPES = ((LLAMA_BATCH * SEQ, 4096), (LLAMA_BATCH * SEQ, 14336))
@@ -599,13 +608,15 @@ CIFAR_REFERENCE_N = 64
 # of stage 2's six conv2 (2304 wide) and stage 3's three conv2 (4608), the
 # activation grams of stage 3's blocks 1 and 2 conv1 (C_in 2048) and of the
 # classifier (2048), the gradient grams of stage 3's three conv3 and its proj
-# (C_out 2048). K1's fp32 route is timed at stage 3's two widths.
+# (C_out 2048). K1's fp32 route is timed at those three grams: (positions an
+# example, width) of stage 3's 7 x 7 maps at 2048 and 4608 and stage 2's
+# 14 x 14 maps at 2304, rows the covariance batch times the positions.
 IMAGENET_SIZE = 224
 IMAGENET_N = 48
 IMAGENET_QUERY_N, IMAGENET_TRAIN_N = 8, 32
 IMAGENET_RANK = 32
 IMAGENET_K1_PER_BATCH = 16
-IMAGENET_K1_WIDTHS = (2048, 4608)
+IMAGENET_K1_GRAMS = ((49, 2048), (49, 4608), (196, 2304))
 
 
 def log(msg: str) -> None:
@@ -767,6 +778,15 @@ def phase_build() -> None:
                 raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
             if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
                 raise RuntimeError(f"{kernel} spills: {counts}, {occ}")
+    for which, kernel in enumerate(SYRK_F32_KERNELS):
+        counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
+        occ = occupancy(lib, SYRK_F32_OCCUPANCY, which)
+        log(f"SASS of {kernel}: {counts}; {occ}")
+        ring = kernel != SYRK_F32_KERNELS[2]
+        if ring and (not (counts["FFMA"] and counts["LDS.128"]) or counts["HMMA"]):
+            raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
+        if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
+            raise RuntimeError(f"{kernel} spills: {counts}, {occ}")
 
 
 # F2H and F3H (csrc/flash_backward_d128.cu), and FF and FFH
@@ -803,6 +823,11 @@ FFS_KERNELS = ("flash_fwd_f32_kernelILi128", "flash_fwd_f32_kernelILi256")
 FFS_OCCUPANCY = "kf_flash_fwd_f32_occupancy"
 # FFS's kernel as torch.profiler names it (both head dims).
 FFS_PROFILED = ("flash_fwd_f32_kernel",)
+# K1's fp32 ring kernel (16-byte and 4-byte copies) and its reduction
+# (csrc/syrk.cu), in the order of their occupancy entry's `which`.
+SYRK_F32_KERNELS = ("syrk_f32_ring_kernelILb1E", "syrk_f32_ring_kernelILb0E",
+                    "syrk_f32_reduce_kernel")
+SYRK_F32_OCCUPANCY = "kf_syrk_f32_occupancy"
 F32_OPCODES = ("FFMA", "HMMA", "LDS", "LDS.64", "LDS.128", "LDL", "STL", "BAR", "instructions")
 
 
@@ -897,6 +922,7 @@ def phase_syrk(card: str) -> dict:
     from kronfluence_tpu_torch.ops.kernels.syrk import (
         TILE,
         bf16_route,
+        f32_plan,
         syrk,
         syrk_reference,
         triangle_tiles,
@@ -905,6 +931,7 @@ def phase_syrk(card: str) -> dict:
 
     gen = torch.Generator("cuda").manual_seed(0)
     smem = wgmma_smem_bytes()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     timing = {}
     cases = []
@@ -920,6 +947,7 @@ def phase_syrk(card: str) -> dict:
         a = (a.abs() if kind == "|normal|" else a).to(dtype)
         name = f"{rows}x{n} {str(dtype).split('.')[-1]} {kind}"
         before, f16_before = syrk.wgmma_launches, syrk.f16_launches
+        reduce_before = syrk.f32_reduce_launches
         got = syrk(a)
         want = syrk_reference(a)
         torch.cuda.synchronize()
@@ -933,7 +961,15 @@ def phase_syrk(card: str) -> dict:
             tiles = triangle_tiles(n, TILE)
             route += f" ({tiles} tiles" + (f", {smem} B dynamic smem)" if route == "wgmma" else ")")
         else:
-            route = f"fma ({triangle_tiles(n, 64)} tiles of 64)"
+            plan = f32_plan(rows, n, sms)
+            if syrk.f32_reduce_launches != reduce_before + (plan.splits > 1):
+                raise RuntimeError(f"K1's fp32 reduction launched "
+                                   f"{syrk.f32_reduce_launches - reduce_before} times at {name}, "
+                                   f"the plan splitting the rows {plan.splits} ways")
+            if not torch.equal(got, syrk(a)):
+                raise RuntimeError(f"K1's fp32 route gave other bits on a second call at {name}")
+            route = (f"ring ({plan.tiles} tiles x {plan.splits} row range(s) of {plan.span}"
+                     + (", reduced)" if plan.splits > 1 else ")") + ", bitwise twice")
         if not torch.equal(got, got.T):
             raise RuntimeError(f"K1 result is not exactly symmetric at {name}")
         units = syrk_units(got, want)
@@ -953,7 +989,30 @@ def phase_syrk(card: str) -> dict:
                 raise RuntimeError(f"the planted fault (rows {r0}-{r1 - 1} left out) reads "
                                    f"{fault:.3f} units at {name}: the limit cannot see it")
             line += f"; planted fault (rows {r0}-{r1 - 1} left out) {fault:.2f} units"
-        if (rows, n) in timed and kind == "normal":
+        # The lower triangle with its diagonal: rows x n(n+1)/2 dot
+        # products; A read once, C written once.
+        flops = float(rows) * n * (n + 1)
+        if (rows, n) in timed and dtype == torch.float32:
+            # The plain version is torch.mm(a.T, a) in fp32 (TF32 off), the
+            # library call itself. Device time in turns: kernel, library,
+            # library, kernel; the kernel's time holds its reduction's.
+            k1 = device_ms(lambda: syrk(a))
+            l1 = device_ms(lambda: torch.mm(a.T, a))
+            l2 = device_ms(lambda: torch.mm(a.T, a))
+            k2 = device_ms(lambda: syrk(a))
+            kernel_ms, lib = (k1 + k2) / 2, (l1 + l2) / 2
+            bound, bound_by = roofline(rows * n * 4 + n * n * 4, flops, FP32_FLOPS)
+            peak_pct = 100 * flops / kernel_ms / 1e9 / (FP32_FLOPS / 1e12)
+            timing[(rows, n, dtype)] = {"ms": kernel_ms, "plain_ms": lib, "bound_ms": bound,
+                                        "bound_by": bound_by, "library_ms": lib,
+                                        "splits": plan.splits, "fp32_peak_pct": peak_pct}
+            line += (
+                f"; device time kernel {kernel_ms:.4f} ms ({k1:.4f}, {k2:.4f}), torch.mm(a.T, a) "
+                f"fp32 {lib:.4f} ms ({l1:.4f}, {l2:.4f}), kernel/library {kernel_ms / lib:.3f}; "
+                f"bound {bound:.4f} ms ({bound_by}); kernel {flops / kernel_ms / 1e9:.1f} TFLOP/s "
+                f"on the triangle, {peak_pct:.1f}% of the fp32 peak; plan s {plan.splits} [{card}]"
+            )
+        elif (rows, n) in timed and kind == "normal":
             # Alternate plain, kernel, kernel, plain against drift.
             p1 = median_ms(lambda: syrk_reference(a))
             k1 = median_ms(lambda: syrk(a))
@@ -961,15 +1020,11 @@ def phase_syrk(card: str) -> dict:
             p2 = median_ms(lambda: syrk_reference(a))
             mm = median_ms(lambda: torch.matmul(a.T, a))
             # One library call with the same semantics (fp32 sums, fp32 out).
-            lib = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32)) \
-                if dtype != torch.float32 else mm
+            lib = median_ms(lambda: torch.mm(a.T, a, out_dtype=torch.float32))
             kernel_ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-            # The lower triangle with its diagonal: rows x n(n+1)/2 dot
-            # products; A read once, C written once.
-            flops = float(rows) * n * (n + 1)
-            peak = FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS
-            bound, bound_by = roofline(rows * n * a.element_size() + n * n * 4, flops, peak)
-            timing[(rows, n, dtype)] = (kernel_ms, plain_ms, bound, bound_by, lib)
+            bound, bound_by = roofline(rows * n * a.element_size() + n * n * 4, flops, BF16_FLOPS)
+            timing[(rows, n, dtype)] = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                        "bound_by": bound_by, "library_ms": lib}
             line += (
                 f"; kernel {kernel_ms:.4f} ms ({k1:.4f}, {k2:.4f}), plain fp32 "
                 f"{plain_ms:.3f} ms ({p1:.3f}, {p2:.3f}), torch.matmul(flat.T, flat) in "
@@ -979,14 +1034,11 @@ def phase_syrk(card: str) -> dict:
             )
         log(line)
 
-    def fields(key):
-        kernel_ms, plain_ms, bound, bound_by, lib = timing[key]
-        return {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": lib}
-
-    return {"max_abs_err": worst, **fields((8192, 3072, torch.bfloat16)),
-            "timings_ms": {f"{rows}x{n}": fields((rows, n, torch.bfloat16)) for rows, n in timed},
-            "timings_ms_fp16": {f"{rows}x{n}": fields((rows, n, torch.float16))
+    return {"max_abs_err": worst, **timing[(8192, 3072, torch.bfloat16)],
+            "timings_ms": {f"{rows}x{n}": timing[(rows, n, torch.bfloat16)] for rows, n in timed},
+            "timings_ms_fp16": {f"{rows}x{n}": timing[(rows, n, torch.float16)]
+                                for rows, n in SYRK_MAIN_SHAPES},
+            "timings_ms_fp32": {f"{rows}x{n}": timing[(rows, n, torch.float32)]
                                 for rows, n in SYRK_MAIN_SHAPES},
             "tiles": triangle_tiles(3072, TILE), "smem_bytes": smem}
 
@@ -4915,18 +4967,25 @@ def watch_cusolver_groups() -> tuple:
 
 
 def time_k1_fp32(card: str, rows: int, n: int) -> dict:
-    """K1's fp32 FMA kernel at (rows, n) against `torch.mm(a.T, a)` (fp32, TF32
-    off; the plain version is that same product), by torch.profiler device
-    time in turns (kernel, library, library, kernel), held to the plain
-    version first (phase 4's limit), beside the bound."""
-    from kronfluence_tpu_torch.ops.kernels.syrk import syrk, syrk_reference
+    """K1's fp32 route (the ring kernel on `f32_plan`'s split, and its
+    reduction) at (rows, n) against `torch.mm(a.T, a)` (fp32, TF32 off; the
+    plain version is that same product), by torch.profiler device time in
+    turns (kernel, library, library, kernel), held first to the plain version
+    (phase 4's limit), to exact symmetry and to its own bits on a second
+    call, beside the bound."""
+    from kronfluence_tpu_torch.ops.kernels.syrk import f32_plan, syrk, syrk_reference
 
     gen = torch.Generator("cuda").manual_seed(7)
     a = torch.randn(rows, n, generator=gen, device="cuda")
-    got, want = syrk(a), syrk_reference(a)
+    got, again, want = syrk(a), syrk(a), syrk_reference(a)
     units = syrk_units(got, want)
     if not units <= 1.0:
         raise RuntimeError(f"K1 fp32 at {rows} x {n}: {units:.3f} units of the limit")
+    if not torch.equal(got, got.T):
+        raise RuntimeError(f"K1 fp32 at {rows} x {n} is not exactly symmetric")
+    if not torch.equal(got, again):
+        raise RuntimeError(f"K1 fp32 at {rows} x {n} gave other bits on a second call")
+    plan = f32_plan(rows, n, torch.cuda.get_device_properties(0).multi_processor_count)
     k1 = device_ms(lambda: syrk(a))
     lib1 = device_ms(lambda: torch.mm(a.T, a))
     lib2 = device_ms(lambda: torch.mm(a.T, a))
@@ -4934,12 +4993,16 @@ def time_k1_fp32(card: str, rows: int, n: int) -> dict:
     flops = float(rows) * n * (n + 1)
     bound, bound_by = roofline(rows * n * 4 + n * n * 4, flops, FP32_FLOPS)
     kernel_ms, lib_ms = (k1 + k2) / 2, (lib1 + lib2) / 2
-    log(f"K1 fp32 at a ResNet-50 stage-3 gram, {rows} x {n}: kernel {kernel_ms:.4f} ms "
-        f"({k1:.4f}, {k2:.4f}), torch.mm(a.T, a) fp32 {lib_ms:.4f} ms ({lib1:.4f}, {lib2:.4f}); "
-        f"bound {bound:.4f} ms ({bound_by}); {units:.4f} units of the limit; kernel "
-        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the triangle, device time [{card}]")
+    peak_pct = 100 * flops / kernel_ms / 1e9 / (FP32_FLOPS / 1e12)
+    log(f"K1 fp32 at a ResNet-50 gram, {rows} x {n}: kernel {kernel_ms:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), torch.mm(a.T, a) fp32 {lib_ms:.4f} ms ({lib1:.4f}, {lib2:.4f}), "
+        f"kernel/library {kernel_ms / lib_ms:.3f}; bound {bound:.4f} ms ({bound_by}); "
+        f"{units:.4f} units of the limit, symmetric, bitwise twice; kernel "
+        f"{flops / kernel_ms / 1e9:.1f} TFLOP/s on the triangle, {peak_pct:.1f}% of the fp32 "
+        f"peak; plan s {plan.splits} x {plan.span} rows; device time [{card}]")
     return {"rows": rows, "n": n, "ms": kernel_ms, "plain_ms": lib_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": lib_ms, "max_abs_err": float((got - want).abs().max())}
+            "bound_by": bound_by, "library_ms": lib_ms, "splits": plan.splits,
+            "fp32_peak_pct": peak_pct, "max_abs_err": float((got - want).abs().max())}
 
 
 def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
@@ -4989,7 +5052,7 @@ def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
     recipe = FactorArguments(strategy="ekfac")
     recipe.eigendecomposition_dtype = "float32"
     kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
-    out = {"seconds": {}, "launches": {}, "batches": {}, "peaks": {}}
+    out = {"seconds": {}, "launches": {}, "batches": {}, "peaks": {}, "f32_reduce_launches": {}}
     root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_imagenet_"))
     real_group, groups = watch_cusolver_groups()
     try:
@@ -5012,7 +5075,7 @@ def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
         )
         for stage, run in stages:
             estimates.clear()
-            f16 = syrk.f16_launches
+            f16, reductions = syrk.f16_launches, syrk.f32_reduce_launches
             with PassCounter(module, kernels) as counter:
                 _, peak, sec = peak_of(run)
             close_estimate(estimates)
@@ -5023,13 +5086,22 @@ def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
                                   1 if stage == "covariance" else 0)
             if counter.counts["wgmma"] or syrk.f16_launches != f16:
                 raise RuntimeError(f"ImageNet {stage}: K1 left its fp32 route: {counter.counts}")
+            # The fp32 route's reductions: one a gram whose rows the plan
+            # splits (at a covariance batch of 48, every gram's but the
+            # classifier's activation gram, 48 rows).
+            reduced = syrk.f32_reduce_launches - reductions
+            if device.type == "cuda" and not (0 < reduced <= k1 if k1 else reduced == 0):
+                raise RuntimeError(f"ImageNet {stage}: K1's fp32 reduction launched {reduced} "
+                                   f"times over {k1} grams")
+            out["f32_reduce_launches"][stage] = reduced
             out["seconds"][stage], out["peaks"][stage] = sec, peak
             out["launches"][stage], out["batches"][stage] = dict(counter.counts), batches
             if stage == "covariance":
                 out["k1_per_covariance_batch"] = (
                     counter.counts["syrk"] / -(-IMAGENET_N // batches[0]))
             log(f"ImageNet {stage}: {sec:.3f} s, batch {batches or '-'}, peak "
-                f"{peak / 2**30:.3f} GiB, launches {counter.counts} (K1 want {k1}) [{card}]")
+                f"{peak / 2**30:.3f} GiB, launches {counter.counts} (K1 want {k1}), K1's fp32 "
+                f"reductions {reduced} [{card}]")
         solved = sum(count for _, count in groups)
         largest = max((dim for dim, _ in groups), default=0)
         log(f"ImageNet eigendecomposition: cuSOLVER groups (dimension, matrices) "
@@ -5064,8 +5136,9 @@ def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     del module, model, cov_data, lambda_data, train, query
     torch.cuda.empty_cache()
-    out["k1_fp32"] = {f"n{n}": time_k1_fp32(card, out["batches"]["covariance"][0] * 49, n)
-                      for n in IMAGENET_K1_WIDTHS}
+    batch = out["batches"]["covariance"][0]
+    out["k1_fp32"] = {f"{batch * positions}x{n}": time_k1_fp32(card, batch * positions, n)
+                      for positions, n in IMAGENET_K1_GRAMS}
     out["total"] = {key: sum(c[key] for c in out["launches"].values())
                     for key in ("syrk", "probe")}
     log(f"ImageNet: phase 18 took {time.perf_counter() - start:.1f} s; stage seconds "
@@ -6022,12 +6095,15 @@ def main() -> None:
     if not (REPO / "kronfluence_tpu_torch" / "__init__.py").exists():
         raise SystemExit("chip_smoke.py runs from a checkout: kronfluence_tpu_torch/ is missing.")
     sys.path.insert(0, str(REPO))
-    seconds = {}
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    seconds, reductions = {}, {}
 
     def phase(name, fn, *args, **kwargs):
-        t = time.perf_counter()
+        t, before = time.perf_counter(), syrk.f32_reduce_launches
         result = fn(*args, **kwargs)
         seconds[name] = time.perf_counter() - t
+        reductions[name] = syrk.f32_reduce_launches - before
         return result
 
     card = phase("1 device", phase_device)
@@ -6171,6 +6247,11 @@ def main() -> None:
             "imagenet_launches": imagenet["total"]["syrk"],
             "imagenet_launches_per_covariance_batch": imagenet["k1_per_covariance_batch"],
             "imagenet_fp32": imagenet["k1_fp32"],
+            "imagenet_f32_reduce_launches_by_stage": imagenet["f32_reduce_launches"],
+            # K1's fp32 reductions in each phase that ran any; phases 4 and
+            # 18 count their checks' and timings' calls too.
+            "f32_reduce_launches_by_phase": {name: count for name, count in reductions.items()
+                                             if count},
             **syrk_result,
         },
         {

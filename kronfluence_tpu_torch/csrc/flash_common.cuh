@@ -2,8 +2,9 @@
 // bf16 tiles in shared memory and multiply them with mma.sync: FB
 // (flash_backward.cu), FF and FFH (flash_forward.cu), F2H and F3H
 // (flash_backward_d128.cu), F2W and F3W (flash_backward_d256.cu). cp.async copies with
-// commit/wait groups, ldmatrix fragment loads, the m16n8k16 bf16 product with
-// fp32 accumulation, exp2 on the MUFU unit, and bf16 packing.
+// commit/wait groups (whose commit and wait K1's fp32 ring kernel in syrk.cu
+// shares), ldmatrix fragment loads, the m16n8k16 bf16 product with fp32
+// accumulation, exp2 on the MUFU unit, and bf16 packing.
 
 #pragma once
 

@@ -63,8 +63,14 @@
 //    unaligned base): wmma (mma.sync m16n16k16) from padded shared memory,
 //    32-row slabs staged through registers with one slab prefetched, masked
 //    scalar loads.
-//  * syrk_f32_kernel: fp32 operands, register-tiled FMAs (the tensor cores
-//    would round them to TF32).
+//  * syrk_f32_ring_kernel: fp32 operands, exact fp32 FFMA (the tensor cores
+//    would round them to TF32), so the 67 TFLOP/s FFMA peak bounds it: at
+//    the fp32 covariance grams (rows 2352 to 9408) the operations take
+//    13-23x the bytes' time. 128 x 128 tiles of 256 threads with 8 x 8
+//    outputs each (four LDS.128 for 64 FFMA), a 4-stage cp.async ring, a
+//    staged epilogue, and, where the triangle has too few tiles for the
+//    card's SMs, a split of the rows whose partial tiles
+//    syrk_f32_reduce_kernel sums in a fixed order (details at the kernels).
 //
 // Every launch runs on the caller's stream, allocates nothing, and returns
 // cudaGetLastError() (the wgmma launcher returns a negative CUresult if the
@@ -78,6 +84,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "flash_common.cuh"
 
 namespace {
 
@@ -519,92 +527,240 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// fp32 operands: register-tiled FMA, 64 x 64 tiles, 4 x 4 outputs a thread.
+// fp32 operands: register-tiled FFMA on 128 x 128 tiles fed by a cp.async
+// ring, with an optional deterministic split of the rows.
+//
+// What bounds it on the H100. The tensor cores would round fp32 products to
+// TF32, so the products are FFMA: 128 a clock an SM, 67 TFLOP/s. Each thread
+// holds 8 x 8 outputs, 2 x 2 blocks of 4 x 4 (tile rows 4 ty and 64 + 4 ty,
+// columns 4 tx and 64 + 4 tx), so a k-step reads four float4 (LDS.128) for
+// 64 FFMA. Within a warp each A read is a broadcast of two addresses and
+// each B read one 256-byte row, free of conflicts: 6 shared-memory
+// wavefronts for 64 FFMA instructions, 37.5% of the SM's 128 bytes a clock
+// at the FFMA peak. The 64 x 64 tiles of 4 x 4 it replaced took 8 wavefronts
+// for 16 FFMA instructions, which capped them at 50% of the peak.
+//  - Ring: kStagesF stages of kSlabF rows of both 128-column stripes, laid
+//    out [k][column] per operand as A is, filled by 16-byte cp.async.cg where
+//    n % 4 == 0 and the base is 16-byte aligned (kVec), else by 4-byte
+//    cp.async.ca per element. Both zero-fill past the range's last row and
+//    past n, so no product is masked. One barrier a slab: the wait for slab
+//    kt, the barrier, then the load of slab kt + kStagesF - 1 into the stage
+//    slab kt - 1 left. A diagonal tile loads its one stripe and feeds both
+//    operands from it.
+//  - 256 threads, at most 128 registers (__launch_bounds__(256, 2)) and
+//    66 KB of dynamic shared memory, so two CTAs share an SM.
+//  - Epilogue: the tile is staged in the ring's shared memory with an odd
+//    row pitch (kOutPitch), then C[i, j] and its mirror C[j, i] are written
+//    along rows, both from the same fp32 values (write_staged_tile).
+//  - Schedule (ops/kernels/syrk.py:f32_plan): with too few tiles for the
+//    card's SMs (136 at n 2048, 171 at 2304 on 132 SMs) the slowest SM runs
+//    two tiles while most run one. The plan then splits the rows into
+//    gridDim.y ranges of `span` rows; CTA (p, r) computes tile p over range r
+//    into its own slot of a workspace, and syrk_f32_reduce_kernel sums each
+//    tile's partials in range order and writes the tile and its mirror. No
+//    atomics: every sum has a fixed order, so two calls give the same bits.
 // ---------------------------------------------------------------------------
-constexpr int kTileF = 64;
-constexpr int kSlabF = 16;
-constexpr int kThreadsF = 256;
+constexpr int kSlabF = 16;                                   // rows of A per ring stage
+constexpr int kStagesF = 4;
+constexpr int kThreadsF = 256;                               // 16 x 16 threads of 8 x 8
+constexpr int kStripeFloats = kSlabF * kTile;                // one stripe of one slab
+constexpr int kStageFloats = 2 * kStripeFloats;              // 16 KB
+constexpr int kRingBytesF = kStagesF * kStageFloats * 4;
+constexpr int kStagingBytesF = kTile * kOutPitch * 4;
+constexpr int kF32SmemBytes = kRingBytesF > kStagingBytesF ? kRingBytesF : kStagingBytesF;
+constexpr int kPartialVecs = 16;                             // float4 of one thread's 8 x 8
 
-static_assert(kSlabF * kTileF / 4 == kThreadsF, "one float4 of each slab per thread");
+static_assert(kSlabF * kTile / 4 == 2 * kThreadsF, "two float4 of each stripe a thread");
 
-// Four consecutive fp32 of row gr from column gc, zero outside A.
-// `vec` promises n % 4 == 0 and a 16-byte aligned base pointer.
-__device__ __forceinline__ float4 load_chunk_f32(const float* __restrict__ a, int rows, int n,
-                                                 int gr, int gc, bool vec) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (gr >= rows || gc >= n) return v;
-  const float* src = a + static_cast<size_t>(gr) * n + gc;
-  if (vec) return *reinterpret_cast<const float4*>(src);
-  v.x = src[0];
-  v.y = (gc + 1 < n) ? src[1] : 0.f;
-  v.z = (gc + 2 < n) ? src[2] : 0.f;
-  v.w = (gc + 3 < n) ? src[3] : 0.f;
-  return v;
+__device__ __forceinline__ void cp_async_f32x4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__global__ void __launch_bounds__(kThreadsF)
-    syrk_f32_kernel(const float* __restrict__ a, float* __restrict__ c, int rows, int n, int vec) {
-  __shared__ __align__(16) float sa[kSlabF][kTileF];
-  __shared__ __align__(16) float sb[kSlabF][kTileF];
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
 
-  int ti, tj;
-  tile_pair(blockIdx.x, ti, tj);
-  const int i0 = ti * kTileF;
-  const int j0 = tj * kTileF;
-  const bool diag = ti == tj;
-  const int tx = threadIdx.x % 16;  // output columns tx + 16 v
-  const int ty = threadIdx.x / 16;  // output rows ty + 16 u
-  const int lr = threadIdx.x / (kTileF / 4);
-  const int lc = (threadIdx.x % (kTileF / 4)) * 4;
-
-  float acc[4][4];
+// Rows r .. r + kSlabF - 1 of the stripes at columns i0 (and j0 unless diag)
+// into `stage`, [k][column] per stripe; zeros at rows >= r1 and columns >= n.
+// A zero-filled copy reads nothing, so its source is the base pointer.
+template <bool kVec>
+__device__ __forceinline__ void load_slab_f32(float* stage, const float* __restrict__ a, int n,
+                                              int i0, int j0, bool diag, int r, int r1) {
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int q = 0; q < 2; ++q) {
+    const int idx = threadIdx.x + q * kThreadsF;
+    const int row = idx / (kTile / 4);
+    const int col = (idx % (kTile / 4)) * 4;
+    const int gr = r + row;
 #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-
-  float4 ra = load_chunk_f32(a, rows, n, lr, i0 + lc, vec);
-  float4 rb = diag ? make_float4(0.f, 0.f, 0.f, 0.f) : load_chunk_f32(a, rows, n, lr, j0 + lc, vec);
-
-  for (int r0 = 0; r0 < rows; r0 += kSlabF) {
-    *reinterpret_cast<float4*>(&sa[lr][lc]) = ra;
-    if (!diag) *reinterpret_cast<float4*>(&sb[lr][lc]) = rb;
-    __syncthreads();
-
-    const int next = r0 + kSlabF;
-    if (next < rows) {
-      ra = load_chunk_f32(a, rows, n, next + lr, i0 + lc, vec);
-      if (!diag) rb = load_chunk_f32(a, rows, n, next + lr, j0 + lc, vec);
-    }
-
-    const float(*bs)[kTileF] = diag ? sa : sb;
+    for (int s = 0; s < 2; ++s) {
+      if (s == 1 && diag) break;
+      const int gc = (s == 0 ? i0 : j0) + col;
+      float* dst = stage + s * kStripeFloats + row * kTile + col;
+      const float* src = a + static_cast<size_t>(gr) * n + gc;
+      if constexpr (kVec) {
+        const bool valid = gr < r1 && gc < n;
+        cp_async_f32x4(dst, valid ? src : a, valid);
+      } else {
 #pragma unroll
-    for (int k = 0; k < kSlabF; ++k) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) av[u] = sa[k][ty + 16 * u];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) bv[v] = bs[k][tx + 16 * v];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int gi = i0 + ty + 16 * u;
-      const int gj = j0 + tx + 16 * v;
-      if (gi < n && gj < n && (!diag || gi >= gj)) {
-        c[static_cast<size_t>(gi) * n + gj] = acc[u][v];
-        c[static_cast<size_t>(gj) * n + gi] = acc[u][v];
+        for (int e = 0; e < 4; ++e) {
+          const bool valid = gr < r1 && gc + e < n;
+          cp_async_f32(dst + e, valid ? src + e : a, valid);
+        }
       }
     }
   }
+}
+
+// Stages a thread's 8 x 8 outputs (rows 4 ty + u and 64 + 4 ty + u, columns
+// 4 tx + v and 64 + 4 tx + v) in `out` at pitch kOutPitch, then writes the
+// tile to C[i, j] along its rows and its mirror C[j, i] along its rows from
+// the same values. Diagonal tiles write their lower half and mirror it;
+// indices >= n are masked. `out` must be free: the caller's barrier.
+__device__ __forceinline__ void write_staged_tile(const float (&acc)[8][8], float* out,
+                                                  float* __restrict__ c, int i0, int j0, int n,
+                                                  bool diag) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int v = 0; v < 8; ++v)
+      out[(4 * ty + u % 4 + 64 * (u / 4)) * kOutPitch + 4 * tx + v % 4 + 64 * (v / 4)] = acc[u][v];
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  constexpr int kWarps = kThreadsF / 32;
+  for (int r = warp; r < kTile; r += kWarps) {
+    const int gi = i0 + r;
+#pragma unroll
+    for (int q = 0; q < kTile / 32; ++q) {
+      const int col = lane + 32 * q;
+      const int gj = j0 + col;
+      if (gi < n && gj < n && (!diag || gi >= gj))
+        c[static_cast<size_t>(gi) * n + gj] = out[r * kOutPitch + col];
+    }
+  }
+  for (int col = warp; col < kTile; col += kWarps) {
+    const int gj = j0 + col;
+#pragma unroll
+    for (int q = 0; q < kTile / 32; ++q) {
+      const int r = lane + 32 * q;
+      const int gi = i0 + r;
+      if (gi < n && gj < n && (!diag || gi >= gj))
+        c[static_cast<size_t>(gj) * n + gi] = out[r * kOutPitch + col];
+    }
+  }
+}
+
+// CTA (blockIdx.x, blockIdx.y): lower-triangle tile tile_pair(blockIdx.x)
+// over rows [blockIdx.y * span, min(rows, (blockIdx.y + 1) * span)). One
+// range (gridDim.y == 1) writes C; several write their partial tiles to
+// `partial` (gridDim.x * gridDim.y slots of kPartialVecs x kThreadsF float4,
+// a thread's float4 side by side so every store is coalesced).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreadsF, 2)
+    syrk_f32_ring_kernel(const float* __restrict__ a, float* __restrict__ c,
+                         float4* __restrict__ partial, int rows, int n, int span) {
+  extern __shared__ __align__(16) float ring_f[];
+  int ti, tj;
+  tile_pair(blockIdx.x, ti, tj);
+  const int i0 = ti * kTile;
+  const int j0 = tj * kTile;
+  const bool diag = ti == tj;
+  const int r0 = blockIdx.y * span;
+  const int r1 = min(rows, r0 + span);
+  const int slabs = (r1 - r0 + kSlabF - 1) / kSlabF;
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+
+  float acc[8][8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+#pragma unroll
+    for (int v = 0; v < 8; ++v) acc[u][v] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStagesF - 1; ++s) {
+    if (s < slabs)
+      load_slab_f32<kVec>(ring_f + s * kStageFloats, a, n, i0, j0, diag, r0 + s * kSlabF, r1);
+    kf_flash::cp_async_commit();
+  }
+  for (int kt = 0; kt < slabs; ++kt) {
+    kf_flash::cp_async_wait<kStagesF - 2>();
+    __syncthreads();
+    const int next = kt + kStagesF - 1;
+    if (next < slabs)
+      load_slab_f32<kVec>(ring_f + (next % kStagesF) * kStageFloats, a, n, i0, j0, diag,
+                          r0 + next * kSlabF, r1);
+    kf_flash::cp_async_commit();
+    const float* sa = ring_f + (kt % kStagesF) * kStageFloats;
+    const float* sb = diag ? sa : sa + kStripeFloats;
+#pragma unroll
+    for (int k = 0; k < kSlabF; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(sa + k * kTile + 4 * ty);
+      const float4 a1 = *reinterpret_cast<const float4*>(sa + k * kTile + 64 + 4 * ty);
+      const float4 b0 = *reinterpret_cast<const float4*>(sb + k * kTile + 4 * tx);
+      const float4 b1 = *reinterpret_cast<const float4*>(sb + k * kTile + 64 + 4 * tx);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int v = 0; v < 8; ++v) acc[u][v] = fmaf(av[u], bv[v], acc[u][v]);
+    }
+  }
+  // Only empty groups can be pending; every thread is past its last read of
+  // the ring before the epilogue reuses it.
+  kf_flash::cp_async_wait<0>();
+  __syncthreads();
+  if (gridDim.y == 1) {
+    write_staged_tile(acc, ring_f, c, i0, j0, n, diag);
+    return;
+  }
+  float4* slot = partial + (static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y) *
+                               kPartialVecs * kThreadsF;
+#pragma unroll
+  for (int f = 0; f < kPartialVecs; ++f)
+    slot[f * kThreadsF + threadIdx.x] =
+        make_float4(acc[f / 2][4 * (f % 2)], acc[f / 2][4 * (f % 2) + 1],
+                    acc[f / 2][4 * (f % 2) + 2], acc[f / 2][4 * (f % 2) + 3]);
+}
+
+// Tile tile_pair(blockIdx.x): its `splits` partials summed in range order,
+// left to right, then written as the ring kernel writes a whole tile.
+__global__ void __launch_bounds__(kThreadsF)
+    syrk_f32_reduce_kernel(const float4* __restrict__ partial, float* __restrict__ c, int n,
+                           int splits) {
+  extern __shared__ __align__(16) float staging_f[];
+  int ti, tj;
+  tile_pair(blockIdx.x, ti, tj);
+  const float4* src =
+      partial + static_cast<size_t>(blockIdx.x) * splits * kPartialVecs * kThreadsF + threadIdx.x;
+  float acc[8][8];
+#pragma unroll
+  for (int f = 0; f < kPartialVecs; ++f) {
+    const float4 p = src[f * kThreadsF];
+    acc[f / 2][4 * (f % 2)] = p.x;
+    acc[f / 2][4 * (f % 2) + 1] = p.y;
+    acc[f / 2][4 * (f % 2) + 2] = p.z;
+    acc[f / 2][4 * (f % 2) + 3] = p.w;
+  }
+  for (int r = 1; r < splits; ++r) {
+#pragma unroll
+    for (int f = 0; f < kPartialVecs; ++f) {
+      const float4 p = src[(static_cast<size_t>(r) * kPartialVecs + f) * kThreadsF];
+      acc[f / 2][4 * (f % 2)] += p.x;
+      acc[f / 2][4 * (f % 2) + 1] += p.y;
+      acc[f / 2][4 * (f % 2) + 2] += p.z;
+      acc[f / 2][4 * (f % 2) + 3] += p.w;
+    }
+  }
+  write_staged_tile(acc, staging_f, c, ti * kTile, tj * kTile, n, ti == tj);
 }
 
 inline long long triangle_pairs(int n, int tile) {
@@ -678,10 +834,61 @@ extern "C" int kf_syrk_f16(const void* a, void* c, int rows, int n, void* stream
   return launch_wmma<__half>(a, c, rows, n, stream);
 }
 
-extern "C" int kf_syrk_f32(const void* a, void* c, int rows, int n, int vec, void* stream) {
-  if (rows <= 0 || n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pairs = triangle_pairs(n, kTileF);
-  syrk_f32_kernel<<<static_cast<unsigned>(pairs), kThreadsF, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(a), static_cast<float*>(c), rows, n, vec);
+// fp32: the ring kernel over `splits` row ranges of `span` rows (the plan of
+// ops/kernels/syrk.py:f32_plan); with one range it writes C, with several
+// their partials go to `partial` (triangle tiles x splits x 64 KB) and the
+// reduction kernel writes C. `vec` promises n % 4 == 0 and a 16-byte
+// aligned base.
+extern "C" int kf_syrk_f32(const void* a, void* c, void* partial, int rows, int n, int span,
+                           int splits, int vec, void* stream) {
+  if (rows <= 0 || n <= 0 || splits <= 0 || span <= 0 ||
+      static_cast<long long>(span) * splits < rows || (splits > 1 && partial == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = vec ? reinterpret_cast<const void*>(syrk_f32_ring_kernel<true>)
+                           : reinterpret_cast<const void*>(syrk_f32_ring_kernel<false>);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kF32SmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(triangle_pairs(n, kTile)), static_cast<unsigned>(splits));
+  auto* s = static_cast<cudaStream_t>(stream);
+  if (vec)
+    syrk_f32_ring_kernel<true><<<grid, kThreadsF, kF32SmemBytes, s>>>(
+        static_cast<const float*>(a), static_cast<float*>(c), static_cast<float4*>(partial), rows,
+        n, span);
+  else
+    syrk_f32_ring_kernel<false><<<grid, kThreadsF, kF32SmemBytes, s>>>(
+        static_cast<const float*>(a), static_cast<float*>(c), static_cast<float4*>(partial), rows,
+        n, span);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The sum of kf_syrk_f32's `splits` partials into C, in range order.
+extern "C" int kf_syrk_f32_reduce(const void* partial, void* c, int n, int splits, void* stream) {
+  if (n <= 0 || splits <= 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(syrk_f32_reduce_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         kStagingBytesF);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  syrk_f32_reduce_kernel<<<static_cast<unsigned>(triangle_pairs(n, kTile)), kThreadsF,
+                           kStagingBytesF, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(partial), static_cast<float*>(c), n, splits);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Registers a thread, local (spill) bytes a thread and CTAs an SM of the ring
+// kernel (which 0: 16-byte copies, 1: 4-byte copies) or the reduction (2).
+extern "C" int kf_syrk_f32_occupancy(int which, int* regs, int* local_bytes, int* ctas) {
+  const void* fn = which == 0   ? reinterpret_cast<const void*>(syrk_f32_ring_kernel<true>)
+                   : which == 1 ? reinterpret_cast<const void*>(syrk_f32_ring_kernel<false>)
+                                : reinterpret_cast<const void*>(syrk_f32_reduce_kernel);
+  const int bytes = which == 2 ? kStagingBytesF : kF32SmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, kThreadsF, bytes));
 }

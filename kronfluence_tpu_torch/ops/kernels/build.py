@@ -159,8 +159,12 @@ def load_library() -> ctypes.CDLL:
     lib.kf_syrk_bf16.restype = i32
     lib.kf_syrk_f16.argtypes = [ptr, ptr, i32, i32, ptr]
     lib.kf_syrk_f16.restype = i32
-    lib.kf_syrk_f32.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.kf_syrk_f32.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.kf_syrk_f32.restype = i32
+    lib.kf_syrk_f32_reduce.argtypes = [ptr, ptr, i32, i32, ptr]
+    lib.kf_syrk_f32_reduce.restype = i32
+    lib.kf_syrk_f32_occupancy.argtypes = [i32, ptr, ptr, ptr]
+    lib.kf_syrk_f32_occupancy.restype = i32
     lib.kf_jacobi_pivot_rotations.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
     lib.kf_jacobi_pivot_rotations.restype = i32
     lib.kf_jacobi_pivot_rotations_m64.argtypes = [ptr, ptr, i32, i32, ctypes.c_float, ptr]
