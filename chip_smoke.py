@@ -21,7 +21,8 @@ each of which raises on failure:
      128-bit shared loads and no HMMA, local loads or stores (their FFMA,
      shared loads by width, local loads and stores, barriers, registers,
      spills and CTAs an SM printed); so must K1's fp32 ring kernel (16-byte
-     and 4-byte copies), and its reduction must not spill;
+     and 4-byte copies), and its reduction must not spill; so must FFS64's,
+     and it must fit two CTAs an SM;
   3. K3 probe: the build-and-launch check against its plain version, timed
      like for like: launch + synchronize + exactness check against
      torch.add + synchronize + the same check on the host clock, and the bare
@@ -139,28 +140,34 @@ each of which raises on failure:
      of max, l and m within 1e-5, two calls bitwise equal and finite, both
      planted faults (the dropped block; the mask left off a tile) above the
      limit; timed in turns against F1 and SDPA's forward at both route
-     cases (it must beat F1 by device time). F1 and F2 + F3 also timed in
-     turns against SDPA at bf16 and fp32 D 256 (where SDPA raises, logged
-     and timed without it);
+     cases (it must beat F1 by device time). FFS64 (the fp32 D 64 forward,
+     `forward_route` "tiled_f32_64") the same at FLASH_CASES' fp32 D 64 case
+     and at phase 10's fp32 shape (B 16, H 12, T 512, D 64, padded): O within
+     1e-5 of max, l and m within 1e-5, two calls bitwise equal and finite,
+     both planted faults above the limit, timed in turns against F1, which
+     runs on no route now and stays the yardstick, and SDPA's forward (it
+     must beat F1 by device time). F1 and F2 + F3 also timed in turns
+     against SDPA at bf16 and fp32 D 256 (where SDPA raises, logged and timed
+     without it);
  10. flash path: phase 5's model, weights and data with attention="flash"
      through all four stages, scoring with fp8 (e4m3fn) query blocks and the
      auto-sized query block (`query_gradient_accumulation_steps=None`). FF
      must launch 12 times per model forward (passes and discovery forwards),
-     FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFW, FFS, F2H,
+     FB 12 times per forward+backward pass, F1, F2, F3, FFH, FFW, FFS, FFS64, F2H,
      F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
      with the naive form;
  11. reference, flash: phase 6 again with attention="flash" (T 128, padded
-     data), in fp32, three times: at head_dim 64 (8 heads) exactly F1, F2S
-     and F3S (the generic forward and the split_f32 backward) launch on the
-     card, at head_dim 128 (4 heads) exactly FFS, F2SH and F3SH (the
-     tiled_f32 forward and the split_f32_h backward), at head_dim 256 (2
-     heads) exactly FFS, F2SW and F3SW (the split_f32_w backward); the plain
-     versions on the CPU; the kernels line reads F1's, F2S's and F3S's
-     launches from the first run, F2SH's and F3SH's from the second, F2SW's
-     and F3SW's from the third (F2's and F3's, 0, too), FFS's from the
-     second and third.
+     data), in fp32, three times: at head_dim 64 (8 heads) exactly FFS64,
+     F2S and F3S (the tiled_f32_64 forward and the split_f32 backward; F1
+     never) launch on the card, at head_dim 128 (4 heads) exactly FFS, F2SH
+     and F3SH (the tiled_f32 forward and the split_f32_h backward), at
+     head_dim 256 (2 heads) exactly FFS, F2SW and F3SW (the split_f32_w
+     backward); the plain versions on the CPU; the kernels line reads
+     FFS64's, F2S's and F3S's launches from the first run (F1's, 0, too),
+     F2SH's and F3SH's from the second, F2SW's and F3SW's from the third
+     (F2's and F3's, 0, too), FFS's from the second and third.
  12. analyzer path: phase 5's model, recipe and data through the public
      entry point, `kronfluence_tpu_torch.Analyzer` on cuda:0 with its
      artifacts in a temporary directory: `fit_all_factors`, then
@@ -223,7 +230,7 @@ each of which raises on failure:
      estimated batch, plan and budget beside its measured peak (within it);
      FFH once per attention forward and F2H, F3H once per attention backward
      (counted by hooks on the attention layers), F1, F2, F3, FF, FB, FFW,
-     FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
+     FFS, FFS64, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never, K1 on every covariance gram, all wgmma, K3 once per
      covariance fit; the six 14336-dim factors solved one at a time by
      `eigh_large` (the stage's peak within what was resident plus one
      matrix and its solve; the checkpoints present while it runs and gone
@@ -329,7 +336,13 @@ steps at D 128, one CTA an SM) against a copy of csrc/flash_forward_f32.cu
 with 32-key steps at two CTAs an SM (each held to the plain version within
 1e-5 of max and to its own bits; the key step moves the rescales, so the
 copy's bits differ from the built kernel's), with each kernel's SASS counts,
-registers, spills and CTAs an SM, and against F1; then F3SW at the fp32 D 256
+registers, spills and CTAs an SM, and against F1; then FFS64 at the fp32 D 64
+case (B 16, H 12, T 512, padded) as built (4 x 8 thread tiles, 8 warps, two
+CTAs an SM) against a copy of csrc/flash_forward_f32_d64.cu with 8 x 8 thread
+tiles (4 warps) and a copy of csrc/flash_forward_f32.cu instanced at D 64
+(FFS's own body: 4 x 4 thread tiles, 8 warps, a 64-query tile), each held to
+the plain version within 1e-5 of max and to its own bits, with each kernel's
+SASS counts, registers, spills and CTAs an SM, and against F1; then F3SW at the fp32 D 256
 case (B 16, H 3, T 512, padded) as built (head_dim split between the two
 warp groups for S and dP, 4 x 4 thread tiles) against a copy of
 csrc/flash_backward_f32_d256.cu without the split (group 0 sums S and group
@@ -767,7 +780,8 @@ def phase_build() -> None:
         if kernel == FWD_KERNELS[1] and (counts["LDL"] or counts["STL"] or occ["local_bytes"]):
             raise RuntimeError(f"FFH spills: {counts}, {occ}")
     for kernels, entry in ((F32_KERNELS, F32_OCCUPANCY), (F32_D128_KERNELS, F32_D128_OCCUPANCY),
-                           (F32_D256_KERNELS, F32_D256_OCCUPANCY), (FFS_KERNELS, FFS_OCCUPANCY)):
+                           (F32_D256_KERNELS, F32_D256_OCCUPANCY), (FFS_KERNELS, FFS_OCCUPANCY),
+                           ((FFS64_KERNEL,), FFS64_OCCUPANCY)):
         for which, kernel in enumerate(kernels):
             counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
             occ = occupancy(lib, entry, which)
@@ -778,6 +792,10 @@ def phase_build() -> None:
                 raise RuntimeError(f"{kernel} is not the register-tiled FFMA kernel: {counts}")
             if counts["LDL"] or counts["STL"] or occ["local_bytes"]:
                 raise RuntimeError(f"{kernel} spills: {counts}, {occ}")
+    # FFS64's design runs two CTAs of 8 warps an SM.
+    occ = occupancy(lib, FFS64_OCCUPANCY, 0)
+    if occ["ctas_per_sm"] < 2:
+        raise RuntimeError(f"FFS64 fits {occ['ctas_per_sm']} CTA an SM, built for 2: {occ}")
     for which, kernel in enumerate(SYRK_F32_KERNELS):
         counts = sass_counts(build.library_path(), kernel, F32_OPCODES)
         occ = occupancy(lib, SYRK_F32_OCCUPANCY, which)
@@ -823,6 +841,11 @@ FFS_KERNELS = ("flash_fwd_f32_kernelILi128", "flash_fwd_f32_kernelILi256")
 FFS_OCCUPANCY = "kf_flash_fwd_f32_occupancy"
 # FFS's kernel as torch.profiler names it (both head dims).
 FFS_PROFILED = ("flash_fwd_f32_kernel",)
+# FFS64 (csrc/flash_forward_f32_d64.cu), its occupancy entry, and its kernel
+# as torch.profiler names it.
+FFS64_KERNEL = "flash_fwd_f32_d64_kernel"
+FFS64_OCCUPANCY = "kf_flash_fwd_f32_d64_occupancy"
+FFS64_PROFILED = (FFS64_KERNEL,)
 # K1's fp32 ring kernel (16-byte and 4-byte copies) and its reduction
 # (csrc/syrk.cu), in the order of their occupancy entry's `which`.
 SYRK_F32_KERNELS = ("syrk_f32_ring_kernelILb1E", "syrk_f32_ring_kernelILb0E",
@@ -1236,12 +1259,13 @@ def flash_kernels():
         flash_forward_d128,
         flash_forward_d256,
         flash_forward_f32,
+        flash_forward_f32_d64,
         flash_forward_pipelined,
     )
 
     return {"F1": flash_forward, "F2": flash_backward_dkv, "F3": flash_backward_dq,
             "FF": flash_forward_pipelined, "FB": flash_backward, "FFH": flash_forward_d128,
-            "FFW": flash_forward_d256, "FFS": flash_forward_f32,
+            "FFW": flash_forward_d256, "FFS": flash_forward_f32, "FFS64": flash_forward_f32_d64,
             "F2H": flash_backward_dkv_d128, "F3H": flash_backward_dq_d128,
             "F2W": flash_backward_dkv_d256, "F3W": flash_backward_dq_d256,
             "F2S": flash_backward_dkv_f32, "F3S": flash_backward_dq_f32,
@@ -1602,17 +1626,18 @@ def phase_flash_kernels(card: str) -> dict:
         flash_forward,
         flash_forward_d128,
         flash_forward_f32,
+        flash_forward_f32_d64,
         flash_forward_pipelined,
         flash_forward_reference,
         forward_route,
     )
 
     abs_errs = {"F1": 0.0, "F2": 0.0, "F3": 0.0, "FF": 0.0, "FB": 0.0, "FFH": 0.0, "FFW": 0.0,
-                "FFS": 0.0,
+                "FFS": 0.0, "FFS64": 0.0,
                 "F2H": 0.0, "F3H": 0.0, "F2W": 0.0, "F3W": 0.0, "F2S": 0.0, "F3S": 0.0,
                 "F2SW": 0.0, "F3SW": 0.0}
     owner = {"O": "F1", "dK": "F2", "dV": "F2", "dQ": "F3", "FF O": "FF", "FFH O": "FFH",
-             "FFS O": "FFS",
+             "FFS O": "FFS", "FFS64 O": "FFS64",
              "FB dQ": "FB", "FB dK": "FB", "FB dV": "FB",
              "F2H dK": "F2H", "F2H dV": "F2H", "F3H dQ": "F3H",
              "F2S dK": "F2S", "F2S dV": "F2S", "F3S dQ": "F3S",
@@ -1646,13 +1671,16 @@ def phase_flash_kernels(card: str) -> dict:
                                          (b, h, t, d))
             got["FFH O"], want["FFH O"] = fo, ro
             stats += [("FFH l", fl, rl), ("FFH m", fm, rm)]
-        tiled_f32 = forward_route(dtype, d) == "tiled_f32"
-        if tiled_f32:
-            # FFS against the plain forward; a second call must give the same bits.
-            fo, fl, fm = forward_checked("FFS", flash_forward_f32, q, k, v, seg, scale,
-                                         (b, h, t, d))
-            got["FFS O"], want["FFS O"] = fo, ro
-            stats += [("FFS l", fl, rl), ("FFS m", fm, rm)]
+        # FFS (fp32 at D 128 and 256) or FFS64 (fp32 at D 64) against the
+        # plain forward; a second call must give the same bits.
+        f32_forward = {"tiled_f32": ("FFS", flash_forward_f32),
+                       "tiled_f32_64": ("FFS64", flash_forward_f32_d64)}.get(
+                           forward_route(dtype, d))
+        if f32_forward:
+            fname, ffn = f32_forward
+            fo, fl, fm = forward_checked(fname, ffn, q, k, v, seg, scale, (b, h, t, d))
+            got[f"{fname} O"], want[f"{fname} O"] = fo, ro
+            stats += [(f"{fname} l", fl, rl), (f"{fname} m", fm, rm)]
         fused = backward_route(dtype, d) == "fused"
         if fused:
             # FB against its own plain version (computed on the same inputs).
@@ -1731,9 +1759,9 @@ def phase_flash_kernels(card: str) -> dict:
                 raise RuntimeError(f"the bf16 limit {tol:g} does not catch a skipped tile of F2H "
                                    f"or F3H: {fault_units}")
             del fault
-        if tiled_f32:
-            forward_faults("FFS", (q, k, v, seg, l, m, do, di, scale), want["FFS O"],
-                           errs["FFS O"], label)
+        if f32_forward:
+            forward_faults(fname, (q, k, v, seg, l, m, do, di, scale), want[f"{fname} O"],
+                           errs[f"{fname} O"], label)
         if split_f32:
             # The fp32 limit must catch a skipped tile of F2S and F3S: the
             # plain version without one block of P.
@@ -1924,7 +1952,7 @@ def phase_flash_kernels(card: str) -> dict:
     # turns against FF and FB above), stay beside.
     routes = time_generic_routes(card)
     llama_shape = f"B {LLAMA_BATCH} H 32 T 512 D 128 bf16 (phase 15's heads after the GQA repeat)"
-    fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: F1, F2S, F3S)"
+    fp32_d64 = "B 16 H 12 T 512 D 64 fp32 padded (phase 11's first run: FFS64, F2S, F3S)"
     fp32_d128 = ("B 16 H 6 T 512 D 128 fp32 padded (the route of phase 11's second run: FFS, F2SH, "
                  "F3SH)")
     fp32_d256 = ("B 16 H 3 T 512 D 256 fp32 padded (the route of phase 11's third run: FFS, F2SW, "
@@ -1936,8 +1964,8 @@ def phase_flash_kernels(card: str) -> dict:
                    f"unpadded)")
     at_d64 = {name: {k: timing[name][k] for k in ("ms", "device_ms", "bound_ms")}
               for name in ("F1", "F2", "F3")}
-    main_case = {"F1": ("fp32 D 64", fp32_d64), "F2": ("bf16 D 256", bf16_d256),
-                 "F3": ("bf16 D 256", bf16_d256)}
+    main_case = {"F1": ("fp32 D 64", fp32_d64 + ", timed as FFS64's yardstick"),
+                 "F2": ("bf16 D 256", bf16_d256), "F3": ("bf16 D 256", bf16_d256)}
     for name, (case, shape) in main_case.items():
         timing[name] = dict(routes[name][case], shape=shape, at_bf16_d64=at_d64[name], **{
             f"at {other}": routes[name][other] for other in GENERIC_ROUTE_CASES if other != case})
@@ -1965,6 +1993,9 @@ def phase_flash_kernels(card: str) -> dict:
                          at_fp32_d256=dict(routes["FFS"]["fp32 D 256"], shape=fp32_d256),
                          f1_in_the_same_turns={c: routes["F1"][c] for c in ffs_cases})
     abs_errs["FFS"] = max(abs_errs["FFS"], routes["FFS"]["fp32 D 256"]["max_abs_err"])
+    # F1 at fp32 D 64 runs on no route since FFS64 took it: timed as its yardstick.
+    timing["FFS64"] = dict(routes["FFS64"]["fp32 D 64"], shape=fp32_d64,
+                           f1_in_the_same_turns=routes["F1"]["fp32 D 64"])
     for n2, n3, case, shape in (("F2S", "F3S", "fp32 D 64", fp32_d64),
                                 ("F2SH", "F3SH", "fp32 D 128", fp32_d128),
                                 ("F2SW", "F3SW", "fp32 D 256", fp32_d256)):
@@ -1975,8 +2006,8 @@ def phase_flash_kernels(card: str) -> dict:
     # F2S, F3S, F2SW and F3SW are also held at their route's case in
     # time_generic_routes, F2SH and F3SH there alone.
     out = {}
-    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFW", "FFS", "F2H", "F3H", "F2W", "F3W",
-                 "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW"):
+    for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFW", "FFS", "FFS64", "F2H", "F3H", "F2W",
+                 "F3W", "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW"):
         err = max(abs_errs.get(name, 0.0), timing[name].pop("max_abs_err", 0.0))
         out[name] = dict(timing[name], max_abs_err=err)
     out["extra"] = timing["extra"]
@@ -2094,10 +2125,14 @@ def time_generic_routes(card: str) -> dict:
         flash_forward_d128,
         flash_forward_d256,
         flash_forward_f32,
+        flash_forward_f32_d64,
         flash_forward_reference,
         forward_route,
     )
 
+    # Each fp32 forward route: its kernel's name, wrapper and CUDA kernel names.
+    f32_forwards = {"tiled_f32": ("FFS", flash_forward_f32, FFS_PROFILED),
+                    "tiled_f32_64": ("FFS64", flash_forward_f32_d64, FFS64_PROFILED)}
     # Each bf16 forward route of its own: its kernel's name, wrapper and CUDA
     # kernel names.
     bf16_forwards = {"pipelined_h": ("FFH", flash_forward_d128, (FWD_KERNELS[1],)),
@@ -2116,7 +2151,8 @@ def time_generic_routes(card: str) -> dict:
         "split_f32_w": ("F2SW", "F3SW", flash_backward_dkv_f32_d256, flash_backward_dq_f32_d256,
                         (F32_D256_KERNELS[0],), (F32_D256_KERNELS[1],)),
     }
-    out = {"F1": {}, "FFH": {}, "FFW": {}, "FFS": {}, "F2": {}, "F3": {}, "F2+F3": {}}
+    out = {"F1": {}, "FFH": {}, "FFW": {}, "FFS": {}, "FFS64": {}, "F2": {}, "F3": {},
+           "F2+F3": {}}
     for n2, n3, *_ in split_routes.values():
         out.update({n2: {}, n3: {}, f"{n2}+{n3}": {}})
     for case, (b, h, t, d, dtype, padded) in GENERIC_ROUTE_CASES.items():
@@ -2147,18 +2183,19 @@ def time_generic_routes(card: str) -> dict:
                 abs_err["FFW"] = float((got[0].float() - want[0].float()).abs().max())
                 forward_faults("FFW", args, want[0], errs[0], case, padded=padded, diagonal=True)
             del got, want
-        tiled_f32 = forward_route(dtype, d) == "tiled_f32"
-        if tiled_f32:
-            got = forward_checked("FFS", flash_forward_f32, q, k, v, seg, scale, case)
+        f32_forward = f32_forwards.get(forward_route(dtype, d))
+        if f32_forward:
+            fname, ffn, _ = f32_forward
+            got = forward_checked(fname, ffn, q, k, v, seg, scale, case)
             want = flash_forward_reference(q, k, v, seg, scale)
             errs = [relative_to_max(x, y) for x, y in zip(got, want)]
-            abs_err["FFS"] = float((got[0] - want[0]).abs().max())
-            log(f"flash FFS at {case} (B {b} H {h} T {t} D {d}): O, l, m max |kernel - plain| / "
-                f"max |plain| {[f'{e:.3g}' for e in errs]} (limits {FLASH_FP32_TOL:g}; "
+            abs_err[fname] = float((got[0] - want[0]).abs().max())
+            log(f"flash {fname} at {case} (B {b} H {h} T {t} D {d}): O, l, m max |kernel - "
+                f"plain| / max |plain| {[f'{e:.3g}' for e in errs]} (limits {FLASH_FP32_TOL:g}; "
                 f"{FLASH_STATS_TOL:g})")
             if not (errs[0] <= FLASH_FP32_TOL and max(errs[1:]) <= FLASH_STATS_TOL):
-                raise RuntimeError(f"FFS off its plain version at {case}: {errs}")
-            forward_faults("FFS", args, want[0], errs[0], case)
+                raise RuntimeError(f"{fname} off its plain version at {case}: {errs}")
+            forward_faults(fname, args, want[0], errs[0], case, padded=padded)
             del got, want
         if split:
             split_pair_checks(case, split, args, padded, abs_err)
@@ -2170,8 +2207,8 @@ def time_generic_routes(card: str) -> dict:
             "F1": (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",)),
             **({bf16_forward[0]: (lambda: bf16_forward[1](q, k, v, seg, scale), bf16_forward[2])}
                if bf16_forward else {}),
-            **({"FFS": (lambda: flash_forward_f32(q, k, v, seg, scale), FFS_PROFILED)}
-               if tiled_f32 else {}),
+            **({f32_forward[0]: (lambda: f32_forward[1](q, k, v, seg, scale), f32_forward[2])}
+               if f32_forward else {}),
             "F2": (lambda: flash_backward_dkv(*args), ("flash_bwd_dkv_kernel",)),
             "F3": (lambda: flash_backward_dq(*args), ("flash_bwd_dq_kernel",)),
             "F2+F3": (lambda: (flash_backward_dkv(*args), flash_backward_dq(*args)),
@@ -2208,14 +2245,14 @@ def time_generic_routes(card: str) -> dict:
             "F3": median_ms(lambda: flash_backward_dq_reference(*args), 5, 1),
         }
         plain["F2+F3"] = plain["F2"] + plain["F3"]
-        # FFH's and FFS's plain version is F1's; each split pair's are F2's
-        # and F3's.
+        # FFH's, FFW's, FFS's and FFS64's plain version is F1's; each split
+        # pair's are F2's and F3's.
         pairs, work = flash_work(seg, h, d, q.element_size())
         work["F2+F3"] = work["FB"]  # dQ, dK, dV written once
-        for name in ("FFH", "FFW", "FFS"):
+        for name in ("FFH", "FFW", "FFS", "FFS64"):
             plain[name], work[name] = plain["F1"], work["F1"]
         library = {"F1": "SDPA fwd", "FFH": "SDPA fwd", "FFW": "SDPA fwd", "FFS": "SDPA fwd",
-                   "F2+F3": "SDPA bwd alone"}
+                   "FFS64": "SDPA fwd", "F2+F3": "SDPA bwd alone"}
         for n2, n3, *_ in split_routes.values():
             for name, like in ((n2, "F2"), (n3, "F3"), (f"{n2}+{n3}", "F2+F3")):
                 plain[name], work[name] = plain[like], work[like]
@@ -2281,7 +2318,7 @@ def time_generic_routes(card: str) -> dict:
                 for name in out if case in out[name]) + "; plain " + ", ".join(
                 f"{name} {v:.3f}" for name, v in plain.items() if name in times) + extra
             + f"; SDPA's kernels {sdpa_names or 'none (it raised)'} [{card}]")
-        for name in ("FFH", "FFW", "FFS"):
+        for name in ("FFH", "FFW", "FFS", "FFS64"):
             if case in out[name] and not (out[name][case]["device_ms"]
                                           < out["F1"][case]["device_ms"]):
                 raise RuntimeError(f"{name} is not faster than F1 at {case}: "
@@ -2567,10 +2604,11 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     forwards_only = 3 + 2
     layers = config.num_layers
     # bf16 at head_dim 64: the forward takes FF, the backward FB; F1, F2, F3,
-    # FFH, FFW, FFS, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW and F3SW
-    # never.
+    # FFH, FFW, FFS, FFS64, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW and
+    # F3SW never.
     want = {"F1": 0, "F2": 0, "F3": 0, "FF": layers * (passes + forwards_only),
-            "FB": layers * passes, "FFH": 0, "FFW": 0, "FFS": 0, "F2H": 0, "F3H": 0, "F2W": 0,
+            "FB": layers * passes, "FFH": 0, "FFW": 0, "FFS": 0, "FFS64": 0, "F2H": 0, "F3H": 0,
+            "F2W": 0,
             "F3W": 0,
             "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0, "F2SW": 0, "F3SW": 0}
     log(f"flash path stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
@@ -3853,14 +3891,15 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, FFW, FFS, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2
+    one); F1, F2, F3, FF, FB, FFW, FFS, FFS64, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2
     and the naive form never; in a covariance stage K1 on every gram (two per
     projection, 6 a layer and batch), all wgmma, and K3 once per covariance
     fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
     want = {"FFH": fwd, "F2H": bwd, "F3H": bwd, "F1": 0, "F2": 0, "F3": 0, "FF": 0, "FB": 0,
-            "FFW": 0, "FFS": 0, "F2W": 0, "F3W": 0, "F2S": 0, "F3S": 0, "F2SH": 0, "F3SH": 0,
+            "FFW": 0, "FFS": 0, "FFS64": 0, "F2W": 0, "F3W": 0, "F2S": 0, "F3S": 0, "F2SH": 0,
+            "F3SH": 0,
             "F2SW": 0, "F3SW": 0, "jacobi": 0, "naive": 0}
     if covariance_fits:
         want.update(syrk=6 * layers * cov_batches, wgmma=6 * layers * cov_batches,
@@ -4466,7 +4505,7 @@ def check_gemma_launches(stage: str, counts: dict, layers: int) -> None:
     other flash kernel, K2 and the naive form never."""
     fwd = sum(counts["attention forwards"].values())
     bwd = sum(counts["attention backwards"].values())
-    want = {name: 0 for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "F2H", "F3H",
+    want = {name: 0 for name in ("F1", "F2", "F3", "FF", "FB", "FFH", "FFS", "FFS64", "F2H", "F3H",
                                  "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW", "jacobi",
                                  "naive")}
     want.update(F2W=bwd, F3W=bwd)
@@ -5426,6 +5465,27 @@ FFS_VARIANTS = {
                                       "constexpr int kD128Keys = 32;"),),
 }
 
+# Copies for `--profile-flash` against FFS64 as built (4 x 8 thread tiles):
+# name -> (source, C entry, kernel name in the SASS, occupancy entry, kernel
+# names for torch.profiler, text replacements). FFS64 with 8 x 8 thread tiles
+# (kRowsPerThread 8: 4 warps, 128 accumulators); FFS's own body
+# (csrc/flash_forward_f32.cu) instanced at D 64 with 64-key steps (Ffs<64,
+# 64>: 4 x 4 thread tiles, 8 warps, a 64-query tile, no diagonal skip).
+FFS64_VARIANTS = {
+    "8 x 8 thread tiles, 4 warps": (
+        "flash_forward_f32_d64.cu", "kf_flash_fwd_f32_d64", FFS64_KERNEL, FFS64_OCCUPANCY,
+        FFS64_PROFILED,
+        (("constexpr int kRowsPerThread = 4;", "constexpr int kRowsPerThread = 8;"),)),
+    "FFS's body at D 64 (Ffs<64, 64>)": (
+        "flash_forward_f32.cu", "kf_flash_fwd_f32", "flash_fwd_f32_kernelILi64", FFS_OCCUPANCY,
+        FFS_PROFILED,
+        (("    case 256: return launch<256, 32>(",
+          "    case 64: return launch<64, 64>(q, k, v, seg, o, l, m, B, H, T_len, scale, s);\n"
+          "    case 256: return launch<256, 32>("),
+         ("return which == 0 ? occupancy<128, kD128Keys>(regs, local_bytes, ctas)",
+          "return which == 0 ? occupancy<64, 64>(regs, local_bytes, ctas)"))),
+}
+
 # A copy of csrc/flash_backward_f32_d256.cu for `--profile-flash`: F3SW with
 # no D split. Warp group 0 sums S and group 1 dP over all 256 columns on 2 x 4
 # thread tiles (rows r + 16 i, r < 16), with no partial sums to trade; group 0
@@ -5531,7 +5591,8 @@ def profile_flash(card: str) -> None:
     built (64-query tile) against FF_VARIANTS and F1, at the flash path's
     shape, in turns, after holding each variant to the bf16 limit; then FFH
     and F2H + F3H at Llama's (profile_ffh, profile_d128), F2SH and F3SH
-    (profile_f32_d128) and FFS (profile_ffs) at the fp32 D 128 case, and
+    (profile_f32_d128) and FFS (profile_ffs) at the fp32 D 128 case, FFS64
+    (profile_ffs64) at the fp32 D 64 case, and
     F3SW (profile_f32_d256) at the fp32 D 256 case."""
     from kronfluence_tpu_torch.ops.attention import output_dot
     from kronfluence_tpu_torch.ops.kernels.build import check_launch
@@ -5629,6 +5690,7 @@ def profile_flash(card: str) -> None:
     profile_d128(card)
     profile_f32_d128(card)
     profile_ffs(card)
+    profile_ffs64(card)
     profile_f32_d256(card)
 
 
@@ -5893,6 +5955,66 @@ def profile_ffs(card: str) -> None:
             for name, ts in times.items()) + f" [{card}]")
 
 
+def profile_ffs64(card: str) -> None:
+    """FFS64 as built (4 x 8 thread tiles, 8 warps, two CTAs an SM) against
+    FFS64_VARIANTS at the fp32 D 64 route case (B 16, H 12, T 512, padded),
+    with each kernel's SASS counts, registers, spills and CTAs an SM. Each
+    build is held to the plain version within 1e-5 of max and to its own bits
+    on a second call; then the builds and F1 in turns."""
+    from kronfluence_tpu_torch.ops.kernels.build import check_launch, library_path, load_library
+    from kronfluence_tpu_torch.ops.kernels.flash import flash_forward, flash_forward_reference
+
+    p, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    libs = {"as built (4 x 8 thread tiles, 8 warps)": (
+        load_library(), library_path(), "kf_flash_fwd_f32_d64", FFS64_KERNEL, FFS64_OCCUPANCY,
+        FFS64_PROFILED)}
+    for i, (name, (source, entry, sass_name, occ_entry, profiled, repl)) in enumerate(
+            FFS64_VARIANTS.items()):
+        lib = build_variant(source, 10 + i, repl, {entry: [*[p] * 7, i32, i32, i32, i32, f32, p],
+                                                   occ_entry: [i32, p, p, p]})
+        libs[name] = (lib, Path(lib._name), entry, sass_name, occ_entry, profiled)
+    for name, (lib, path, _, sass_name, occ_entry, _) in libs.items():
+        log(f"FFS64 '{name}': SASS {sass_counts(path, sass_name, F32_OPCODES)}; "
+            f"{occupancy(lib, occ_entry, 0)}")
+    b, h, t, d, dtype, padded = GENERIC_ROUTE_CASES["fp32 D 64"]
+    gen = torch.Generator("cuda").manual_seed(b * t + d)
+    q, k, v = (torch.randn(b, h, t, d, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    seg = padded_segments(b, t, padded, "cuda")
+    scale = d ** -0.5
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib, entry):
+        o = torch.empty_like(q)
+        l = torch.empty((b, h, t), dtype=torch.float32, device="cuda")
+        m = torch.empty_like(l)
+        check_launch(getattr(lib, entry)(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                         seg.data_ptr(), o.data_ptr(), l.data_ptr(),
+                                         m.data_ptr(), b, h, t, d, float(scale), stream),
+                     "FFS64 copy")
+        return o, l, m
+
+    want = flash_forward_reference(q, k, v, seg, scale)
+    for name, (lib, _, entry, *_) in libs.items():
+        got, again = launch(lib, entry), launch(lib, entry)
+        rel = [relative_to_max(x, y) for x, y in zip(got, want)]
+        bitwise = [torch.equal(x, y) for x, y in zip(got, again)]
+        log(f"FFS64 '{name}': O, l, m max |copy - plain| / max |plain| "
+            f"{[f'{e:.3g}' for e in rel]} (limit {FLASH_FP32_TOL:g}); two calls bitwise equal "
+            f"{bitwise}")
+        if not (max(rel) <= FLASH_FP32_TOL and all(bitwise)):
+            raise RuntimeError(f"the FFS64 copy '{name}' is off its plain version: {rel}, {bitwise}")
+    del want
+    fns = {f"FFS64 {name}": (lambda lib=lib, entry=entry: launch(lib, entry), profiled)
+           for name, (lib, _, entry, _, _, profiled) in libs.items()}
+    fns["F1"] = (lambda: flash_forward(q, k, v, seg, scale), ("flash_fwd_kernel",))
+    times = turns_ms(fns)
+    log(f"FFS64 at B {b} H {h} T {t} D {d} fp32 padded, in turns (there and back); ms per call: "
+        f"one call between CUDA events (median), and the device time of the kernels named "
+        f"(torch.profiler): " + "; ".join(
+            f"{name} " + " / ".join(f"({a:.4f}, {c:.4f})" for a, c in ts)
+            for name, ts in times.items()) + f" [{card}]")
+
+
 def profile_f32_d256(card: str) -> None:
     """F2SW and F3SW as built against F32_D256_VARIANTS at the fp32 D 256
     case, with each kernel's SASS counts, registers, spills and CTAs an SM.
@@ -5979,7 +6101,8 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     """A small fp32 GPT-2 (d_model 512) through the four stages on the card
     and on the CPU; returns the card side's flash launches (every count
     zeroed just before the card side runs). fp32 takes at head_dim 64 (8
-    heads) the generic forward, F1, and the split_f32 backward, F2S + F3S; at
+    heads) the tiled_f32_64 forward, FFS64, and the split_f32 backward, F2S +
+    F3S; at
     head_dim 128 (4 heads) the tiled_f32 forward, FFS, and the split_f32_h
     backward, F2SH + F3SH; at head_dim 256 (2 heads) FFS and the split_f32_w
     backward, F2SW + F3SW."""
@@ -6076,9 +6199,9 @@ def phase_reference(attention: str = "naive", seq: int = 64, padded: bool = Fals
     )
     if k1_launches == 0:
         raise RuntimeError("the reference run did not reach K1 on the card")
-    # fp32 takes, by head_dim, F1 and the split_f32 route, FFS and the
+    # fp32 takes, by head_dim, FFS64 and the split_f32 route, FFS and the
     # split_f32_h route, or FFS and the split_f32_w route.
-    kernels = {64: {"F1", "F2S", "F3S"}, 128: {"FFS", "F2SH", "F3SH"},
+    kernels = {64: {"FFS64", "F2S", "F3S"}, 128: {"FFS", "F2SH", "F3SH"},
                256: {"FFS", "F2SW", "F3SW"}}[head_dim]
     split = kernels if attention == "flash" else set()
     if any(cpu_flash.values()) or {name for name, n in card_flash.items() if n} != split:
@@ -6129,8 +6252,8 @@ def main() -> None:
         "8 jacobi path", phase_jacobi_path, card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
-    # phase 10 (bf16, head_dim 64); F1, F2S, F3S, F2SH, F3SH, FFS, F2SW and
-    # F3SW from phase 11 (fp32), below.
+    # phase 10 (bf16, head_dim 64); FFS64, F2S, F3S, F2SH, F3SH, FFS, F2SW
+    # and F3SW from phase 11 (fp32), below.
     flash_path = phase("10 flash path", phase_flash_path, card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
     # Phase 12's artifacts stay on disk for phase 14, which reads them through
@@ -6157,19 +6280,20 @@ def main() -> None:
     cifar = phase("17 cifar", phase_cifar, card)
     imagenet = phase("18 imagenet", phase_imagenet, card)
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
-    # from phase 16 (Gemma-2B's widths, bf16 D 256); F1, F2S and F3S from phase
-    # 11's first run (fp32 D 64: the generic forward and the split_f32
-    # route), F2SH and F3SH from its second (fp32 D 128: the split_f32_h
-    # route), F2SW and F3SW from its third (fp32 D 256: the split_f32_w
-    # route), FFS from its second and third (the tiled_f32 forward). F2 and F3
-    # serve no route: phase 11's third run and phase 16, where they ran until
-    # the split_f32_w and split_w routes, must leave them at 0, and phase 9
-    # alone holds them; phase 16 must leave F1 at 0 too, since FFW took its
-    # bf16 D 256 forwards.
+    # from phase 16 (Gemma-2B's widths, bf16 D 256); FFS64, F2S and F3S from
+    # phase 11's first run (fp32 D 64: the tiled_f32_64 forward and the
+    # split_f32 route), F2SH and F3SH from its second (fp32 D 128: the
+    # split_f32_h route), F2SW and F3SW from its third (fp32 D 256: the
+    # split_f32_w route), FFS from its second and third (the tiled_f32
+    # forward). F1, F2 and F3 serve no route: phase 11's first run and phase
+    # 16, where F1 ran until FFS64 and FFW took its forwards, must leave F1 at
+    # 0, phase 11's third run and phase 16 F2 and F3, and phase 9 alone holds
+    # them.
     launches.update(FFH=llama_launches["FFH"], F2H=llama_launches["F2H"],
                     F3H=llama_launches["F3H"], FFW=gemma["total"]["FFW"],
                     F2W=gemma["total"]["F2W"],
-                    F3W=gemma["total"]["F3W"], F1=split_path["F1"],
+                    F3W=gemma["total"]["F3W"], F1=split_path["F1"] + gemma["total"]["F1"],
+                    FFS64=split_path["FFS64"],
                     F2=split_path_d256["F2"] + gemma["total"]["F2"],
                     F3=split_path_d256["F3"] + gemma["total"]["F3"],
                     F2S=split_path["F2S"], F3S=split_path["F3S"],
@@ -6182,9 +6306,10 @@ def main() -> None:
     # the CUDA source, and the phase whose run the launches are read from.
     replaced = {
         "F1": ("flash_forward", ["flash_attention.py:589"], "flash_attention.cu",
-               "phase 11's first run (reference, fp32 D 64: generic forward); phase 16 (bf16 D "
-               "256) takes FFW and must leave F1 at 0 (gemma_launches_by_stage); phase 9 times "
-               "F1 there as FFW's yardstick"),
+               "no route: phase 11's first run (fp32 D 64) and phase 16 (bf16 D 256) take FFS64 "
+               "and FFW and must leave F1 at 0 (fp32_reference_launches, "
+               "gemma_launches_by_stage); phase 9 holds F1 against its plain version and times "
+               "it as their yardstick"),
         "F2": ("flash_backward_dkv", ["flash_attention.py:941"], "flash_attention.cu",
                "no route: phase 11's third run (fp32 D 256) and phase 16 (bf16 D 256) take "
                "F2SW and F2W and must leave F2 at 0; phase 9 alone holds F2 against its plain "
@@ -6205,6 +6330,8 @@ def main() -> None:
         "FFS": ("flash_forward_f32", ["flash_attention.py:589"], "flash_forward_f32.cu",
                 "phase 11's second and third runs (reference, fp32 D 128 and D 256: tiled_f32 "
                 "forward)"),
+        "FFS64": ("flash_forward_f32_d64", ["flash_attention.py:589"], "flash_forward_f32_d64.cu",
+                  "phase 11's first run (reference, fp32 D 64: tiled_f32_64 forward)"),
         "F2H": ("flash_backward_dkv_d128", ["flash_attention.py:941"], "flash_backward_d128.cu",
                 "phase 15 (Llama, bf16 D 128: split_h route), all stages"),
         "F3H": ("flash_backward_dq_d128", ["flash_attention.py:1287"], "flash_backward_d128.cu",
@@ -6305,7 +6432,8 @@ def main() -> None:
             **({"fp32_reference_launches": {"head_dim 64": split_path[fid],
                                             "head_dim 128": split_path_d128[fid],
                                             "head_dim 256": split_path_d256[fid]}}
-               if fid in ("F1", "F2", "F3", "FFS", "F2S", "F3S", "F2SH", "F3SH", "F2SW", "F3SW")
+               if fid in ("F1", "F2", "F3", "FFS", "FFS64", "F2S", "F3S", "F2SH", "F3SH", "F2SW",
+                          "F3SW")
                else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),

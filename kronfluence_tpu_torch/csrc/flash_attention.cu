@@ -1,11 +1,13 @@
 // Causal, segment-masked flash attention: forward (F1) and backward (F2 dK/dV,
 // F3 dQ) for (B, H, T, D) operands in bf16 (tensor cores, fp32 accumulation)
 // or fp32 (FMA), D in {64, 128, 256}, T a multiple of 64. The routes
-// (ops/kernels/flash.py) send F1 fp32 at D 64 and bf16 at D 256, and F2 and
-// F3 no case: they stay callable as the yardstick of the kernels that took
-// their cases, FF, FFH, FFS (flash_forward_f32.cu: fp32 at D 128 and 256), FB,
-// F2H + F3H, F2W + F3W (flash_backward_d256.cu: bf16 at D 256), F2S + F3S,
-// F2SH + F3SH and F2SW + F3SW (flash_backward_f32_d256.cu: fp32 at D 256).
+// (ops/kernels/flash.py) send none of them a case: they stay callable as the
+// yardstick of the kernels that took their cases, FF, FFH, FFS
+// (flash_forward_f32.cu: fp32 at D 128 and 256), FFS64
+// (flash_forward_f32_d64.cu: fp32 at D 64), FFW (flash_forward_d256.cu: bf16
+// at D 256), FB, F2H + F3H, F2W + F3W (flash_backward_d256.cu: bf16 at D 256),
+// F2S + F3S, F2SH + F3SH and F2SW + F3SW (flash_backward_f32_d256.cu: fp32 at
+// D 256).
 //
 // Replaces the TPU kernels of JAX's Pallas flash attention that
 // kronfluence_tpu/ops/attention.py:_flash_attention reaches

@@ -5,8 +5,9 @@
 // Replaces, for fp32 at D 128 and D 256, the TPU kernel of JAX's Pallas flash
 // attention forward that kronfluence_tpu/ops/attention.py:_flash_attention
 // reaches (jax/experimental/pallas/ops/tpu/flash_attention.py:
-// `_flash_attention_impl` :589, its pallas_call :758). F1 (flash_attention.cu)
-// keeps fp32 at D 64 and bf16 at D 256 (ops/kernels/flash.py:forward_route).
+// `_flash_attention_impl` :589, its pallas_call :758). FFS64
+// (flash_forward_f32_d64.cu) takes fp32 at D 64 and FFW (flash_forward_d256.cu)
+// bf16 at D 256 (ops/kernels/flash.py:forward_route).
 // Semantics are F1's: logits = (Q K^T) * scale, plus -0.7 * FLT_MAX where the
 // key is above the diagonal or in another segment; O = softmax(logits) V,
 // with the row max m (natural-log units) and the row sum l of exp(logit - m).

@@ -12,13 +12,14 @@ no switch, probe or fallback:
     bf16 at head_dim 128 (Llama) the forward is FFH and the backward F2H +
     F3H; for bf16 at head_dim 256 (Gemma) the forward is FFW (route
     "wgmma_w": wgmma fed by a TMA ring) and the backward F2W + F3W
-    ("split_w"); for fp32 the forward is F1 at head_dim 64 and FFS at
-    head_dim 128 and 256 (route "tiled_f32"), and the backward F2S + F3S at
-    head_dim 64 (route "split_f32"), F2SH + F3SH at head_dim 128
-    ("split_f32_h") and F2SW + F3SW at head_dim 256 ("split_f32_w"); every
-    route but FB is deterministic (`flash.forward_route`,
+    ("split_w"); for fp32 the forward is FFS64 at head_dim 64 (route
+    "tiled_f32_64") and FFS at head_dim 128 and 256 ("tiled_f32"), and the
+    backward F2S + F3S at head_dim 64 (route "split_f32"), F2SH + F3SH at
+    head_dim 128 ("split_f32_h") and F2SW + F3SW at head_dim 256
+    ("split_f32_w"); every route but FB is deterministic (`flash.forward_route`,
     `flash.backward_route`; `ops/kernels/flash.py`, `csrc/flash_forward.cu`,
     `csrc/flash_forward_d256.cu`, `csrc/flash_forward_f32.cu`,
+    `csrc/flash_forward_f32_d64.cu`,
     `csrc/flash_backward.cu`, `csrc/flash_backward_d128.cu`,
     `csrc/flash_backward_d256.cu`, `csrc/flash_backward_f32.cu`,
     `csrc/flash_backward_f32_d128.cu`, `csrc/flash_backward_f32_d256.cu`,
@@ -60,6 +61,7 @@ from kronfluence_tpu_torch.ops.kernels.flash import (
     flash_forward_d128,
     flash_forward_d256,
     flash_forward_f32,
+    flash_forward_f32_d64,
     flash_forward_pipelined,
     flash_forward_reference,
     forward_route,
@@ -124,10 +126,10 @@ def output_dot(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal, segment-masked attention: FF, FFH, FFW, FFS or F1 forward as
-    `forward_route` says; backward di, then FB, F2H + F3H, F2W + F3W,
-    F2S + F3S, F2SH + F3SH or F2SW + F3SW as `backward_route` says (F2 + F3
-    on no route a supported type and head dim reaches)."""
+    """Causal, segment-masked attention: FF, FFH, FFW, FFS or FFS64 forward
+    as `forward_route` says; backward di, then FB, F2H + F3H, F2W + F3W,
+    F2S + F3S, F2SH + F3SH or F2SW + F3SW as `backward_route` says (F1 and
+    F2 + F3 on no route a supported type and head dim reaches)."""
 
     @staticmethod
     def forward(ctx, q, k, v, segment_ids, sm_scale):
@@ -141,6 +143,8 @@ class FlashAttention(torch.autograd.Function):
             o, l, m = flash_forward_d256(q, k, v, segment_ids, sm_scale)
         elif route == "tiled_f32":
             o, l, m = flash_forward_f32(q, k, v, segment_ids, sm_scale)
+        elif route == "tiled_f32_64":
+            o, l, m = flash_forward_f32_d64(q, k, v, segment_ids, sm_scale)
         else:
             o, l, m = flash_forward(q, k, v, segment_ids, sm_scale)
         ctx.save_for_backward(q, k, v, segment_ids, o, l, m)

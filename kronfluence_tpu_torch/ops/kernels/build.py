@@ -25,7 +25,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = (
     "flash_attention.cu", "flash_backward.cu", "flash_backward_d128.cu", "flash_backward_d256.cu",
     "flash_backward_f32.cu", "flash_backward_f32_d128.cu", "flash_backward_f32_d256.cu",
-    "flash_forward.cu", "flash_forward_d256.cu", "flash_forward_f32.cu", "jacobi.cu",
+    "flash_forward.cu", "flash_forward_d256.cu", "flash_forward_f32.cu", "flash_forward_f32_d64.cu",
+    "jacobi.cu",
     "jacobi_m64.cu", "probe.cu", "syrk.cu",
 )
 COMPILE_FLAGS = (
@@ -181,6 +182,8 @@ def load_library() -> ctypes.CDLL:
     lib.kf_flash_fwd_d256_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_fwd_f32.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_fwd_f32_occupancy.argtypes = [i32, ptr, ptr, ptr]
+    lib.kf_flash_fwd_f32_d64.argtypes = [*[ptr] * 7, i32, i32, i32, i32, f32, ptr]
+    lib.kf_flash_fwd_f32_d64_occupancy.argtypes = [i32, ptr, ptr, ptr]
     lib.kf_flash_bwd_dkv_d128.argtypes = [*[ptr] * 10, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_dq_d128.argtypes = [*[ptr] * 9, i32, i32, i32, i32, f32, ptr]
     lib.kf_flash_bwd_d128_occupancy.argtypes = [i32, ptr, ptr, ptr]
@@ -200,6 +203,7 @@ def load_library() -> ctypes.CDLL:
                  "kf_flash_fwd_pipelined", "kf_flash_fwd_d128", "kf_flash_fwd_occupancy",
                  "kf_flash_fwd_d256", "kf_flash_fwd_d256_occupancy",
                  "kf_flash_fwd_f32", "kf_flash_fwd_f32_occupancy",
+                 "kf_flash_fwd_f32_d64", "kf_flash_fwd_f32_d64_occupancy",
                  "kf_flash_bwd_dkv_d128", "kf_flash_bwd_dq_d128", "kf_flash_bwd_d128_occupancy",
                  "kf_flash_bwd_dkv_d256", "kf_flash_bwd_dq_d256", "kf_flash_bwd_d256_occupancy",
                  "kf_flash_bwd_dkv_f32", "kf_flash_bwd_dq_f32", "kf_flash_bwd_f32_occupancy",

@@ -1,14 +1,13 @@
-"""F1-F3, FF, FFH, FFW, FFS, FB, F2H, F3H, F2W, F3W, F2S, F3S, F2SH, F3SH,
-F2SW and F3SW:
+"""F1-F3, FF, FFH, FFW, FFS, FFS64, FB, F2H, F3H, F2W, F3W, F2S, F3S, F2SH,
+F3SH, F2SW and F3SW:
 causal, segment-masked flash attention, hand-written for Hopper.
 
 Port of the TPU kernels that `kronfluence_tpu/ops/attention.py:_flash_attention`
 reaches in JAX's Pallas flash attention: `_flash_attention_impl` (F1, the
 forward), `_flash_attention_bwd_dkv` (F2) and `_flash_attention_bwd_dq` (F3).
 The CUDA kernels F1-F3 are in `csrc/flash_attention.cu` (bf16 or fp32, D in
-{64, 128, 256}, T a multiple of 64); F1 is the forward of fp32 at D 64, and
-F1 at bf16 D 256 and F2 and F3 are on no route: they stay callable as the
-yardstick of the kernels that took their place. In bf16 at D 64 (GPT-2's heads) two kernels of their own take over: FF, F1's
+{64, 128, 256}, T a multiple of 64); they are on no route: they stay callable
+as the yardstick of the kernels that took their place. In bf16 at D 64 (GPT-2's heads) two kernels of their own take over: FF, F1's
 work with a cp.async K/V ring (T a multiple of 64), and FB, in
 `csrc/flash_backward.cu`, F2's and F3's work in one launch. In bf16 at D 128
 (Llama's heads) FFH, the same pipelined body as FF instanced at D 128 (both in
@@ -23,12 +22,15 @@ F1's: wgmma for both products, two warpgroups of 64 query rows, Q and a
 two-stage K/V ring loaded by TMA (T a multiple of 128, deterministic). In fp32 the work goes to
 deterministic kernels of register-tiled fp32 FMAs fed by 128-bit shared loads
 and cp.async rings: FFS takes F1's at D 128 and D 256 (`csrc/flash_forward_f32.cu`,
-one body templated over D), F2S and F3S take F2's and F3's at D 64
+one body templated over D), FFS64 at D 64 (`csrc/flash_forward_f32_d64.cu`:
+outer products from transposed Q, K and P on 4 x 8 thread tiles, a
+128-query tile; T a multiple of 128), F2S and F3S take F2's and F3's at D 64
 (`csrc/flash_backward_f32.cu`), F2SH and F3SH at D 128
 (`csrc/flash_backward_f32_d128.cu`), F2SW and F3SW at D 256
 (`csrc/flash_backward_f32_d256.cu`, D split between two warp groups for S
 and dP). `forward_route` picks FF ("pipelined"), FFH ("pipelined_h"), FFW
-("wgmma_w"), FFS ("tiled_f32") or F1 ("generic"); `backward_route` FB ("fused"), F2H + F3H
+("wgmma_w"), FFS ("tiled_f32"), FFS64 ("tiled_f32_64") or F1 ("generic", which
+no type and head dim the kernels take reaches); `backward_route` FB ("fused"), F2H + F3H
 ("split_h"), F2W + F3W ("split_w"), F2S + F3S ("split_f32"), F2SH + F3SH ("split_f32_h"), F2SW +
 F3SW ("split_f32_w") or F2 + F3 ("split").
 
@@ -72,12 +74,17 @@ SPLIT_F32_DTYPE, SPLIT_F32_HEAD_DIM = torch.float32, 64
 # a multiple of it.
 TILED_F32_HEAD_DIMS = (128, 256)
 FFS_QUERY_TILE = 64
+# The one head dim FFS64 takes, in SPLIT_F32_DTYPE, and its query tile: T
+# must be a multiple of it.
+TILED_F32_64_HEAD_DIM = 64
+FFS64_QUERY_TILE = 128
 
 
 def forward_route(dtype: torch.dtype, head_dim: int) -> str:
     """"pipelined" (FF) for bf16 at D 64, "pipelined_h" (FFH) for bf16 at D
     128, "wgmma_w" (FFW) for bf16 at D 256, "tiled_f32" (FFS) for fp32 at D
-    128 and 256, else "generic" (F1)."""
+    128 and 256, "tiled_f32_64" (FFS64) for fp32 at D 64, else "generic" (F1,
+    which no type and head dim the kernels take reaches)."""
     if dtype == FUSED_DTYPE and head_dim == FUSED_HEAD_DIM:
         return "pipelined"
     if dtype == FUSED_DTYPE and head_dim == SPLIT_H_HEAD_DIM:
@@ -86,6 +93,8 @@ def forward_route(dtype: torch.dtype, head_dim: int) -> str:
         return "wgmma_w"
     if dtype == SPLIT_F32_DTYPE and head_dim in TILED_F32_HEAD_DIMS:
         return "tiled_f32"
+    if dtype == SPLIT_F32_DTYPE and head_dim == TILED_F32_64_HEAD_DIM:
+        return "tiled_f32_64"
     return "generic"
 
 
@@ -224,7 +233,7 @@ def flash_forward(q, k, v, segment_ids, sm_scale: float):
 
 
 def _launch_pipelined(entry: str, name: str, route: str, q, k, v, segment_ids, sm_scale):
-    """FF's, FFH's, FFW's or FFS's launch: checks the route, the segment ids'
+    """FF's, FFH's, FFW's, FFS's or FFS64's launch: checks the route, the segment ids'
     alignment (copied 16 bytes at a time: cp.async, or FFW's bulk copy) and
     the operands, then (O, l, m)."""
     if forward_route(q.dtype, q.shape[-1]) != route:
@@ -296,6 +305,20 @@ def flash_forward_f32(q, k, v, segment_ids, sm_scale: float):
     out = _launch_pipelined("kf_flash_fwd_f32", "FFS", "tiled_f32",
                             q, k, v, segment_ids, sm_scale)
     flash_forward_f32.launches += 1
+    return out
+
+
+def flash_forward_f32_d64(q, k, v, segment_ids, sm_scale: float):
+    """FFS64: returns (O, l, m) like F1; CUDA operands must be fp32 at D 64
+    (`forward_route` "tiled_f32_64"), T a multiple of 128 (FFS64's query
+    tile). Deterministic: two calls give the same bits."""
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, segment_ids, sm_scale)
+    if q.dim() == 4 and q.shape[2] % FFS64_QUERY_TILE:
+        raise ValueError(f"FFS64 takes T a multiple of {FFS64_QUERY_TILE}; got T {q.shape[2]}.")
+    out = _launch_pipelined("kf_flash_fwd_f32_d64", "FFS64", "tiled_f32_64",
+                            q, k, v, segment_ids, sm_scale)
+    flash_forward_f32_d64.launches += 1
     return out
 
 
@@ -502,6 +525,7 @@ flash_forward_pipelined.launches = 0
 flash_forward_d128.launches = 0
 flash_forward_d256.launches = 0
 flash_forward_f32.launches = 0
+flash_forward_f32_d64.launches = 0
 flash_backward_dkv.launches = 0
 flash_backward_dq.launches = 0
 flash_backward.launches = 0

@@ -405,9 +405,10 @@ def test_cuda_fused_backward_matches_plain_version(t, padded):
 def test_forward_route_is_pipelined_only_for_bf16_at_d64(dtype, d):
     """"pipelined" (FF) only for bf16 at D 64, "pipelined_h" (FFH) only for
     bf16 at D 128, "wgmma_w" (FFW) only for bf16 at D 256, "tiled_f32" (FFS)
-    only for fp32 at D 128 and 256, "generic" (F1) for every other case."""
+    only for fp32 at D 128 and 256, "tiled_f32_64" (FFS64) only for fp32 at
+    D 64, "generic" (F1) for every other case."""
     want = {(torch.bfloat16, 64): "pipelined", (torch.bfloat16, 128): "pipelined_h",
-            (torch.bfloat16, 256): "wgmma_w",
+            (torch.bfloat16, 256): "wgmma_w", (torch.float32, 64): "tiled_f32_64",
             (torch.float32, 128): "tiled_f32", (torch.float32, 256): "tiled_f32"}
     assert forward_route(dtype, d) == want.get((dtype, d), "generic")
 
@@ -417,25 +418,28 @@ def test_forward_route_is_pipelined_only_for_bf16_at_d64(dtype, d):
                                      (256, torch.float32), (256, torch.bfloat16)])
 def test_function_forward_follows_the_route(monkeypatch, d, dtype):
     """The Function's forward calls FF's wrapper on the "pipelined" route,
-    FFH's on "pipelined_h", FFW's on "wgmma_w", FFS's on "tiled_f32" and F1's
-    on "generic" (each on CPU tensors: the plain forward)."""
+    FFH's on "pipelined_h", FFW's on "wgmma_w", FFS's on "tiled_f32", FFS64's
+    on "tiled_f32_64" and F1's on "generic" (each on CPU tensors: the plain
+    forward)."""
     q, k, v, _, mask = (torch.from_numpy(x) for x in _inputs(2, 2, 128, d, np.float32, seed=10))
     q, k, v = (x.to(dtype) for x in (q, k, v))
     seg = segment_ids_for(mask, q)
     called = []
     for name in ("flash_forward", "flash_forward_pipelined", "flash_forward_d128",
-                 "flash_forward_d256", "flash_forward_f32"):
+                 "flash_forward_d256", "flash_forward_f32", "flash_forward_f32_d64"):
         wrapper = getattr(attention, name)
         monkeypatch.setattr(attention, name,
                             lambda *args, _n=name, _w=wrapper: called.append(_n) or _w(*args))
     out = FlashAttention.apply(q, k, v, seg, d ** -0.5)
     want = {"pipelined": "flash_forward_pipelined", "pipelined_h": "flash_forward_d128",
             "wgmma_w": "flash_forward_d256", "tiled_f32": "flash_forward_f32",
-            "generic": "flash_forward"}[forward_route(dtype, d)]
+            "tiled_f32_64": "flash_forward_f32_d64", "generic": "flash_forward"}[
+                forward_route(dtype, d)]
     assert called == [want]
     assert (dtype, d) != (torch.bfloat16, 128) or want == "flash_forward_d128"
     assert (dtype, d) != (torch.bfloat16, 256) or want == "flash_forward_d256"
     assert dtype != torch.float32 or d == 64 or want == "flash_forward_f32"
+    assert (dtype, d) != (torch.float32, 64) or want == "flash_forward_f32_d64"
     assert torch.equal(out, flash_forward_reference(q, k, v, seg, d ** -0.5)[0])
 
 
