@@ -157,7 +157,7 @@ each of which raises on failure:
      F3H, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW and the naive form never, K1 36 times per covariance batch on the wgmma kernel; the
      covariance factors are held against phase 5's and the scores' Pearson r
      against phase 5's bf16 scores; covariance and lambda are timed in turns
-     with the naive form;
+     with the naive form; its artifacts stay for phase 19 (a);
  11. reference, flash: phase 6 again with attention="flash" (T 128, padded
      data), in fp32, three times: at head_dim 64 (8 heads) exactly FFS64,
      F2S and F3S (the tiled_f32_64 forward and the split_f32 backward; F1
@@ -282,6 +282,29 @@ each of which raises on failure:
      (rows batch x 49, widths 2048 and 4608) and stage 2's (rows batch x 196,
      width 2304), each within phase 4's limit, exactly symmetric and the
      same bits twice, against torch.mm and its bound, device time in turns.
+ 19. the remaining model forms. (a) Right after phase 10, on its weights,
+     data and recipe: the scanned GPT-2 (models/transformer.py:
+     scanned_lm_apply over stack_layer_params of the seed-0 weights, bound
+     by FunctionalModel; its projections tagged ops under scan_layers) at
+     full width with attention="flash" through the four stage functions,
+     each stage's seconds beside phase 10's. Its 48 tracked names and specs
+     are the module form's; K1, K3, FF, FB and every other counted kernel
+     launch as many times as in phase 10 (K2 and the other flash kernels 0,
+     the naive form never); the activation covariance and the counts equal
+     phase 10's bit for bit (FF is deterministic), the gradient covariance
+     and, in phase 10's eigenbasis, lambda and the scores within 1e-2 of max
+     (FB's dQ atomics are not bitwise), the scores' Pearson r at least 0.999
+     in both eigenbases. With attention="naive", one covariance batch and
+     its lambda equal the module form's bit for bit, and remat=True (each
+     block a checkpoint_block) equals remat=False bit for bit with lower
+     covariance and lambda peaks (both printed). (b) After phase 18:
+     examples/uci's MLP (8, 64, 64, 1) and a RepeatedMLP at its widths, and
+     (c) examples/dailymail's encoder-decoder (d 128, 4 heads, 2 layers, seq
+     32, vocab 1024) with a half-masked encoder and its dict masks, each fp32
+     with seeded weights through the stage functions on the card against
+     the CPU port within phase 6's limit, K3 once and K2 and the flash
+     kernels never on the card side; the encoder-decoder's token counts on
+     the card equal the mask sums.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -624,6 +647,25 @@ CIFAR_REFERENCE_N = 64
 # (C_out 2048). K1's fp32 route is timed at those three grams: (positions an
 # example, width) of stage 3's 7 x 7 maps at 2048 and 4608 and stage 2's
 # 14 x 14 maps at 2304, rows the covariance batch times the positions.
+# Phase 19 (a): the scanned GPT-2 against phase 10's module form. FB's dQ
+# atomics are not bitwise reproducible, so what the gradient reaches is held
+# within 1e-2 of max, and the scores' Pearson r at 0.999; the activation
+# covariance (FF is deterministic) and the naive form's factors bit for bit.
+SCAN_RTOL = 1e-2
+SCAN_PEARSON_MIN = 0.999
+# Phase 10's fp8 query blocks turn last-bit differences into fp8 rounding
+# steps: there the scanned form is held to this many times the module form's
+# own run-to-run gap and 1 - r (the module form's pairwise stage read 2.85e-2
+# and r 0.99853 against itself on an H100 80GB HBM3 at 700 W).
+SCAN_NOISE_FACTOR = 3.0
+# Phase 19 (b): examples/uci's MLP widths (8 features, two hidden layers of
+# 64; RepeatedMLP's shared 64-wide layer three times a forward), fp32.
+UCI_IN, UCI_HIDDEN = 8, 64
+UCI_N, UCI_BATCH = 256, 64
+# Phase 19 (c): examples/dailymail's EncDecLM (construct_seq2seq's defaults).
+DAILYMAIL = dict(vocab_size=1024, max_seq_len=32, num_layers=2, num_heads=4, d_model=128)
+DAILYMAIL_N = 64
+
 IMAGENET_SIZE = 224
 IMAGENET_N = 48
 IMAGENET_QUERY_N, IMAGENET_TRAIN_N = 8, 32
@@ -2670,6 +2712,12 @@ def phase_flash_path(card: str, ctx: dict) -> dict:
     log("stage seconds in turns (naive, flash, flash, naive): " + "; ".join(f"{stage} " + ", ".join(
             f"{form} {turns[form][stage][0]:.4f}/{turns[form][stage][1]:.4f}" for form in forms)
             for stage in ("covariance", "lambda")) + f" [{card}]")
+    # Phase 19 holds the scanned form against these, then drops them.
+    ctx["flash_path"] = dict(model=model, cov=cov, eigen=eigen, lam=lam, scores=scores,
+                             seconds=seconds,
+                             peak=peak, launches=launches, score_args=score_args,
+                             turns={stage: turns["flash"][stage] for stage in ("covariance",
+                                                                                "lambda")})
     return launches
 
 
@@ -4755,14 +4803,18 @@ def check_finite_factors(label: str, analyzer, name: str, device) -> int:
     return tensors
 
 
-def vision_reference(card: str, label: str, module, k1_per_batch: int, tracked=None,
-                     device=torch.device("cuda", 0)) -> dict:
-    """One fp32 vision model (32x32 images, 10 classes; `tracked` names its
-    tracked layers, all by default) through the stage functions on the card
-    and on the CPU, as phase 6 does for GPT-2: covariances, eigenvalues,
-    lambda (on the CPU's eigenvectors), pairwise and self scores within
-    REFERENCE_RTOL of max, with the heuristic damping; K1 `k1_per_batch`
-    times a covariance batch on the card side, on its fp32 route."""
+def stages_card_against_cpu(module, task, host: dict, batch: int, tracked=None,
+                            device=torch.device("cuda", 0), cpu_dtype=None) -> dict:
+    """`module` (fp32) through the stage functions on the CPU and then on
+    `device`, on the same host data ("cov", "lambda", "query", "train"
+    columns): covariances, eigenvalues, lambda (on the CPU's eigenvectors),
+    pairwise and self scores, each side's max |card - CPU| / max |CPU|, with
+    the heuristic damping; EK-FAC fits lambda in the eigenbasis, and the two
+    solvers may pick different bases for close eigenvalues. `cpu_dtype`
+    float64 runs the CPU side on a float64 copy with float64 factors and
+    scores: the exact answer the card's fp32 is held to. Returns the gaps,
+    the card side's covariance factors and its K1 launches (and those on a
+    16-bit route)."""
     from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
@@ -4783,27 +4835,38 @@ def vision_reference(card: str, label: str, module, k1_per_batch: int, tracked=N
     from kronfluence_tpu_torch.utils.dataset import BatchLoader
 
     card_device = device
-    task = classification_task()
-    factor_args = FactorArguments(
-        strategy="ekfac", use_empirical_fisher=True, eigendecomposition_dtype="float32"
-    )
-    score_args = ScoreArguments(damping_factor=None)
-    n, batch = CIFAR_REFERENCE_N, 16
-    host = {k: make_images(count, 32, 10, seed, "cpu")
-            for k, count, seed in (("cov", n, 41), ("lambda", n, 42), ("query", 8, 43),
-                                   ("train", 32, 44))}
+    args = {None: (FactorArguments(strategy="ekfac", use_empirical_fisher=True,
+                                   eigendecomposition_dtype="float32"),
+                   ScoreArguments(damping_factor=None))}
+    if cpu_dtype is not None:
+        name = str(cpu_dtype).removeprefix("torch.")
+        args[cpu_dtype] = (
+            FactorArguments(strategy="ekfac", use_empirical_fisher=True,
+                            eigendecomposition_dtype=name, activation_covariance_dtype=name,
+                            gradient_covariance_dtype=name, per_sample_gradient_dtype=name,
+                            lambda_dtype=name),
+            ScoreArguments(damping_factor=None, score_dtype=name, per_sample_gradient_dtype=name,
+                           precondition_dtype=name))
     out, eig_cpu = {}, None
     for side in ("cpu", "card"):
         device = torch.device("cpu") if side == "cpu" else card_device
-        model = prepare_model(module.to(device), task)
-        data = {k: {c: v.to(device) for c, v in cols.items()} for k, cols in host.items()}
+        dtype = cpu_dtype if side == "cpu" else None
+        factor_args, score_args = args[dtype]
+
+        def cast(t):
+            return t.to(dtype) if dtype is not None and t.is_floating_point() else t
+
+        side_module = module if dtype is None else copy.deepcopy(module).to(dtype)
+        model = prepare_model(side_module.to(device), task)
+        data = {k: {c: cast(v).to(device) for c, v in cols.items()} for k, cols in host.items()}
         before, f16 = syrk.launches, syrk.f16_launches
         cov = fit_covariance_matrices_with_loader(
             model, task, BatchLoader(data["cov"], batch, device=device), factor_args,
             tracked_names=tracked)
         eig = perform_eigendecomposition(cov, factor_args)
         eig_cpu = eig if eig_cpu is None else eig_cpu
-        shared = {k: {m: t.to(device) for m, t in v.items()} for k, v in eig_cpu.items()}
+        shared = {k: {m: t.to(device=device, dtype=eig[k][m].dtype) for m, t in v.items()}
+                  for k, v in eig_cpu.items()}
         lam = fit_lambda_matrices_with_loader(
             model, task, BatchLoader(data["lambda"], batch, device=device), factor_args,
             eigen_factors=shared, tracked_names=tracked)
@@ -4829,10 +4892,29 @@ def vision_reference(card: str, label: str, module, k1_per_batch: int, tracked=N
         "pairwise": _max_rel(pair_g, pair_c),
         "self": _max_rel(self_g, self_c),
     }
+    return dict(diffs=diffs, cov=cov_g, k1=k1_launches, k1_f16=k1_f16)
+
+
+def vision_reference(card: str, label: str, module, k1_per_batch: int, tracked=None,
+                     device=torch.device("cuda", 0)) -> dict:
+    """One fp32 vision model (32x32 images, 10 classes; `tracked` names its
+    tracked layers, all by default) through the stage functions on the card
+    and on the CPU, as phase 6 does for GPT-2 (`stages_card_against_cpu`):
+    covariances, eigenvalues, lambda, pairwise and self scores within
+    REFERENCE_RTOL of max; K1 `k1_per_batch` times a covariance batch on the
+    card side, on its fp32 route."""
+    from kronfluence_tpu_torch.utils.constants import ACTIVATION_COVARIANCE_MATRIX_NAME
+
+    n, batch = CIFAR_REFERENCE_N, 16
+    host = {k: make_images(count, 32, 10, seed, "cpu")
+            for k, count, seed in (("cov", n, 41), ("lambda", n, 42), ("query", 8, 43),
+                                   ("train", 32, 44))}
+    run = stages_card_against_cpu(module, classification_task(), host, batch, tracked, device)
+    diffs, k1_launches, k1_f16 = run["diffs"], run["k1"], run["k1_f16"]
     k1_want = k1_per_batch * -(-n // batch)
     log(f"CIFAR reference, {label}: card vs CPU, max |diff| / max |ref|: "
         + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
-        + f" (limit {REFERENCE_RTOL:g}); {len(cov_g[ACTIVATION_COVARIANCE_MATRIX_NAME])} "
+        + f" (limit {REFERENCE_RTOL:g}); {len(run['cov'][ACTIVATION_COVARIANCE_MATRIX_NAME])} "
         f"tracked layers; K1 launches on the card side {k1_launches} (want {k1_want}: {k1_per_batch} in each "
         f"of {-(-n // batch)} covariance batches), {k1_f16} on a 16-bit route [{card}]")
     if k1_launches != k1_want or k1_f16:
@@ -5183,6 +5265,381 @@ def phase_imagenet(card: str, device=torch.device("cuda", 0)) -> dict:
     log(f"ImageNet: phase 18 took {time.perf_counter() - start:.1f} s; stage seconds "
         f"{out['seconds']}; launches over its stages {out['total']} [{card}]")
     return out
+
+
+def scanned_gpt2(ctx: dict, attention: str, remat: bool = False):
+    """Phase 5's seed-0 GPT-2 weights (phase 10's too), stacked, under
+    `scanned_lm_apply` with `attention`, prepared with the bench's task."""
+    from kronfluence_tpu_torch.models.transformer import (
+        gpt2_small,
+        scanned_lm_apply,
+        stack_layer_params,
+    )
+    from kronfluence_tpu_torch.prepare import FunctionalModel, prepare_model
+
+    config = gpt2_small(max_seq_len=SEQ, dtype=torch.bfloat16, attention=attention)
+    if "stacked" not in ctx:
+        ctx["stacked"] = stack_layer_params(ctx["model"].module.state_dict(), config.num_layers)
+    return prepare_model(FunctionalModel(scanned_lm_apply(config, remat), ctx["stacked"]),
+                         ctx["task"])
+
+
+def check_scanned_launches(launches: dict, want: dict, wgmma: int, naive_calls: int) -> None:
+    """Phase 19 (a)'s launches: each kernel as many times as in phase 10's
+    run of the same stages and batches (K1 on the wgmma kernel, K2 and the
+    flash kernels off GPT-2's route 0 there), FF, FB, K1 and K3 at least
+    once, the naive form never."""
+    log("scanned GPT-2 launches against phase 10's, same stages and batches: " + ", ".join(
+        f"{k} {launches[k]}/{want[k]}" for k in launches)
+        + f"; K1 on the wgmma kernel {wgmma}; naive attention calls {naive_calls}")
+    off = {k: (v, want[k]) for k, v in launches.items() if v != want[k]}
+    if off or naive_calls or wgmma != launches["syrk"]:
+        raise RuntimeError(f"scanned GPT-2 launches off phase 10's (got, want): {off}; naive "
+                           f"calls {naive_calls}, wgmma {wgmma} of {launches['syrk']}")
+    if not (launches["FF"] and launches["FB"] and launches["syrk"] and launches["probe"]):
+        raise RuntimeError(f"the scanned GPT-2 missed a kernel of its path: {launches}")
+
+
+def phase_scanned(card: str, ctx: dict) -> dict:
+    """Phase 19 (a): the scanned GPT-2 at full width through the four stage
+    functions with phase 10's recipe and data, against phase 10's module
+    form: its tracked names, launches, factors and scores; the naive form's
+    covariance and lambda on one batch bit for bit the module form's;
+    remat=True bit for bit remat=False with a lower peak."""
+    from kronfluence_tpu_torch.factor.covariance import (
+        discover_stage_specs,
+        fit_covariance_matrices_with_loader,
+    )
+    from kronfluence_tpu_torch.factor.eigen import fit_lambda_matrices_with_loader
+    from kronfluence_tpu_torch.ops.attention import naive_attention
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.score.pairwise import compute_pairwise_scores_with_loaders
+    from kronfluence_tpu_torch.utils.constants import (
+        ACTIVATION_COVARIANCE_MATRIX_NAME,
+        ALL_MODULE_NAME,
+        COVARIANCE_FACTOR_NAMES,
+        GRADIENT_COVARIANCE_MATRIX_NAME,
+        LAMBDA_FACTOR_NAMES,
+        LAMBDA_MATRIX_NAME,
+        NUM_ACTIVATION_COVARIANCE_PROCESSED,
+        NUM_GRADIENT_COVARIANCE_PROCESSED,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    device, task, data, fargs = ctx["device"], ctx["task"], ctx["data"], ctx["factor_args"]
+    ref = ctx.pop("flash_path")
+    try:
+        model = scanned_gpt2(ctx, "flash")
+        probe_batch = {k: v[:2] for k, v in data["cov"].items()}
+        scanned_specs = discover_stage_specs(model, task, probe_batch)
+        module_specs = discover_stage_specs(ctx["model"], task, probe_batch)
+        names = list(scanned_specs)
+        log(f"scanned GPT-2: {len(names)} tracked names from the tagged ops, the module form's "
+            f"{len(module_specs)}; first {names[:4]}, last {names[-1]}")
+        if (names != list(module_specs) or scanned_specs != module_specs
+                or len(names) != len(task.get_influence_tracked_modules())):
+            raise RuntimeError(f"the scanned form's tracked names or specs differ from the "
+                               f"module form's: {names} against {list(module_specs)}")
+
+        kernels = flash_kernels()
+        counted = {**kernels, "syrk": syrk, "probe": probe, "jacobi": jacobi_pivot_rotations}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counted.values():
+            fn.launches = 0
+        syrk.wgmma_launches = 0
+        naive_attention.calls = 0
+        cov, eigen, lam, scores, seconds = run_slice(
+            model, task, data, fargs, ref["score_args"], device,
+            (COV_BATCH, LAMBDA_BATCH, QUERY_BATCH, TRAIN_BATCH),
+        )
+        launches = {name: fn.launches for name, fn in counted.items()}
+        wgmma, naive_calls = syrk.wgmma_launches, naive_attention.calls
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log("scanned GPT-2 stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+            + f"; peak {peak:.2f} GiB; phase 10's module form: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in ref["seconds"].items())
+            + f"; peak {ref['peak']:.2f} GiB (phase 10's warm flash turns: covariance "
+            + "/".join(f"{v:.4f}" for v in ref["turns"]["covariance"]) + ", lambda "
+            + "/".join(f"{v:.4f}" for v in ref["turns"]["lambda"]) + f") [{card}]")
+        check_scanned_launches(launches, ref["launches"], wgmma, naive_calls)
+        check_artifacts(cov, eigen, lam, scores, COV_N * SEQ, LAMBDA_N, (QUERY_N, TRAIN_N))
+
+        # FF is deterministic: the activation covariance is the module form's
+        # bits. The gradient reaches FB, whose dQ sums by atomics: what it
+        # reaches is held within SCAN_RTOL. Lambda and the scores are held in
+        # phase 10's eigenbasis: two eigensolves of covariances that differ
+        # in the last bits may pick different bases for close eigenvalues,
+        # which moves EK-FAC's lambda by more than the form does.
+        act_same = _bitwise(cov, ref["cov"], (ACTIVATION_COVARIANCE_MATRIX_NAME,
+                                              NUM_ACTIVATION_COVARIANCE_PROCESSED,
+                                              NUM_GRADIENT_COVARIANCE_PROCESSED))
+        lam_shared = fit_lambda_matrices_with_loader(
+            model, task, BatchLoader(data["lambda"], LAMBDA_BATCH, device=device), fargs,
+            eigen_factors=ref["eigen"])
+
+        def pairwise(m, factors, score_args):
+            return compute_pairwise_scores_with_loaders(
+                m, task, BatchLoader(data["query"], QUERY_BATCH, device=device),
+                BatchLoader(data["train"], TRAIN_BATCH, device=device), factors, fargs,
+                score_args)[ALL_MODULE_NAME]
+
+        def gap_and_r(got, want):
+            return (_max_rel({ALL_MODULE_NAME: got}, {ALL_MODULE_NAME: want}),
+                    pearson(got.float(), want.float()))
+
+        shared = {**ref["cov"], **ref["eigen"], **lam_shared}
+        ref_factors = {**ref["cov"], **ref["eigen"], **ref["lam"]}
+        # Phase 5's dense query blocks, the scores kept in fp32: the module
+        # form's on phase 10's factors against the scanned form's on its
+        # lambda. (Rounded to bf16, the module form against itself read up to
+        # 8.4e-3 of max: one bf16 step of a score near the max is 3.9e-3.)
+        dense_args = copy.deepcopy(ctx["score_args"])
+        dense_args.score_dtype = "float32"
+        dense_ref = pairwise(ref["model"], ref_factors, dense_args)
+        dense = gap_and_r(pairwise(model, shared, dense_args), dense_ref)
+        gaps = {
+            "gradient covariance": _max_rel(cov[GRADIENT_COVARIANCE_MATRIX_NAME],
+                                            ref["cov"][GRADIENT_COVARIANCE_MATRIX_NAME]),
+            "lambda": _max_rel(lam_shared[LAMBDA_MATRIX_NAME], ref["lam"][LAMBDA_MATRIX_NAME]),
+            "scores (dense blocks, fp32 scores)": dense[0],
+        }
+        # Phase 10's fp8 blocks: a last-bit change of a query gradient moves
+        # its fp8 rounding (steps of about 3% at damping 1e-8), so the fp8
+        # scores are held against the module form's own noise: its pairwise
+        # stage run again on the same factors.
+        fp8 = {"own eigenbasis": gap_and_r(scores[ALL_MODULE_NAME], ref["scores"][ALL_MODULE_NAME]),
+               "phase 10's eigenbasis": gap_and_r(pairwise(model, shared, ref["score_args"]),
+                                                  ref["scores"][ALL_MODULE_NAME])}
+        control = gap_and_r(pairwise(ref["model"], ref_factors, ref["score_args"]),
+                            ref["scores"][ALL_MODULE_NAME])
+        log(f"scanned GPT-2 against phase 10's module form (flash): activation covariance and "
+            f"counts bit for bit {act_same}; max |diff| / max in phase 10's eigenbasis: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in gaps.items()) + f" (limit {SCAN_RTOL:g}), dense scores' "
+            f"Pearson r {dense[1]:.6f} (limit {SCAN_PEARSON_MIN}); lambda in its own eigenbasis "
+            f"{_max_rel(lam[LAMBDA_MATRIX_NAME], ref['lam'][LAMBDA_MATRIX_NAME]):.3e}")
+        log("scanned GPT-2, phase 10's fp8 scores: " + ", ".join(
+            f"{k} max |diff| / max {g:.3e}, r {r:.6f}" for k, (g, r) in fp8.items())
+            + f"; the module form's pairwise stage again on its own factors {control[0]:.3e}, r "
+            f"{control[1]:.6f} (limit: {SCAN_NOISE_FACTOR:g} x the module form's own gap and 1 - r)")
+        bad = {k: v for k, v in gaps.items() if not v <= SCAN_RTOL}
+        noisy = {k: v for k, v in fp8.items()
+                 if not (v[0] <= SCAN_NOISE_FACTOR * control[0]
+                         and 1 - v[1] <= SCAN_NOISE_FACTOR * (1 - control[1]))}
+        if not act_same or bad or not dense[1] >= SCAN_PEARSON_MIN or noisy:
+            raise RuntimeError(f"the scanned GPT-2 is off the module form: bitwise {act_same}, "
+                               f"{bad}, dense r {dense[1]:.6f}, fp8 {noisy} against {control}")
+        del lam_shared, shared, ref_factors, dense_ref, ref, lam, scores, cov
+
+        # Naive attention: one covariance batch and its lambda, bit for bit
+        # the module form's; then each block checkpointed (remat=True).
+        one = {k: v[:COV_BATCH] for k, v in data["cov"].items()}
+
+        def fit(m):
+            c, c_peak, _ = peak_of(fit_covariance_matrices_with_loader, m, task,
+                                   BatchLoader(one, COV_BATCH, device=device), fargs)
+            l, l_peak, _ = peak_of(fit_lambda_matrices_with_loader, m, task,
+                                   BatchLoader(one, COV_BATCH, device=device), fargs,
+                                   eigen_factors=eigen)
+            return {**c, **l}, (c_peak, l_peak)
+
+        factor_names = COVARIANCE_FACTOR_NAMES + LAMBDA_FACTOR_NAMES
+        module_form, _ = fit(ctx["model"])
+        naive, plain_peaks = fit(scanned_gpt2(ctx, "naive"))
+        remat, remat_peaks = fit(scanned_gpt2(ctx, "naive", remat=True))
+        naive_same = _bitwise(naive, module_form, factor_names)
+        remat_same = _bitwise(remat, naive, factor_names)
+        log(f"scanned GPT-2, naive attention, one covariance batch of {COV_BATCH} and its "
+            f"lambda: bit for bit the module form's {naive_same}; remat=True bit for bit "
+            f"remat=False {remat_same}; peaks remat / plain: covariance "
+            f"{remat_peaks[0] / 2**30:.3f} / {plain_peaks[0] / 2**30:.3f} GiB, lambda "
+            f"{remat_peaks[1] / 2**30:.3f} / {plain_peaks[1] / 2**30:.3f} GiB [{card}]")
+        if not (naive_same and remat_same):
+            raise RuntimeError(f"scanned GPT-2 (naive) not bitwise: module form {naive_same}, "
+                               f"remat {remat_same}")
+        if not all(r < p for r, p in zip(remat_peaks, plain_peaks)):
+            raise RuntimeError(f"remat does not lower the scanned GPT-2's peaks: {remat_peaks} "
+                               f"against {plain_peaks}")
+    finally:
+        ctx.pop("stacked", None)
+    return dict(launches=launches, seconds=seconds, peak=peak,
+                remat_peaks_gib=[p / 2**30 for p in remat_peaks],
+                plain_peaks_gib=[p / 2**30 for p in plain_peaks])
+
+
+def regression_task():
+    """examples/uci's task: summed squared error (the model's own noisy
+    prediction as the label for the true Fisher); the measurement is the
+    train loss."""
+    from kronfluence_tpu_torch.task import Task
+
+    class RegressionTask(Task):
+        def compute_train_loss(self, batch, model, sample=False, generator=None):
+            preds = model(batch["x"])
+            if not sample:
+                return torch.sum((preds - batch["y"]) ** 2)
+            noise = torch.randn(preds.shape, generator=generator, dtype=preds.dtype,
+                                device=preds.device)
+            return torch.sum((preds - (preds.detach() + noise)) ** 2)
+
+        def compute_measurement(self, batch, model):
+            return self.compute_train_loss(batch, model)
+
+    return RegressionTask()
+
+
+def seq2seq_task(num_layers: int):
+    """examples/dailymail's task: summed masked cross-entropy over decoder
+    positions, with its dict masks (encoder modules the article mask,
+    decoder modules the summary mask, the cross-attention's keys and values
+    the article mask)."""
+    from kronfluence_tpu_torch.task import Task
+
+    class SummarizationTask(Task):
+        def compute_train_loss(self, batch, model, sample=False, generator=None):
+            logits = model(batch["input_ids"], batch["decoder_input_ids"],
+                           batch["attention_mask"], batch["decoder_attention_mask"])[:, :-1]
+            logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
+            mask = batch["decoder_attention_mask"][:, 1:].to(logits.dtype)
+            vocab = logits.shape[-1]
+            if sample:
+                probs = torch.softmax(logits.detach().reshape(-1, vocab), dim=-1)
+                labels = torch.multinomial(probs, 1, generator=generator).reshape(mask.shape)
+            else:
+                labels = batch["decoder_input_ids"][:, 1:].long()
+            losses = F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1),
+                                     reduction="none").reshape(mask.shape)
+            return torch.sum(losses * mask)
+
+        def compute_measurement(self, batch, model):
+            return self.compute_train_loss(batch, model)
+
+        def get_attention_mask(self, batch):
+            enc, dec = batch["attention_mask"], batch["decoder_attention_mask"]
+            masks = {"lm_head": dec}
+            for i in range(num_layers):
+                for sub in ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/wi", "mlp/wo"):
+                    masks[f"encoder_{i}/{sub}"] = enc
+                for sub in ("self_attn/q", "self_attn/k", "self_attn/v", "self_attn/o",
+                            "cross_attn/q", "cross_attn/o", "mlp/wi", "mlp/wo"):
+                    masks[f"decoder_{i}/{sub}"] = dec
+                for sub in ("cross_attn/k", "cross_attn/v"):
+                    masks[f"decoder_{i}/{sub}"] = enc
+            return masks
+
+    return SummarizationTask()
+
+
+def regression_rows(n: int, seed: int) -> dict:
+    """examples/uci's synthetic Concrete shape: 8 features, one target."""
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, UCI_IN, generator=gen)
+    w = torch.randn(UCI_IN, 1, generator=gen)
+    return {"x": x, "y": torch.tanh(x @ w) + 0.1 * torch.randn(n, 1, generator=gen)}
+
+
+def seq2seq_rows(n: int, seed: int) -> dict:
+    """examples/dailymail's synthetic pairs, the encoder half-masked."""
+    t, vocab = DAILYMAIL["max_seq_len"], DAILYMAIL["vocab_size"]
+    gen = torch.Generator().manual_seed(seed)
+    enc_mask = torch.ones(n, t, dtype=torch.int64)
+    enc_mask[:, t // 2:] = 0
+    return {"input_ids": torch.randint(1, vocab, (n, t), generator=gen) * enc_mask,
+            "decoder_input_ids": torch.randint(1, vocab, (n, t), generator=gen),
+            "attention_mask": enc_mask,
+            "decoder_attention_mask": torch.ones(n, t, dtype=torch.int64)}
+
+
+def check_small_model_launches(label: str, launches: dict, naive_calls: int) -> None:
+    """Phase 19 (b) and (c), the card side: K3 once (its covariance fit), K2
+    and the flash kernels never; the encoder-decoder's attention is the
+    naive form, which GPT-2's counter does not see."""
+    if launches != {"probe": 1} or naive_calls:
+        raise RuntimeError(f"{label}: launches off on the card side: {launches}, GPT-2's naive "
+                           f"form {naive_calls} times")
+
+
+def phase_small_models(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 19 (b) and (c): examples/uci's MLP and a RepeatedMLP at its
+    widths, and examples/dailymail's encoder-decoder with a half-masked
+    encoder, each fp32 with seeded weights through the stage functions on
+    the card against the CPU port in float64 (`stages_card_against_cpu`,
+    within REFERENCE_RTOL of max): these are ReLU nets, and a pre-activation
+    within fp32 rounding of 0 (-1.34e-7 at one token of the encoder-
+    decoder's decoder_1/mlp/wi) flips its ReLU between two fp32 runs, which
+    moves that module's gradient covariance by 1.1e-3 of its max; the
+    float64 side does not round there. The encoder-decoder's token counts on
+    the card equal the mask sums; K2 and the flash kernels never, K3 once a
+    fit."""
+    from kronfluence_tpu_torch.models.encoder_decoder import EncDecConfig, init_encdec
+    from kronfluence_tpu_torch.models.mlp import MLP, RepeatedMLP
+    from kronfluence_tpu_torch.models.transformer import init_flax_scales_
+    from kronfluence_tpu_torch.ops.attention import naive_attention
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.utils.constants import (
+        NUM_ACTIVATION_COVARIANCE_PROCESSED,
+        NUM_GRADIENT_COVARIANCE_PROCESSED,
+    )
+
+    def seeded(module, seed):
+        init_flax_scales_(module, torch.Generator().manual_seed(seed))
+        return module
+
+    uci = {k: regression_rows(n, seed) for k, n, seed in
+           (("cov", UCI_N, 51), ("lambda", UCI_N, 52), ("query", 32, 53), ("train", 128, 54))}
+    seq2seq = {k: seq2seq_rows(n, seed) for k, n, seed in
+               (("cov", DAILYMAIL_N, 61), ("lambda", DAILYMAIL_N, 62), ("query", 8, 63),
+                ("train", 32, 64))}
+    cases = {
+        "MLP (8, 64, 64, 1)": (seeded(MLP(UCI_IN, (UCI_HIDDEN, UCI_HIDDEN), 1), 0),
+                               regression_task(), uci, UCI_BATCH),
+        "RepeatedMLP (8, 64 x 3 shared, 1)": (
+            seeded(RepeatedMLP(UCI_IN, UCI_HIDDEN, 1, num_repeats=3), 1), regression_task(),
+            uci, UCI_BATCH),
+        "EncDecLM (dailymail: d 128, 4 heads, 2 layers, seq 32, vocab 1024)": (
+            init_encdec(EncDecConfig(**DAILYMAIL), seed=0, device="cpu"),
+            seq2seq_task(DAILYMAIL["num_layers"]), seq2seq, 16),
+    }
+    counted = {**flash_kernels(), "probe": probe, "jacobi": jacobi_pivot_rotations}
+    result, runs = {}, {}
+    for label, (module, task, host, batch) in cases.items():
+        for fn in counted.values():
+            fn.launches = 0
+        calls = naive_attention.calls
+        run = runs[label] = stages_card_against_cpu(module, task, host, batch, device=device,
+                                                    cpu_dtype=torch.float64)
+        launches = {k: fn.launches for k, fn in counted.items() if fn.launches}
+        diffs = run["diffs"]
+        log(f"{label}: card vs CPU, max |diff| / max |ref|: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+            + f" (limit {REFERENCE_RTOL:g}); launches on the card side {launches}, K1 {run['k1']} "
+            f"[{card}]")
+        bad = {k: v for k, v in diffs.items() if not v <= REFERENCE_RTOL}
+        if bad:
+            raise RuntimeError(f"{label}: card disagrees with the CPU port: {bad}")
+        check_small_model_launches(label, launches, naive_attention.calls - calls)
+        result[label] = dict(diffs, k1=run["k1"], launches=launches)
+    # The encoder-decoder's rows on the card: the unmasked article tokens for
+    # the encoder and the cross-attention's keys and values, every summary
+    # token for the rest.
+    enc = int(seq2seq["cov"]["attention_mask"].sum())
+    dec = int(seq2seq["cov"]["decoder_attention_mask"].sum())
+    off = {}
+    encdec = runs[next(label for label in cases if label.startswith("EncDecLM"))]
+    for count in (NUM_ACTIVATION_COVARIANCE_PROCESSED, NUM_GRADIENT_COVARIANCE_PROCESSED):
+        for name, got in encdec["cov"][count].items():
+            want = enc if (name.startswith("encoder_") or name.endswith(("cross_attn/k",
+                                                                         "cross_attn/v"))) else dec
+            if int(got.item()) != want:
+                off[count, name] = (int(got.item()), want)
+    log(f"EncDecLM token counts on the card: encoder modules and cross-attention k/v {enc} "
+        f"(the article mask's sum), the rest {dec} (the summary mask's); mismatches {off}")
+    if off:
+        raise RuntimeError(f"EncDecLM token counts off the mask sums: {off}")
+    return result
 
 
 def profile_eigh(card: str) -> None:
@@ -6256,6 +6713,7 @@ def main() -> None:
     # and F3SW from phase 11 (fp32), below.
     flash_path = phase("10 flash path", phase_flash_path, card, ctx)
     launches.update(FF=flash_path["FF"], FB=flash_path["FB"])
+    scanned = phase("19 scanned GPT-2", phase_scanned, card, ctx)
     # Phase 12's artifacts stay on disk for phase 14, which reads them through
     # an Analyzer of its own: phase 13 starts with nothing of phase 12's on the card.
     root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_"))
@@ -6279,6 +6737,7 @@ def main() -> None:
     gemma = phase("16 gemma", phase_gemma, card)
     cifar = phase("17 cifar", phase_cifar, card)
     imagenet = phase("18 imagenet", phase_imagenet, card)
+    phase("19 MLP and encoder-decoder", phase_small_models, card)
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
     # from phase 16 (Gemma-2B's widths, bf16 D 256); FFS64, F2S and F3S from
     # phase 11's first run (fp32 D 64: the tiled_f32_64 forward and the
@@ -6369,6 +6828,7 @@ def main() -> None:
             "stage_options_launches": options_launches["syrk"],
             "score_features_launches": features_launches["syrk"],
             "llama_launches": llama_launches["syrk"],
+            "scanned_gpt2_launches": scanned["launches"]["syrk"],
             "cifar_launches": cifar["total"]["syrk"],
             "cifar_launches_per_covariance_batch": cifar["k1_per_covariance_batch"],
             "imagenet_launches": imagenet["total"]["syrk"],
@@ -6391,6 +6851,7 @@ def main() -> None:
             "stage_options_launches": options_launches["probe"],
             "score_features_launches": features_launches["probe"],
             "llama_launches": llama_launches["probe"],
+            "scanned_gpt2_launches": scanned["launches"]["probe"],
             "cifar_launches": cifar["total"]["probe"],
             "imagenet_launches": imagenet["total"]["probe"],
             **probe_result,
@@ -6439,6 +6900,7 @@ def main() -> None:
                if fid in ("FFH", "F2H", "F3H") else {}),
             **({"gemma_launches_by_stage": {stage: c[fid] for stage, c in gemma["launches"].items()}}
                if fid in ("F1", "F2", "F3", "FFW", "F2W", "F3W") else {}),
+            **({"scanned_gpt2_launches": scanned["launches"][fid]} if fid in ("FF", "FB") else {}),
             **flash_result[fid],
         }
         for fid, (name, where, source, path) in replaced.items()

@@ -7,14 +7,17 @@ live in `csrc/` and are built with nvcc at first use (`ops/kernels/`), never
 when the package is imported.
 """
 
+from kronfluence_tpu_torch import nn
 from kronfluence_tpu_torch.analyzer import Analyzer
 from kronfluence_tpu_torch.arguments import FactorArguments, ScoreArguments
-from kronfluence_tpu_torch.prepare import prepare_model
+from kronfluence_tpu_torch.prepare import FunctionalModel, prepare_model
 from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.version import __version__
 
 __all__ = [
     "Analyzer",
+    "FunctionalModel",
+    "nn",
     "prepare_model",
     "FactorArguments",
     "ScoreArguments",

@@ -2,7 +2,8 @@
 (activation, output-gradient) pairs.
 
 Port of `kronfluence_tpu/capture/engine.py`. A forward hook on each tracked
-layer (Linear or Conv2d) records its input and adds a zero probe to its output
+module (Linear, Conv2d or HF Conv1D), or a tagged functional op's tap by name,
+records the layer's input and adds a zero probe to its output
 (capture/context.py); `torch.autograd.grad(loss, probes)` then returns
 dL/d(output) for every use of every tracked layer.
 
@@ -16,7 +17,9 @@ back at the start of the backward and lower no peak. The port therefore
 checkpoints each module that directly holds a tracked layer (a GPT-2
 block's attention and MLP, a ResNet block) as its own region, recomputed when the backward
 reaches it; what lies between regions (layer norms, the residual stream,
-the loss head) is kept.
+the loss head) is kept. A functional model rematerialises only where it
+calls `checkpoint_block` (capture/functional.py), as in the JAX package; it
+holds no tracked module, so it has no region here.
 """
 
 import contextlib
@@ -27,7 +30,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from kronfluence_tpu_torch.capture.context import CAPTURE, DISCOVER, CaptureContext
+from kronfluence_tpu_torch.capture.context import CAPTURE, DISCOVER, CaptureContext, current_scope
 from kronfluence_tpu_torch.capture.specs import LayerSpec
 from kronfluence_tpu_torch.utils.exceptions import TrackedModuleNotFoundError
 
@@ -51,7 +54,7 @@ def discover(model, fn: Callable[[], torch.Tensor]) -> CaptureContext:
     `.specs` {name: LayerSpec} in order of first use, and `.output_shapes`
     {name: [output shape of each use]} (the JAX package's discovery avals).
     """
-    ctx = CaptureContext(DISCOVER, model.tracked_modules())
+    ctx = CaptureContext(DISCOVER, model.tracked_modules(), model.tracked_names)
     with ctx.activate(), torch.no_grad():
         fn()
     return ctx
@@ -72,14 +75,16 @@ def remat_regions(model) -> List[torch.nn.Module]:
 
 
 class _GeneratorSnapshot:
-    """Forward context of one region: the explicit generator's state as the
-    region's forward starts."""
+    """Forward context of one region: the explicit generator's state and the
+    tagged ops' name scope as the region's forward starts."""
 
     def __init__(self, generator: Optional[torch.Generator]) -> None:
         self.generator = generator
         self.state = None
+        self.scope = ()
 
     def __enter__(self):
+        self.scope = current_scope()
         if self.generator is not None:
             self.state = self.generator.get_state()
 
@@ -89,29 +94,32 @@ class _GeneratorSnapshot:
 
 @contextlib.contextmanager
 def _recompute(ctx: CaptureContext, snapshot: _GeneratorSnapshot):
-    """Recompute context of one region: the hooks without recording, and the
-    explicit generator at its state of the region's forward (checkpoint's
-    `preserve_rng_state` restores only the global generators), put back to
-    where it was afterwards."""
+    """Recompute context of one region: the hooks and taps without
+    recording, under the region's name scope, and the explicit generator at
+    its state of the region's forward (checkpoint's `preserve_rng_state`
+    restores only the global generators), put back to where it was
+    afterwards."""
     generator = snapshot.generator
     after = generator.get_state() if generator is not None else None
     if generator is not None:
         generator.set_state(snapshot.state)
     try:
-        with ctx.activate(record=False):
+        with ctx.activate(record=False, scope=snapshot.scope):
             yield
     finally:
         if generator is not None:
             generator.set_state(after)
 
 
-def _contexts(ctx: CaptureContext, generator: Optional[torch.Generator]):
-    snapshot = _GeneratorSnapshot(generator)
+def recompute_contexts(ctx: CaptureContext):
+    """`context_fn` of a checkpoint inside a capture: (forward, recompute),
+    replaying `ctx.generator`."""
+    snapshot = _GeneratorSnapshot(ctx.generator)
     return snapshot, _recompute(ctx, snapshot)
 
 
 @contextlib.contextmanager
-def _rematerialised(model, ctx: CaptureContext, generator: Optional[torch.Generator]):
+def _rematerialised(model, ctx: CaptureContext):
     """Runs each of `remat_regions(model)` under a non-reentrant checkpoint
     for the duration of the block."""
 
@@ -119,7 +127,7 @@ def _rematerialised(model, ctx: CaptureContext, generator: Optional[torch.Genera
         def run(*args, **kwargs):
             return checkpoint(
                 forward, *args, use_reentrant=False,
-                context_fn=functools.partial(_contexts, ctx, generator), **kwargs,
+                context_fn=functools.partial(recompute_contexts, ctx), **kwargs,
             )
 
         return run
@@ -149,8 +157,9 @@ def captured_forward(
     remat regions stay checkpointed until the block ends, so the backward
     pass belongs inside it: a region's recompute runs the regions nested in
     it as checkpoints too."""
-    ctx = CaptureContext(CAPTURE, model.tracked_modules())
-    with _rematerialised(model, ctx, generator) if remat else contextlib.nullcontext():
+    ctx = CaptureContext(CAPTURE, model.tracked_modules(), model.tracked_names)
+    ctx.generator = generator
+    with _rematerialised(model, ctx) if remat else contextlib.nullcontext():
         with ctx.activate(), torch.enable_grad():
             loss = fn()
         yield loss, ctx

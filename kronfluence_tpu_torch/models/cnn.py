@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kronfluence_tpu_torch.capture.functional import padded_conv2d
 from kronfluence_tpu_torch.capture.specs import normalize_padding
 from kronfluence_tpu_torch.ops.flatten import conv_pads
 
@@ -27,8 +28,8 @@ def _pair(value) -> Tuple[int, int]:
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d` with flax's padding at any stride: "SAME", "VALID" or
     explicit (lo, hi) pairs, which may differ. `self.padding` holds that
-    form, which the capture spec reads; symmetric pads go to the conv call,
-    others to an `F.pad` before it."""
+    form, which the capture spec reads; the forward is the functional
+    `conv2d`'s (`capture/functional.py:padded_conv2d`)."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_size, stride=1,
@@ -42,14 +43,8 @@ class Conv2d(nn.Conv2d):
         self.padding = normalize_padding(padding)
 
     def _conv_forward(self, input, weight, bias):
-        (top, bottom), (left, right) = conv_pads(
-            self.padding, input.shape[-2:], self.kernel_size, self.stride, self.dilation
-        )
-        if top == bottom and left == right:
-            return F.conv2d(input, weight, bias, self.stride, (top, left), self.dilation,
-                            self.groups)
-        input = F.pad(input, (left, right, top, bottom))
-        return F.conv2d(input, weight, bias, self.stride, 0, self.dilation, self.groups)
+        return padded_conv2d(input, weight, bias, self.stride, self.padding, self.dilation,
+                             self.groups)
 
     def output_size(self, size: Sequence[int]) -> Tuple[int, int]:
         """Spatial output size for an input of spatial `size`."""

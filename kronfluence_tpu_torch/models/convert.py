@@ -18,7 +18,13 @@ a `state_dict` for the port's model: for a `TransformerConfig` the port's
 
 The flax path `h_0/attn/c_attn` is the torch qualified name `h_0.attn.c_attn`
 (`layers_0/mlp/gate_proj` is `layers_0.mlp.gate_proj`, `res1/block_0/conv`
-is `res1.block_0.conv`).
+is `res1.block_0.conv`). Any port module whose names are the flax paths
+converts the same way: `MLP`, `RepeatedMLP` (models/mlp.py) and `EncDecLM`
+(models/encoder_decoder.py) are passed as the module.
+
+`scanned_params_from_flax` carries the JAX package's scanned GPT-2 params
+(`stack_layer_params`: `blocks` leaves with a leading layer axis) to the
+port's scanned layout (`models/transformer.py:stack_layer_params`).
 """
 
 from typing import Any, Dict, Mapping, Union
@@ -28,7 +34,11 @@ import torch
 from torch import nn
 
 from kronfluence_tpu_torch.models.llama import LlamaConfig, LlamaLM
-from kronfluence_tpu_torch.models.transformer import TransformerConfig, TransformerLM
+from kronfluence_tpu_torch.models.transformer import (
+    TransformerConfig,
+    TransformerLM,
+    stack_layer_params,
+)
 
 _LEAF_NAMES = {"kernel": "weight", "embedding": "weight", "scale": "weight", "bias": "bias"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
@@ -95,3 +105,21 @@ def state_dict_from_flax(
                 f"{key}: flax shape {tuple(tensor.shape)} vs torch {tuple(expected[key].shape)}."
             )
     return state
+
+
+def _layer_slice(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+    return {
+        key: _layer_slice(value, i) if isinstance(value, Mapping) else np.asarray(value)[i]
+        for key, value in tree.items()
+    }
+
+
+def scanned_params_from_flax(params: Mapping[str, Any], config: TransformerConfig) -> Dict[str, Any]:
+    """The JAX package's scanned GPT-2 params (numpy leaves; `blocks` stacked
+    over `config.num_layers`) as the port's scanned params, in
+    `config.dtype`: each layer is converted as `state_dict_from_flax`
+    converts an unrolled block, then stacked again."""
+    unrolled = {key: value for key, value in params.items() if key != "blocks"}
+    for i in range(config.num_layers):
+        unrolled[f"h_{i}"] = _layer_slice(params["blocks"], i)
+    return stack_layer_params(state_dict_from_flax(unrolled, config), config.num_layers)

@@ -19,12 +19,13 @@ the parameter and the compute dtype (bf16 on the GPU main path).
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from kronfluence_tpu_torch.capture.functional import linear, scan_layers
 from kronfluence_tpu_torch.ops.attention import (  # noqa: F401 (naive_attention re-exported)
     ATTENTION_IMPLS,
     naive_attention,
@@ -145,15 +146,117 @@ def init_transformer(
     packages convert flax params with `models/convert.py`."""
     device = torch.device("cuda" if device is None else device)
     model = TransformerLM(config, device=device)
-    gen = torch.Generator(device).manual_seed(seed)
+    init_flax_scales_(model, torch.Generator(device).manual_seed(seed))
+    return model
+
+
+@torch.no_grad()
+def init_flax_scales_(model: nn.Module, generator: torch.Generator) -> None:
+    """Draws every Linear, Embedding and LayerNorm of `model`, in module
+    order, at flax's initializer scales from `generator`."""
     for module in model.modules():
         if isinstance(module, nn.Linear):
-            module.weight.normal_(0.0, 1.0 / math.sqrt(module.in_features), generator=gen)
+            module.weight.normal_(0.0, 1.0 / math.sqrt(module.in_features), generator=generator)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.Embedding):
-            module.weight.normal_(0.0, 1.0 / math.sqrt(module.embedding_dim), generator=gen)
+            module.weight.normal_(0.0, 1.0 / math.sqrt(module.embedding_dim), generator=generator)
         elif isinstance(module, nn.LayerNorm):
             module.weight.fill_(1.0)
             module.bias.zero_()
-    return model
+
+
+# ---------------------------------------------------------------------------
+# Scanned form: one block applied over stacked (L, ...) layer parameters.
+#
+# The JAX package scans ONE block over a stacked parameter pytree so that the
+# traced program holds one block whatever the depth (`scanned_lm_apply`,
+# `capture.functional.scan_layers`). Eager torch traces nothing, so the
+# port's `scan_layers` is a loop; the form is kept because users hold
+# stacked checkpoints, and its tracked names are the module form's.
+# ---------------------------------------------------------------------------
+
+
+def _nested(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, tensor in state_dict.items():
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = tensor
+    return tree
+
+
+def _stacked(layers):
+    if isinstance(layers[0], Mapping):
+        return {k: _stacked([layer[k] for layer in layers]) for k in layers[0]}
+    return torch.stack(layers)
+
+
+def stack_layer_params(state_dict: Mapping[str, torch.Tensor], num_layers: int) -> Dict[str, Any]:
+    """The scanned layout of a TransformerLM `state_dict` (the port's, or one
+    converted from flax by `models/convert.py:state_dict_from_flax`): the
+    blocks `h_0 .. h_{L-1}` stacked leaf by leaf into `blocks`, each leaf with
+    a leading (L,) axis; the embeddings, final norm and head as nested dicts
+    (`{"wte": {"weight": ...}, "blocks": {"attn": {"c_attn": {"weight":
+    (L, 3d, d), ...}}}, ...}`)."""
+    tree = _nested(state_dict)
+    layers = [tree.pop(f"h_{i}") for i in range(num_layers)]
+    extra = sorted(k for k in tree if k.startswith("h_"))
+    if extra:
+        raise ValueError(f"state_dict holds blocks {extra} beyond num_layers={num_layers}.")
+    return {"blocks": _stacked(layers), **tree}
+
+
+def scanned_lm_apply(config: TransformerConfig, remat: bool = False):
+    """The GPT-2 forward over `stack_layer_params` params, as a function.
+
+    The same op sequence and dtype promotions as `TransformerLM.forward`,
+    with every tracked projection a tagged `linear` and the layer stack under
+    `scan_layers(..., name_format="h_{i}")`: the tracked names are the module
+    form's (`h_0/attn/c_attn` ...; the head is untracked, as in the JAX
+    package's scanned form), and on the same weights the two give the same
+    bits. Attention goes through `ops/attention.py:scaled_dot_attention`
+    with `config.attention`; `remat=True` checkpoints each block
+    (`checkpoint_block`).
+
+    Returns `apply(params, input_ids, attention_mask=None) -> logits`; bind
+    it with `prepare.FunctionalModel(apply, params)`.
+    """
+    d = config.d_model
+
+    def layer_norm(x, p):
+        return F.layer_norm(x, (d,), p["weight"], p["bias"], eps=1e-6)
+
+    def attention(x, p, attention_mask):
+        b, t, _ = x.shape
+        head_dim = d // config.num_heads
+        qkv = linear(x, p["c_attn"]["weight"], p["c_attn"]["bias"], name="attn/c_attn")
+        q, k, v = qkv.split(d, dim=-1)
+
+        def heads(z):
+            return z.reshape(b, t, config.num_heads, head_dim).transpose(1, 2)
+
+        out = scaled_dot_attention(heads(q), heads(k), heads(v), attention_mask, config.attention)
+        out = out.transpose(1, 2).reshape(b, t, d)
+        return linear(out, p["c_proj"]["weight"], p["c_proj"]["bias"], name="attn/c_proj")
+
+    def mlp(x, p):
+        h = linear(x, p["c_fc"]["weight"], p["c_fc"]["bias"], name="mlp/c_fc")
+        h = F.gelu(h, approximate="tanh")
+        return linear(h, p["c_proj"]["weight"], p["c_proj"]["bias"], name="mlp/c_proj")
+
+    def apply(params, input_ids, attention_mask=None):
+        pos = torch.arange(input_ids.shape[1], device=input_ids.device)
+        x = F.embedding(input_ids, params["wte"]["weight"])
+        x = x + F.embedding(pos, params["wpe"]["weight"])[None]
+
+        def body(h, layer):
+            h = h + attention(layer_norm(h, layer["ln_1"]), layer["attn"], attention_mask)
+            return h + mlp(layer_norm(h, layer["ln_2"]), layer["mlp"]), None
+
+        x, _ = scan_layers(body, x, params["blocks"], name_format="h_{i}", remat=remat)
+        return F.linear(layer_norm(x, params["ln_f"]), params["lm_head"]["weight"])
+
+    return apply

@@ -48,7 +48,9 @@ def test_every_module_is_checked():
     """The checks above walk the package; the modules ported last are in it."""
     modules = _port_modules()
     for name in ("kronfluence_tpu_torch.ops.svd", "kronfluence_tpu_torch.evaluate",
-                 "kronfluence_tpu_torch.score.pairwise", "kronfluence_tpu_torch.ops.scores"):
+                 "kronfluence_tpu_torch.score.pairwise", "kronfluence_tpu_torch.ops.scores",
+                 "kronfluence_tpu_torch.capture.functional", "kronfluence_tpu_torch.nn",
+                 "kronfluence_tpu_torch.models.mlp", "kronfluence_tpu_torch.models.encoder_decoder"):
         assert name in modules
 
 
@@ -87,7 +89,7 @@ def test_package_exports_the_api_and_builds_nothing():
         "import kronfluence_tpu_torch as kf\n"
         "from kronfluence_tpu_torch.ops.kernels import build\n"
         "names = ['Analyzer', 'prepare_model', 'FactorArguments', 'ScoreArguments', 'Task',\n"
-        "         '__version__']\n"
+        "         '__version__', 'nn', 'FunctionalModel']\n"
         "missing = [n for n in names if not hasattr(kf, n)]\n"
         "maps = open('/proc/self/maps').read()\n"
         "print('MISSING', missing, 'LOADED', build.load_library.cache_info().currsize,\n"
