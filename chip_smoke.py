@@ -305,6 +305,26 @@ each of which raises on failure:
      the CPU port within phase 6's limit, K3 once and K2 and the flash
      kernels never on the card side; the encoder-decoder's token counts on
      the card equal the mask sums.
+ 20. the data mesh (parallel/), right after phase 8, on phase 5's model,
+     data, recipe and batches: (a) in this process, an NCCL group of one
+     rank on cuda:0 through the stage functions on its mesh (one all-reduce
+     of the factor sums a stage, the scores assembled through the group):
+     covariance, eigenpairs, lambda and scores equal phase 5's bit for bit,
+     K1 36 a covariance batch, all wgmma, K3 once; (b) two gloo ranks on
+     cuda:0 (NCCL will not put two ranks on one card), each a subprocess of
+     this script (`--distributed-rank`), each taking half of every global
+     batch: against a control, one process at the ranks' batches (half of
+     phase 5's, so the same per-example bits; its scores' Pearson r against
+     phase 5's printed), the activation and gradient covariance within one
+     bf16 step of max|C| where stored in bf16 (1e-5 of max in fp32), counts
+     equal, lambda in the control's eigenbasis within 2e-3 of max, the
+     scores from the control's factors at Pearson r at least 0.9999;
+     factors, eigenpairs and scores equal bit for bit on the two ranks;
+     lambda and scores from the ranks' own eigenpairs printed; K1 144
+     launches on each rank, all wgmma, K3 once a fit on each; each rank's
+     stage seconds, peak memory and the seconds of its all-reduces and score
+     assembly printed, and which collectives gloo runs on CUDA tensors; (c)
+     where two cards are visible, the same two ranks on NCCL, one a card.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -372,16 +392,23 @@ csrc/flash_backward_f32_d256.cu without the split (group 0 sums S and group
 1 dP over all of head_dim on 2 x 4 tiles; held to the plain version within
 1e-5 of max and to its own bits), with each kernel's SASS counts, registers,
 spills and CTAs an SM, and against F2SW and F3.
+
+`python3 chip_smoke.py --distributed-rank RANK WORLD BACKEND RENDEZVOUS OUTDIR`
+is one rank of phase 20, started by it: it runs phase 5's slice on the data
+mesh and writes its results to OUTDIR.
 """
 
 import copy
 import ctypes
 import dataclasses
+import datetime
 import functools
 import gc
 import json
+import math
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
@@ -1158,9 +1185,10 @@ def make_tokens(n: int, seq: int, vocab: int, seed: int, device, padded: bool = 
     return {k: torch.from_numpy(v).to(device) for k, v in host.items()}
 
 
-def run_slice(model, task, data, factor_args, score_args, device, batches):
+def run_slice(model, task, data, factor_args, score_args, device, batches, mesh=None):
     """covariance -> eigendecomposition -> lambda -> pairwise; returns the
-    artifacts and each stage's seconds (host clock, synchronized)."""
+    artifacts and each stage's seconds (host clock, synchronized). On a data
+    `mesh` the batches are global and each rank loads its half."""
     from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
     from kronfluence_tpu_torch.factor.eigen import (
         fit_lambda_matrices_with_loader,
@@ -1178,7 +1206,8 @@ def run_slice(model, task, data, factor_args, score_args, device, batches):
     seconds = {}
     t0 = time.perf_counter()
     cov = fit_covariance_matrices_with_loader(
-        model, task, BatchLoader(data["cov"], cov_b, device=device), factor_args
+        model, task, BatchLoader(data["cov"], cov_b, device=device, mesh=mesh), factor_args,
+        mesh=mesh,
     )
     sync()
     seconds["covariance"] = time.perf_counter() - t0
@@ -1188,17 +1217,17 @@ def run_slice(model, task, data, factor_args, score_args, device, batches):
     seconds["eigendecomposition"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     lam = fit_lambda_matrices_with_loader(
-        model, task, BatchLoader(data["lambda"], lam_b, device=device), factor_args,
-        eigen_factors=eigen,
+        model, task, BatchLoader(data["lambda"], lam_b, device=device, mesh=mesh), factor_args,
+        eigen_factors=eigen, mesh=mesh,
     )
     sync()
     seconds["lambda"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     scores = compute_pairwise_scores_with_loaders(
         model, task,
-        BatchLoader(data["query"], query_b, device=device),
-        BatchLoader(data["train"], train_b, device=device),
-        {**cov, **eigen, **lam}, factor_args, score_args,
+        BatchLoader(data["query"], query_b, device=device, mesh=mesh),
+        BatchLoader(data["train"], train_b, device=device, mesh=mesh),
+        {**cov, **eigen, **lam}, factor_args, score_args, mesh=mesh,
     )
     sync()
     seconds["pairwise"] = time.perf_counter() - t0
@@ -1244,9 +1273,9 @@ def check_artifacts(cov, eigen, lam, scores, tokens_per_module, examples, score_
         raise RuntimeError(f"scores: shape {tuple(got.shape)} (want {score_shape}) or non-finite")
 
 
-def setup_main_path() -> dict:
+def setup_main_path(device: torch.device = torch.device("cuda", 0)) -> dict:
     """GPT-2 small at full width in bf16 with seeded random weights, the bench
-    recipe, and the four stages' data, on cuda:0."""
+    recipe, and the four stages' data, on `device`."""
     from kronfluence_tpu_torch.models.transformer import gpt2_small, init_transformer
     from kronfluence_tpu_torch.prepare import prepare_model
     from kronfluence_tpu_torch.utils.common.factor_arguments import (
@@ -1256,12 +1285,11 @@ def setup_main_path() -> dict:
         smart_low_precision_score_arguments,
     )
 
-    device = torch.device("cuda", 0)
     config = gpt2_small(max_seq_len=SEQ, dtype=torch.bfloat16)
     t0 = time.perf_counter()
     task = wikitext_style_task(config.num_layers)
     model = prepare_model(init_transformer(config, seed=0, device=device), task)
-    torch.cuda.synchronize()
+    torch.cuda.synchronize(device)
     log(f"main path: GPT-2 small bf16 ({sum(p.numel() for p in model.module.parameters()):,} "
         f"params) initialised in {time.perf_counter() - t0:.2f} s")
 
@@ -1364,8 +1392,388 @@ def phase_main_path(card: str) -> dict:
     # Phase 12 holds its artifacts against these; kept on the host so that the
     # phases between hold no more device memory than before.
     eigen_host = {k: {n: t.cpu() for n, t in v.items()} for k, v in eigen.items()}
-    return dict(ctx, launches=launches, cov=cov, eigen_host=eigen_host, scores=scores,
+    lam_host = {k: {n: t.cpu() for n, t in v.items()} for k, v in lam.items()}
+    return dict(ctx, launches=launches, cov=cov, eigen_host=eigen_host, lam_host=lam_host,
+                scores=scores,
                 seconds=seconds, peak=peak)
+
+
+# Phase 20: the data mesh. NCCL will not put two ranks on one card, so the two
+# ranks of (b) share cuda:0 through gloo (with CUDA tensors); each takes half
+# of every one of phase 5's global batches.
+DIST_RANKS = 2
+# Each rank's own limit, its start and the kernel library's load included; a
+# hung collective fails the phase instead of the run.
+DIST_RANK_TIMEOUT = 240
+# The ranks against one process at their batch (the same terms, summed per
+# rank and then over the ranks): factors stored in fp32 within 1e-5 of max;
+# stored in bf16, those fp32 sums may round to neighbouring bf16 values, one
+# step apart at most at max|C|. A bf16 step moves the eigenvectors of close
+# eigenvalues, so lambda is held in the control's eigenbasis, and the scores
+# are taken from the control's factors.
+DIST_COV_RTOL_FP32 = 1e-5
+DIST_LAMBDA_RTOL = 2e-3
+DIST_PEARSON_MIN = 0.9999
+# Collectives tried on CUDA tensors under gloo, to record which it runs. Each
+# either runs or is refused on both ranks before anything is sent.
+GLOO_CUDA_OPS = ("all_reduce", "broadcast", "barrier", "all_gather", "all_gather_into_tensor",
+                 "reduce_scatter_tensor", "all_to_all_single", "gather", "reduce")
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+def gloo_cuda_ops(mesh) -> dict:
+    """Which of GLOO_CUDA_OPS gloo runs on CUDA tensors ("ran") or refuses
+    (its error's first line)."""
+    import torch.distributed as dist
+
+    x = torch.ones(DIST_RANKS * 4, device=mesh.device)
+    many = [torch.empty_like(x) for _ in range(mesh.data)]
+    calls = {
+        "all_reduce": lambda: dist.all_reduce(x.clone()),
+        "broadcast": lambda: dist.broadcast(x.clone(), src=0),
+        "barrier": lambda: dist.barrier(),
+        "all_gather": lambda: dist.all_gather(many, x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(mesh.data * x.numel(), device=mesh.device), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(x.numel() // mesh.data, device=mesh.device), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(torch.empty_like(x), x),
+        "gather": lambda: dist.gather(x, many if mesh.rank == 0 else None, dst=0),
+        "reduce": lambda: dist.reduce(x.clone(), dst=0),
+    }
+    ran = {}
+    for name in GLOO_CUDA_OPS:
+        try:
+            calls[name]()
+            torch.cuda.synchronize(mesh.device)
+            ran[name] = "ran"
+        except (RuntimeError, ValueError) as exc:  # recorded: which ops gloo refuses
+            ran[name] = str(exc).splitlines()[0][:160]
+    return ran
+
+
+def distributed_rank(args: list) -> None:
+    """One rank of phase 20 (`--distributed-rank RANK WORLD BACKEND RENDEZVOUS
+    OUTDIR`): gloo ranks share cuda:0, NCCL rank r takes cuda:r."""
+    rank, world, backend = int(args[0]), int(args[1]), args[2]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", rank if backend == "nccl" else 0)
+    rank_slice(rank, world, backend, args[3], Path(args[4]), device)
+
+
+def rank_slice(rank: int, world: int, backend: str, rendezvous: str, outdir: Path,
+               device: torch.device) -> None:
+    """Phase 5's slice on the data mesh as one rank, against the one-process
+    control in OUTDIR/control.pt, each stage apart: the covariance; its
+    eigendecomposition; lambda in the control's eigenbasis; the scores from
+    the control's factors; then lambda and scores from this mesh's own
+    eigenpairs, for the record. Writes to OUTDIR each factor's gap to the
+    control, digests of the factors (the ranks must agree bit for bit), the
+    scores, the kernel counts, stage seconds, peak memory and collective
+    seconds."""
+    import hashlib
+
+    from kronfluence_tpu_torch.factor import covariance as covariance_stage
+    from kronfluence_tpu_torch.factor import eigen as eigen_stage
+    from kronfluence_tpu_torch.ops.attention import naive_attention
+    from kronfluence_tpu_torch.ops.kernels.build import load_library
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.parallel import distributed
+    from kronfluence_tpu_torch.parallel.mesh import make_mesh
+    from kronfluence_tpu_torch.score import pairwise as pairwise_stage
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    start = time.perf_counter()
+    distributed.initialize(backend, init_method=f"file://{rendezvous}", world_size=world,
+                           rank=rank, local_rank=device.index,
+                           timeout=datetime.timedelta(seconds=DIST_RANK_TIMEOUT))
+    mesh = make_mesh(device=device)
+    on_card = device.type == "cuda"
+    if on_card:
+        with torch.cuda.device(device):
+            load_library()  # built by phase 2; its own K3 check launches here, before the counts
+    ctx = setup_main_path(device)
+    model, task, data = ctx["model"], ctx["task"], ctx["data"]
+    factor_args, score_args = ctx["factor_args"], ctx["score_args"]
+    control = torch.load(outdir / "control.pt", weights_only=False)
+    on_device = {k: {n: t.to(device) for n, t in v.items()}
+                 for k, v in {**control["cov"], **control["eigen"], **control["lam"]}.items()}
+    control_eigen = {k: on_device[k] for k in control["eigen"]}
+    collective = {"all_reduce": 0.0, "score_assembly": 0.0}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(device)
+
+    def timed(fn, key):
+        def wrapper(*a, **kw):
+            sync()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            sync()
+            collective[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    covariance_stage.all_reduce_tree = timed(covariance_stage.all_reduce_tree, "all_reduce")
+    eigen_stage.all_reduce_tree = timed(eigen_stage.all_reduce_tree, "all_reduce")
+    pairwise_stage.gather_rows = timed(pairwise_stage.gather_rows, "score_assembly")
+
+    def loader(key, batch):
+        return BatchLoader(data[key], batch, device=device, mesh=mesh)
+
+    def lambda_stage(eigen):
+        return eigen_stage.fit_lambda_matrices_with_loader(
+            model, task, loader("lambda", LAMBDA_BATCH), factor_args, eigen_factors=eigen,
+            mesh=mesh)
+
+    def pairwise(factors):
+        return pairwise_stage.compute_pairwise_scores_with_loaders(
+            model, task, loader("query", QUERY_BATCH), loader("train", TRAIN_BATCH), factors,
+            factor_args, score_args, mesh=mesh)
+
+    seconds = {}
+
+    def stage(name, fn, *args):
+        sync()
+        t = time.perf_counter()
+        out = fn(*args)
+        sync()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    ready = time.perf_counter() - start
+    syrk.launches = syrk.wgmma_launches = probe.launches = 0
+    naive_attention.calls = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    cov = stage("covariance", covariance_stage.fit_covariance_matrices_with_loader, model, task,
+                loader("cov", COV_BATCH), factor_args, None, mesh)
+    eigen = stage("eigendecomposition", eigen_stage.perform_eigendecomposition, cov, factor_args)
+    lam = stage("lambda", lambda_stage, control_eigen)
+    scores = stage("pairwise", pairwise, on_device)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30 if on_card else 0.0
+    launches = {"syrk": syrk.launches, "wgmma": syrk.wgmma_launches, "probe": probe.launches,
+                "naive_attention": naive_attention.calls}
+    own_lam = lambda_stage(eigen)
+    own_scores = pairwise({**cov, **eigen, **own_lam})
+    ops = gloo_cuda_ops(mesh) if backend == "gloo" and on_card else None
+
+    def gaps(got, want):
+        return {k: {n: (float((t.float() - want[k][n].float()).abs().max()),
+                        float(want[k][n].float().abs().max()), str(want[k][n].dtype),
+                        torch.equal(t, want[k][n]))
+                    for n, t in v.items()} for k, v in got.items()}
+
+    def digests(group):
+        return {k: {n: hashlib.sha256(t.detach().contiguous().view(-1).view(torch.uint8)
+                                      .cpu().numpy()).hexdigest() for n, t in v.items()}
+                for k, v in group.items()}
+
+    torch.save(dict(
+        gaps={**gaps(cov, on_device), **gaps(lam, on_device)},
+        own_lambda_gaps=gaps(own_lam, on_device),
+        digests=digests({**cov, **eigen, **lam, **own_lam}),
+        scores=scores, own_scores=own_scores, seconds=seconds, peak=peak, launches=launches,
+        collective=collective, ready=ready, backend=mesh.backend, device=str(device), ops=ops,
+    ), outdir / f"rank{rank}.pt")
+    distributed.sync_global_devices("saved")
+    distributed.shutdown()
+    log(f"rank {rank} of {world} ({backend}, {device}): done in {time.perf_counter() - start:.1f} s")
+
+
+def run_ranks(backend: str, control: dict, timeout: int = DIST_RANK_TIMEOUT) -> list:
+    """Starts DIST_RANKS ranks of this script on `backend`, each held to
+    `control`, and returns what each wrote; fails if any fails or outlasts
+    `timeout`."""
+    workdir = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_mesh_"))
+    try:
+        torch.save(control, workdir / "control.pt")
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(REPO / "chip_smoke.py"), "--distributed-rank", str(rank),
+                 str(DIST_RANKS), backend, str(workdir / "rendezvous"), str(workdir)],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for rank in range(DIST_RANKS)
+        ]
+        try:
+            outputs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, out) in enumerate(zip(procs, outputs)):
+            if p.returncode != 0:
+                raise RuntimeError(f"{backend} rank {rank} failed ({p.returncode}):\n{out[-4000:]}")
+        return [torch.load(workdir / f"rank{rank}.pt", weights_only=False)
+                for rank in range(DIST_RANKS)]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def check_mesh_launches(label: str, k1: int, wgmma: int, k3: int, cov_batches: int) -> None:
+    """K1 36 times a covariance batch of the rank's rows, all wgmma; K3 once
+    a fit."""
+    want = SYRK_LAUNCHES_PER_COV_BATCH * cov_batches
+    if not k1 == wgmma == want:
+        raise RuntimeError(f"{label}: K1 launched {k1} times, {wgmma} on the wgmma kernel; "
+                           f"want {want}, all wgmma")
+    if k3 != 1:
+        raise RuntimeError(f"{label}: K3 launched {k3} times in one fit")
+
+
+def worst_gaps(gaps: dict) -> dict:
+    """Per factor, the largest max|diff| / max over modules."""
+    return {k: max(err / top if top else err for err, top, _, _ in v.values())
+            for k, v in gaps.items() if not k.startswith("num_")}
+
+
+def check_ranks(card: str, label: str, ranks: list, control: dict, cov_batches: int) -> dict:
+    """Each rank against the one-process control (covariance within one bf16
+    step of max, or 1e-5 of max in fp32; counts equal; lambda in the
+    control's eigenbasis within 2e-3 of max; the scores from the control's
+    factors at Pearson r >= 0.9999), the ranks against each other bit for
+    bit, and K1's and K3's launches."""
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME, LAMBDA_MATRIX_NAME
+
+    control_scores = control["scores"][ALL_MODULE_NAME].float().flatten()
+    for rank, got in enumerate(ranks):
+        for factor_name, modules in got["gaps"].items():
+            for name, (err, top, dtype, equal) in modules.items():
+                if factor_name.startswith("num_"):
+                    if not equal:
+                        raise RuntimeError(f"{label} rank {rank}: {factor_name} of {name} differs")
+                    continue
+                if factor_name == LAMBDA_MATRIX_NAME:
+                    limit = DIST_LAMBDA_RTOL * top
+                elif dtype == str(torch.bfloat16):
+                    limit = bf16_step(top)
+                else:
+                    limit = DIST_COV_RTOL_FP32 * top
+                if err > limit:
+                    raise RuntimeError(f"{label} rank {rank}: {factor_name} of {name} off by "
+                                       f"{err:.3e} (limit {limit:.3e}, max {top:.3e})")
+        r = pearson(got["scores"][ALL_MODULE_NAME].float().flatten(), control_scores)
+        if r < DIST_PEARSON_MIN:
+            raise RuntimeError(f"{label} rank {rank}: scores' Pearson r {r:.7f} < {DIST_PEARSON_MIN}")
+        k1, k3 = got["launches"]["syrk"], got["launches"]["probe"]
+        check_mesh_launches(f"{label} rank {rank}", k1, got["launches"]["wgmma"], k3,
+                            cov_batches)
+        log(f"{label} rank {rank} on {got['device']} ({got['backend']}): stage seconds "
+            + ", ".join(f"{k} {v:.3f}" for k, v in got["seconds"].items())
+            + f"; all-reduce {got['collective']['all_reduce']:.3f} s, score assembly "
+            f"{got['collective']['score_assembly']:.3f} s (own-eigenbasis lambda and scores "
+            f"included); peak device memory {got['peak']:.2f} GiB; start to first batch "
+            f"{got['ready']:.1f} s; K1 {k1} (all wgmma), K3 {k3}, naive attention calls "
+            f"{got['launches']['naive_attention']} [{card}]")
+    first, second = ranks
+    unequal = [f"{k} {n}" for k, v in first["digests"].items() for n, d in v.items()
+               if second["digests"][k][n] != d]
+    unequal += [f"scores {k}" for group in ("scores", "own_scores")
+                for k, t in first[group].items() if not torch.equal(second[group][k], t)]
+    if unequal:
+        raise RuntimeError(f"{label}: the ranks' results differ: {unequal[:4]}")
+    own_r = pearson(first["own_scores"][ALL_MODULE_NAME].float().flatten(), control_scores)
+    log(f"{label}: against one process, per factor max|diff| / max: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst_gaps(first["gaps"]).items())
+        + f" (lambda in the control's eigenbasis); scores from the control's factors: Pearson r "
+        f"{pearson(first['scores'][ALL_MODULE_NAME].float().flatten(), control_scores):.7f}; "
+        f"factors, eigenpairs and scores equal bit for bit on both ranks. From the mesh's own "
+        f"eigenpairs (not held): lambda {worst_gaps(first['own_lambda_gaps'])[LAMBDA_MATRIX_NAME]:.3e} "
+        f"of max, scores' Pearson r {own_r:.7f}")
+    return {"K1": [g["launches"]["syrk"] for g in ranks],
+            "K3": [g["launches"]["probe"] for g in ranks]}
+
+
+def phase_distributed(card: str, ctx: dict) -> dict:
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.parallel import distributed
+    from kronfluence_tpu_torch.parallel.mesh import make_mesh
+    from kronfluence_tpu_torch.utils.constants import ALL_MODULE_NAME
+
+    model, task, data, device = ctx["model"], ctx["task"], ctx["data"], ctx["device"]
+    factor_args, score_args = ctx["factor_args"], ctx["score_args"]
+    cov_batches = -(-COV_N // COV_BATCH)
+    batches = (COV_BATCH, LAMBDA_BATCH, QUERY_BATCH, TRAIN_BATCH)
+    # (a) One NCCL rank in this process.
+    syrk.launches = syrk.wgmma_launches = probe.launches = 0
+    distributed.initialize("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                           rank=0, local_rank=device.index)
+    try:
+        mesh = make_mesh(device=device)
+        backend = mesh.backend
+        cov, eigen, lam, scores, seconds = run_slice(
+            model, task, data, factor_args, score_args, device, batches, mesh=mesh)
+    finally:
+        distributed.shutdown()
+    nccl_one = {"K1": syrk.launches, "K3": probe.launches}
+    unequal = [f"{k} {n}" for got, want in
+               ((cov, ctx["cov"]), (eigen, ctx["eigen_host"]), (lam, ctx["lam_host"]))
+               for k, v in want.items() for n, t in v.items()
+               if not torch.equal(got[k][n].cpu(), t.cpu())]
+    unequal += [k for k, t in ctx["scores"].items() if not torch.equal(scores[k], t)]
+    log(f"mesh (a): {backend} group of one on {mesh.device}: stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+        + f"; K1 {syrk.launches} ({syrk.wgmma_launches} wgmma), K3 {probe.launches}; "
+        f"unequal to phase 5 in {len(unequal)} tensors (bit for bit required) [{card}]")
+    if unequal:
+        raise RuntimeError(f"an NCCL group of one differs from phase 5: {unequal[:4]}")
+    check_mesh_launches("mesh (a)", syrk.launches, syrk.wgmma_launches, probe.launches,
+                        cov_batches)
+
+    del cov, eigen, lam
+
+    def host(group):
+        return {k: {n: t.cpu() for n, t in v.items()} for k, v in group.items()}
+
+    # The one-process control runs at the ranks' batches, half of phase 5's:
+    # its GEMMs take the ranks' shapes, so every example's gradients are the
+    # ranks' bits and the ranks differ from it only in the order of the sums.
+    # Against phase 5's batches the bf16 recipe itself moves the scores.
+    half = tuple(b // DIST_RANKS for b in batches)
+    half_cov, half_eigen, half_lam, half_scores, _ = run_slice(
+        model, task, data, factor_args, score_args, device, half)
+    control = {"cov": host(half_cov), "eigen": host(half_eigen), "lam": host(half_lam),
+               "scores": half_scores}
+    del half_cov, half_eigen, half_lam
+    half_r = pearson(half_scores[ALL_MODULE_NAME].float().flatten(),
+                     scores[ALL_MODULE_NAME].float().flatten())
+    log(f"mesh: the control, one process at batches {half}, against phase 5's {batches}: "
+        f"scores' Pearson r {half_r:.7f} (the bf16 recipe's own spread across batch shapes; "
+        "not held)")
+
+    # (b) Two gloo ranks on this card.
+    t0 = time.perf_counter()
+    ranks = run_ranks("gloo", control)
+    log(f"mesh (b): two gloo ranks on cuda:0 ran in {time.perf_counter() - t0:.1f} s; gloo on "
+        "CUDA tensors: " + ", ".join(f"{op}: {how}" for op, how in
+                                     (ranks[0]["ops"] or {}).items()))
+    result = {"nccl_one_rank": nccl_one,
+              "gloo_two_ranks": check_ranks(card, "mesh (b), gloo", ranks, control, cov_batches)}
+
+    # (c) Two NCCL ranks, one a card, where two cards are visible.
+    if torch.cuda.device_count() >= DIST_RANKS:
+        result["nccl_two_ranks"] = check_ranks(card, "mesh (c), nccl", run_ranks("nccl", control),
+                                               control, cov_batches)
+    else:
+        log(f"mesh (c): NCCL across two cards not run: {torch.cuda.device_count()} card visible; "
+            "ran: (a) NCCL, one rank; (b) gloo, two ranks on cuda:0")
+    return result
 
 
 def sym_blocks(y: int, m: int, seed: int) -> torch.Tensor:
@@ -6675,6 +7083,9 @@ def main() -> None:
     if not (REPO / "kronfluence_tpu_torch" / "__init__.py").exists():
         raise SystemExit("chip_smoke.py runs from a checkout: kronfluence_tpu_torch/ is missing.")
     sys.path.insert(0, str(REPO))
+    if sys.argv[1:2] == ["--distributed-rank"]:
+        distributed_rank(sys.argv[2:])
+        return
     from kronfluence_tpu_torch.ops.kernels.syrk import syrk
 
     seconds, reductions = {}, {}
@@ -6707,6 +7118,7 @@ def main() -> None:
     ctx = phase("5 main path", phase_main_path, card)
     jacobi_by_route, jacobi_generic_launches, jacobi_generic_m32 = phase(
         "8 jacobi path", phase_jacobi_path, card, ctx)
+    mesh_launches = phase("20 data mesh", phase_distributed, card, ctx)
     launches = dict(ctx["launches"], jacobi=sum(jacobi_by_route.values()))
     # Each flash kernel's launches are those of its own path: FF and FB from
     # phase 10 (bf16, head_dim 64); FFS64, F2S, F3S, F2SH, F3SH, FFS, F2SW
@@ -6829,6 +7241,7 @@ def main() -> None:
             "score_features_launches": features_launches["syrk"],
             "llama_launches": llama_launches["syrk"],
             "scanned_gpt2_launches": scanned["launches"]["syrk"],
+            "data_mesh_launches": {k: v["K1"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["syrk"],
             "cifar_launches_per_covariance_batch": cifar["k1_per_covariance_batch"],
             "imagenet_launches": imagenet["total"]["syrk"],
@@ -6852,6 +7265,7 @@ def main() -> None:
             "score_features_launches": features_launches["probe"],
             "llama_launches": llama_launches["probe"],
             "scanned_gpt2_launches": scanned["launches"]["probe"],
+            "data_mesh_launches": {k: v["K3"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["probe"],
             "imagenet_launches": imagenet["total"]["probe"],
             **probe_result,

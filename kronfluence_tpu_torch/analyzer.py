@@ -4,7 +4,11 @@
 and self-influence scores, persisting every artifact under the JAX
 package's names and layout, so either package reads the other's factor
 directories. The analysis runs on `cuda:0`, where the model is moved, unless
-`cpu=True`; without a CUDA card and without `cpu=True` it raises.
+`cpu=True`; without a CUDA card and without `cpu=True` it raises. With a data
+mesh (`parallel.make_mesh()`, in every process `torchrun` starts) it runs on
+the mesh's device: each rank fits and scores its rows of every global batch,
+every rank holds the reduced factors and the assembled scores, and rank 0
+alone writes the artifacts.
 """
 
 from pathlib import Path
@@ -28,6 +32,7 @@ class Analyzer(FactorComputer, ScoreComputer):
         analysis_name: str,
         model: Any,
         task: Any,
+        mesh: Any = None,
         cpu: bool = False,
         log_level: Optional[int] = None,
         log_main_process_only: bool = True,
@@ -40,6 +45,7 @@ class Analyzer(FactorComputer, ScoreComputer):
             name=analysis_name,
             model=model,
             task=task,
+            mesh=mesh,
             cpu=cpu,
             log_level=log_level,
             log_main_process_only=log_main_process_only,
@@ -54,17 +60,21 @@ class Analyzer(FactorComputer, ScoreComputer):
         self._dataloader_params = dataloader_kwargs
 
     def _save_model(self) -> None:
-        """Saves the analyzed parameters, or on a rerun checks that they are unchanged."""
+        """Saves the analyzed parameters, or on a rerun checks that they are
+        unchanged (rank 0's check and write on a mesh)."""
         model_save_path = self.output_dir / "model.safetensors"
         state = self.model.module.state_dict()
-        if model_save_path.exists():
-            if not verify_models_equivalence(load_file(model_save_path), state):
-                raise ValueError(
-                    "Previously saved model parameters differ from the current "
-                    "parameters. Provide a different `analysis_name`."
-                )
-            return
-        save_file(state, model_save_path)
+        differs = False
+        if self.writes_artifacts and model_save_path.exists():
+            differs = not verify_models_equivalence(load_file(model_save_path), state)
+        elif self.writes_artifacts:
+            save_file(state, model_save_path)
+        if self._agreed(differs):
+            raise ValueError(
+                "Previously saved model parameters differ from the current "
+                "parameters. Provide a different `analysis_name`."
+            )
+        self._synchronize("model saved")
 
     def fit_all_factors(
         self,

@@ -4,8 +4,12 @@ loaders, module partitions and factor loading.
 Port of `kronfluence_tpu/computer/computer.py`: the directory layout
 `{output_dir}/{name}/factors_{fname}|scores_{sname}`, the argument-conflict
 check on the key intersection, and the strategy-driven `load_all_factors`.
-The device is explicit: `cuda:0` unless `cpu=True`, and the model is moved
-there.
+The device is explicit: `cuda:0` unless `cpu=True`, or the device of the
+data mesh the caller passes (`parallel/mesh.py`); the model is moved there.
+On a mesh every rank runs every stage on its rows of each global batch of
+`per_device_batch_size x ranks`; rank 0 alone writes artifacts, arguments
+and metadata, then a barrier lets every rank read them, and every decision
+to skip a stage is rank 0's.
 """
 
 import time
@@ -19,6 +23,8 @@ from kronfluence_tpu_torch.arguments import Arguments, FactorArguments, ScoreArg
 from kronfluence_tpu_torch.factor import io as factor_io
 from kronfluence_tpu_torch.factor.config import get_factor_config
 from kronfluence_tpu_torch.factor.covariance import discover_stage_specs
+from kronfluence_tpu_torch.parallel.distributed import sync_global_devices
+from kronfluence_tpu_torch.parallel.mesh import Mesh, agree_flag, agree_min, data_axis_size
 from kronfluence_tpu_torch.prepare import PreparedModel, prepare_model
 from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.utils.constants import (
@@ -45,15 +51,20 @@ from kronfluence_tpu_torch.utils.logger import (
 from kronfluence_tpu_torch.utils.save import load_json, save_json
 
 
-def analysis_device(cpu: bool) -> torch.device:
-    """`cuda:0`, or the CPU when asked; never the CPU in place of a missing card."""
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+def analysis_device(cpu: bool, mesh: Optional[Mesh] = None) -> torch.device:
+    """The mesh's device, else `cuda:0`, or the CPU when asked; never the CPU
+    in place of a missing card."""
+    if mesh is not None:
+        if cpu and mesh.device.type != "cpu":
+            raise ValueError(f"`cpu=True` with a mesh on {mesh.device}: name one device.")
+        device = mesh.device
+    else:
+        device = torch.device("cpu") if cpu else torch.device("cuda", 0)
+    if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "No CUDA device is available. Pass `cpu=True` to run the analysis on the CPU."
         )
-    return torch.device("cuda", 0)
+    return device
 
 
 class Computer:
@@ -64,6 +75,7 @@ class Computer:
         name: str,
         model: Any,
         task: Task,
+        mesh: Optional[Mesh] = None,
         cpu: bool = False,
         log_level: Optional[int] = None,
         log_main_process_only: bool = True,
@@ -71,18 +83,18 @@ class Computer:
         disable_tqdm: bool = False,
         output_dir: str = "./influence_results",
     ) -> None:
-        # One process: every log line is the main process's (distribution is
-        # ROADMAP Queue 1, distribution), so `log_main_process_only` changes nothing.
-        del log_main_process_only
         self.name = name
         self.task = task
-        self.device = analysis_device(cpu)
+        self.mesh = mesh
+        self.device = analysis_device(cpu, mesh)
         self.model: PreparedModel = prepare_model(model, task)
         self.model.module.to(self.device)
         self.disable_tqdm = disable_tqdm
         # Background artifact writes (perform_eigendecomposition async_save).
         self._pending_saves: list = []
-        self.logger = get_logger(type(self).__name__, log_level)
+        self.logger = get_logger(
+            type(self).__name__, log_level, main_process_only=log_main_process_only
+        )
         if profile == "trace":
             self.profiler = TraceProfiler(str(Path(output_dir) / "profiler_output"))
         else:
@@ -93,15 +105,33 @@ class Computer:
         self._specs_cache: Optional[Dict[str, Any]] = None
         self.last_batch_estimate: Optional[Dict[str, Any]] = None
 
+    # -- Ranks: who writes, what all agree on. --
+    @property
+    def writes_artifacts(self) -> bool:
+        """Whether this process writes the artifacts: rank 0 of the mesh, or
+        the process of an analysis without one."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _agreed(self, flag: bool) -> bool:
+        """Rank 0's decision on every rank (a skip, a conflict)."""
+        return agree_flag(self.mesh, flag)
+
+    def _synchronize(self, tag: str) -> None:
+        """A barrier after rank 0's writes, before any rank reads them."""
+        if self.mesh is not None:
+            sync_global_devices(tag)
+
     def _save_profile_summary(self, stage_name: str) -> None:
         """Writes the profiler table of a stage to
-        `{output}/profiler_output/{stage}_rank_0_{time}.txt`."""
+        `{output}/profiler_output/{stage}_rank_{rank}_{time}.txt`, one file a
+        rank."""
         summary = self.profiler.summary()
         if not summary:
             return
         profile_dir = self.output_dir / "profiler_output"
         profile_dir.mkdir(parents=True, exist_ok=True)
-        path = profile_dir / f"{stage_name}_rank_0_{int(time.time())}.txt"
+        rank = 0 if self.mesh is None else self.mesh.rank
+        path = profile_dir / f"{stage_name}_rank_{rank}_{int(time.time())}.txt"
         path.write_text(summary + "\n")
         self.logger.info(f"Saved profiler summary at {path}.")
 
@@ -122,23 +152,25 @@ class Computer:
     ) -> None:
         path = output_dir / f"{arguments_name}_arguments.json"
         arg_dict = arguments.to_dict()
-        if path.exists() and not overwrite_output_dir:
+        conflict = False
+        if self.writes_artifacts and path.exists() and not overwrite_output_dir:
             existing = load_json(path)
             # Compared on the key intersection, as the JAX package does:
             # artifacts written before a field existed run at its default.
             shared = set(existing) & set(arg_dict)
-            if {k: existing[k] for k in shared} != {k: arg_dict[k] for k in shared}:
-                raise ValueError(
-                    f"Found existing arguments at {path} that differ from the current "
-                    "ones. Use `overwrite_output_dir=True` to overwrite."
-                )
-            if set(arg_dict) - set(existing):
+            conflict = {k: existing[k] for k in shared} != {k: arg_dict[k] for k in shared}
+            if not conflict and set(arg_dict) - set(existing):
                 self.logger.info(
                     f"Existing arguments at {path} predate fields "
                     f"{sorted(set(arg_dict) - set(existing))}; continuing with defaults."
                 )
-        else:
+        elif self.writes_artifacts:
             save_json(arg_dict, path)
+        if self._agreed(conflict):
+            raise ValueError(
+                f"Found existing arguments at {path} that differ from the current "
+                "ones. Use `overwrite_output_dir=True` to overwrite."
+            )
 
     def _load_arguments(self, arguments_name: str, output_dir: Path) -> Optional[Dict]:
         path = output_dir / f"{arguments_name}_arguments.json"
@@ -154,16 +186,21 @@ class Computer:
     ) -> None:
         path = output_dir / f"{dataset_name}_dataset_metadata.json"
         metadata = dataset_metadata(dataset, indices)
-        if path.exists() and not overwrite_output_dir:
-            if load_json(path) != metadata:
-                raise ValueError(
-                    f"Found existing dataset metadata at {path} that differs from the "
-                    "current dataset. Use `overwrite_output_dir=True` to overwrite."
-                )
-        else:
+        conflict = False
+        if self.writes_artifacts and path.exists() and not overwrite_output_dir:
+            conflict = load_json(path) != metadata
+        elif self.writes_artifacts:
             save_json(metadata, path)
+        if self._agreed(conflict):
+            raise ValueError(
+                f"Found existing dataset metadata at {path} that differs from the "
+                "current dataset. Use `overwrite_output_dir=True` to overwrite."
+            )
 
     # -- Loaders and batch sizing. --
+    def global_batch_size(self, per_device_batch_size: int) -> int:
+        return per_device_batch_size * data_axis_size(self.mesh)
+
     def _get_loader(
         self,
         dataset: Any,
@@ -186,12 +223,14 @@ class Computer:
             )
         loader = BatchLoader(
             dataset,
-            per_device_batch_size,
+            self.global_batch_size(per_device_batch_size),
             indices,
             device=self.device,
             dataloader_kwargs=dataloader_kwargs,
+            mesh=self.mesh,
         )
-        return ProgressLoader(loader, self.logger, desc="Batches", disable=self.disable_tqdm)
+        disable = self.disable_tqdm or not self.writes_artifacts
+        return ProgressLoader(loader, self.logger, desc="Batches", disable=disable)
 
     def _find_executable_batch_size(
         self,
@@ -214,9 +253,12 @@ class Computer:
         holds (`precondition_bytes`), and, for a pairwise train pass, the
         `resident_queries` query gradients held beside it. On the CPU the
         batch is the JAX package's. An estimation error raises: a guess in
-        its place could exceed the card's memory later in the stage."""
+        its place could exceed the card's memory later in the stage. On a
+        mesh the attempt is divided over the ranks, and every rank takes the
+        least of their estimates (two ranks sharing a card see each other's
+        allocations)."""
         stage = stage or "covariance"
-        attempt = max(1, min(initial_attempt, total))
+        attempt = max(1, min(initial_attempt, total) // data_axis_size(self.mesh))
         batch, _ = BatchLoader(
             dataset, 1, device=self.device, dataloader_kwargs=dataloader_kwargs
         ).probe()
@@ -243,6 +285,7 @@ class Computer:
             score_args=score_args, budget_bytes=budget - reserved, max_batch_size=attempt,
             untracked_bytes=untracked + precondition,
         )
+        fit = agree_min(self.mesh, fit)
         if fit < attempt:
             self.logger.info(
                 f"Memory estimate reduced the per-device batch size {attempt} -> {fit} "

@@ -4,7 +4,10 @@ and lambda.
 Port of `kronfluence_tpu/computer/factor_computer.py`: skip-if-exists per
 (data partition x module partition), argument and dataset-metadata
 persistence, partition aggregation, and factor reuse through
-`load_from_factors_name`.
+`load_from_factors_name`. On a data mesh every rank fits its rows and the
+stage functions all-reduce the sums; rank 0 writes the artifacts (and the
+eigendecomposition's checkpoints), then a barrier; every rank
+eigendecomposes the same factors.
 """
 
 import shutil
@@ -79,7 +82,9 @@ class FactorComputer(Computer):
         factor_args = factor_args or FactorArguments()
         factors_dir = self.factors_output_dir(factors_name)
         factors_dir.mkdir(parents=True, exist_ok=True)
-        if factor_io.covariance_matrices_exist(factors_dir) and not overwrite_output_dir:
+        if self._agreed(
+            factor_io.covariance_matrices_exist(factors_dir) and not overwrite_output_dir
+        ):
             self.logger.info(f"Found existing covariance matrices at {factors_dir}. Skipping.")
             return
         self._save_arguments(FACTOR_ARGUMENTS_NAME, factor_args, factors_dir, overwrite_output_dir)
@@ -92,7 +97,7 @@ class FactorComputer(Computer):
             stage="covariance",
             factor_args=factor_args,
             fit_fn=lambda loader, names: fit_covariance_matrices_with_loader(
-                self.model, self.task, loader, factor_args, tracked_names=names
+                self.model, self.task, loader, factor_args, tracked_names=names, mesh=self.mesh
             ),
             dataset=dataset,
             indices=indices,
@@ -125,6 +130,8 @@ class FactorComputer(Computer):
         `async_save=True` copies them to the host once, then writes the files
         on a background thread, so the write overlaps what the caller runs
         next; `wait_for_async_saves()` joins it, and `fit_all_factors` does.
+        On a mesh every rank solves, rank 0 alone writes (and keeps the
+        checkpoints of the large solves).
         """
         factor_args = factor_args or self.loaded_factor_args(factors_name)
         config = get_factor_config(factor_args.strategy)
@@ -135,7 +142,7 @@ class FactorComputer(Computer):
                 f"Strategy {factor_args.strategy!r} does not require eigendecomposition."
             )
             return None
-        if factor_io.eigendecomposition_exist(factors_dir) and not overwrite_output_dir:
+        if self._agreed(factor_io.eigendecomposition_exist(factors_dir) and not overwrite_output_dir):
             self.logger.info(f"Found existing eigendecomposition at {factors_dir}. Skipping.")
             if not return_in_memory:
                 return None
@@ -154,10 +161,16 @@ class FactorComputer(Computer):
         # them. Removed once the artifact is saved.
         scratch_dir = factors_dir / "eigendecomposition_scratch"
         with self.profiler.profile("Perform Eigendecomposition"):
-            eigen = _perform_eigendecomposition(covariance, factor_args, scratch_dir=scratch_dir)
+            eigen = _perform_eigendecomposition(
+                covariance, factor_args,
+                scratch_dir=scratch_dir if self.writes_artifacts else None,
+            )
         del covariance
+        # Profiled regions take every rank's clock (utils/logger.py:get_time):
+        # each rank enters them, and only the writer does their work.
         with self.profiler.profile("Save Eigendecomposition (host copy)"):
-            host_files = factor_io.factors_to_host(eigen, EIGENDECOMPOSITION_FACTOR_NAMES)
+            if self.writes_artifacts:
+                host_files = factor_io.factors_to_host(eigen, EIGENDECOMPOSITION_FACTOR_NAMES)
 
         def _write() -> float:
             start = get_time(synchronize=False)
@@ -166,7 +179,7 @@ class FactorComputer(Computer):
             self.logger.info(f"Saved eigendecomposition results at {factors_dir}.")
             return get_time(synchronize=False) - start
 
-        if async_save:
+        if self.writes_artifacts and async_save:
             box: Dict[str, Any] = {}
 
             def _run() -> None:
@@ -178,21 +191,25 @@ class FactorComputer(Computer):
             thread = threading.Thread(target=_run, daemon=True, name="kf-eigen-save")
             thread.start()
             self._pending_saves.append(("Save Eigendecomposition (write)", thread, box))
-        else:
+        elif self.writes_artifacts:
             self.profiler.record("Save Eigendecomposition (write)", _write())
+        if not async_save:
+            self._synchronize("eigendecomposition saved")
         self._save_profile_summary("eigendecomposition")
         return eigen if return_in_memory else None
 
     def wait_for_async_saves(self) -> None:
         """Joins background artifact writes started with `async_save=True`,
         re-raising the first failure (a missing artifact would break the
-        skip-if-exists resume)."""
+        skip-if-exists resume). On a mesh every rank calls it: a barrier
+        follows rank 0's writes."""
         pending, self._pending_saves = self._pending_saves, []
         for action_name, thread, box in pending:
             thread.join()
             if "exc" in box:
                 raise box["exc"]
             self.profiler.record(action_name, box["seconds"])
+        self._synchronize("asynchronous saves done")
 
     def fit_lambda_matrices(
         self,
@@ -218,7 +235,7 @@ class FactorComputer(Computer):
         if not config.requires_lambda_matrices:
             self.logger.info(f"Strategy {factor_args.strategy!r} does not require Lambda matrices.")
             return
-        if factor_io.lambda_matrices_exist(factors_dir) and not overwrite_output_dir:
+        if self._agreed(factor_io.lambda_matrices_exist(factors_dir) and not overwrite_output_dir):
             self.logger.info(f"Found existing Lambda matrices at {factors_dir}. Skipping.")
             return
         self._save_arguments(FACTOR_ARGUMENTS_NAME, factor_args, factors_dir, overwrite_output_dir)
@@ -246,7 +263,7 @@ class FactorComputer(Computer):
             factor_args=factor_args,
             fit_fn=lambda loader, names: fit_lambda_matrices_with_loader(
                 self.model, self.task, loader, factor_args,
-                eigen_factors=eigen_factors, tracked_names=names,
+                eigen_factors=eigen_factors, tracked_names=names, mesh=self.mesh,
             ),
             dataset=dataset,
             indices=indices,
@@ -295,8 +312,10 @@ class FactorComputer(Computer):
             with self.profiler.profile(f"Fit {title}"):
                 factors = fit_fn(loader, None)
             with self.profiler.profile(f"Save {title}"):
-                factor_io.save_factors(factors_dir, factors, factor_names)
+                if self.writes_artifacts:
+                    factor_io.save_factors(factors_dir, factors, factor_names)
             self.logger.info(f"Saved {stage} factors at {factors_dir}.")
+            self._synchronize(f"{stage} saved")
             self._save_profile_summary(stage)
             return
 
@@ -314,8 +333,8 @@ class FactorComputer(Computer):
             start, end = data_ranges[di]
             for mi in module_targets:
                 partition = (di, mi)
-                if (factor_io.factors_exist(factors_dir, factor_names, partition)
-                        and not overwrite_output_dir):
+                if self._agreed(factor_io.factors_exist(factors_dir, factor_names, partition)
+                                and not overwrite_output_dir):
                     self.logger.info(
                         f"Found existing {stage} factors for partition {partition}. Skipping."
                     )
@@ -327,21 +346,24 @@ class FactorComputer(Computer):
                 with self.profiler.profile(f"Fit {title}"):
                     factors = fit_fn(loader, module_groups[mi])
                 with self.profiler.profile(f"Save {title}"):
-                    factor_io.save_factors(factors_dir, factors, factor_names, partition)
+                    if self.writes_artifacts:
+                        factor_io.save_factors(factors_dir, factors, factor_names, partition)
                 self.logger.info(f"Saved {stage} factors for partition {partition}.")
                 del factors
 
         if target_data_partitions is None and target_module_partitions is None:
-            per_partition = [
-                factor_io.load_factors(factors_dir, factor_names, (di, mi))
-                for di in range(data_partitions)
-                for mi in range(module_partitions)
-            ]
             with self.profiler.profile(f"Save {title}"):
-                factor_io.save_factors(
-                    factors_dir, _aggregate_sum(per_partition, count_names), factor_names
-                )
+                if self.writes_artifacts:
+                    per_partition = [
+                        factor_io.load_factors(factors_dir, factor_names, (di, mi))
+                        for di in range(data_partitions)
+                        for mi in range(module_partitions)
+                    ]
+                    factor_io.save_factors(
+                        factors_dir, _aggregate_sum(per_partition, count_names), factor_names
+                    )
             self.logger.info(f"Saved aggregated {stage} factors at {factors_dir}.")
+        self._synchronize(f"{stage} saved")
         self._save_profile_summary(stage)
 
     # -- Accessors. --

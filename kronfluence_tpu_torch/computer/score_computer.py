@@ -3,7 +3,9 @@
 Port of `kronfluence_tpu/computer/score_computer.py`: skip-if-exists,
 score-argument persistence, flag-compatibility validation, (data x module)
 partitions with concatenation and sum aggregation, and query/train index
-subsets. Factors are loaded onto the analysis device.
+subsets. Factors are loaded onto the analysis device. On a data mesh every
+rank scores its rows and holds the assembled scores; rank 0 writes them,
+then a barrier.
 """
 
 import dataclasses
@@ -101,7 +103,9 @@ class ScoreComputer(Computer):
         score_args = dataclasses.replace(score_args) if score_args else ScoreArguments()
         scores_dir = self.scores_output_dir(scores_name)
         scores_dir.mkdir(parents=True, exist_ok=True)
-        if pairwise_scores_save_path(scores_dir).exists() and not overwrite_output_dir:
+        if self._agreed(
+            pairwise_scores_save_path(scores_dir).exists() and not overwrite_output_dir
+        ):
             self.logger.info(f"Found existing pairwise scores at {scores_dir}. Skipping.")
             return
         score_args = self._validate_pairwise_flags(score_args)
@@ -143,7 +147,7 @@ class ScoreComputer(Computer):
                     self.model, self.task, query_loader, train_loader, factors, factor_args,
                     score_args,
                     tracked_names=module_groups[mi] if len(module_groups) > 1 else None,
-                    profiler=self.profiler,
+                    profiler=self.profiler, mesh=self.mesh,
                 )
 
         aggregated = self._run_score_partitions(
@@ -151,12 +155,14 @@ class ScoreComputer(Computer):
             scores_dir, pairwise_scores_save_path, concat_axis=1,
             overwrite_output_dir=overwrite_output_dir,
         )
-        if aggregated is None:
-            return  # a target subset: per-partition artifacts only
-        with self.profiler.profile("Save Pairwise Score"):
-            save_file(aggregated, pairwise_scores_save_path(scores_dir))
-        self.logger.info(f"Saved pairwise scores at {scores_dir}.")
-        self._save_profile_summary("pairwise_score")
+        if aggregated is not None:  # else a target subset: per-partition artifacts only
+            with self.profiler.profile("Save Pairwise Score"):
+                if self.writes_artifacts:
+                    save_file(aggregated, pairwise_scores_save_path(scores_dir))
+            self.logger.info(f"Saved pairwise scores at {scores_dir}.")
+        self._synchronize("pairwise scores saved")
+        if aggregated is not None:
+            self._save_profile_summary("pairwise_score")
 
     def _run_score_partitions(
         self,
@@ -186,12 +192,12 @@ class ScoreComputer(Computer):
             for mi in module_targets:
                 partition = (di, mi)
                 path = save_path_fn(scores_dir, partition) if partitioned else None
-                if partitioned and path.exists() and not overwrite_output_dir:
+                if self._agreed(partitioned and path.exists() and not overwrite_output_dir):
                     self.logger.info(f"Found existing scores for partition {partition}. Skipping.")
                     results[partition] = load_file(path)
                     continue
                 scores = compute_partition(di, mi)
-                if partitioned:
+                if partitioned and self.writes_artifacts:
                     save_file(scores, path)
                     self.logger.info(f"Saved scores for partition {partition}.")
                 results[partition] = scores
@@ -232,7 +238,7 @@ class ScoreComputer(Computer):
         )
         scores_dir = self.scores_output_dir(scores_name)
         scores_dir.mkdir(parents=True, exist_ok=True)
-        if self_scores_save_path(scores_dir).exists() and not overwrite_output_dir:
+        if self._agreed(self_scores_save_path(scores_dir).exists() and not overwrite_output_dir):
             self.logger.info(f"Found existing self scores at {scores_dir}. Skipping.")
             return
         self._save_arguments(SCORE_ARGUMENTS_NAME, score_args, scores_dir, overwrite_output_dir)
@@ -258,6 +264,7 @@ class ScoreComputer(Computer):
                 return compute_self_scores_with_loaders(
                     self.model, self.task, train_loader, factors, factor_args, score_args,
                     tracked_names=module_groups[mi] if len(module_groups) > 1 else None,
+                    mesh=self.mesh,
                 )
 
         aggregated = self._run_score_partitions(
@@ -265,12 +272,14 @@ class ScoreComputer(Computer):
             scores_dir, self_scores_save_path, concat_axis=0,
             overwrite_output_dir=overwrite_output_dir,
         )
-        if aggregated is None:
-            return
-        with self.profiler.profile("Save Self-Influence Score"):
-            save_file(aggregated, self_scores_save_path(scores_dir))
-        self.logger.info(f"Saved self-influence scores at {scores_dir}.")
-        self._save_profile_summary("self_score")
+        if aggregated is not None:
+            with self.profiler.profile("Save Self-Influence Score"):
+                if self.writes_artifacts:
+                    save_file(aggregated, self_scores_save_path(scores_dir))
+            self.logger.info(f"Saved self-influence scores at {scores_dir}.")
+        self._synchronize("self scores saved")
+        if aggregated is not None:
+            self._save_profile_summary("self_score")
 
     def load_pairwise_scores(self, scores_name: str) -> ScoreDict:
         return load_file(pairwise_scores_save_path(self.scores_output_dir(scores_name)))

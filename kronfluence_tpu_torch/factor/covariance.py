@@ -5,7 +5,10 @@ batch runs one forward and one backward with capture, then folds the
 `A^T A` / `G^T G` updates of every tracked layer into running sums, updated
 in place. A conv layer's activation gram is that of its im2col patches.
 Wide grams go through the K1 triangle kernel on the GPU
-(ops/covariance.py); the stage runs the K3 launch check first.
+(ops/covariance.py); the stage runs the K3 launch check first. On a data
+mesh each rank sums the grams of its own rows (K1 per rank) and one
+all-reduce at the end of the stage sums the ranks' factors and counts, in
+the accumulation dtype, before the cast to the storage dtype.
 """
 
 import copy
@@ -18,6 +21,7 @@ from kronfluence_tpu_torch.capture.engine import capture, discover_specs
 from kronfluence_tpu_torch.ops.covariance import bordered_gram, gram
 from kronfluence_tpu_torch.ops.flatten import flatten_activation_parts, flatten_gradient
 from kronfluence_tpu_torch.ops.kernels.probe import probe
+from kronfluence_tpu_torch.parallel.mesh import all_reduce_tree, check_loader
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.utils.constants import (
@@ -130,12 +134,16 @@ def fit_covariance_matrices_with_loader(
     loader,
     factor_args: Optional[FactorArguments] = None,
     tracked_names: Optional[Sequence[str]] = None,
+    mesh=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Fits activation/gradient covariance over all batches of `loader`.
 
     Returns {factor_name: {module_name: tensor}} on the model's device, the
     matrices in the covariance dtypes and the counts as int64 of shape (1,).
+    With a data `mesh` the loader yields this rank's rows (it must be on the
+    same mesh), and every rank returns the sums over all ranks.
     """
+    check_loader(mesh, loader)
     factor_args = factor_args or FactorArguments()
     model = with_tracked(model, tracked_names)
     device = model.device
@@ -178,6 +186,9 @@ def fit_covariance_matrices_with_loader(
     generator = torch.Generator(device).manual_seed(factor_args.seed) if sample else None
     for batch, valid in loader:
         update(state, batch, valid, generator)
+    # Once a stage, not per gram: the sums are equal in exact arithmetic, and
+    # the state (1.3 GB in fp32 at GPT-2 small) would otherwise cross every batch.
+    all_reduce_tree(mesh, state)
 
     result: Dict[str, Dict[str, torch.Tensor]] = {
         ACTIVATION_COVARIANCE_MATRIX_NAME: {},

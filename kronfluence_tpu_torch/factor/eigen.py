@@ -15,6 +15,11 @@ Port of `kronfluence_tpu/factor/eigen.py`:
     by default rotating the activation / gradient token streams into the
     eigenbases before forming per-sample gradients (same result by
     associativity, fewer FLOPs when tokens per sample < activation dim).
+
+On a data mesh (`parallel/mesh.py`) every rank eigendecomposes the same
+all-reduced covariance factors, so the eigenpairs are replicated, as the
+JAX package's global arrays are; the lambda stage sums each rank's rows and
+all-reduces its matrices and counts once, at the end.
 """
 
 import functools
@@ -38,6 +43,7 @@ from kronfluence_tpu_torch.factor.covariance import (
 from kronfluence_tpu_torch.ops.covariance import per_sample_gradient as psg_op
 from kronfluence_tpu_torch.ops.eigh import LARGE_EIGH_DIM, eigh_batched, eigh_large, gershgorin_pad
 from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
+from kronfluence_tpu_torch.parallel.mesh import all_reduce_tree, check_loader
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.task import Task
 from kronfluence_tpu_torch.utils.constants import (
@@ -406,8 +412,12 @@ def fit_lambda_matrices_with_loader(
     factor_args: Optional[FactorArguments] = None,
     eigen_factors: Optional[Dict[str, Dict[str, torch.Tensor]]] = None,
     tracked_names: Optional[Sequence[str]] = None,
+    mesh=None,
 ) -> Dict[str, Dict[str, torch.Tensor]]:
-    """Fits Lambda matrices (squared per-sample gradients in the eigenbasis)."""
+    """Fits Lambda matrices (squared per-sample gradients in the eigenbasis).
+    With a data `mesh`, each rank sums its own rows and one all-reduce at the
+    end sums the ranks' matrices and counts in the accumulation dtype."""
+    check_loader(mesh, loader)
     factor_args = factor_args or FactorArguments()
     model = with_tracked(model, tracked_names)
     device = model.device
@@ -456,6 +466,7 @@ def fit_lambda_matrices_with_loader(
     generator = torch.Generator(device).manual_seed(factor_args.seed + 1) if sample else None
     for batch, valid in loader:
         update(state, batch, valid, generator, q_a_all, q_g_all)
+    all_reduce_tree(mesh, state)
 
     result: Dict[str, Dict[str, torch.Tensor]] = {LAMBDA_MATRIX_NAME: {}, NUM_LAMBDA_PROCESSED: {}}
     for name, mod_state in state.items():

@@ -1,12 +1,15 @@
 """Covariance accumulation math: grams and per-sample gradients.
 
-Port of `kronfluence_tpu/ops/covariance.py` (not its meshed syrk route, its
-patch-free conv gram, nor the experimental, never dispatched
-`conv_per_sample_gradient`). Each batch contributes one `A^T A` (and one
-`G^T G`) accumulated in the accumulation dtype, so bf16 operands accumulate
-in fp32. A conv layer's activation gram is the gram of its im2col patches,
-which K1 takes where it is wide: on an H100 that was 3-7x faster than the
-JAX package's symmetric-block form at ResNet-9's 512-channel convs.
+Port of `kronfluence_tpu/ops/covariance.py` (not its patch-free conv gram,
+nor the experimental, never dispatched `conv_per_sample_gradient`). Each
+batch contributes one `A^T A` (and one `G^T G`) accumulated in the
+accumulation dtype, so bf16 operands accumulate in fp32. A conv layer's
+activation gram is the gram of its im2col patches, which K1 takes where it
+is wide: on an H100 that was 3-7x faster than the JAX package's
+symmetric-block form at ResNet-9's 512-channel convs. The meshed syrk route
+needs no code of its own: on a data mesh each rank's `gram` takes its own
+rows (K1 per rank) with no collective per gram, and the stage driver
+(`factor/covariance.py`) all-reduces the sums once a stage.
 """
 
 import torch

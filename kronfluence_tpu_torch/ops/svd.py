@@ -48,16 +48,21 @@ def lowrank_factors_randomized(
     generator: Optional[torch.Generator],
     n_iter: int = 2,
     oversample: int = 8,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Randomized truncated SVD of a (q, o, i) batch (Halko et al. 2011): a
     Gaussian sketch of `rank + oversample` columns drawn from `generator` (on
     the gradient's device), `n_iter` rounds of QR power iterations, then the
-    SVD of the small (k, i) projection."""
+    SVD of the small (k, i) projection. `rows = (start, total)` says the
+    batch is rows `start:start + q` of a batch of `total` (a rank's slice on
+    a data mesh): the sketch is drawn for all `total` rows and sliced, so the
+    pairs are those of the whole batch."""
     q_count, _, i_dim = gradient.shape
+    start, total = (0, q_count) if rows is None else rows
     omega = torch.randn(
-        (q_count, i_dim, sketch_width(gradient, rank, oversample)),
+        (total, i_dim, sketch_width(gradient, rank, oversample)),
         generator=generator, dtype=gradient.dtype, device=gradient.device,
-    )
+    )[start:start + q_count]
     return _lowrank_factors_from_sketch(gradient, rank, out_dtype, omega, n_iter)
 
 

@@ -16,6 +16,13 @@ replaces the block by one preconditioned row, the sum of the raw query
 gradients; `aggregate_train_gradients` scores it against the sum of the raw
 train gradients, one column. Scores are assembled on the host, with the
 padding rows of short last batches trimmed.
+
+On a data mesh (`parallel/mesh.py`) both loaders yield this rank's rows.
+Each query step's preconditioned gradients are assembled in global query
+order on every rank (float8 blocks as their raw bytes and scales), so every
+rank holds the whole block; each rank scores its train rows against it, and
+the score columns are assembled in global train order on every rank.
+Aggregated gradients are summed per rank and all-reduced.
 """
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -44,6 +51,13 @@ from kronfluence_tpu_torch.ops.svd import (
     goes_lowrank,
     lowrank_factors_full,
     lowrank_factors_randomized,
+)
+from kronfluence_tpu_torch.parallel.mesh import (
+    agree_min,
+    all_reduce_tree,
+    check_loader,
+    data_axis_size,
+    gather_rows,
 )
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.score.common import (
@@ -82,12 +96,26 @@ def _warn_fp8_low_damping(score_args: ScoreArguments) -> None:
         )
 
 
-def _build_query_step(model, task, score_args, strategy):
+def _gather_chunk(mesh, chunk):
+    """A query step's chunk for this rank's rows -> the global batch's chunk
+    on every rank: a dense block, a quantized block (data and scales) or a
+    low-rank pair, rows in global order."""
+    if isinstance(chunk, QuantizedGradient):
+        return QuantizedGradient(gather_rows(mesh, chunk.data), gather_rows(mesh, chunk.scale))
+    if isinstance(chunk, tuple):
+        return tuple(gather_rows(mesh, part) for part in chunk)
+    return gather_rows(mesh, chunk)
+
+
+def _build_query_step(model, task, score_args, strategy, mesh=None):
     """Query-gradient step: (batch, valid, states, index) -> per-module
     preconditioned gradients, dense in the score dtype, quantized in the
     storage dtype, or a low-rank (left, right) pair. The randomized SVD draws
     its sketch from a generator seeded with the batch's index in the query
-    loader, so the pairs do not depend on the accumulation steps."""
+    loader, so the pairs do not depend on the accumulation steps. On a data
+    mesh the step runs on this rank's rows and returns the global batch's
+    chunks, assembled on every rank; the sketch is the global batch's,
+    sliced, so a rank's pairs are those of one process."""
     strategy_config = get_factor_config(strategy)
     psg_dtype = resolve_dtype(score_args.per_sample_gradient_dtype)
     precond_dtype = resolve_dtype(score_args.precondition_dtype)
@@ -109,11 +137,17 @@ def _build_query_step(model, task, score_args, strategy):
                     out[name] = lowrank_factors_full(psg, rank, score_dtype)
                 else:
                     generator = torch.Generator(device=psg.device).manual_seed(index)
-                    out[name] = lowrank_factors_randomized(psg, rank, score_dtype, generator)
+                    rows = None
+                    if mesh is not None:
+                        rows = (mesh.rank * psg.shape[0], mesh.data * psg.shape[0])
+                    out[name] = lowrank_factors_randomized(
+                        psg, rank, score_dtype, generator, rows=rows
+                    )
             elif storage_dtype is not None:
                 out[name] = quantize_gradient(psg, storage_dtype)
             else:
                 out[name] = psg.to(score_dtype)
+            out[name] = _gather_chunk(mesh, out[name])
         return out
 
     return query_step
@@ -225,7 +259,7 @@ def _make_train_apply(model, task, score_args, per_module):
 
 
 def resolve_query_accumulation(
-    model, task, probe_batch, query_loader, train_loader, score_args, factors=None
+    model, task, probe_batch, query_loader, train_loader, score_args, factors=None, mesh=None
 ) -> int:
     """`query_gradient_accumulation_steps` from the memory model, for
     `query_gradient_accumulation_steps=None`: the query block is sized so one
@@ -237,7 +271,8 @@ def resolve_query_accumulation(
     Computer's batch estimate plans, and the `factors` the caller holds on
     the card stay resident beside the block (the JAX terms count only the
     precondition state made from them); on the CPU the integers are the JAX
-    package's."""
+    package's. On a data mesh the block holds global query batches and the
+    train pass this rank's rows; the ranks take the least of their answers."""
     query_bs = getattr(query_loader, "batch_size", None)
     if not query_bs:
         return 1
@@ -253,7 +288,8 @@ def resolve_query_accumulation(
         probes,
         score_args,
         params=model.module,
-        train_batch_size=getattr(train_loader, "batch_size", None) or 1,
+        train_batch_size=(getattr(train_loader, "batch_size", None) or 1)
+        // data_axis_size(mesh),
         num_train=getattr(train_loader, "num_examples", 0) or 0,
         query_batch_size=query_bs,
         device=model.device,
@@ -261,7 +297,7 @@ def resolve_query_accumulation(
         reserve_bytes=reserve,
     )
     num_query_batches = -(-query_loader.num_examples // query_bs)
-    return max(1, min(block_q // query_bs, num_query_batches))
+    return agree_min(mesh, max(1, min(block_q // query_bs, num_query_batches)))
 
 
 def _collect_blocks(blocks: List[Dict[str, Any]]) -> Dict[str, List[Any]]:
@@ -288,7 +324,9 @@ def _chunk_format(chunk) -> str:
     return f"Tensor[{chunk.dtype}]"
 
 
-def _aggregated_train_pass(model, task, train_loader, score_args, per_module, query_block):
+def _aggregated_train_pass(
+    model, task, train_loader, score_args, per_module, query_block, mesh=None
+):
     """Scores every query chunk against the sum of the raw train gradients
     (one contraction per module): a (q, 1) column."""
     psg_dtype = resolve_dtype(score_args.per_sample_gradient_dtype)
@@ -296,7 +334,7 @@ def _aggregated_train_pass(model, task, train_loader, score_args, per_module, qu
     sum_step = _build_summed_gradient_step(
         model, task, psg_dtype, False, score_args.offload_activations_to_cpu
     )
-    total = _sum_over_loader(sum_step, train_loader)
+    total = all_reduce_tree(mesh, _sum_over_loader(sum_step, train_loader))
 
     def one(pg, summed):
         pg = dequantize_gradient(pg, psg_dtype)
@@ -327,12 +365,17 @@ def compute_pairwise_scores_with_loaders(
     score_args: Optional[ScoreArguments] = None,
     tracked_names: Optional[Sequence[str]] = None,
     profiler=None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Computes pairwise scores; returns {module_name or 'all_modules': (Q, T[, t])}
     as CPU tensors in the score dtype ((1, T) with aggregated query
     gradients, (Q, 1) with aggregated train gradients). `profiler` times the
     query-gradient step and the train pass apart, as the JAX package's
-    regions "Pairwise: query gradients" and "Pairwise: train pass"."""
+    regions "Pairwise: query gradients" and "Pairwise: train pass". With a
+    data `mesh`, both loaders must be on it; every rank returns the whole
+    score matrix."""
+    check_loader(mesh, query_loader)
+    check_loader(mesh, train_loader)
     score_args = score_args or ScoreArguments()
     profiler = profiler or PassThroughProfiler()
     _warn_fp8_low_damping(score_args)
@@ -348,7 +391,7 @@ def compute_pairwise_scores_with_loaders(
     strategy_config = get_factor_config(factor_args.strategy)
     if accumulation is None:
         accumulation = resolve_query_accumulation(
-            model, task, probe_batch, query_loader, train_loader, score_args, factors
+            model, task, probe_batch, query_loader, train_loader, score_args, factors, mesh
         )
 
     model = cast_params(model, score_args.amp_dtype)
@@ -362,7 +405,7 @@ def compute_pairwise_scores_with_loaders(
         sum_step = _build_summed_gradient_step(
             model, task, psg_dtype, True, score_args.offload_activations_to_cpu
         )
-        total = _sum_over_loader(sum_step, query_loader)
+        total = all_reduce_tree(mesh, _sum_over_loader(sum_step, query_loader))
         yield {
             name: [
                 strategy_config.precondition(
@@ -373,7 +416,7 @@ def compute_pairwise_scores_with_loaders(
         }
 
     def query_blocks_iter():
-        query_step = _build_query_step(model, task, score_args, factor_args.strategy)
+        query_step = _build_query_step(model, task, score_args, factor_args.strategy, mesh)
         pending = []
         yielded_full = False
         for index, (batch, valid) in enumerate(query_loader):
@@ -398,7 +441,7 @@ def compute_pairwise_scores_with_loaders(
     if score_args.aggregate_train_gradients:
         def train_pass(query_block):
             return _aggregated_train_pass(
-                model, task, train_loader, score_args, per_module, query_block
+                model, task, train_loader, score_args, per_module, query_block, mesh
             )
     else:
         train_apply = _make_train_apply(model, task, score_args, per_module)
@@ -409,7 +452,9 @@ def compute_pairwise_scores_with_loaders(
                 for key, val in train_apply(batch, valid, query_block).items():
                     module_chunks.setdefault(key, []).append(val)
             return {
-                key: torch.cat(chunks, dim=1)[:, : train_loader.num_examples]
+                key: gather_rows(mesh, torch.cat(chunks, dim=1), dim=1, batches=len(chunks))[
+                    :, : train_loader.num_examples
+                ]
                 for key, chunks in module_chunks.items()
             }
 

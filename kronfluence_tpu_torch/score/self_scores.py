@@ -5,6 +5,8 @@ batch each tracked module's per-sample gradients are preconditioned and
 dotted with themselves (g^T H^-1 g). The measurement variant preconditions
 the measurement's gradient and dots it with the train loss's. Scores are
 assembled on the host, with the padding rows of a short last batch trimmed.
+On a data mesh each rank scores its own rows and the scores are assembled in
+global order on every rank.
 """
 
 from typing import Any, Dict, List, Optional, Sequence
@@ -20,6 +22,7 @@ from kronfluence_tpu_torch.factor.covariance import (
     train_loss_forward,
     with_tracked,
 )
+from kronfluence_tpu_torch.parallel.mesh import check_loader, gather_rows
 from kronfluence_tpu_torch.prepare import PreparedModel
 from kronfluence_tpu_torch.score.common import (
     measurement_forward,
@@ -40,9 +43,12 @@ def compute_self_scores_with_loaders(
     factor_args: FactorArguments,
     score_args: Optional[ScoreArguments] = None,
     tracked_names: Optional[Sequence[str]] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Computes self-influence scores; returns {module_name or 'all_modules': (N,)}
-    as CPU tensors in the score dtype."""
+    as CPU tensors in the score dtype, on every rank of a data `mesh` (the
+    loader must be on it)."""
+    check_loader(mesh, train_loader)
     score_args = score_args or ScoreArguments()
     model = with_tracked(model, tracked_names)
     strategy_config = get_factor_config(factor_args.strategy)
@@ -93,6 +99,8 @@ def compute_self_scores_with_loaders(
         for key, val in apply(batch, valid).items():
             chunks.setdefault(key, []).append(val)
     return {
-        key: torch.cat(vals, dim=0)[: train_loader.num_examples].cpu()
+        key: gather_rows(mesh, torch.cat(vals, dim=0), batches=len(vals))[
+            : train_loader.num_examples
+        ].cpu()
         for key, vals in chunks.items()
     }

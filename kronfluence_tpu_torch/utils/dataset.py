@@ -10,7 +10,10 @@ indexable of example rows (dicts, tuples or arrays of numpy arrays, tensors
 or numbers), stacked leaf by leaf or handed to `collate_fn`. Batches are
 trees of tensors on the loader's `device` (the card unless the caller names
 another); a column store whose columns already live on that device is
-sliced there.
+sliced there. Given a data mesh (`parallel/mesh.py`), each rank gets its
+contiguous slice of every global batch, with the matching slice of `valid`
+(the slice of a final batch may be all padding); `batch_size` is the global
+batch and must split evenly over the ranks.
 """
 
 import dataclasses
@@ -121,6 +124,7 @@ class BatchLoader:
         indices: Optional[Sequence[int]] = None,
         device=None,
         dataloader_kwargs: Optional[DataLoaderKwargs] = None,
+        mesh=None,
     ) -> None:
         self.dataset = dataset
         self.dataloader_kwargs = dataloader_kwargs or DataLoaderKwargs()
@@ -135,6 +139,17 @@ class BatchLoader:
         self.batch_size = int(batch_size)
         if self.batch_size <= 0:
             raise ValueError("batch_size must be positive.")
+        self.mesh = mesh
+        ranks = 1 if mesh is None else mesh.data
+        if self.batch_size % ranks:
+            # The JAX package drops the remainder rows of every batch here
+            # (`per = batch_size // procs`); the port refuses instead.
+            raise ValueError(
+                f"The global batch size {self.batch_size} does not split evenly over the "
+                f"mesh's {ranks} ranks."
+            )
+        # This rank's rows of every batch.
+        self.local_batch_size = self.batch_size // ranks
         if indices is None:
             indices = np.arange(dataset_length(dataset))
         self.indices = np.asarray(indices, dtype=np.int64)
@@ -172,6 +187,10 @@ class BatchLoader:
                 valid[len(chunk) :] = 0.0
                 pad = np.full(self.batch_size - len(chunk), chunk[0], dtype=np.int64)
                 chunk = np.concatenate([chunk, pad])
+            if self.mesh is not None:
+                rows = slice(self.mesh.rank * self.local_batch_size,
+                             (self.mesh.rank + 1) * self.local_batch_size)
+                chunk, valid = chunk[rows], valid[rows]
             yield self._materialize(chunk), valid.to(self.device)
 
     def __iter__(self) -> Iterator[Tuple[Any, torch.Tensor]]:

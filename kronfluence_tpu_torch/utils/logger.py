@@ -4,8 +4,9 @@ The Profiler prints the reference's percentage-table summary. Its regions
 are timed with `get_time`, which synchronizes the CUDA device first, so a
 region's seconds include the device work it queued. `TraceProfiler` also
 records a `torch.profiler` trace of the outermost region and writes it as a
-Chrome trace. One process: no cross-process gather (distribution is ROADMAP
-Queue 1, distribution).
+Chrome trace. Across processes (`parallel/`), `MultiProcessAdapter` lets rank
+0 alone log by default, and `get_time` returns the latest clock of all ranks,
+so every rank's regions read the same elapsed times.
 """
 
 import logging
@@ -16,9 +17,33 @@ from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from kronfluence_tpu_torch.parallel import distributed
 
 
-def get_logger(name: str, level: Optional[int] = None) -> logging.Logger:
+class MultiProcessAdapter(logging.LoggerAdapter):
+    """Rank-gated logging: by default only process 0 emits; with
+    `main_process_only=False` (on the adapter or on one call) every process
+    does, each line prefixed with its process index."""
+
+    def __init__(self, logger: logging.Logger, main_process_only: bool = True) -> None:
+        super().__init__(logger, {})
+        self.main_process_only = main_process_only
+
+    def log(self, level, msg, *args, main_process_only: Optional[bool] = None, **kwargs):
+        gate = self.main_process_only if main_process_only is None else main_process_only
+        index = distributed.process_index()
+        if index != 0:
+            if gate:
+                return
+            msg = f"[process {index}] {msg}"
+        super().log(level, msg, *args, **kwargs)
+
+
+def get_logger(
+    name: str, level: Optional[int] = None, main_process_only: bool = True
+) -> MultiProcessAdapter:
     logger = logging.getLogger(name)
     if level is not None:
         logger.setLevel(level)
@@ -28,14 +53,28 @@ def get_logger(name: str, level: Optional[int] = None) -> logging.Logger:
             logging.Formatter("%(asctime)s [%(levelname)s] %(name)s: %(message)s")
         )
         logger.addHandler(handler)
-    return logger
+    return MultiProcessAdapter(logger, main_process_only=main_process_only)
 
 
 def get_time(synchronize: bool = True) -> float:
-    """Wall clock after the CUDA device's queued work has finished."""
-    if synchronize and torch.cuda.is_available() and torch.cuda.is_initialized():
+    """Wall clock after the CUDA device's queued work has finished; across
+    processes, the latest of every rank's clock (an all-reduce MAX, so every
+    rank must call it at the same point). `synchronize=False` reads this
+    process's clock alone: a background thread must not join a collective."""
+    if not synchronize:
+        return time.perf_counter()
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
-    return time.perf_counter()
+    now = time.perf_counter()
+    if distributed.num_processes() > 1:
+        on_card = dist.get_backend() == "nccl"
+        held = torch.tensor(
+            [now], dtype=torch.float64,
+            device=torch.device("cuda", torch.cuda.current_device()) if on_card else "cpu",
+        )
+        dist.all_reduce(held, op=dist.ReduceOp.MAX)
+        now = float(held.item())
+    return now
 
 
 class PassThroughProfiler:

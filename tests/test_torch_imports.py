@@ -50,8 +50,32 @@ def test_every_module_is_checked():
     for name in ("kronfluence_tpu_torch.ops.svd", "kronfluence_tpu_torch.evaluate",
                  "kronfluence_tpu_torch.score.pairwise", "kronfluence_tpu_torch.ops.scores",
                  "kronfluence_tpu_torch.capture.functional", "kronfluence_tpu_torch.nn",
-                 "kronfluence_tpu_torch.models.mlp", "kronfluence_tpu_torch.models.encoder_decoder"):
+                 "kronfluence_tpu_torch.models.mlp", "kronfluence_tpu_torch.models.encoder_decoder",
+                 "kronfluence_tpu_torch.parallel.distributed",
+                 "kronfluence_tpu_torch.parallel.mesh"):
         assert name in modules
+
+
+def test_importing_parallel_starts_no_process_group():
+    """`kronfluence_tpu_torch.parallel` initialises nothing when imported:
+    no process group, one process, rank 0."""
+    code = (
+        "import sys\n"
+        "import torch.distributed as dist\n"
+        "from kronfluence_tpu_torch import parallel\n"
+        "state = (dist.is_initialized(), parallel.num_processes(), parallel.process_index(),\n"
+        "         parallel.initialize())\n"
+        "print('STATE', state)\n"
+        "sys.exit(0 if state == (False, 1, 0, False) else 1)\n"
+    )
+    env = _clean_env()
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(name, None)
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def _clean_env():

@@ -6,7 +6,6 @@ port's TransformerLM, with weights converted from the flax model by
 packages see the same model and the same data.
 """
 
-import jax
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -67,6 +66,8 @@ def torch_config_like(jax_config, dtype=torch.float64, attention="naive"):
 
 def make_torch_lm(jax_params, jax_config, dtype=torch.float64, mlp_only=False, attention="naive"):
     """(PreparedModel, task, config) of the port holding the flax weights."""
+    import jax  # here, so that torch-only processes can import the tasks above
+
     config = torch_config_like(jax_config, dtype, attention)
     module = TransformerLM(config)
     host_params = jax.tree_util.tree_map(np.asarray, jax_params)

@@ -2,7 +2,6 @@
 sum-MSE loss and summed-prediction measurement, and the port's MLP and
 RepeatedMLP holding the flax weights (models/convert.py)."""
 
-import jax
 import numpy as np
 import torch
 
@@ -35,6 +34,8 @@ def torch_mlp(params, in_dim: int = 8, out_dim: int = 1, shared: bool = False,
     """The port's twin of regression.py:make_mlp's module, holding `params`."""
     module = (RepeatedMLP(in_dim, hidden_dim=16, out_dim=out_dim, dtype=dtype) if shared
               else MLP(in_dim, hidden_dims=(16, 12), out_dim=out_dim, dtype=dtype))
+    import jax  # here, so that torch-only processes can import the task above
+
     host = jax.tree_util.tree_map(np.asarray, params)
     module.load_state_dict(state_dict_from_flax(host, module))
     return module
