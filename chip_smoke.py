@@ -224,7 +224,7 @@ each of which raises on failure:
      GQA, SwiGLU; d_model 4096, d_mlp 14336, 32 heads, 8 KV heads, vocab
      128,256, T 512, bf16, attention="flash"; reduced: 2 of 32 layers) with
      seeded random weights, through the Analyzer with the openwebtext recipe
-     (MLP-only tracking, extreme reduce memory with 3 module partitions,
+     (the port's example task, examples/openwebtext/task.py; MLP-only tracking, extreme reduce memory with 3 module partitions,
      sampled Fisher, every batch size left to the memory model, "auto"
      eigendecomposition) on 32 train and 8 query examples: each stage's
      estimated batch, plan and budget beside its measured peak (within it);
@@ -325,6 +325,29 @@ each of which raises on failure:
      stage seconds, peak memory and the seconds of its all-reduces and score
      assembly printed, and which collectives gloo runs on CUDA tensors; (c)
      where two cards are visible, the same two ranks on NCCL, one a card.
+ 21. the example pipelines (kronfluence_tpu_torch/examples/), through their
+     entry points, after phase 19 (b, c). (a) openwebtext: fit_factors, then
+     compute_scores, at Llama-3-8B's widths (d_model 4096, d_mlp 14336, 32
+     heads, 8 KV heads, vocab 128,256, T 512, bf16, attention flash, seed-0
+     weights; reduced: 1 of 32 layers), 16 train and 4 query examples, the
+     script's recipe (extreme reduce memory, 2 module x 2 data partitions,
+     fp32 "jacobi"): the three 14336-dim factors through the host-loop
+     Jacobi one at a time (`eigh_large`), each held in fp64 on the card
+     (residual and orthogonality under n u) and its eigenvalues within 1e-3
+     of max|lambda| of cuSOLVER's fp32 eigh of the same matrix, with each
+     solve's seconds, sweeps and off-norms and each sweep's split by CUDA
+     events (pivot eigh, rotation GEMMs, gathers, the rest); the 4096-dim
+     group through the batched Jacobi, K2 on its register route once a
+     round; FFH once per attention forward, F2H and F3H never (one layer:
+     no attention backward), K1 on every covariance gram (all wgmma), K3
+     once a covariance fit; the scores finite. (b) wikitext: train, two
+     AdamW steps of 16 at GPT-2 small's width (12 layers, d 768, 12 heads,
+     vocab 50,257, T 512; fp32 weights, seed 1004), its losses finite and
+     its checkpoint written; then analyze with --low_precision (the bf16
+     recipe) on 32 train and 8 query examples, scores finite, and its K1
+     and K3 launches equal to those of the covariance stage called
+     directly on the same seed-0 model, data, batch and recipe (K1 36 a
+     covariance batch, all wgmma; K3 once).
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -647,6 +670,19 @@ GEMMA_LAYERS = 2
 # low-rank contraction against the dense form on the rebuilt block in fp32
 # (phase 14's 1e-3 of max|score|), over train batches of 8.
 LLAMA_CHECK_QUERIES, LLAMA_CHECK_BATCH = 2, 8
+# Phase 21 (a): the openwebtext example's entry points at Llama-3-8B's widths,
+# one layer, the script's default batch and partitions; (b) the wikitext
+# example's train (two steps) and analyze at GPT-2 small's width.
+OWT_LAYERS = 1
+OWT_WIDTHS = dict(d_model=4096, d_mlp=14336, num_heads=32, num_kv_heads=8, vocab=128256)
+GPT2_WIDTHS = dict(num_layers=12, d_model=768, num_heads=12, vocab=50257)
+OWT_TRAIN_N, OWT_QUERY_N = 16, 4
+OWT_BATCH, OWT_MODULE_PARTITIONS, OWT_DATA_PARTITIONS = 4, 2, 2
+# Host-loop eigenvalues against cuSOLVER's fp32 eigh of the same matrix, of max|lambda|.
+HOSTLOOP_EIG_RTOL = 1e-3
+# The factor of phase 15 that phase 21 solves with the host-loop Jacobi.
+HOSTLOOP_MODULE = "layers_0/mlp/gate_proj"
+WIKITEXT_TRAIN_N, WIKITEXT_QUERY_N, WIKITEXT_BATCH = 32, 8, 16
 # Phase 17 (CIFAR): bench_cifar.py's ResNet-9 workload (its counts 6144 /
 # 4096 / 4096) cut to CIFAR_COV_N covariance, CIFAR_LAMBDA_N lambda and
 # CIFAR_SELF_N self-score examples and CIFAR_QUERY_N x CIFAR_TRAIN_N pairs.
@@ -4238,46 +4274,24 @@ def phase_score_features(card: str, ctx: dict, root: Path) -> dict:
 
 
 def openwebtext_task(num_layers: int, tracked=None):
-    """The openwebtext workload's task (examples/openwebtext/task.py,
-    LlamaMLPOnlyTask): the summed token cross-entropy on fp32 logits over the
-    shifted mask, labels sampled from the explicit generator by Gumbel-max
-    (as `jax.random.categorical` draws them; one fp32 noise tensor the size
-    of the logits), the margin measurement (the label's logit against the
+    """The openwebtext workload's task, the port's example's
+    (kronfluence_tpu_torch/examples/openwebtext/task.py: LlamaMLPOnlyTask):
+    the summed token cross-entropy on fp32 logits over the shifted mask,
+    labels sampled from the explicit generator by Gumbel-max (as
+    `jax.random.categorical` draws them; one fp32 noise tensor the size of
+    the logits), the margin measurement (the label's logit against the
     logsumexp of the others), tracking the MLP projections of every layer
     (or the modules `tracked` names)."""
-    from kronfluence_tpu_torch.models.llama import mlp_tracked_modules
-    from kronfluence_tpu_torch.task import Task
+    from kronfluence_tpu_torch.examples.openwebtext.task import LlamaMLPOnlyTask
 
-    class OpenWebTextTask(Task):
-        def compute_train_loss(self, batch, model, sample=False, generator=None):
-            logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1].float()
-            mask = batch["attention_mask"][:, 1:].to(torch.float32)
-            if sample:
-                noise = torch.empty_like(logits).exponential_(generator=generator)
-                labels = noise.log_().neg_().add_(logits.detach()).argmax(dim=-1)
-                del noise
-            else:
-                labels = batch["input_ids"][:, 1:].long()
-            losses = F.cross_entropy(
-                logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), reduction="none"
-            ).reshape(mask.shape)
-            return torch.sum(losses * mask)
+    if tracked is None:
+        return LlamaMLPOnlyTask(num_layers)
 
-        def compute_measurement(self, batch, model):
-            logits = model(batch["input_ids"], batch["attention_mask"])[:, :-1].float()
-            labels = batch["input_ids"][:, 1:].long()[..., None]
-            mask = batch["attention_mask"][:, 1:].to(torch.float32)
-            correct = logits.gather(-1, labels)[..., 0]
-            others = logits.scatter(-1, labels, float("-inf"))
-            return -torch.sum((correct - torch.logsumexp(others, dim=-1)) * mask)
-
+    class TrackedTask(LlamaMLPOnlyTask):
         def get_influence_tracked_modules(self):
-            return list(tracked) if tracked is not None else mlp_tracked_modules(num_layers)
+            return list(tracked)
 
-        def get_attention_mask(self, batch):
-            return batch["attention_mask"]
-
-    return OpenWebTextTask()
+    return TrackedTask(num_layers)
 
 
 class PassCounter:
@@ -4286,7 +4300,9 @@ class PassCounter:
     (`torch.autograd.grad` calls), and each attention layer's forwards and
     backwards (hooks on its output: a backward is counted where the output's
     gradient is computed), beside every kernel's launch count, all set to 0
-    as it starts."""
+    as it starts. With `module` None (a model an entry point builds inside
+    the block) the hooks are global: every LlamaLM's forwards and every
+    LlamaAttention's."""
 
     def __init__(self, module, kernels: dict):
         self.module, self.kernels = module, kernels
@@ -4317,9 +4333,28 @@ class PassCounter:
                     output.register_hook(lambda grad: bump("attention backwards", name))
             return hook
 
-        self._handles = [self.module.register_forward_pre_hook(lambda *_: bump("forwards"))] + [
-            m.register_forward_hook(attention_hook(name))
-            for name, m in self.module.named_modules() if isinstance(m, LlamaAttention)]
+        if self.module is None:
+            from kronfluence_tpu_torch.models.llama import LlamaLM
+            from torch.nn.modules import module as nn_module
+
+            names = {}
+
+            def any_forward(m, _args):
+                if isinstance(m, LlamaLM):
+                    bump("forwards")
+
+            def any_attention(m, args, output):
+                if isinstance(m, LlamaAttention):
+                    attention_hook(names.setdefault(id(m), f"attention {len(names)}"))(
+                        m, args, output)
+
+            self._handles = [nn_module.register_module_forward_pre_hook(any_forward),
+                             nn_module.register_module_forward_hook(any_attention)]
+        else:
+            self._handles = [
+                self.module.register_forward_pre_hook(lambda *_: bump("forwards"))] + [
+                m.register_forward_hook(attention_hook(name))
+                for name, m in self.module.named_modules() if isinstance(m, LlamaAttention)]
         self._grad = torch.autograd.grad
 
         def grad(*args, **kwargs):
@@ -4347,8 +4382,8 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     and model forward; F2H and F3H (the "split_h" route) once per attention
     backward (MLP-only tracking with frozen weights: an attention layer has a
     backward only above a tracked projection, so the first layer never has
-    one); F1, F2, F3, FF, FB, FFW, FFS, FFS64, F2W, F3W, F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2
-    and the naive form never; in a covariance stage K1 on every gram (two per
+    one, and a model of one layer has none); F1, F2, F3, FF, FB, FFW, FFS, FFS64, F2W, F3W,
+    F2S, F3S, F2SH, F3SH, F2SW, F3SW, K2 and the naive form never; in a covariance stage K1 on every gram (two per
     projection, 6 a layer and batch), all wgmma, and K3 once per covariance
     fit (one per module partition)."""
     fwd = sum(counts["attention forwards"].values())
@@ -4365,7 +4400,7 @@ def check_llama_launches(stage: str, counts: dict, layers: int, covariance_fits:
     off = {k: (counts[k], v) for k, v in want.items() if counts[k] != v}
     if fwd != layers * counts["forwards"] or bwd > (layers - 1) * counts["backwards"]:
         off["attention passes"] = (fwd, bwd, counts["forwards"], counts["backwards"])
-    if counts["backwards"] and not bwd:
+    if counts["backwards"] and layers > 1 and not bwd:
         off["no attention backward"] = counts["attention backwards"]
     if off:
         raise RuntimeError(f"Llama {stage}: launches off (got, want): {off}")
@@ -4443,7 +4478,7 @@ def watch_large_solves(scratch: Path) -> dict:
         torch.cuda.synchronize()
         record["groups"].append((entries[0][1], len(entries), time.perf_counter() - t))
 
-    def watched(matrices, on_result):
+    def watched(matrices, on_result, solve=None):
         record["calls"].append(len(matrices))
         clock = [time.perf_counter()]
 
@@ -4461,7 +4496,7 @@ def watch_large_solves(scratch: Path) -> dict:
                                    if scratch.exists() else [])
             clock[0] = time.perf_counter()
 
-        return record["real"](matrices, landed)
+        return record["real"](matrices, landed, solve)
 
     eigen_mod.eigh_large = watched
     eigen_mod._cusolver_group = timed_group
@@ -4923,6 +4958,10 @@ def phase_llama(card: str, device=torch.device("cuda", 0)) -> dict:
         if not gap <= FLASH_FACTOR_RTOL:
             raise RuntimeError(f"Llama flash against naive: {worst}")
         out["flash_vs_naive"] = gap
+        # Phase 21 (a) solves this factor with the host-loop Jacobi.
+        out["hostloop_matrix"] = (
+            cov[COVARIANCE_FACTOR_NAMES[1]][HOSTLOOP_MODULE],
+            float(cov[COVARIANCE_FACTOR_NAMES[3]][HOSTLOOP_MODULE]))
         del naive_module, naive_model, naive_cov, flash_cov, cov
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -4970,7 +5009,7 @@ def check_gemma_launches(stage: str, counts: dict, layers: int) -> None:
         off["FFW"] = (counts["FFW"], (fwd, fwd + bwd))
     if fwd != layers * counts["forwards"] or bwd != layers * counts["backwards"]:
         off["attention passes"] = (fwd, bwd, counts["forwards"], counts["backwards"])
-    if counts["backwards"] and not bwd:
+    if counts["backwards"] and layers > 1 and not bwd:
         off["no attention backward"] = counts["attention backwards"]
     if off:
         raise RuntimeError(f"Gemma {stage}: launches off (got, want): {off}")
@@ -6048,6 +6087,324 @@ def phase_small_models(card: str, device=torch.device("cuda", 0)) -> dict:
     if off:
         raise RuntimeError(f"EncDecLM token counts off the mask sums: {off}")
     return result
+
+
+class SweepSplit:
+    """While the block runs, each host-loop sweep's (`ops/eigh.py:
+    _hostloop_sweep`) wall time on the synchronized host clock and its split
+    by CUDA events on the sweep's stream: the pivot solves
+    (`exact_pivot_rotations`, its side streams' work inside the pair), the
+    rotation GEMMs (`torch.matmul`) and the gathers (`Tensor.index_select`),
+    each event pair around one call; "other" is the rest of the sweep (the
+    reshape copies, the re-symmetrization, the off-norm). Only calls inside
+    a sweep are timed."""
+
+    def __init__(self):
+        self.sweeps = []
+
+    def __enter__(self):
+        from kronfluence_tpu_torch.ops import eigh as eigh_mod
+
+        self.parts = {"pivot eigh": (eigh_mod, "exact_pivot_rotations"),
+                      "rotation GEMMs": (torch, "matmul"),
+                      "gathers": (torch.Tensor, "index_select")}
+        self._mod, self._sweep = eigh_mod, eigh_mod._hostloop_sweep
+        self._real = {part: getattr(owner, name) for part, (owner, name) in self.parts.items()}
+        active = [None]
+
+        def timed(part, fn):
+            def wrapper(*args, **kwargs):
+                if active[0] is None:
+                    return fn(*args, **kwargs)
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                active[0][part].append((start, end))
+                return out
+            return wrapper
+
+        def sweep(*args, **kwargs):
+            active[0] = {part: [] for part in self.parts}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                out = self._sweep(*args, **kwargs)
+            finally:
+                events, active[0] = active[0], None
+            torch.cuda.synchronize()
+            split = {"wall_ms": (time.perf_counter() - t) * 1e3}
+            split.update({part: sum(a.elapsed_time(b) for a, b in pairs)
+                          for part, pairs in events.items()})
+            split["other"] = split["wall_ms"] - sum(split[part] for part in self.parts)
+            self.sweeps.append(split)
+            return out
+
+        eigh_mod._hostloop_sweep = sweep
+        for part, (owner, name) in self.parts.items():
+            setattr(owner, name, timed(part, self._real[part]))
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._hostloop_sweep = self._sweep
+        for part, (owner, name) in self.parts.items():
+            setattr(owner, name, self._real[part])
+        return False
+
+
+def cli_args(widths: dict, device) -> list:
+    """An example script's width arguments, and --cpu off the card."""
+    args = [item for key, value in widths.items() for item in (f"--{key}", str(value))]
+    return args + (["--cpu"] if device.type == "cpu" else [])
+
+
+def check_openwebtext_launches(stage: str, counts: dict, layers: int, covariance_fits: int,
+                               cov_batches: int, jacobi: int) -> None:
+    """Phase 15's rule (check_llama_launches) over a whole entry point's run:
+    FFH once per attention forward, F2H and F3H once per attention backward,
+    the other flash kernels and the naive form never, K1 on every covariance
+    gram (all wgmma) and K3 once per covariance fit, and K2 `jacobi` times
+    (the eigendecomposition's batched Jacobi rounds), all on its register
+    route."""
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+
+    registers = jacobi_pivot_rotations.registers_launches
+    if counts["jacobi"] != jacobi or registers != jacobi:
+        raise RuntimeError(f"openwebtext {stage}: K2 {counts['jacobi']} launches, {registers} "
+                           f"on the register route; want {jacobi}")
+    check_llama_launches(stage, dict(counts, jacobi=0), layers, covariance_fits, cov_batches)
+
+
+def hostloop_solve(card: str, matrix: tuple, device) -> dict:
+    """Phase 21 (a): phase 15's gate_proj gradient covariance (Llama-3-8B's
+    widths, 32 examples: full rank) through `eigh_large`'s "jacobi" route,
+    the host-loop Jacobi at block 128; held in fp64 on the card and against
+    cuSOLVER's fp32 eigh of the same matrix."""
+    from kronfluence_tpu_torch.ops import eigh as eigh_mod
+
+    total, count = matrix
+    n = total.shape[0]
+    got = {}
+
+    def build():
+        c = total.to(device, torch.float32) / count
+        return (c + c.T).mul_(0.5)
+
+    eigh_mod.eigh_jacobi_hostloop.solves.clear()
+    with SweepSplit() as split:
+        _, _, sec = peak_of(eigh_mod.eigh_large, [build],
+                            lambda i, evals, evecs: got.update(evals=evals, evecs=evecs),
+                            solve=eigh_mod.jacobi_hostloop_solve)
+    (solve,) = eigh_mod.eigh_jacobi_hostloop.solves
+    c = build().double()
+    q, lam = got["evecs"].double(), got["evals"].double()
+    residual = float(torch.linalg.matrix_norm(c - (q * lam) @ q.T) / torch.linalg.matrix_norm(c))
+    orth = float((q.T @ q - torch.eye(n, dtype=torch.float64, device=device)).abs().max())
+    del c, q, lam
+    ref = torch.linalg.eigh(build())[0]
+    gap = float((got["evals"] - ref).abs().max() / ref.abs().max())
+    del got, ref
+    torch.cuda.empty_cache()
+    limit = n * 2.0 ** -24
+    parts = ("pivot eigh", "rotation GEMMs", "gathers", "other")
+    share = {part: sum(x[part] for x in split.sweeps) / sum(x["wall_ms"] for x in split.sweeps)
+             for part in parts}
+    log(f"examples (a) host-loop Jacobi on phase 15's {HOSTLOOP_MODULE} gradient covariance (n "
+        f"{n}, block {eigh_mod.LARGE_EIGH_BLOCK}, exact pivots over {eigh_mod.PIVOT_STREAMS} "
+        f"streams) through eigh_large: {sec:.3f} s, {solve['sweeps']} sweeps of "
+        f"{solve['rounds_per_sweep']} rounds, relative off-norm by sweep "
+        + ", ".join(f"{o:.3e}" for o in solve["off"])
+        + f"; ||C - Q L Q^T||_F / ||C||_F {residual:.3e}, ||Q^T Q - I||_max {orth:.3e} (limits n u "
+        f"= {limit:.3e}); eigenvalues against cuSOLVER fp32 {gap:.3e} of max|lambda| (limit "
+        f"{HOSTLOOP_EIG_RTOL:g}); share of the sweeps' wall: " + ", ".join(
+            f"{part} {share[part]:.3f}" for part in parts)
+        + "; per sweep, ms (wall: pivot eigh / rotation GEMMs / gathers / other): " + "; ".join(
+            f"{x['wall_ms']:.1f}: " + " / ".join(f"{x[part]:.1f}" for part in parts)
+            for x in split.sweeps) + f" [{card}]")
+    if not (residual <= limit and orth <= limit and gap <= HOSTLOOP_EIG_RTOL):
+        raise RuntimeError(f"host-loop eigenpairs off: residual {residual}, orthogonality {orth}, "
+                           f"cuSOLVER gap {gap}")
+    return dict(seconds=sec, sweeps=solve["sweeps"], off=solve["off"], residual=residual,
+                orthogonality=orth, cusolver_gap=gap, share=share, split=split.sweeps)
+
+
+def examples_openwebtext(card: str, root: Path, device) -> dict:
+    """Phase 21 (a): the port's openwebtext fit_factors and compute_scores
+    entry points at Llama-3-8B's widths, one layer, the script's "jacobi"
+    recipe, with the 14336-dim factors' solve taken by cuSOLVER (as "auto"
+    takes it): one host-loop solve there takes minutes (`hostloop_solve`
+    holds one). The 4096-dim group runs the batched Jacobi, K2 a round."""
+    from kronfluence_tpu_torch.examples.openwebtext import compute_scores, fit_factors
+    from kronfluence_tpu_torch.factor import eigen as eigen_mod
+    from kronfluence_tpu_torch.ops import eigh as eigh_mod
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    config = ["--arch", "llama", "--num_layers", str(OWT_LAYERS), "--seq_len", str(SEQ),
+              "--num_train", str(OWT_TRAIN_N), "--attention", "flash",
+              "--output_dir", str(root / "openwebtext")] + cli_args(OWT_WIDTHS, device)
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    out = {"seconds": {}, "launches": {}}
+    scratch = root / "openwebtext" / "openwebtext" / "factors_ekfac" / "eigendecomposition_scratch"
+    eigh_mod.eigh_batched.chunks.clear()
+    eigh_mod.eigh_jacobi_hostloop.solves.clear()
+    jacobi_pivot_rotations.registers_launches = jacobi_pivot_rotations.generic_launches = 0
+    record = watch_large_solves(scratch)
+    hostloop = eigen_mod.jacobi_hostloop_solve
+    eigen_mod.jacobi_hostloop_solve = None  # eigh_large's default solve, cuSOLVER
+    try:
+        with PassCounter(None, kernels) as counter:
+            analyzer, peak, sec = peak_of(fit_factors.main, config)
+    finally:
+        eigen_mod.jacobi_hostloop_solve = hostloop
+        unwatch_large_solves(record)
+    chunks = list(eigh_mod.eigh_batched.chunks)
+    fits = OWT_MODULE_PARTITIONS * OWT_DATA_PARTITIONS
+    rounds = sum(c["sweeps"] * c["rounds_per_sweep"] for c in chunks)
+    check_openwebtext_launches("fit_factors", counter.counts, OWT_LAYERS, fits,
+                               OWT_TRAIN_N // OWT_BATCH, rounds)
+    large = 3 * OWT_LAYERS
+    if record["calls"] != [large] or eigh_mod.eigh_jacobi_hostloop.solves \
+            or [len(f) for f in record["files"]] != list(range(1, large + 1)):
+        raise RuntimeError(f"openwebtext: eigh_large calls {record['calls']}, checkpoints "
+                           f"{record['files']}, host-loop solves "
+                           f"{eigh_mod.eigh_jacobi_hostloop.solves}")
+    eigen = analyzer.load_eigendecomposition("ekfac")
+    if not all(bool(torch.isfinite(t).all()) for d in eigen.values() for t in d.values()):
+        raise RuntimeError("openwebtext: eigenpairs not finite")
+    out["seconds"]["fit_factors"] = sec
+    out["launches"]["fit_factors"] = dict(counter.counts)
+    log(f"examples (a) openwebtext fit_factors at Llama-3-8B widths ({OWT_LAYERS} layer, "
+        f"{OWT_TRAIN_N} train examples, batch {OWT_BATCH}, {OWT_MODULE_PARTITIONS} module x "
+        f"{OWT_DATA_PARTITIONS} data partitions, flash, fp32 \"jacobi\", the {large} factors of "
+        f"dim {OWT_WIDTHS['d_mlp']} by cuSOLVER through eigh_large, each solve (build and eigh) "
+        + ", ".join(f"{t:.3f}" for t in record["solves"]) + f" s): {sec:.3f} s, peak "
+        f"{peak / 2**30:.3f} GiB; launches {counter.counts}; batched Jacobi chunks "
+        f"{[(c['n'], c['matrices'], c['sweeps']) for c in chunks]} (n, matrices, sweeps: K2 "
+        f"{rounds} launches, all on the register route) [{card}]")
+    del record, eigen, analyzer
+    torch.cuda.empty_cache()
+
+    with PassCounter(None, kernels) as counter:
+        scores, peak, sec = peak_of(compute_scores.main, config + ["--num_query", str(OWT_QUERY_N)])
+    check_llama_launches("compute_scores", counter.counts, OWT_LAYERS)
+    out["seconds"]["compute_scores"] = sec
+    out["launches"]["compute_scores"] = dict(counter.counts)
+    if tuple(scores.shape) != (OWT_QUERY_N, OWT_TRAIN_N) or not bool(torch.isfinite(scores).all()):
+        raise RuntimeError(f"openwebtext scores: shape {tuple(scores.shape)} or not finite")
+    log(f"examples (a) openwebtext compute_scores ({OWT_QUERY_N} x {OWT_TRAIN_N}, rank-64 query "
+        f"blocks): {sec:.3f} s, peak {peak / 2**30:.3f} GiB, scores finite, launches "
+        f"{counter.counts} [{card}]")
+    del scores
+    torch.cuda.empty_cache()
+    return out
+
+
+def examples_wikitext(card: str, root: Path, device) -> dict:
+    """Phase 21 (b): the port's wikitext train (two steps) and analyze (the
+    bf16 recipe) at GPT-2 small's full width; analyze's K1 and K3 launches
+    against the covariance stage called directly on the same model, data and
+    recipe."""
+    from kronfluence_tpu_torch import prepare_model
+    from kronfluence_tpu_torch.examples.wikitext import analyze, train
+    from kronfluence_tpu_torch.examples.wikitext.pipeline import (
+        LanguageModelingTask,
+        construct_gpt2,
+        get_wikitext_dataset,
+    )
+    from kronfluence_tpu_torch.factor.covariance import fit_covariance_matrices_with_loader
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        all_low_precision_factor_arguments,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    width = ["--seq_len", str(SEQ)] + cli_args(GPT2_WIDTHS, device)
+    kernels = dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+    out = {"seconds": {}, "launches": {}}
+    (model, train_loss, eval_loss), _, sec = peak_of(
+        train.main, width + ["--num_train", str(WIKITEXT_TRAIN_N), "--num_eval", "8",
+                             "--epochs", "1", "--batch_size", str(WIKITEXT_BATCH),
+                             "--checkpoint_dir", str(root / "wikitext_checkpoint")])
+    steps = WIKITEXT_TRAIN_N // WIKITEXT_BATCH
+    saved = (root / "wikitext_checkpoint" / "model.safetensors").exists()
+    out["seconds"]["train"] = sec
+    log(f"examples (b) wikitext train at GPT-2 small's width ({steps} steps of "
+        f"{WIKITEXT_BATCH}): {sec:.3f} s, train loss {train_loss:.4f}, eval loss {eval_loss:.4f} "
+        f"a token, checkpoint written {saved} [{card}]")
+    if not (math.isfinite(train_loss) and math.isfinite(eval_loss) and saved):
+        raise RuntimeError("wikitext train: a loss is not finite or no checkpoint")
+    del model
+    torch.cuda.empty_cache()
+
+    with PassCounter(None, kernels) as counter:
+        (analyzer, scores), peak, sec = peak_of(
+            analyze.main, width + ["--num_train", str(WIKITEXT_TRAIN_N), "--num_query",
+                                   str(WIKITEXT_QUERY_N), "--train_batch_size", str(WIKITEXT_BATCH),
+                                   "--low_precision", "--output_dir", str(root / "wikitext")])
+    got = dict(counter.counts)
+    out["seconds"]["analyze"] = sec
+    out["launches"]["analyze"] = got
+    if tuple(scores.shape) != (WIKITEXT_QUERY_N, WIKITEXT_TRAIN_N) \
+            or not bool(torch.isfinite(scores).all()):
+        raise RuntimeError(f"wikitext scores: shape {tuple(scores.shape)} or not finite")
+    del analyzer, scores
+    torch.cuda.empty_cache()
+
+    # The covariance stage called directly: the same seed-0 model, data, batch and recipe.
+    g = GPT2_WIDTHS
+    task = LanguageModelingTask(g["num_layers"])
+    module = construct_gpt2(g["num_layers"], g["d_model"], g["num_heads"], SEQ, g["vocab"],
+                            device=device)
+    data = get_wikitext_dataset("train", WIKITEXT_TRAIN_N, SEQ, g["vocab"])
+    with PassCounter(None, kernels) as counter:
+        fit_covariance_matrices_with_loader(
+            prepare_model(module, task), task, BatchLoader(data, WIKITEXT_BATCH, device=device),
+            all_low_precision_factor_arguments("ekfac"))
+        torch.cuda.synchronize()
+    direct = dict(counter.counts)
+    del module
+    torch.cuda.empty_cache()
+    log(f"examples (b) wikitext analyze (all low precision, {WIKITEXT_QUERY_N} x "
+        f"{WIKITEXT_TRAIN_N}): {sec:.3f} s, peak {peak / 2**30:.3f} GiB, scores finite; K1 "
+        f"{got['syrk']} ({got['wgmma']} wgmma), K3 {got['probe']}, K2 {got['jacobi']}, naive "
+        f"attention {got['naive']}; the covariance stage called directly: K1 {direct['syrk']} "
+        f"({direct['wgmma']} wgmma), K3 {direct['probe']} (want K1 "
+        f"{SYRK_LAUNCHES_PER_COV_BATCH * steps}) [{card}]")
+    check_wikitext_launches(got, direct, SYRK_LAUNCHES_PER_COV_BATCH * steps)
+    return out
+
+
+def check_wikitext_launches(got: dict, direct: dict, k1: int) -> None:
+    """analyze's K1 and K3 launches are the covariance stage's called
+    directly: K1 `k1` times, all wgmma, K3 once; K2 never."""
+    if not (got["syrk"] == got["wgmma"] == direct["syrk"] == direct["wgmma"] == k1
+            and got["probe"] == direct["probe"] == 1 and got["jacobi"] == 0):
+        raise RuntimeError(f"wikitext analyze launches {got} against the stage's {direct}")
+
+
+def phase_examples(card: str, hostloop_matrix: tuple, device=torch.device("cuda", 0)) -> dict:
+    """Phase 21: the host-loop Jacobi on phase 15's `hostloop_matrix` (its
+    sum and count), then the port's example pipelines through their entry
+    points."""
+    start = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_examples_"))
+    try:
+        out = {"hostloop": hostloop_solve(card, hostloop_matrix, device)}
+        del hostloop_matrix
+        out["openwebtext"] = examples_openwebtext(card, root, device)
+        t = time.perf_counter()
+        out["wikitext"] = examples_wikitext(card, root, device)
+        out["seconds"] = {"openwebtext": t - start, "wikitext": time.perf_counter() - t}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"examples: phase 21 took {time.perf_counter() - start:.1f} s ((a) with the host-loop "
+        f"solve {out['seconds']['openwebtext']:.1f}, (b) {out['seconds']['wikitext']:.1f}) "
+        f"[{card}]")
+    return out
 
 
 def profile_eigh(card: str) -> None:
@@ -7150,6 +7507,11 @@ def main() -> None:
     cifar = phase("17 cifar", phase_cifar, card)
     imagenet = phase("18 imagenet", phase_imagenet, card)
     phase("19 MLP and encoder-decoder", phase_small_models, card)
+    examples = phase("21 examples", phase_examples, card, llama.pop("hostloop_matrix"))
+    examples_launches = {
+        key: {stage: counts[key] for part in ("openwebtext", "wikitext")
+              for stage, counts in examples[part]["launches"].items()}
+        for key in ("syrk", "probe", "jacobi", "FFH")}
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
     # from phase 16 (Gemma-2B's widths, bf16 D 256); FFS64, F2S and F3S from
     # phase 11's first run (fp32 D 64: the tiled_f32_64 forward and the
@@ -7240,6 +7602,7 @@ def main() -> None:
             "stage_options_launches": options_launches["syrk"],
             "score_features_launches": features_launches["syrk"],
             "llama_launches": llama_launches["syrk"],
+            "examples_launches": examples_launches["syrk"],
             "scanned_gpt2_launches": scanned["launches"]["syrk"],
             "data_mesh_launches": {k: v["K1"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["syrk"],
@@ -7264,6 +7627,7 @@ def main() -> None:
             "stage_options_launches": options_launches["probe"],
             "score_features_launches": features_launches["probe"],
             "llama_launches": llama_launches["probe"],
+            "examples_launches": examples_launches["probe"],
             "scanned_gpt2_launches": scanned["launches"]["probe"],
             "data_mesh_launches": {k: v["K3"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["probe"],
@@ -7279,6 +7643,7 @@ def main() -> None:
             "launches_by_route": jacobi_by_route,
             "launches_from": "phase 8 (Jacobi path, m 64: register route)",
             "score_features_launches": features_launches["jacobi"],
+            "examples_launches": examples_launches["jacobi"],
             **jacobi_result,
         },
         {
@@ -7312,6 +7677,7 @@ def main() -> None:
                else {}),
             **({"llama_launches_by_stage": {stage: c[fid] for stage, c in llama["launches"].items()}}
                if fid in ("FFH", "F2H", "F3H") else {}),
+            **({"examples_launches": examples_launches[fid]} if fid == "FFH" else {}),
             **({"gemma_launches_by_stage": {stage: c[fid] for stage, c in gemma["launches"].items()}}
                if fid in ("F1", "F2", "F3", "FFW", "F2W", "F3W") else {}),
             **({"scanned_gpt2_launches": scanned["launches"][fid]} if fid in ("FF", "FB") else {}),

@@ -8,8 +8,9 @@ Port of `kronfluence_tpu/factor/eigen.py`:
     run `torch.linalg.eigh` (cuSOLVER, the card's counterpart of XLA's eigh),
     batched over same-dimension matrices of both factor families; "jacobi"
     runs the blocked-Jacobi solver (`ops/eigh.py`, pivot solves in K2) on the
-    JAX package's merged dimension groups; "dc" is TPU-only and raises. Every
-    other case runs the host fp64 (LAPACK) path that keeps the reference's
+    JAX package's merged dimension groups, and its host-loop form one matrix
+    at a time at dimensions >= LARGE_EIGH_DIM; "dc" is TPU-only and raises.
+    Every other case runs the host fp64 (LAPACK) path that keeps the reference's
     numerics for parity tests.
   * `fit_lambda_matrices_with_loader` accumulates `Λ += Σ_b (Q_g^T g_b Q_a)^2`,
     by default rotating the activation / gradient token streams into the
@@ -41,7 +42,13 @@ from kronfluence_tpu_torch.factor.covariance import (
     with_tracked,
 )
 from kronfluence_tpu_torch.ops.covariance import per_sample_gradient as psg_op
-from kronfluence_tpu_torch.ops.eigh import LARGE_EIGH_DIM, eigh_batched, eigh_large, gershgorin_pad
+from kronfluence_tpu_torch.ops.eigh import (
+    LARGE_EIGH_DIM,
+    eigh_batched,
+    eigh_large,
+    gershgorin_pad,
+    jacobi_hostloop_solve,
+)
 from kronfluence_tpu_torch.ops.flatten import activation_tokens_with_bias, gradient_tokens
 from kronfluence_tpu_torch.parallel.mesh import all_reduce_tree, check_loader
 from kronfluence_tpu_torch.prepare import PreparedModel
@@ -163,11 +170,12 @@ def _normalized(covariance_factors, pair_idx: int, module_name: str) -> torch.Te
 
 
 def _large_group_eigendecomposition(
-    covariance_factors, eigen_factors, entries, scratch_dir=None
+    covariance_factors, eigen_factors, entries, scratch_dir=None, solve=None
 ) -> None:
     """Per-matrix path for dims >= LARGE_EIGH_DIM (Llama's MLP factors), after
     the JAX package's. Each matrix is normalized and symmetrized alone and
-    solved by `eigh_large`; the group is never stacked, so the device holds
+    solved by `eigh_large` with `solve` (cuSOLVER when None, the host-loop
+    Jacobi under "jacobi"); the group is never stacked, so the device holds
     one matrix and its solve beside the results (six 14336-dim factors
     stacked are 4.9 GB in fp32 before the solver's copies). Each result goes
     to its covariance's dtype and device.
@@ -204,6 +212,7 @@ def _large_group_eigendecomposition(
     eigh_large(
         [functools.partial(_normalized, covariance_factors, p, n) for p, n, _ in pending],
         on_result,
+        solve=solve,
     )
 
 
@@ -242,9 +251,10 @@ def _device_eigendecomposition(
     matrix dimension, across both factor families. "jacobi": the blocked
     Jacobi solver on the JAX package's merged dim groups. Either way a group
     of dimension >= LARGE_EIGH_DIM is solved one matrix at a time
-    (`_large_group_eigendecomposition`, checkpointed in `scratch_dir`), with
-    cuSOLVER; under "jacobi" such a group raises before anything is solved.
-    Results in each covariance's dtype."""
+    (`_large_group_eigendecomposition`, checkpointed in `scratch_dir`): with
+    cuSOLVER under "auto" and "qdwh", with the host-loop Jacobi
+    (`ops/eigh.py:jacobi_hostloop_solve`) under "jacobi", the JAX package's
+    solve there. Results in each covariance's dtype."""
     if solver == "dc":
         raise NotImplementedError(
             "eigendecomposition_solver='dc' (kronfluence_tpu/ops/eigh_dc.py) is TPU-only and "
@@ -254,18 +264,12 @@ def _device_eigendecomposition(
         raise ValueError(f"Unknown eigendecomposition_solver {solver!r}.")
     if solver == "jacobi":
         groups = _merge_dim_groups(_dim_groups(covariance_factors))
-        large = sorted(t for t in groups if t >= LARGE_EIGH_DIM)
-        if large:
-            raise NotImplementedError(
-                f"eigendecomposition_solver='jacobi' at dimension {large} (>= {LARGE_EIGH_DIM}) "
-                "needs the JAX package's host-loop Jacobi solver (eigh_jacobi_hostloop), which "
-                "is not ported (ROADMAP Queue 1, Llama scale); use "
-                "eigendecomposition_solver='auto', which solves these one matrix at a time."
-            )
+        large_solve = jacobi_hostloop_solve
     else:
         groups = {
             dim: [(key, dim) for key in keys] for dim, keys in _dim_groups(covariance_factors).items()
         }
+        large_solve = None
     log = get_logger("kronfluence_tpu_torch.factor.eigen", level=logging.INFO)
     log.info("eigendecomposition groups: %s", {t: len(e) for t, e in groups.items()})
     for target, entries in groups.items():
@@ -274,7 +278,9 @@ def _device_eigendecomposition(
             "per-matrix eigh_large" if target >= LARGE_EIGH_DIM else solver,
         )
         if target >= LARGE_EIGH_DIM:
-            _large_group_eigendecomposition(covariance_factors, eigen_factors, entries, scratch_dir)
+            _large_group_eigendecomposition(
+                covariance_factors, eigen_factors, entries, scratch_dir, large_solve
+            )
         elif solver == "jacobi":
             _jacobi_group(covariance_factors, eigen_factors, entries, target)
         else:

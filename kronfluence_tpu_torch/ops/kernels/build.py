@@ -35,6 +35,10 @@ COMPILE_FLAGS = (
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# Sources whose device code nvcc optimizes in parallel threads: flash_attention.cu
+# (18 kernels) was the build's longest compile, about 250 s alone against 76 s
+# split on an 8-core host, with the same registers a kernel.
+SPLIT_COMPILE_SOURCES = ("flash_attention.cu",)
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
@@ -65,11 +69,16 @@ def _local_headers(source: Path) -> list:
     return sorted(found)
 
 
+def compile_flags(source: str) -> tuple:
+    """The nvcc flags that compile `csrc/<source>`."""
+    return COMPILE_FLAGS + (("--split-compile=0",) if source in SPLIT_COMPILE_SOURCES else ())
+
+
 def object_path(source: str) -> Path:
     """Where `csrc/<source>` compiles to: the name carries a digest of the
-    source, its local headers and the compile flags."""
+    source, its local headers and its compile flags."""
     path = CSRC_DIR / source
-    digest = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(compile_flags(source)).encode())
     for part in [path, *_local_headers(path)]:
         digest.update(part.name.encode())
         digest.update(part.read_bytes())
@@ -98,7 +107,7 @@ def _compile_missing() -> tuple:
         if not obj.exists():
             tmp = obj.with_name(f"{obj.name}.{os.getpid()}.tmp")
             jobs[source] = (obj, tmp, subprocess.Popen(
-                [_nvcc(), *COMPILE_FLAGS, "-c", "-o", str(tmp), str(CSRC_DIR / source)],
+                [_nvcc(), *compile_flags(source), "-c", "-o", str(tmp), str(CSRC_DIR / source)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             ))
     failed = []

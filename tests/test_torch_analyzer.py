@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import safetensors.numpy
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.analyzer import Analyzer as JaxAnalyzer
 from kronfluence_tpu.factor import io as jax_io
@@ -71,7 +72,8 @@ PARTITIONS = dict(
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -12,6 +12,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu_torch import Analyzer, prepare_model
 from kronfluence_tpu_torch.models import llama
@@ -31,9 +32,14 @@ from tests.testable_tasks.torch_language_modeling import make_torch_lm
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
+    """One torch thread, and one BLAS thread for numpy: the host
+    eigendecomposition's `np.linalg.eigh` with OpenBLAS's thread team took
+    138 s of one analysis beside other busy processes (8.6 s a call on 512
+    dims), against under a second alone."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

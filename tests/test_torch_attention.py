@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     SegmentIds,
     mha_reference_no_custom_vjp,
@@ -94,7 +95,8 @@ def _close(got, want, tol):
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.capture.engine import capture as jax_capture
 from kronfluence_tpu.factor.covariance import train_loss_forward as jax_forward
@@ -26,6 +27,14 @@ from tests.testable_tasks.torch_language_modeling import make_torch_lm
 # fp64 on both sides; the only differences are op orders (1e-15 relative),
 # grown by the backward pass through softmax and LayerNorm.
 RTOL, ATOL = 1e-9, 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _spec_fields(spec):

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.factor.covariance import (
     fit_covariance_matrices_with_loader as jax_fit_covariance,
@@ -76,7 +77,8 @@ VARIANTS = {
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

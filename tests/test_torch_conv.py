@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from torch import nn
 
 from kronfluence_tpu.capture.flax_integration import _conv_spec as jax_conv_spec
@@ -48,6 +49,14 @@ CASES = [
     ((2, 2), "VALID", (2, 3), True, 1, True),
     ((2, 2), "SAME", (1, 1), False, 3, True),
 ]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _specs(strides, padding, dilation, use_bias=True, groups=1, c_in=5, out=4):

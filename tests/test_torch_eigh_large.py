@@ -10,6 +10,7 @@ import weakref
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.factor import eigen as jax_eigen
 from kronfluence_tpu.utils.save import load_file as jax_load_file
@@ -44,6 +45,14 @@ DIMS = {"big": (64, 24), "layers_0/mlp/down_proj": (56, 48), "small": (16, 12)}
 FP32_RTOL = 1e-5
 EIGEN_NAMES = (ACTIVATION_EIGENVECTORS_NAME, ACTIVATION_EIGENVALUES_NAME,
                GRADIENT_EIGENVECTORS_NAME, GRADIENT_EIGENVALUES_NAME)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(autouse=True)
@@ -157,9 +166,10 @@ def test_device_path_never_stacks_a_large_group(monkeypatch):
     built = []
     real_large = eigen_mod.eigh_large
 
-    def spy(matrices, on_result):
+    def spy(matrices, on_result, solve=None):
         built.append(len(matrices))
-        return real_large(matrices, on_result)
+        assert solve is None  # cuSOLVER
+        return real_large(matrices, on_result, solve)
 
     monkeypatch.setattr(eigen_mod, "eigh_large", spy)
     cov = _covariances()
@@ -299,11 +309,11 @@ def test_factor_computer_removes_the_scratch_after_saving(tmp_path, monkeypatch)
     scratch_seen = []
     real_large = eigen_mod.eigh_large
 
-    def spy(matrices, on_result):
+    def spy(matrices, on_result, solve=None):
         def record(i, evals, evecs):
             on_result(i, evals, evecs)
             scratch_seen.append(sorted(p.name for p in scratch.iterdir()))
-        return real_large(matrices, record)
+        return real_large(matrices, record, solve)
 
     monkeypatch.setattr(eigen_mod, "eigh_large", spy)
     config = tiny_llama_config(num_layers=1, dtype=torch.float32)

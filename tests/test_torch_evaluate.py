@@ -8,6 +8,7 @@ from collections import OrderedDict
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu import evaluate as jax_evaluate
 from kronfluence_tpu_torch import Analyzer, FactorArguments, ScoreArguments, Task, prepare_model
@@ -22,7 +23,8 @@ RIDGE = 1e-3
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -4,6 +4,7 @@ kronfluence_tpu in fp64 on the tiny GPT-2, through the pytest_* recipes."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.factor.covariance import (
     fit_covariance_matrices_with_loader as jax_fit_covariance,
@@ -52,6 +53,14 @@ PAIRS = (
     (GRADIENT_COVARIANCE_MATRIX_NAME, NUM_GRADIENT_COVARIANCE_PROCESSED,
      GRADIENT_EIGENVALUES_NAME, GRADIENT_EIGENVECTORS_NAME),
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _close(got, want, rtol, err_msg=""):

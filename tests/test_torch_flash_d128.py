@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from jax.experimental.pallas.ops.tpu.flash_attention import (
     SegmentIds,
     mha_reference_no_custom_vjp,
@@ -41,7 +42,8 @@ KEY_TILE, QUERY_STEP, QUERY_TILE = 64, 32, 64
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu_torch.models import llama
 from kronfluence_tpu_torch.ops import attention
@@ -56,7 +57,8 @@ WRAPPERS = {"F2W": flash_backward_dkv_d256, "F3W": flash_backward_dq_d256}
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu_torch.ops import attention
 from kronfluence_tpu_torch.ops.attention import FlashAttention, output_dot, segment_ids_for
@@ -49,7 +50,8 @@ WRAPPERS = {"F2SH": flash_backward_dkv_f32_d128, "F3SH": flash_backward_dq_f32_d
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -12,6 +12,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu_torch.ops import attention
 from kronfluence_tpu_torch.ops.attention import FlashAttention, segment_ids_for
@@ -37,7 +38,8 @@ QUERY_TILE, WARP_ROWS, KEY_STEP, LANES = 128, 16, 64, 8
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

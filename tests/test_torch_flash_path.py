@@ -11,6 +11,7 @@ tiny GPT-2 (2 layers, d 128, 2 heads of 64, T 128, vocab 128, padded data):
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.factor.covariance import (
     fit_covariance_matrices_with_loader as jax_fit_covariance,
@@ -72,9 +73,12 @@ NUM_QUERY, QUERY_BATCH = 4, 2
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_torch_thread():
+    """One torch thread, and one BLAS thread for numpy's host eigh (see
+    tests/test_torch_analyzer_release.py)."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

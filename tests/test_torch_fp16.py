@@ -10,6 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from torch import nn
 
 from kronfluence_tpu.arguments import FactorArguments as JaxFactorArguments
@@ -34,6 +35,14 @@ from kronfluence_tpu_torch.utils.dtypes import accumulation_dtype
 
 # The JAX package's fp16 limit (test_misc_features.py:344): relative to max|C|.
 FP16_RTOL = 2e-2
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 class _FlaxDense(fnn.Module):

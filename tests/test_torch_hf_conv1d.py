@@ -13,6 +13,7 @@ the port without model surgery, as the JAX package captures `FlaxConv1D`
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import torch.nn.functional as F
 from torch import nn
 
@@ -30,7 +31,8 @@ SEQ, VOCAB = 16, 128
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

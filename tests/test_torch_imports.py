@@ -36,6 +36,22 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+@pytest.mark.parametrize(
+    "path",
+    sorted((PACKAGE / "examples").rglob("*.py")),
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_port_examples_import_neither_jax_nor_the_jax_examples(path):
+    """The port's example pipelines stand alone: no JAX, no optax, nothing of
+    the JAX package and nothing of its `examples` package, and no relative
+    import that could reach past the port."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    relative = [node.module for node in ast.walk(tree)
+                if isinstance(node, ast.ImportFrom) and node.level > 0]
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN + ("examples",)))
+    assert not bad and not relative, f"{path.relative_to(REPO)} imports {bad or relative}"
+
+
 def _port_modules():
     return sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -52,7 +68,10 @@ def test_every_module_is_checked():
                  "kronfluence_tpu_torch.capture.functional", "kronfluence_tpu_torch.nn",
                  "kronfluence_tpu_torch.models.mlp", "kronfluence_tpu_torch.models.encoder_decoder",
                  "kronfluence_tpu_torch.parallel.distributed",
-                 "kronfluence_tpu_torch.parallel.mesh"):
+                 "kronfluence_tpu_torch.parallel.mesh",
+                 "kronfluence_tpu_torch.examples.common",
+                 "kronfluence_tpu_torch.examples.openwebtext.fit_factors",
+                 "kronfluence_tpu_torch.examples.wikitext.run_counterfactual"):
         assert name in modules
 
 

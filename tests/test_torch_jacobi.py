@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 import kronfluence_tpu.ops.pallas.jacobi as jax_pallas_jacobi
 import kronfluence_tpu_torch.factor.eigen as eigen_mod
@@ -68,7 +69,8 @@ def _one_torch_thread():
     with 8 threads under load and 2.7 s with one."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 
@@ -565,18 +567,27 @@ def test_dc_solver_raises(covariances):
 
 
 def test_jacobi_raises_at_llama_dims_before_solving(monkeypatch):
-    """A 14336-dim group under "jacobi" raises instead of running the batched
-    solver (the JAX package's per-matrix path is not ported). The factors are
-    expanded zeros: nothing of that size is allocated."""
+    """Under "jacobi" the 14336- and 6144-dim groups no longer raise: each
+    reaches `_large_group_eigendecomposition` with the host-loop solve
+    (`ops/eigh.py:jacobi_hostloop_solve`), and neither reaches the batched
+    solver or cuSOLVER. The stage is spied, so nothing of that size is
+    allocated: the factors are expanded zeros."""
     calls = _spy_solvers(monkeypatch)
+    large = []
+
+    def spy(covariance_factors, eigen_factors, entries, scratch_dir=None, solve=None):
+        large.append((sorted(dim for _, dim in entries), solve))
+
+    monkeypatch.setattr(eigen_mod, "_large_group_eigendecomposition", spy)
     cov = {
         ACTIVATION_COVARIANCE_MATRIX_NAME: {"m": torch.zeros(()).expand(14336, 14336)},
         GRADIENT_COVARIANCE_MATRIX_NAME: {"m": torch.zeros(()).expand(6144, 6144)},
         NUM_ACTIVATION_COVARIANCE_PROCESSED: {"m": torch.ones(1)},
         NUM_GRADIENT_COVARIANCE_PROCESSED: {"m": torch.ones(1)},
     }
-    with pytest.raises(NotImplementedError, match="6144"):
-        _device_eigendecomposition(cov, _empty_eigen(), "jacobi")
+    _device_eigendecomposition(cov, _empty_eigen(), "jacobi")
+    assert sorted(large, key=lambda c: c[0]) == [
+        ([6144], eigh_mod.jacobi_hostloop_solve), ([14336], eigh_mod.jacobi_hostloop_solve)]
     assert calls == {"jacobi": 0, "eigh": 0}
 
 

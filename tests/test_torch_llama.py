@@ -14,6 +14,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import torch.nn.functional as F
 
 from kronfluence_tpu.analyzer import Analyzer as JaxAnalyzer
@@ -69,7 +70,8 @@ NUM_TRAIN, NUM_QUERY, BATCH = 12, 4, 6
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

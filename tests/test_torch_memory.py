@@ -9,6 +9,7 @@ import gc
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from torch import nn
 
 from kronfluence_tpu.arguments import FactorArguments as JaxFactorArguments
@@ -32,7 +33,8 @@ BATCH = 3
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

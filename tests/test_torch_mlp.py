@@ -7,6 +7,7 @@ RepeatedMLP's shared layer is one tracked name used three times a forward."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu_torch.prepare import prepare_model
 
@@ -29,7 +30,8 @@ NAMES = {False: ("layers_0", "layers_1", "output"),
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

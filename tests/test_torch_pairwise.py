@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.arguments import FactorArguments as JaxFactorArguments
 from kronfluence_tpu.arguments import ScoreArguments as JaxScoreArguments
@@ -49,6 +50,14 @@ from tests.testable_tasks.torch_language_modeling import make_torch_lm
 RTOL, ATOL = 1.3e-6, 1e-5
 NUM_TRAIN, TRAIN_BATCH = 10, 4
 NUM_QUERY = 5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def _factors(jmodel, params, jtask, tmodel, ttask, train, jargs, targs):

@@ -7,6 +7,7 @@ stage's explicit generator and runs each region's forward again."""
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 from torch import nn
 
 from kronfluence_tpu.factor.covariance import (
@@ -70,7 +71,8 @@ NUM_QUERY, QUERY_BATCH = 5, 2
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 import torch.nn.functional as F
 
 from kronfluence_tpu.factor.covariance import (
@@ -62,7 +63,8 @@ SIZE, CLASSES = 8, 5
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.models.transformer import scanned_lm_apply as jax_scanned_lm_apply
 from kronfluence_tpu.models.transformer import stack_layer_params as jax_stack_layer_params
@@ -54,7 +55,8 @@ PROJECTIONS = ("attn/c_attn", "attn/c_proj", "mlp/c_fc", "mlp/c_proj")
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -8,6 +8,7 @@ import logging
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.analyzer import Analyzer as JaxAnalyzer
 from kronfluence_tpu.arguments import ScoreArguments as JaxScoreArguments
@@ -68,7 +69,8 @@ RANK = 8
 def _one_torch_thread():
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpool_limits(limits=1):
+        yield
     torch.set_num_threads(threads)
 
 

@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.ops.svd import lowrank_factors_full as jax_full
 from kronfluence_tpu.ops.svd import lowrank_factors_randomized as jax_randomized
@@ -26,6 +27,14 @@ from kronfluence_tpu_torch.ops.svd import (
 # (queries, out_dim, in_dim, rank): tall, wide, and a rank whose sketch is
 # capped by min(o, i).
 SHAPES = [(3, 24, 17, 4), (2, 13, 30, 6), (2, 12, 11, 5)]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(autouse=True)

@@ -241,6 +241,16 @@ def test_object_names_follow_source_headers_and_flags(fake_build, monkeypatch):
     assert build.object_path("b.cu") != b
 
 
+def test_flash_attention_compiles_split_and_the_rest_whole():
+    """nvcc optimizes flash_attention.cu's 18 kernels in parallel threads;
+    every other source compiles with the common flags."""
+    assert build.compile_flags("flash_attention.cu") == build.COMPILE_FLAGS + (
+        "--split-compile=0",)
+    for source in build.SOURCES:
+        if source != "flash_attention.cu":
+            assert build.compile_flags(source) == build.COMPILE_FLAGS
+
+
 def test_build_recompiles_only_the_edited_source(fake_build):
     csrc, calls = fake_build
     first = build.build_library()

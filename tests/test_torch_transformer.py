@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from threadpoolctl import threadpool_limits
 
 from kronfluence_tpu.models.transformer import TransformerLM as FlaxTransformerLM
 from kronfluence_tpu_torch.models.convert import state_dict_from_flax
@@ -19,6 +20,14 @@ from kronfluence_tpu_torch.models.transformer import (
 
 from tests.testable_tasks.language_modeling import make_lm, make_lm_data
 from tests.testable_tasks.torch_language_modeling import make_torch_lm, torch_config_like
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_blas_thread():
+    """One BLAS thread for numpy's host eigh: OpenBLAS's thread team spins
+    against the suite's other workers (tests/test_torch_analyzer_release.py)."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 @pytest.fixture(scope="module")
