@@ -348,6 +348,27 @@ each of which raises on failure:
      and K3 launches equal to those of the covariance stage called
      directly on the same seed-0 model, data, batch and recipe (K1 36 a
      covariance batch, all wgmma; K3 once).
+ 22. the cifar, imagenet and uci example pipelines through their entry
+     points, after phase 21: (a) cifar at ResNet-9's full width (32x32x3, 10
+     classes): train (two AdamW steps of 64, BatchNorm in training mode),
+     detect_mislabeled_dataset on 512 synthetic images with 10% of the
+     labels corrupted (its top-10% and top-20% recall printed),
+     inspect_factors on detect's factors, half_precision_analysis (fp32 and
+     bf16 fits; its Pearson, Spearman and top-10% overlap printed); (b)
+     imagenet at ResNet-50's (224x224x3, 1000 classes), 48 train and 8
+     query examples in batches of 16: analyze (rank-32 query blocks),
+     query_batching_analysis (full rank against rank 32, printed; it finds
+     analyze's fit in its output directory, as a rerun would) and
+     ddp_analyze as one process with no group, held against analyze at the
+     same arguments (bit for bit, else within DDP_ALONE_RTOL of max and
+     Pearson r DDP_ALONE_PEARSON_MIN); (c) uci's train, analyze and
+     run_counterfactual at their own arguments. Each script's K1 launches
+     (and its wgmma share) and K3 launches equal those of the covariance
+     stage called directly on its model, data, batch and recipe, once a fit
+     (K1 held to the shapes' count, `k1_grams_per_batch`: 3 a batch on
+     ResNet-9, fp32 FFMA route for fp32, wgmma for bf16; 16 a batch on
+     ResNet-50, fp32; none on the MLP), K2 and the flash kernels never;
+     every score finite and of its shape.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -683,6 +704,23 @@ HOSTLOOP_EIG_RTOL = 1e-3
 # The factor of phase 15 that phase 21 solves with the host-loop Jacobi.
 HOSTLOOP_MODULE = "layers_0/mlp/gate_proj"
 WIKITEXT_TRAIN_N, WIKITEXT_QUERY_N, WIKITEXT_BATCH = 32, 8, 16
+# Phase 22: the cifar, imagenet and uci examples' entry points. (a) cifar:
+# ResNet-9 at 32 x 32 and 10 classes; train takes CIFAR_TRAIN_STEPS AdamW
+# steps of CIFAR_EXAMPLE_BATCH, detect_mislabeled_dataset and
+# half_precision_analysis train on CIFAR_EXAMPLE_N synthetic images (10% of
+# the labels corrupted) for their scripts' default epochs and fit and score in
+# batches of CIFAR_EXAMPLE_BATCH; (b) imagenet: ResNet-50 at phase 18's shape
+# (224 x 224, 1000 classes) on IMAGENET_N train and IMAGENET_QUERY_N query
+# examples in batches of IMAGENET_EXAMPLE_BATCH, rank-IMAGENET_RANK query
+# blocks; (c) uci: the scripts' own arguments.
+CIFAR_EXAMPLE_N, CIFAR_EXAMPLE_BATCH, CIFAR_TRAIN_STEPS = 512, 64, 2
+IMAGENET_EXAMPLE_BATCH = 16
+# ddp_analyze as one process against analyze at the same arguments: bit for
+# bit where every kernel on the path is deterministic; where not, within
+# this share of max|score| and at this Pearson r at least (3.879e-8 and
+# 1.00000000 on an H100 80GB HBM3 at 700 W: the conv backward is not bitwise
+# reproducible).
+DDP_ALONE_RTOL, DDP_ALONE_PEARSON_MIN = 1e-6, 0.999999
 # Phase 17 (CIFAR): bench_cifar.py's ResNet-9 workload (its counts 6144 /
 # 4096 / 4096) cut to CIFAR_COV_N covariance, CIFAR_LAMBDA_N lambda and
 # CIFAR_SELF_N self-score examples and CIFAR_QUERY_N x CIFAR_TRAIN_N pairs.
@@ -6407,6 +6445,292 @@ def phase_examples(card: str, hostloop_matrix: tuple, device=torch.device("cuda"
     return out
 
 
+def example_kernels() -> dict:
+    """Every counted kernel wrapper, as PassCounter takes them."""
+    from kronfluence_tpu_torch.ops.kernels.jacobi import jacobi_pivot_rotations
+    from kronfluence_tpu_torch.ops.kernels.probe import probe
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    return dict(flash_kernels(), syrk=syrk, probe=probe, jacobi=jacobi_pivot_rotations)
+
+
+def direct_covariance(card: str, label: str, module, task, data: dict, batch: int, recipe,
+                      device) -> dict:
+    """The covariance stage called directly on an example's model, data,
+    batch and recipe: its K1 (by route) and K3 launches, K1's held to the
+    count the layer shapes give (`k1_grams_per_batch`)."""
+    from kronfluence_tpu_torch import prepare_model
+    from kronfluence_tpu_torch.factor.covariance import (
+        discover_stage_specs,
+        fit_covariance_matrices_with_loader,
+    )
+    from kronfluence_tpu_torch.utils.dataset import BatchLoader
+
+    model = prepare_model(module, task)
+    loader = BatchLoader(data, batch, device=device)
+    with PassCounter(None, example_kernels()) as counter:
+        fit_covariance_matrices_with_loader(model, task, loader, recipe)
+        torch.cuda.synchronize()
+    specs = discover_stage_specs(model, task, loader.probe()[0])
+    batches = -(-len(data["y"]) // batch)
+    shapes = k1_grams_per_batch(specs, torch.float32, torch.float32) * batches
+    got = {"K1": counter.counts["syrk"], "wgmma": counter.counts["wgmma"],
+           "K3": counter.counts["probe"]}
+    log(f"examples 22 {label}: the covariance stage called directly ({len(data['y'])} "
+        f"examples, batch {batch}, {len(specs)} tracked layers): K1 {got['K1']} ({got['wgmma']} "
+        f"wgmma), K3 {got['K3']}; K1 from the shapes {shapes} [{card}]")
+    check_direct_covariance(label, got, shapes)
+    return got
+
+
+def check_direct_covariance(label: str, got: dict, shapes: int) -> None:
+    """One covariance fit: K1 as many times as the shapes give, K3 once."""
+    if got["K1"] != shapes or got["K3"] != 1:
+        raise RuntimeError(f"{label}: the covariance stage launched {got}, the shapes give K1 "
+                           f"{shapes}")
+
+
+def check_example_launches(label: str, counts: dict, fits: list) -> dict:
+    """An entry point's launches are those of its covariance fits, each the
+    stage's called directly (`fits`): K1 and its wgmma share summed, K3 once
+    a fit; K2, the flash kernels and the naive form never. Returns K1 (by
+    route) and K3."""
+    k1 = sum(f["K1"] for f in fits)
+    wgmma = sum(f["wgmma"] for f in fits)
+    check_vision_launches(label, "entry point", counts, k1, len(fits))
+    if counts["wgmma"] != wgmma:
+        raise RuntimeError(f"{label}: K1 took the wgmma route {counts['wgmma']} times, the "
+                           f"stages called directly {wgmma}")
+    return {"K1": counts["syrk"], "wgmma": counts["wgmma"], "K3": counts["probe"]}
+
+
+def run_example(card: str, label: str, fn, argv: list, fits: list, out: dict):
+    """One entry point under PassCounter: its result, with its seconds, peak
+    and launches (held to `fits`) recorded in `out`."""
+    from kronfluence_tpu_torch.ops.kernels.syrk import syrk
+
+    f16 = syrk.f16_launches
+    with PassCounter(None, example_kernels()) as counter:
+        result, peak, sec = peak_of(fn, argv)
+    out["seconds"][label], out["peaks"][label] = sec, peak
+    out["launches"][label] = check_example_launches(label, counter.counts, fits)
+    if syrk.f16_launches != f16:
+        raise RuntimeError(f"{label}: K1 took fp16 operands")
+    log(f"examples 22 {label}: {sec:.3f} s, peak {peak / 2**30:.3f} GiB, launches "
+        f"{out['launches'][label]} (want K1 {sum(f['K1'] for f in fits)}, wgmma "
+        f"{sum(f['wgmma'] for f in fits)}, K3 {len(fits)}) [{card}]")
+    return result
+
+
+def finite_scores(label: str, scores: torch.Tensor, shape: tuple) -> torch.Tensor:
+    if tuple(scores.shape) != shape or not bool(torch.isfinite(scores).all()):
+        raise RuntimeError(f"{label}: scores of shape {tuple(scores.shape)} (want {shape}) or "
+                           f"not finite")
+    return scores
+
+
+def examples_cifar(card: str, root: Path, device) -> dict:
+    """Phase 22 (a): the cifar example's train, detect_mislabeled_dataset,
+    inspect_factors (detect's factors) and half_precision_analysis at
+    ResNet-9's full width (32 x 32, 10 classes)."""
+    from kronfluence_tpu_torch import FactorArguments
+    from kronfluence_tpu_torch.examples.cifar import (
+        detect_mislabeled_dataset,
+        half_precision_analysis,
+        inspect_factors,
+        train,
+    )
+    from kronfluence_tpu_torch.examples.cifar.pipeline import (
+        ClassificationTask,
+        construct_resnet9,
+        get_cifar10_dataset,
+    )
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        all_low_precision_factor_arguments,
+    )
+
+    cpu = cli_args({}, device)
+    out = {"seconds": {}, "peaks": {}, "launches": {}}
+    data, corrupt_idx = get_cifar10_dataset("train", CIFAR_EXAMPLE_N, corrupt_frac=0.1)
+    module = construct_resnet9(device=device)
+    log(f"examples 22 (a) cifar: ResNet-9 (10 classes, 32x32x3), "
+        f"{sum(p.numel() for p in module.parameters()):,} parameters; {CIFAR_EXAMPLE_N} "
+        f"synthetic images, {len(corrupt_idx)} labels corrupted, batches of "
+        f"{CIFAR_EXAMPLE_BATCH} [{card}]")
+    task = ClassificationTask()
+    fp32 = direct_covariance(card, "cifar fp32", module, task, data, CIFAR_EXAMPLE_BATCH,
+                             FactorArguments(strategy="ekfac"), device)
+    bf16 = direct_covariance(card, "cifar bf16", module, task, data, CIFAR_EXAMPLE_BATCH,
+                             all_low_precision_factor_arguments("ekfac"), device)
+    del module
+    if fp32["wgmma"] or bf16["wgmma"] != bf16["K1"]:
+        raise RuntimeError(f"cifar: K1 off its routes: fp32 {fp32}, bf16 {bf16}")
+
+    sized = ["--num_train", str(CIFAR_EXAMPLE_N), "--batch_size", str(CIFAR_EXAMPLE_BATCH)] + cpu
+    checkpoint = root / "cifar_checkpoint"
+    trained, _ = run_example(
+        card, "cifar train", train.main,
+        ["--num_train", str(CIFAR_TRAIN_STEPS * CIFAR_EXAMPLE_BATCH), "--batch_size",
+         str(CIFAR_EXAMPLE_BATCH), "--epochs", "1", "--checkpoint_dir", str(checkpoint)] + cpu,
+        [], out)
+    if not ((checkpoint / "model.safetensors").exists()
+            and all(bool(torch.isfinite(t).all()) for t in trained.state_dict().values()
+                    if t.is_floating_point())):
+        raise RuntimeError("cifar train: no checkpoint, or weights not finite")
+    del trained
+
+    analyzer, scores, recalls = run_example(
+        card, "cifar detect_mislabeled_dataset", detect_mislabeled_dataset.main,
+        sized + ["--output_dir", str(root / "cifar")], [fp32], out)
+    finite_scores("cifar detect", scores, (CIFAR_EXAMPLE_N,))
+    out["recall"] = {f"top {int(100 * frac)}%": r for frac, r in recalls.items()}
+    del analyzer, scores
+    summaries = inspect_factors.main(["--output_dir", str(root / "cifar")] + cpu)
+    values = [v for s in summaries.values() for d in s.values() for v in d.values()]
+    if len(summaries) != 9 or not all(math.isfinite(v) for v in values):
+        raise RuntimeError(f"cifar inspect_factors: {len(summaries)} modules, or a value not "
+                           f"finite")
+    out["half_precision"] = run_example(
+        card, "cifar half_precision_analysis", half_precision_analysis.main,
+        sized + ["--output_dir", str(root / "cifar_half")], [fp32, bf16], out)
+    if not all(math.isfinite(v) for v in out["half_precision"].values()):
+        raise RuntimeError(f"cifar half_precision_analysis: {out['half_precision']}")
+    torch.cuda.empty_cache()
+    log(f"examples 22 (a) cifar: mislabeled-example recall by self-influence {out['recall']}; "
+        f"inspect_factors read {len(summaries)} modules; bf16 against fp32 self-influence "
+        f"{out['half_precision']} [{card}]")
+    return out
+
+
+def examples_imagenet(card: str, root: Path, device) -> dict:
+    """Phase 22 (b): the imagenet example's analyze, query_batching_analysis
+    and ddp_analyze (one process, no group: a mesh of one) at ResNet-50's
+    full width (224 x 224, 1000 classes), ddp_analyze held against analyze
+    at the same arguments. query_batching_analysis finds analyze's fit (the
+    same model, data, batch and recipe) in its output directory, as a rerun
+    would, and launches no K1 or K3: the script's fp64 host
+    eigendecomposition takes 42 s a fit."""
+    from kronfluence_tpu_torch import FactorArguments
+    from kronfluence_tpu_torch.examples.imagenet import (
+        analyze,
+        ddp_analyze,
+        query_batching_analysis,
+    )
+    from kronfluence_tpu_torch.examples.imagenet.pipeline import (
+        construct_resnet,
+        synthetic_imagenet,
+    )
+
+    cpu = cli_args({}, device)
+    out = {"seconds": {}, "peaks": {}, "launches": {}}
+    model, task = construct_resnet("resnet50", 1000, device=device)
+    log(f"examples 22 (b) imagenet: ResNet-50 (1000 classes, 224x224x3), "
+        f"{sum(p.numel() for p in model.module.parameters()):,} parameters; {IMAGENET_N} train "
+        f"and {IMAGENET_QUERY_N} query examples, batches of {IMAGENET_EXAMPLE_BATCH}, rank "
+        f"{IMAGENET_RANK} [{card}]")
+    fit = direct_covariance(card, "imagenet", model.module, task,
+                            synthetic_imagenet(IMAGENET_N, IMAGENET_SIZE, 1000, 0),
+                            IMAGENET_EXAMPLE_BATCH, FactorArguments(strategy="ekfac"), device)
+    del model
+    if fit["wgmma"]:
+        raise RuntimeError(f"imagenet: K1 left its fp32 route: {fit}")
+    shape = ["--arch", "resnet50", "--image_size", str(IMAGENET_SIZE), "--num_classes", "1000",
+             "--num_train", str(IMAGENET_N), "--num_query", str(IMAGENET_QUERY_N),
+             "--query_gradient_low_rank", str(IMAGENET_RANK)] + cpu
+    batch = ["--per_device_batch_size", str(IMAGENET_EXAMPLE_BATCH)]
+    analyzer, want = run_example(
+        card, "imagenet analyze", analyze.main,
+        shape + ["--train_batch_size", str(IMAGENET_EXAMPLE_BATCH), "--query_batch_size",
+                 str(IMAGENET_QUERY_N), "--output_dir", str(root / "imagenet")], [fit], out)
+    finite_scores("imagenet analyze", want, (IMAGENET_QUERY_N, IMAGENET_N))
+    del analyzer
+    shutil.copytree(root / "imagenet" / "imagenet" / "factors_ekfac",
+                    root / "imagenet_qb" / "imagenet_qb" / "factors_ekfac")
+    rank_rho, rank_r = run_example(
+        card, "imagenet query_batching_analysis", query_batching_analysis.main,
+        shape + batch + ["--output_dir", str(root / "imagenet_qb")], [], out)
+    out["rank_vs_full"] = {"spearman": rank_rho, "pearson": rank_r}
+    if not (math.isfinite(rank_rho) and math.isfinite(rank_r)):
+        raise RuntimeError(f"imagenet query_batching_analysis: {out['rank_vs_full']}")
+    analyzer, got = run_example(
+        card, "imagenet ddp_analyze", ddp_analyze.main,
+        shape + batch + ["--output_dir", str(root / "imagenet_ddp")], [fit], out)
+    if analyzer.mesh.data != 1 or analyzer.mesh.group is not None:
+        raise RuntimeError(f"imagenet ddp_analyze: not one process: {analyzer.mesh}")
+    finite_scores("imagenet ddp_analyze", got, (IMAGENET_QUERY_N, IMAGENET_N))
+    del analyzer
+    bitwise = torch.equal(got, want)
+    gap = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    r = pearson(got.float(), want.float())
+    out["ddp_vs_analyze"] = {"bitwise": bitwise, "max_rel": gap, "pearson": r}
+    torch.cuda.empty_cache()
+    log(f"examples 22 (b) imagenet: rank {IMAGENET_RANK} against full rank (query_batching_"
+        f"analysis): Spearman {rank_rho:.6f}, Pearson {rank_r:.6f}; ddp_analyze as one process "
+        f"against analyze at the same arguments: bit for bit {bitwise}, max |diff| / max|score| "
+        f"{gap:.3e} (limit {DDP_ALONE_RTOL:g} unless bitwise), Pearson r {r:.8f} "
+        f"(limit {DDP_ALONE_PEARSON_MIN}) [{card}]")
+    if not bitwise and not (gap <= DDP_ALONE_RTOL and r >= DDP_ALONE_PEARSON_MIN):
+        raise RuntimeError(f"imagenet ddp_analyze against analyze: {out['ddp_vs_analyze']}")
+    return out
+
+
+def examples_uci(card: str, root: Path, device) -> dict:
+    """Phase 22 (c): the uci example's train, analyze and run_counterfactual
+    at the scripts' own arguments (the 8 -> 64 -> 64 -> 1 MLP)."""
+    from kronfluence_tpu_torch import FactorArguments
+    from kronfluence_tpu_torch.examples.uci import analyze, run_counterfactual, train
+    from kronfluence_tpu_torch.examples.uci.pipeline import (
+        RegressionTask,
+        construct_regression_mlp,
+        get_regression_dataset,
+    )
+
+    cpu = cli_args({}, device)
+    out = {"seconds": {}, "peaks": {}, "launches": {}}
+    fit = direct_covariance(card, "uci", construct_regression_mlp(device=device),
+                            RegressionTask(), get_regression_dataset("train"), 64,
+                            FactorArguments(strategy="ekfac", use_empirical_fisher=True), device)
+    model = run_example(card, "uci train",
+                        train.main, ["--checkpoint_dir", str(root / "uci_checkpoint")] + cpu, [],
+                        out)
+    if not all(bool(torch.isfinite(t).all()) for t in model.state_dict().values()):
+        raise RuntimeError("uci train: weights not finite")
+    analyzer, scores = run_example(card, "uci analyze", analyze.main,
+                                   ["--output_dir", str(root / "uci")] + cpu, [fit], out)
+    finite_scores("uci analyze", scores, (16, 512))
+    del analyzer
+    out["counterfactual"] = run_example(
+        card, "uci run_counterfactual", run_counterfactual.main,
+        ["--output_dir", str(root / "uci_cf")] + cpu, [fit], out)
+    if not all(math.isfinite(m) for m, _ in out["counterfactual"].values()):
+        raise RuntimeError(f"uci run_counterfactual: {out['counterfactual']}")
+    log(f"examples 22 (c) uci: counterfactual query losses (mean, std over 3 seeds) "
+        f"{out['counterfactual']} [{card}]")
+    return out
+
+
+def phase_example_pipelines(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 22: the port's cifar, imagenet and uci example pipelines through
+    their entry points at full width, each script's launches held to the
+    covariance stage called directly."""
+    start = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_examples_"))
+    out, seconds = {}, {}
+    try:
+        for name, run in (("cifar", examples_cifar), ("imagenet", examples_imagenet),
+                          ("uci", examples_uci)):
+            t = time.perf_counter()
+            out[name] = run(card, root, device)
+            seconds[name] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"examples 22: phase 22 took {time.perf_counter() - start:.1f} s (" + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in seconds.items()) + "); scripts' seconds " + ", ".join(
+        f"{label} {sec:.3f}" for part in out.values() for label, sec in part["seconds"].items())
+        + f" [{card}]")
+    return out
+
+
 def profile_eigh(card: str) -> None:
     """Cold and warm eigendecomposition seconds of both solvers on phase 5's
     covariance factors, and a torch.profiler kernel table of a warm run."""
@@ -7512,6 +7836,11 @@ def main() -> None:
         key: {stage: counts[key] for part in ("openwebtext", "wikitext")
               for stage, counts in examples[part]["launches"].items()}
         for key in ("syrk", "probe", "jacobi", "FFH")}
+    pipelines = phase("22 example pipelines", phase_example_pipelines, card)
+    pipeline_launches = {
+        key: {label: counts[key] for part in pipelines.values()
+              for label, counts in part["launches"].items()}
+        for key in ("K1", "wgmma", "K3")}
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
     # from phase 16 (Gemma-2B's widths, bf16 D 256); FFS64, F2S and F3S from
     # phase 11's first run (fp32 D 64: the tiled_f32_64 forward and the
@@ -7603,6 +7932,8 @@ def main() -> None:
             "score_features_launches": features_launches["syrk"],
             "llama_launches": llama_launches["syrk"],
             "examples_launches": examples_launches["syrk"],
+            "example_pipelines_launches": pipeline_launches["K1"],
+            "example_pipelines_wgmma_launches": pipeline_launches["wgmma"],
             "scanned_gpt2_launches": scanned["launches"]["syrk"],
             "data_mesh_launches": {k: v["K1"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["syrk"],
@@ -7628,6 +7959,7 @@ def main() -> None:
             "score_features_launches": features_launches["probe"],
             "llama_launches": llama_launches["probe"],
             "examples_launches": examples_launches["probe"],
+            "example_pipelines_launches": pipeline_launches["K3"],
             "scanned_gpt2_launches": scanned["launches"]["probe"],
             "data_mesh_launches": {k: v["K3"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["probe"],

@@ -1,5 +1,6 @@
 """Shared example utilities: a small AdamW training loop, synthetic tokens,
-the examples' language-model loss and a checkpoint writer.
+the examples' language-model loss, a checkpoint writer and a printer of the
+most influential training examples.
 
 Port of `examples/common.py`. The training loop is `torch.optim.AdamW` over an
 in-memory column store (a dict of equal-length numpy arrays), shuffled with
@@ -34,6 +35,12 @@ def synthetic_tokens(num: int, seq_len: int, vocab: int, seed: int = 0) -> Dict[
         "input_ids": rng.integers(1, vocab, size=(num, seq_len)).astype(np.int32),
         "attention_mask": np.ones((num, seq_len), dtype=np.int32),
     }
+
+
+def model_inputs(model, x: torch.Tensor) -> torch.Tensor:
+    """`x` in the dtype of the model's parameters (the stages may cast the
+    model to an amp dtype; the data stays fp32)."""
+    return x.to(next(model.parameters()).dtype)
 
 
 def sample_labels(logits: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -100,3 +107,14 @@ def save_checkpoint(model: nn.Module, path) -> None:
     """The model's state_dict as one safetensors file."""
     save_file({k: v.detach() for k, v in model.state_dict().items()}, path)
 
+
+def print_top_influences(scores, k: int = 5) -> None:
+    """Prints the most positively and negatively influential train indices of
+    the first three queries (rows of a (query, train) score matrix)."""
+    scores = scores.double().cpu().numpy() if isinstance(scores, torch.Tensor) else scores
+    for q in range(min(3, scores.shape[0])):
+        row = scores[q]
+        top = np.argsort(row)[::-1][:k]
+        bottom = np.argsort(row)[:k]
+        print(f"query {q}: top {top.tolist()} (scores {np.round(row[top], 3)}), "
+              f"bottom {bottom.tolist()}")

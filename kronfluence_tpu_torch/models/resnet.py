@@ -7,7 +7,9 @@ workload's. The attribute names are the flax module names (`stem`, `layer1`,
 names and factor artifacts line up with the JAX package's. BatchNorm uses its
 running statistics in eval mode, which `prepare_model` sets (the reference
 does the same); its eps is flax's 1e-5 and its momentum flax's 0.99 (torch's
-0.01).
+0.01). In training mode (the examples' `train_resnet9`) it normalises by the
+batch statistics and updates the running variance with the biased batch
+variance, as flax does (`BatchNorm2d`).
 
 Every conv pads as flax's does (`models/cnn.py:Conv2d`): a "SAME" 3x3 conv at
 stride 2 on an even input pads (0, 1), not torch's (1, 1), and the stem's
@@ -24,8 +26,25 @@ from torch import nn
 from kronfluence_tpu_torch.models.cnn import Conv2d, max_pool
 
 
-def _batch_norm(channels: int, device, dtype) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.01, device=device, dtype=dtype)
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose training mode updates the running variance as
+    flax's BatchNorm does, with the biased batch variance (torch's own takes
+    the unbiased one, n / (n - 1) times larger). The output in either mode
+    and the eval mode as a whole are `nn.BatchNorm2d`'s."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+def _batch_norm(channels: int, device, dtype) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.01, device=device, dtype=dtype)
 
 
 class ConvBlock(nn.Module):
@@ -145,9 +164,10 @@ def resnet50(num_classes: int = 1000, device=None, dtype=None) -> ResNet:
 @torch.no_grad()
 def init_vision(model: nn.Module, seed: int = 0, device=None) -> nn.Module:
     """Moves `model` to `device` (the card unless the caller names another)
-    and draws its weights from a seeded `torch.Generator` there: conv and
-    Dense kernels normal with std 1/sqrt(fan_in) (flax's lecun scale), zero
-    biases, and every BatchNorm's scale and bias (1 + 0.1 z and 0.1 z),
+    and draws its weights from a seeded `torch.Generator` there (any model
+    of Conv2d, Linear and BatchNorm2d layers: the examples' MLP too): conv
+    and Dense kernels normal with std 1/sqrt(fan_in) (flax's lecun scale),
+    zero biases, and every BatchNorm's scale and bias (1 + 0.1 z and 0.1 z),
     running mean (0.1 z) and running variance (uniform in [0.5, 1.5]) in
     place of the init's 1, 0, 0 and 1: the init's `bn3` scale of 0 would
     zero every residual branch of a ResNet and, with it, those convs'

@@ -52,6 +52,16 @@ def test_port_examples_import_neither_jax_nor_the_jax_examples(path):
     assert not bad and not relative, f"{path.relative_to(REPO)} imports {bad or relative}"
 
 
+# The entry points of the cifar, imagenet and uci example pipelines.
+EXAMPLE_ENTRY_POINTS = tuple(
+    f"kronfluence_tpu_torch.examples.{script}" for script in (
+        "cifar.train", "cifar.detect_mislabeled_dataset", "cifar.half_precision_analysis",
+        "cifar.inspect_factors", "imagenet.analyze", "imagenet.query_batching_analysis",
+        "imagenet.ddp_analyze", "uci.train", "uci.analyze", "uci.run_counterfactual",
+    )
+)
+
+
 def _port_modules():
     return sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts)
@@ -71,7 +81,8 @@ def test_every_module_is_checked():
                  "kronfluence_tpu_torch.parallel.mesh",
                  "kronfluence_tpu_torch.examples.common",
                  "kronfluence_tpu_torch.examples.openwebtext.fit_factors",
-                 "kronfluence_tpu_torch.examples.wikitext.run_counterfactual"):
+                 "kronfluence_tpu_torch.examples.wikitext.run_counterfactual",
+                 *EXAMPLE_ENTRY_POINTS):
         assert name in modules
 
 
@@ -139,6 +150,29 @@ def test_package_exports_the_api_and_builds_nothing():
         "      'libkf_kernels' in maps)\n"
         "sys.exit(1 if missing or build.load_library.cache_info().currsize\n"
         "         or 'libkf_kernels' in maps else 0)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, env=_clean_env(),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("entry_point", EXAMPLE_ENTRY_POINTS)
+def test_example_entry_point_loads_no_kernel_library(entry_point):
+    """Importing an example's entry point (its pipeline, the models and the
+    Analyzer with it) neither builds nor loads the kernel library, and
+    starts no process group."""
+    code = (
+        "import importlib, sys\n"
+        "import torch.distributed as dist\n"
+        "from kronfluence_tpu_torch.ops.kernels import build\n"
+        f"module = importlib.import_module({entry_point!r})\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "state = (callable(module.main), build.load_library.cache_info().currsize,\n"
+        "         'libkf_kernels' in maps, dist.is_initialized())\n"
+        "print('STATE', state)\n"
+        "sys.exit(0 if state == (True, 0, False, False) else 1)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, env=_clean_env(),

@@ -53,3 +53,24 @@ def load_flax(module: torch.nn.Module, variables) -> torch.nn.Module:
     host = jax.tree_util.tree_map(np.asarray, variables)
     module.load_state_dict(state_dict_from_flax(host, module))
     return module
+
+
+def fp64_variables(flax_module, size: int, seed: int, stats: bool = True):
+    """A flax vision module's variables as fp64 numpy, from `init` at a
+    (1, size, size, 3) input; with `stats` every BatchNorm's scale, bias,
+    running mean and running variance and every Dense bias drawn from a
+    numpy seed (init leaves them 1, 0, 0, 1 and 0)."""
+    variables = jax.device_get(flax_module.init(jax.random.PRNGKey(seed),
+                                                np.zeros((1, size, size, 3))))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        leaf = np.asarray(leaf, np.float64)
+        name = str(path[-1].key)
+        if not stats or leaf.ndim != 1 or name not in ("scale", "bias", "mean", "var"):
+            return leaf
+        if name == "var":
+            return rng.uniform(0.5, 1.5, leaf.shape)
+        return (name == "scale") + 0.1 * rng.standard_normal(leaf.shape)
+
+    return jax.tree_util.tree_map_with_path(draw, variables)
