@@ -341,12 +341,12 @@ each of which raises on failure:
      round; FFH once per attention forward, F2H and F3H never (one layer:
      no attention backward), K1 on every covariance gram (all wgmma), K3
      once a covariance fit; the scores finite. (b) wikitext: train, two
-     AdamW steps of 16 at GPT-2 small's width (12 layers, d 768, 12 heads,
-     vocab 50,257, T 512; fp32 weights, seed 1004), its losses finite and
-     its checkpoint written; then analyze with --low_precision (the bf16
+     AdamW steps of 16 at GPT-2 small's width (d 768, 12 heads, vocab
+     50,257, T 512; reduced: 4 of 12 layers; fp32 weights, seed 1004), its
+     losses finite and its checkpoint written; then analyze with --low_precision (the bf16
      recipe) on 32 train and 8 query examples, scores finite, and its K1
      and K3 launches equal to those of the covariance stage called
-     directly on the same seed-0 model, data, batch and recipe (K1 36 a
+     directly on the same seed-0 model, data, batch and recipe (K1 12 a
      covariance batch, all wgmma; K3 once).
  22. the cifar, imagenet and uci example pipelines through their entry
      points, after phase 21: (a) cifar at ResNet-9's full width (32x32x3, 10
@@ -369,6 +369,31 @@ each of which raises on failure:
      ResNet-9, fp32 FFMA route for fp32, wgmma for bf16; 16 a batch on
      ResNet-50, fp32; none on the MLP), K2 and the flash kernels never;
      every score finite and of its shape.
+ 23. the glue, swag and dailymail example pipelines through their entry
+     points, after phase 22. Each script first at tests/test_examples.py's
+     arguments (the JAX scripts fix the model at d 128: no gram reaches
+     K1). (a) glue: train, analyze, half_precision_analysis,
+     run_counterfactual and evaluate_lds, then analyze's recipe at
+     BERT-base's widths (d 768, 12 heads, T 128, vocab 30,522, 2 classes;
+     reduced: 4 of 12 layers; 256 train and 16 query sequences, batch 32)
+     and half_precision_analysis's bf16 recipe against it (it finds
+     analyze's fit and scores as its fp32 pass; bf16 against fp32 Pearson
+     and Spearman printed); (b) swag: train, analyze (rank 4),
+     influence_analysis (on analyze's factors) and evaluate_lds, then
+     analyze's recipe at RoBERTa-base's widths (vocab 50,265, 4 choices;
+     reduced: 4 of 12 layers; 128 train and 8 query examples, batch 16)
+     with rank-16 query blocks, and a second pairwise call at full rank on
+     the same fit (Pearson and Spearman printed); (c) dailymail: train,
+     analyze (on train's checkpoint) and inspect_examples, then analyze's
+     recipe at T5-small's widths (d 512, 8 heads, MLP 2048, vocab 32,128, 6
+     + 6 layers, 512 tokens on both sides; 128 train and 8 query pairs,
+     batch 16; the blocks' projections tracked, lm_head not) and
+     inspect_examples reading its scores. Each script's K1 (by route) and
+     K3 launches equal those of the covariance stage called directly on its
+     model's shapes, data, batch and recipe, once a fit: K1 0 at d 128; at
+     the published widths the fp32 FFMA route in every fp32 fit and the
+     wgmma route in glue's bf16 fit; K2 and the flash kernels never; every
+     score finite and of its shape.
 
 It prints each phase's seconds and the total, then one JSON line with the
 kernels' results before the last line, and ends with
@@ -693,10 +718,16 @@ GEMMA_LAYERS = 2
 LLAMA_CHECK_QUERIES, LLAMA_CHECK_BATCH = 2, 8
 # Phase 21 (a): the openwebtext example's entry points at Llama-3-8B's widths,
 # one layer, the script's default batch and partitions; (b) the wikitext
-# example's train (two steps) and analyze at GPT-2 small's width.
+# example's train (two steps) and analyze at GPT-2 small's width, 4 of 12
+# layers (cut from 12 to keep the run within its time limit beside phase 23:
+# the analyze's fp64 host eigendecomposition took 60 s at 12 layers, and
+# phase 23's BERT-base-width fits cover the same widths, 768, 2304 and
+# 3072). K1 3 a layer and covariance batch: c_attn's 2304 and c_fc's 3072
+# gradient grams and mlp/c_proj's 3073 activation gram.
 OWT_LAYERS = 1
 OWT_WIDTHS = dict(d_model=4096, d_mlp=14336, num_heads=32, num_kv_heads=8, vocab=128256)
-GPT2_WIDTHS = dict(num_layers=12, d_model=768, num_heads=12, vocab=50257)
+GPT2_WIDTHS = dict(num_layers=4, d_model=768, num_heads=12, vocab=50257)
+WIKITEXT_K1_PER_BATCH = 3 * GPT2_WIDTHS["num_layers"]
 OWT_TRAIN_N, OWT_QUERY_N = 16, 4
 OWT_BATCH, OWT_MODULE_PARTITIONS, OWT_DATA_PARTITIONS = 4, 2, 2
 # Host-loop eigenvalues against cuSOLVER's fp32 eigh of the same matrix, of max|lambda|.
@@ -766,6 +797,24 @@ UCI_N, UCI_BATCH = 256, 64
 # Phase 19 (c): examples/dailymail's EncDecLM (construct_seq2seq's defaults).
 DAILYMAIL = dict(vocab_size=1024, max_seq_len=32, num_layers=2, num_heads=4, d_model=128)
 DAILYMAIL_N = 64
+
+# Phase 23: the glue, swag and dailymail examples' entry points, each at
+# tests/test_examples.py's arguments (the JAX scripts fix the model at d 128,
+# where no gram reaches K1), then analyze's recipe at a published model's
+# widths through the pipeline's own constructor, at the scripts' own counts:
+# (a) BERT-base (arXiv 1810.04805: d 768, 12 heads, vocab 30,522; T 128, 2
+# classes), fp32 and half_precision_analysis's bf16, 256 train and 16 query
+# examples, batch 32; (b) RoBERTa-base (arXiv 1907.11692: vocab 50,265), T
+# 128, 4 choices, 128 train and 8 query examples, batch 16, rank 16; (c)
+# T5-small (arXiv 1910.10683: d 512, 8 heads, MLP 2048, vocab 32,128, 6 + 6
+# layers), 512 tokens on both sides, 128 train and 8 query pairs, batch 16.
+# Reduced: BERT-base and RoBERTa-base 4 of 12 layers.
+BERT_BASE = dict(seq_len=128, vocab=30522, num_layers=4, num_heads=12, d_model=768)
+ROBERTA_BASE = dict(seq_len=128, vocab=50265, num_layers=4, num_heads=12, d_model=768)
+T5_SMALL = dict(seq_len=512, vocab=32128, num_layers=6, num_heads=8, d_model=512)
+GLUE_N, GLUE_QUERY_N, GLUE_BATCH = 256, 16, 32
+SWAG_N, SWAG_QUERY_N, SWAG_BATCH, SWAG_RANK = 128, 8, 16, 16
+DAILYMAIL_FULL_N, DAILYMAIL_QUERY_N, DAILYMAIL_BATCH = 128, 8, 16
 
 IMAGENET_SIZE = 224
 IMAGENET_N = 48
@@ -5976,45 +6025,46 @@ def regression_task():
 
 
 def seq2seq_task(num_layers: int):
-    """examples/dailymail's task: summed masked cross-entropy over decoder
-    positions, with its dict masks (encoder modules the article mask,
-    decoder modules the summary mask, the cross-attention's keys and values
-    the article mask)."""
-    from kronfluence_tpu_torch.task import Task
+    """examples/dailymail's task (its dict masks, lm_head tracked) with the
+    loss on logits of at least fp32: the float64 reference keeps its logits
+    in float64, where the pipeline's task casts them to fp32 as the JAX
+    example does; on the card's fp32 the two are the same function."""
+    from kronfluence_tpu_torch.examples.common import sample_labels
+    from kronfluence_tpu_torch.examples.dailymail.pipeline import SummarizationTask
 
-    class SummarizationTask(Task):
+    class ExactSummarizationTask(SummarizationTask):
         def compute_train_loss(self, batch, model, sample=False, generator=None):
             logits = model(batch["input_ids"], batch["decoder_input_ids"],
                            batch["attention_mask"], batch["decoder_attention_mask"])[:, :-1]
             logits = logits.to(torch.promote_types(logits.dtype, torch.float32))
             mask = batch["decoder_attention_mask"][:, 1:].to(logits.dtype)
-            vocab = logits.shape[-1]
             if sample:
-                probs = torch.softmax(logits.detach().reshape(-1, vocab), dim=-1)
-                labels = torch.multinomial(probs, 1, generator=generator).reshape(mask.shape)
+                labels = sample_labels(logits, generator)
             else:
                 labels = batch["decoder_input_ids"][:, 1:].long()
-            losses = F.cross_entropy(logits.reshape(-1, vocab), labels.reshape(-1),
+            losses = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), labels.reshape(-1),
                                      reduction="none").reshape(mask.shape)
             return torch.sum(losses * mask)
 
-        def compute_measurement(self, batch, model):
-            return self.compute_train_loss(batch, model)
+    return ExactSummarizationTask(num_layers)
+
+
+def t5_blocks_task(num_layers: int):
+    """examples/dailymail's task tracking the blocks' projections and not
+    lm_head, the reference's T5 set: at T5-small's vocabulary lm_head's
+    gradient factor is 32,128 wide, a host fp64 eigh of 8 GiB."""
+    from kronfluence_tpu_torch.examples.dailymail.pipeline import SummarizationTask
+
+    class BlocksSummarizationTask(SummarizationTask):
+        def get_influence_tracked_modules(self):
+            return [name for name, _ in self._streams() if name != "lm_head"]
 
         def get_attention_mask(self, batch):
-            enc, dec = batch["attention_mask"], batch["decoder_attention_mask"]
-            masks = {"lm_head": dec}
-            for i in range(num_layers):
-                for sub in ("attn/q", "attn/k", "attn/v", "attn/o", "mlp/wi", "mlp/wo"):
-                    masks[f"encoder_{i}/{sub}"] = enc
-                for sub in ("self_attn/q", "self_attn/k", "self_attn/v", "self_attn/o",
-                            "cross_attn/q", "cross_attn/o", "mlp/wi", "mlp/wo"):
-                    masks[f"decoder_{i}/{sub}"] = dec
-                for sub in ("cross_attn/k", "cross_attn/v"):
-                    masks[f"decoder_{i}/{sub}"] = enc
+            masks = super().get_attention_mask(batch)
+            del masks["lm_head"]
             return masks
 
-    return SummarizationTask()
+    return BlocksSummarizationTask(num_layers)
 
 
 def regression_rows(n: int, seed: int) -> dict:
@@ -6049,8 +6099,9 @@ def check_small_model_launches(label: str, launches: dict, naive_calls: int) -> 
 def phase_small_models(card: str, device=torch.device("cuda", 0)) -> dict:
     """Phase 19 (b) and (c): examples/uci's MLP and a RepeatedMLP at its
     widths, and examples/dailymail's encoder-decoder with a half-masked
-    encoder, each fp32 with seeded weights through the stage functions on
-    the card against the CPU port in float64 (`stages_card_against_cpu`,
+    encoder and the example's task (its loss on fp32 logits on both sides,
+    on the card, float64 logits on the CPU), each fp32 with seeded weights through the
+    stage functions on the card against the CPU port in float64 (`stages_card_against_cpu`,
     within REFERENCE_RTOL of max): these are ReLU nets, and a pre-activation
     within fp32 rounding of 0 (-1.34e-7 at one token of the encoder-
     decoder's decoder_1/mlp/wi) flips its ReLU between two fp32 runs, which
@@ -6191,7 +6242,8 @@ class SweepSplit:
 
 
 def cli_args(widths: dict, device) -> list:
-    """An example script's width arguments, and --cpu off the card."""
+    """An example script's arguments from a dict ({"num_train": 24} gives
+    --num_train 24), and --cpu off the card."""
     args = [item for key, value in widths.items() for item in (f"--{key}", str(value))]
     return args + (["--cpu"] if device.type == "cpu" else [])
 
@@ -6341,9 +6393,9 @@ def examples_openwebtext(card: str, root: Path, device) -> dict:
 
 def examples_wikitext(card: str, root: Path, device) -> dict:
     """Phase 21 (b): the port's wikitext train (two steps) and analyze (the
-    bf16 recipe) at GPT-2 small's full width; analyze's K1 and K3 launches
-    against the covariance stage called directly on the same model, data and
-    recipe."""
+    bf16 recipe) at GPT-2 small's width, 4 of 12 layers; analyze's K1 and
+    K3 launches against the covariance stage called directly on the same
+    model, data and recipe."""
     from kronfluence_tpu_torch import prepare_model
     from kronfluence_tpu_torch.examples.wikitext import analyze, train
     from kronfluence_tpu_torch.examples.wikitext.pipeline import (
@@ -6411,8 +6463,8 @@ def examples_wikitext(card: str, root: Path, device) -> dict:
         f"{got['syrk']} ({got['wgmma']} wgmma), K3 {got['probe']}, K2 {got['jacobi']}, naive "
         f"attention {got['naive']}; the covariance stage called directly: K1 {direct['syrk']} "
         f"({direct['wgmma']} wgmma), K3 {direct['probe']} (want K1 "
-        f"{SYRK_LAUNCHES_PER_COV_BATCH * steps}) [{card}]")
-    check_wikitext_launches(got, direct, SYRK_LAUNCHES_PER_COV_BATCH * steps)
+        f"{WIKITEXT_K1_PER_BATCH * steps}) [{card}]")
+    check_wikitext_launches(got, direct, WIKITEXT_K1_PER_BATCH * steps)
     return out
 
 
@@ -6472,11 +6524,12 @@ def direct_covariance(card: str, label: str, module, task, data: dict, batch: in
         fit_covariance_matrices_with_loader(model, task, loader, recipe)
         torch.cuda.synchronize()
     specs = discover_stage_specs(model, task, loader.probe()[0])
-    batches = -(-len(data["y"]) // batch)
+    num = len(next(iter(data.values())))
+    batches = -(-num // batch)
     shapes = k1_grams_per_batch(specs, torch.float32, torch.float32) * batches
     got = {"K1": counter.counts["syrk"], "wgmma": counter.counts["wgmma"],
            "K3": counter.counts["probe"]}
-    log(f"examples 22 {label}: the covariance stage called directly ({len(data['y'])} "
+    log(f"examples {label}: the covariance stage called directly ({num} "
         f"examples, batch {batch}, {len(specs)} tracked layers): K1 {got['K1']} ({got['wgmma']} "
         f"wgmma), K3 {got['K3']}; K1 from the shapes {shapes} [{card}]")
     check_direct_covariance(label, got, shapes)
@@ -6490,33 +6543,37 @@ def check_direct_covariance(label: str, got: dict, shapes: int) -> None:
                            f"{shapes}")
 
 
-def check_example_launches(label: str, counts: dict, fits: list) -> dict:
+def check_example_launches(label: str, counts: dict, fits: list, naive_ok: bool = False) -> dict:
     """An entry point's launches are those of its covariance fits, each the
     stage's called directly (`fits`): K1 and its wgmma share summed, K3 once
-    a fit; K2, the flash kernels and the naive form never. Returns K1 (by
-    route) and K3."""
+    a fit; K2, the flash kernels and (unless `naive_ok`: a model whose
+    attention is the naive form) the naive form never. Returns K1 (by route)
+    and K3."""
     k1 = sum(f["K1"] for f in fits)
     wgmma = sum(f["wgmma"] for f in fits)
-    check_vision_launches(label, "entry point", counts, k1, len(fits))
+    check_vision_launches(label, "entry point", dict(counts, naive=0) if naive_ok else counts,
+                          k1, len(fits))
     if counts["wgmma"] != wgmma:
         raise RuntimeError(f"{label}: K1 took the wgmma route {counts['wgmma']} times, the "
                            f"stages called directly {wgmma}")
     return {"K1": counts["syrk"], "wgmma": counts["wgmma"], "K3": counts["probe"]}
 
 
-def run_example(card: str, label: str, fn, argv: list, fits: list, out: dict):
+def run_example(card: str, label: str, fn, argv: list, fits: list, out: dict,
+                naive_ok: bool = False):
     """One entry point under PassCounter: its result, with its seconds, peak
-    and launches (held to `fits`) recorded in `out`."""
+    and launches (held to `fits`; `naive_ok` as check_example_launches takes
+    it) recorded in `out`."""
     from kronfluence_tpu_torch.ops.kernels.syrk import syrk
 
     f16 = syrk.f16_launches
     with PassCounter(None, example_kernels()) as counter:
         result, peak, sec = peak_of(fn, argv)
     out["seconds"][label], out["peaks"][label] = sec, peak
-    out["launches"][label] = check_example_launches(label, counter.counts, fits)
+    out["launches"][label] = check_example_launches(label, counter.counts, fits, naive_ok)
     if syrk.f16_launches != f16:
         raise RuntimeError(f"{label}: K1 took fp16 operands")
-    log(f"examples 22 {label}: {sec:.3f} s, peak {peak / 2**30:.3f} GiB, launches "
+    log(f"examples {label}: {sec:.3f} s, peak {peak / 2**30:.3f} GiB, launches "
         f"{out['launches'][label]} (want K1 {sum(f['K1'] for f in fits)}, wgmma "
         f"{sum(f['wgmma'] for f in fits)}, K3 {len(fits)}) [{card}]")
     return result
@@ -6725,6 +6782,297 @@ def phase_example_pipelines(card: str, device=torch.device("cuda", 0)) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"examples 22: phase 22 took {time.perf_counter() - start:.1f} s (" + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in seconds.items()) + "); scripts' seconds " + ", ".join(
+        f"{label} {sec:.3f}" for part in out.values() for label, sec in part["seconds"].items())
+        + f" [{card}]")
+    return out
+
+
+def text_fits(card: str, label: str, module, task, data: dict, batch: int, device,
+              recipes=("fp32",)) -> dict:
+    """The covariance stage called directly on a text example's seed-0 model,
+    data and batch under each recipe ("fp32": the scripts' EK-FAC; "bf16":
+    the all-low-precision recipe); the launches depend on the shapes and the
+    recipe, not on the weights, so one call stands for every script that
+    fits at those shapes."""
+    from kronfluence_tpu_torch import FactorArguments
+    from kronfluence_tpu_torch.utils.common.factor_arguments import (
+        all_low_precision_factor_arguments,
+    )
+
+    made = {"fp32": lambda: FactorArguments(strategy="ekfac"),
+            "bf16": lambda: all_low_precision_factor_arguments("ekfac", "bfloat16")}
+    return {name: direct_covariance(card, f"{label} {name}", module, task, data, batch,
+                                    made[name](), device)
+            for name in recipes}
+
+
+def log_stages(card: str, label: str, analyzer, out: dict) -> None:
+    """A full-width analyze's stage seconds, from its Analyzer's profiler
+    (the scripts run with profile=True; nested regions after their parent)."""
+    rows = analyzer.profiler.rows()
+    out["stages"][label] = {name: sec for name, sec, _ in rows}
+    log(f"examples {label}: stage seconds " + ", ".join(
+        f"{name} {sec:.3f} ({calls}x)" for name, sec, calls in rows) + f" [{card}]")
+
+
+def check_text_routes(label: str, fits: dict) -> None:
+    """At a published width K1 runs: its fp32 route under the fp32 recipe,
+    its wgmma route under the bf16 one."""
+    for name, fit in fits.items():
+        on_route = fit["wgmma"] == 0 if name == "fp32" else fit["wgmma"] == fit["K1"]
+        if not (fit["K1"] > 0 and on_route):
+            raise RuntimeError(f"{label} {name}: K1 off its route: {fit}")
+
+
+def examples_glue(card: str, root: Path, device) -> dict:
+    """Phase 23 (a): glue's five scripts at the smoke test's arguments, then
+    analyze's recipe and half_precision_analysis's bf16 recipe against it
+    at BERT-base's widths through the pipeline's own constructor."""
+    from kronfluence_tpu_torch.examples.glue import (
+        analyze,
+        evaluate_lds,
+        half_precision_analysis,
+        run_counterfactual,
+        train,
+    )
+    from kronfluence_tpu_torch.examples.glue.pipeline import (
+        construct_classifier,
+        get_sst2_dataset,
+    )
+
+    out = {"seconds": {}, "peaks": {}, "launches": {}, "stages": {}}
+    run = functools.partial(run_example, card, naive_ok=True)
+    small = dict(num_train=24, num_query=4, batch_size=8)
+    tiny = text_fits(card, "glue d 128", *construct_classifier(device=device),
+                     get_sst2_dataset("train", 24), 8, device, recipes=("fp32", "bf16"))
+    run("glue train", train.main, cli_args(dict(num_train=24, epochs=1, batch_size=8,
+                                                  checkpoint_dir=root / "glue_ckpt"), device),
+        [], out)
+    _, scores = run("glue analyze", analyze.main,
+                    cli_args(dict(small, output_dir=root / "glue"), device), [tiny["fp32"]],
+                    out)
+    finite_scores("glue analyze", scores, (4, 24))
+    run("glue half_precision_analysis", half_precision_analysis.main,
+        cli_args(dict(small, output_dir=root / "glue_half"), device),
+        [tiny["fp32"], tiny["bf16"]], out)
+    run("glue run_counterfactual", run_counterfactual.main,
+        cli_args(dict(small, remove=4, epochs=1, seeds=1, output_dir=root / "glue_cf"), device),
+        [tiny["fp32"]], out)
+    # The identity strategy fits the covariance too, as the JAX package's does.
+    lds = run("glue evaluate_lds", evaluate_lds.main,
+              cli_args(dict(small, num_subsets=3, epochs=1, output_dir=root / "glue_lds"),
+                         device) + ["--strategies", "identity"], [tiny["fp32"]], out)
+    del scores
+    torch.cuda.empty_cache()
+
+    module, task = construct_classifier(**BERT_BASE, device=device)
+    train_data = get_sst2_dataset("train", GLUE_N, BERT_BASE["seq_len"], BERT_BASE["vocab"])
+    query_data = get_sst2_dataset("eval", GLUE_QUERY_N, BERT_BASE["seq_len"], BERT_BASE["vocab"],
+                                  seed=1)
+    log(f"examples 23 (a) glue: EncoderClassifier at BERT-base's widths ({BERT_BASE}), "
+        f"{sum(p.numel() for p in module.parameters()):,} parameters; {GLUE_N} train and "
+        f"{GLUE_QUERY_N} query sequences, {int(train_data['attention_mask'].sum())} kept train "
+        f"tokens, batches of {GLUE_BATCH} [{card}]")
+    full = text_fits(card, "glue BERT-base", module, task, train_data, GLUE_BATCH, device,
+                     recipes=("fp32", "bf16"))
+    check_text_routes("glue BERT-base", full)
+    analyzer, fp32 = run("glue analyze (BERT-base)",
+                         lambda _: analyze.analyze(module, task, train_data, query_data,
+                                                   GLUE_BATCH, str(root / "glue_bert")),
+                         None, [full["fp32"]], out)
+    finite_scores("glue analyze (BERT-base)", fp32, (GLUE_QUERY_N, GLUE_N))
+    log_stages(card, "glue analyze (BERT-base)", analyzer, out)
+    del analyzer, fp32
+    # half_precision_analysis's fp32 pass is analyze's fit and scores (the
+    # same model, data, batch and recipe): it finds them, as a rerun would,
+    # and runs its bf16 pass alone.
+    half = root / "glue_bert_half" / "glue_half"
+    shutil.copytree(root / "glue_bert" / "glue" / "factors_ekfac", half / "factors_fp32")
+    shutil.copytree(root / "glue_bert" / "glue" / "scores_pairwise", half / "scores_fp32")
+    out["bf16_vs_fp32"] = run(
+        "glue half_precision_analysis (BERT-base)",
+        lambda _: half_precision_analysis.compare(module, task, train_data, query_data,
+                                                  GLUE_BATCH, str(root / "glue_bert_half")),
+        None, [full["bf16"]], out)
+    del module
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in list(out["bf16_vs_fp32"].values()) + list(lds.values())):
+        raise RuntimeError(f"glue: {out['bf16_vs_fp32']}, LDS {lds}")
+    log(f"examples 23 (a) glue at BERT-base's widths: bf16 against fp32 pairwise scores "
+        f"Pearson {out['bf16_vs_fp32']['pearson']:.6f}, Spearman "
+        f"{out['bf16_vs_fp32']['spearman']:.6f}; d 128 LDS {lds} [{card}]")
+    return out
+
+
+def examples_swag(card: str, root: Path, device) -> dict:
+    """Phase 23 (b): swag's four scripts at the smoke test's arguments, then
+    analyze's recipe at RoBERTa-base's widths through the pipeline's own
+    constructor, rank 16 against full rank (a second pairwise call on the
+    same fit)."""
+    from kronfluence_tpu_torch import ScoreArguments
+    from kronfluence_tpu_torch.evaluate import spearman_correlation
+    from kronfluence_tpu_torch.examples.swag import (
+        analyze,
+        evaluate_lds,
+        influence_analysis,
+        train,
+    )
+    from kronfluence_tpu_torch.examples.swag.pipeline import (
+        construct_choice_model,
+        synthetic_swag,
+    )
+
+    out = {"seconds": {}, "peaks": {}, "launches": {}, "stages": {}}
+    run = functools.partial(run_example, card, naive_ok=True)
+    small = dict(num_train=16, num_query=4, batch_size=4)
+    tiny = text_fits(card, "swag d 128", *construct_choice_model(device=device),
+                     synthetic_swag(16), 4, device)["fp32"]
+    run("swag train", train.main, cli_args(dict(num_train=16, epochs=1, batch_size=4,
+                                                  checkpoint_dir=root / "swag_ckpt"), device),
+        [], out)
+    _, scores = run("swag analyze", analyze.main,
+                    cli_args(dict(small, query_gradient_low_rank=4, output_dir=root / "swag"),
+                               device), [tiny], out)
+    finite_scores("swag analyze", scores, (4, 16))
+    # In analyze's output directory influence_analysis finds analyze's factors.
+    got, _ = run("swag influence_analysis", influence_analysis.main,
+                 cli_args(dict(small, query_gradient_low_rank=4, top_k=2,
+                                 output_dir=root / "swag"), device), [], out)
+    finite_scores("swag influence_analysis", torch.from_numpy(got), (4, 16))
+    lds = run("swag evaluate_lds", evaluate_lds.main,
+              cli_args(dict(small, num_subsets=4, epochs=1, output_dir=root / "swag_lds"),
+                         device), [tiny, tiny], out)  # its ekfac and identity fits
+    del scores
+    torch.cuda.empty_cache()
+
+    module, task = construct_choice_model(**ROBERTA_BASE, device=device)
+    train_data = synthetic_swag(SWAG_N, seq_len=ROBERTA_BASE["seq_len"],
+                                vocab=ROBERTA_BASE["vocab"], seed=0)
+    query_data = synthetic_swag(SWAG_QUERY_N, seq_len=ROBERTA_BASE["seq_len"],
+                                vocab=ROBERTA_BASE["vocab"], seed=1)
+    log(f"examples 23 (b) swag: ChoiceScorer at RoBERTa-base's widths ({ROBERTA_BASE}), "
+        f"{sum(p.numel() for p in module.parameters()):,} parameters; {SWAG_N} train and "
+        f"{SWAG_QUERY_N} query examples of 4 choices, batches of {SWAG_BATCH} ("
+        f"{4 * SWAG_BATCH} sequences), rank {SWAG_RANK} [{card}]")
+    full = text_fits(card, "swag RoBERTa-base", module, task, train_data, SWAG_BATCH, device)
+    check_text_routes("swag RoBERTa-base", full)
+    analyzer, lowrank = run(
+        "swag analyze (RoBERTa-base)",
+        lambda _: analyze.analyze(module, task, train_data, query_data, SWAG_BATCH, SWAG_RANK,
+                                  str(root / "swag_roberta")),
+        None, [full["fp32"]], out)
+    finite_scores("swag analyze (RoBERTa-base)", lowrank, (SWAG_QUERY_N, SWAG_N))
+    log_stages(card, "swag analyze (RoBERTa-base)", analyzer, out)
+
+    def full_rank(_):
+        analyzer.compute_pairwise_scores(
+            "pairwise_full", "ekfac", query_data, train_data,
+            per_device_query_batch_size=SWAG_QUERY_N, per_device_train_batch_size=SWAG_BATCH,
+            score_args=ScoreArguments())
+        return analyzer.load_pairwise_scores("pairwise_full")["all_modules"]
+
+    dense = finite_scores("swag full rank (RoBERTa-base)",
+                          run("swag full rank (RoBERTa-base)", full_rank, None, [], out),
+                          (SWAG_QUERY_N, SWAG_N))
+    out["rank_vs_full"] = {
+        "pearson": pearson(lowrank.float(), dense.float()),
+        "spearman": float(np.mean(spearman_correlation(lowrank, dense))),
+    }
+    del analyzer, module, lowrank, dense
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in list(out["rank_vs_full"].values()) + list(lds.values())):
+        raise RuntimeError(f"swag: {out['rank_vs_full']}, LDS {lds}")
+    log(f"examples 23 (b) swag at RoBERTa-base's widths: rank {SWAG_RANK} against full rank "
+        f"Pearson {out['rank_vs_full']['pearson']:.6f}, Spearman (per query) "
+        f"{out['rank_vs_full']['spearman']:.6f}; d 128 LDS {lds} [{card}]")
+    return out
+
+
+def examples_dailymail(card: str, root: Path, device) -> dict:
+    """Phase 23 (c): dailymail's three scripts at the smoke test's arguments
+    (analyze loading train's checkpoint), then analyze's recipe at
+    T5-small's widths through the pipeline's own constructor, tracking the
+    blocks' projections (`t5_blocks_task`), and inspect_examples reading
+    that run's scores."""
+    from kronfluence_tpu_torch.examples.dailymail import analyze, inspect_examples, train
+    from kronfluence_tpu_torch.examples.dailymail.pipeline import (
+        construct_seq2seq,
+        get_dailymail_dataset,
+    )
+
+    out = {"seconds": {}, "peaks": {}, "launches": {}, "stages": {}}
+    run = functools.partial(run_example, card)
+    small = dict(num_train=16, num_query=4)
+    tiny = text_fits(card, "dailymail d 128", *construct_seq2seq(device=device),
+                     get_dailymail_dataset("train", 16), 4, device)["fp32"]
+    checkpoint = root / "dailymail_ckpt"
+    run("dailymail train", train.main, cli_args(dict(num_train=16, epochs=1, batch_size=4,
+                                                       checkpoint_dir=checkpoint), device),
+        [], out)
+    _, scores = run("dailymail analyze", analyze.main,
+                    cli_args(dict(small, batch_size=4, checkpoint_dir=checkpoint,
+                                    output_dir=root / "dailymail"), device), [tiny], out)
+    finite_scores("dailymail analyze", scores, (4, 16))
+    top, _ = run("dailymail inspect_examples", inspect_examples.main,
+                 cli_args(dict(small, eval_idx=1, output_dir=root / "dailymail"), device),
+                 [], out)
+    if top != int(torch.argmax(scores[1].float())):
+        raise RuntimeError(f"dailymail inspect_examples: top {top} is not analyze's")
+    del scores
+    torch.cuda.empty_cache()
+
+    t5 = T5_SMALL
+    module, _ = construct_seq2seq(**t5, device=device)
+    task = t5_blocks_task(t5["num_layers"])
+    train_data = get_dailymail_dataset("train", DAILYMAIL_FULL_N, t5["seq_len"], t5["seq_len"],
+                                       t5["vocab"])
+    query_data = get_dailymail_dataset("valid", DAILYMAIL_QUERY_N, t5["seq_len"], t5["seq_len"],
+                                       t5["vocab"], seed=1)
+    log(f"examples 23 (c) dailymail: EncDecLM at T5-small's widths ({t5}, MLP "
+        f"{4 * t5['d_model']}), {sum(p.numel() for p in module.parameters()):,} parameters; "
+        f"{DAILYMAIL_FULL_N} train and {DAILYMAIL_QUERY_N} query pairs, "
+        f"{int(train_data['attention_mask'].sum())} kept article and "
+        f"{int(train_data['decoder_attention_mask'].sum())} summary tokens, batches of "
+        f"{DAILYMAIL_BATCH} [{card}]")
+    full = text_fits(card, "dailymail T5-small", module, task, train_data, DAILYMAIL_BATCH,
+                     device)
+    check_text_routes("dailymail T5-small", full)
+    analyzer, scores = run(
+        "dailymail analyze (T5-small)",
+        lambda _: analyze.analyze(module, task, train_data, query_data, DAILYMAIL_BATCH,
+                                  str(root / "dailymail_t5")),
+        None, [full["fp32"]], out)
+    finite_scores("dailymail analyze (T5-small)", scores, (DAILYMAIL_QUERY_N, DAILYMAIL_FULL_N))
+    log_stages(card, "dailymail analyze (T5-small)", analyzer, out)
+    del analyzer, module
+    torch.cuda.empty_cache()
+    top, score = inspect_examples.main(
+        ["--num_train", str(DAILYMAIL_FULL_N), "--num_query", str(DAILYMAIL_QUERY_N),
+         "--eval_idx", "1", "--output_dir", str(root / "dailymail_t5")] + cli_args({}, device))
+    if top != int(torch.argmax(scores[1].float())) or score != float(scores[1].float().max()):
+        raise RuntimeError(f"dailymail inspect_examples at T5-small: {top}, {score}")
+    log(f"examples 23 (c) dailymail at T5-small's widths: inspect_examples read analyze's "
+        f"scores: query 1's top train pair #{top}, score {score:.6e} [{card}]")
+    return out
+
+
+def phase_text_pipelines(card: str, device=torch.device("cuda", 0)) -> dict:
+    """Phase 23: the port's glue, swag and dailymail example pipelines
+    through their entry points, each script's launches held to the
+    covariance stage called directly."""
+    start = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="kf_chip_smoke_text_"))
+    out, seconds = {}, {}
+    try:
+        for name, run in (("glue", examples_glue), ("swag", examples_swag),
+                          ("dailymail", examples_dailymail)):
+            t = time.perf_counter()
+            out[name] = run(card, root, device)
+            seconds[name] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"examples 23: phase 23 took {time.perf_counter() - start:.1f} s (" + ", ".join(
         f"{name} {sec:.1f}" for name, sec in seconds.items()) + "); scripts' seconds " + ", ".join(
         f"{label} {sec:.3f}" for part in out.values() for label, sec in part["seconds"].items())
         + f" [{card}]")
@@ -7841,6 +8189,11 @@ def main() -> None:
         key: {label: counts[key] for part in pipelines.values()
               for label, counts in part["launches"].items()}
         for key in ("K1", "wgmma", "K3")}
+    text = phase("23 text example pipelines", phase_text_pipelines, card)
+    text_launches = {
+        key: {label: counts[key] for part in text.values()
+              for label, counts in part["launches"].items()}
+        for key in ("K1", "wgmma", "K3")}
     # FFH, F2H and F3H from phase 15 (Llama, bf16 D 128); FFW, F2W and F3W
     # from phase 16 (Gemma-2B's widths, bf16 D 256); FFS64, F2S and F3S from
     # phase 11's first run (fp32 D 64: the tiled_f32_64 forward and the
@@ -7934,6 +8287,8 @@ def main() -> None:
             "examples_launches": examples_launches["syrk"],
             "example_pipelines_launches": pipeline_launches["K1"],
             "example_pipelines_wgmma_launches": pipeline_launches["wgmma"],
+            "text_pipelines_launches": text_launches["K1"],
+            "text_pipelines_wgmma_launches": text_launches["wgmma"],
             "scanned_gpt2_launches": scanned["launches"]["syrk"],
             "data_mesh_launches": {k: v["K1"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["syrk"],
@@ -7960,6 +8315,7 @@ def main() -> None:
             "llama_launches": llama_launches["probe"],
             "examples_launches": examples_launches["probe"],
             "example_pipelines_launches": pipeline_launches["K3"],
+            "text_pipelines_launches": text_launches["K3"],
             "scanned_gpt2_launches": scanned["launches"]["probe"],
             "data_mesh_launches": {k: v["K3"] for k, v in mesh_launches.items()},
             "cifar_launches": cifar["total"]["probe"],

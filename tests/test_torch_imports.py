@@ -52,14 +52,21 @@ def test_port_examples_import_neither_jax_nor_the_jax_examples(path):
     assert not bad and not relative, f"{path.relative_to(REPO)} imports {bad or relative}"
 
 
-# The entry points of the cifar, imagenet and uci example pipelines.
+# The entry points of the cifar, imagenet, uci, glue, swag and dailymail
+# example pipelines.
 EXAMPLE_ENTRY_POINTS = tuple(
     f"kronfluence_tpu_torch.examples.{script}" for script in (
         "cifar.train", "cifar.detect_mislabeled_dataset", "cifar.half_precision_analysis",
         "cifar.inspect_factors", "imagenet.analyze", "imagenet.query_batching_analysis",
         "imagenet.ddp_analyze", "uci.train", "uci.analyze", "uci.run_counterfactual",
+        "glue.train", "glue.analyze", "glue.half_precision_analysis", "glue.run_counterfactual",
+        "glue.evaluate_lds", "swag.train", "swag.analyze", "swag.influence_analysis",
+        "swag.evaluate_lds", "dailymail.train", "dailymail.analyze",
+        "dailymail.inspect_examples",
     )
 )
+EXAMPLE_PIPELINES = tuple(f"kronfluence_tpu_torch.examples.{name}.pipeline"
+                          for name in ("glue", "swag", "dailymail"))
 
 
 def _port_modules():
@@ -82,7 +89,7 @@ def test_every_module_is_checked():
                  "kronfluence_tpu_torch.examples.common",
                  "kronfluence_tpu_torch.examples.openwebtext.fit_factors",
                  "kronfluence_tpu_torch.examples.wikitext.run_counterfactual",
-                 *EXAMPLE_ENTRY_POINTS):
+                 *EXAMPLE_ENTRY_POINTS, *EXAMPLE_PIPELINES):
         assert name in modules
 
 
